@@ -83,7 +83,7 @@ def phase_environment():
     from flow_factory_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.finish_builds(cuda_build.start_builds(["qknorm_flash_fwd"]))
+    cuda_build.build("qknorm_flash_fwd")
     build_s = time.perf_counter() - t0
     log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvcc build {build_s:.2f} s")
@@ -95,6 +95,20 @@ def _check(name: str, err: float, tol: float) -> None:
     log(f"[kernels] {name}: max|d| {err:.3e} (tol {tol:.3e}) {status}")
     if not err <= tol:
         fail(f"{name} disagrees with its plain version: {err} > {tol}")
+
+
+def _k1_errors(out, lse, ref, ref_lse):
+    return (out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item()
+
+
+def _negative_control(name: str, kernel, wrong_ref, tol_o: float, tol_lse: float) -> None:
+    """The K1 check must reject a reference that computes something else."""
+    err_o, err_lse = _k1_errors(*kernel, *wrong_ref)
+    caught = err_o > tol_o or err_lse > tol_lse
+    log(f"[kernels] negative control, {name}: max|d| O {err_o:.3e} (tol {tol_o:.3e}), lse {err_lse:.3e} "
+        f"(tol {tol_lse:.3e}) {'rejected as it must be' if caught else 'NOT REJECTED'}")
+    if not caught:
+        fail(f"the K1 check cannot tell the kernel from a wrong one: {name}")
 
 
 def _record(results: dict, tag: str, entry: dict) -> None:
@@ -118,26 +132,49 @@ def phase_kernels(results: dict) -> None:
         shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     # ---- K1: fused qk-norm flash forward -------------------------------------
-    # Tolerances: fp32 inputs differ from the plain version only by summation
-    # order and exp2 vs exp (1e-4 on O with |O| <~ 3); bf16 inputs round the
-    # normalised q once with scale*log2(e) folded in, the plain version rounds
-    # it unscaled, so logits differ by up to a bf16 ulp of |s| (~0.03 at
-    # |s| ~ 8) and softmax weights by ~3%: 6e-2 on O.
-    for tag, B, H, S, D, dtype, tol, timed in (
-            ("joint", 16, 24, 1357, 64, torch.bfloat16, 6e-2, True),
-            ("self", 16, 24, 1024, 64, torch.bfloat16, 6e-2, True),
-            ("ragged-fp32", 2, 3, 197, 64, torch.float32, 1e-4, False),
-            ("ragged-bf16", 2, 3, 77, 64, torch.bfloat16, 6e-2, False),
-            ("ragged-bf16-d128", 2, 3, 77, 128, torch.bfloat16, 6e-2, False)):
-        q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
+    # Tolerances. fp32 inputs differ from the plain version only by summation
+    # order and exp2 vs exp: 1e-4 on O, 1e-3 on lse. bf16: after the RMS norm
+    # q.k.D^-1/2 has a std of ~1, so O, a softmax-weighted mean of ~1000 V
+    # rows, stays below ~0.5. The kernel rounds the normalised q once with
+    # scale*log2(e) folded in, the plain version rounds it unscaled; that moves
+    # logits by a fraction of a bf16 ulp and O by 1-2 ulp of max|O| (measured
+    # on the card), so the bar is 4 ulp of max|O| on O and 1e-2 on lse
+    # (measured <= 3e-3). Wrong kernels miss these bars: the negative controls
+    # below compare the kernel with a plain version that ignores the gamma
+    # maps, or drops the ragged key tail, and must FAIL the same check.
+    # The self case has the head-split strided layout that SelfAttention
+    # passes, (B, S, H, D).transpose(1, 2); the joint case is the contiguous
+    # output of JointAttention's context/image concatenation.
+    for tag, B, H, S, D, dtype, strided, timed in (
+            ("joint", 16, 24, 1357, 64, torch.bfloat16, False, True),
+            ("self", 16, 24, 1024, 64, torch.bfloat16, True, True),
+            ("ragged-fp32", 2, 3, 197, 64, torch.float32, False, False),
+            ("ragged-bf16", 2, 3, 77, 64, torch.bfloat16, True, False)):
+        if strided:
+            q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
+        else:
+            q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
         gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
         gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
         scale = D ** -0.5
         out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
         ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
         torch.cuda.synchronize()
-        _check(f"K1 {tag} O {tuple(q.shape)} {dtype}", (out.float() - ref.float()).abs().max().item(), tol)
-        _check(f"K1 {tag} lse", (lse - ref_lse).abs().max().item(), 1e-3 if dtype == torch.float32 else 0.1)
+        tol_o, tol_lse = ((1e-4, 1e-3) if dtype == torch.float32
+                          else (4 * bf16_ulp(ref.float().abs().max().item()), 1e-2))
+        err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
+        layout = "strided" if strided else "contiguous"
+        _check(f"K1 {tag} O {tuple(q.shape)} {dtype} {layout}", err_o, tol_o)
+        _check(f"K1 {tag} lse", err_lse, tol_lse)
+        if tag == "joint":
+            ones = torch.ones_like(gq)
+            _negative_control("K1 joint vs a plain version without the gamma maps", (out, lse),
+                              A.qknorm_attention_plain(q, k, v, ones, ones, scale, 1e-6, return_lse=True),
+                              tol_o, tol_lse)
+            n = S // 64 * 64  # the kernel's last whole key tile
+            _negative_control(f"K1 joint vs a plain version without the {S - n}-key ragged tail", (out, lse),
+                              A.qknorm_attention_plain(q, k[:, :, :n], v[:, :, :n], gq, gk[:n], scale, 1e-6,
+                                                       return_lse=True), tol_o, tol_lse)
         if not timed:
             continue
         ms = time_ms(lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6))
@@ -152,8 +189,7 @@ def phase_kernels(results: dict) -> None:
             name="qknorm_flash_fwd", route="cuda",
             source="flow_factory_tpu_torch/ops/csrc/qknorm_flash_fwd.cu",
             replaces="flow_factory_tpu/ops/attention.py:368",
-            max_abs_err=(out.float() - ref.float()).abs().max().item(),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
             library_ms=lib_ms))
         log(f"[kernels] K1 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms"

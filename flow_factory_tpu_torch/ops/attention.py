@@ -24,7 +24,7 @@ import torch
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIM = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -80,14 +80,21 @@ def _check_kernel_inputs(q, k, v, gq, gk) -> None:
     B, H, Sq, D = q.shape
     if k.shape[:2] != (B, H) or k.shape[3] != D:
         raise ValueError(f"qknorm_flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"qknorm_flash_attention: head dim {D} not in {_KERNEL_HEAD_DIMS}")
+    if D != _KERNEL_HEAD_DIM:
+        raise ValueError(f"qknorm_flash_attention: head dim {D}; the kernel takes {_KERNEL_HEAD_DIM}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("qknorm_flash_attention: the head dim of q, k and v must be contiguous")
     for name, g, S in (("gq", gq, Sq), ("gk", gk, k.shape[2])):
         if g.dtype != torch.float32 or tuple(g.shape) != (S, D) or not g.is_contiguous():
             raise ValueError(f"qknorm_flash_attention: {name} must be a contiguous fp32 ({S}, {D}) "
                              f"map; got {g.dtype} {tuple(g.shape)}")
+    # the bf16 variant moves 16-byte vectors (8 elements)
+    if q.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("qknorm_flash_attention: bf16 q, k, v need 16-byte aligned pointers and "
+                         "(B, H, S) strides")
+    if any(g.data_ptr() % 16 for g in (gq, gk)):
+        raise ValueError("qknorm_flash_attention: gq and gk need 16-byte aligned pointers")
 
 
 def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):

@@ -22,15 +22,15 @@
 // rounded to the input type before the PV product as the TPU kernel casts p
 // to v's type; both products accumulate in fp32. Rows past Sq load as zeros
 // and are never stored; key columns past Sk get the -1e30 of `_kpad_bias` and
-// zero V rows. Two variants:
-// * bf16, D=64 (the SD3.5 path): 128-row q tiles, 8 warps each owning 16 q
-//   rows; both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate); the score fragment is re-packed in registers as the A
+// zero V rows. Head dim 64 only (SD3.5-M and -L). Two variants:
+// * bf16 (the SD3.5 path): 128-row q tiles, 8 warps each owning 16 q rows;
+//   both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate); the score fragment is re-packed in registers as the A
 //   operand of PV (no shared-memory round trip for P); V's B fragments come
-//   from ldmatrix.trans; tiles move as 16-byte vectors.
-// * fp32 inputs, D=128, or pointers/strides not 16-byte aligned: 64-row q
-//   tiles, 256 threads, register-tiled 4x4 fp32 FMAs from shared memory (the
-//   first design: right and simple, ~20 TFLOP/s).
+//   from ldmatrix.trans; tiles move as 16-byte vectors, so every pointer and
+//   (b, h, s) stride must keep 16-byte alignment, else the launch is refused.
+// * fp32: 64-row q tiles, 256 threads, register-tiled 4x4 fp32 FMAs from
+//   shared memory (right and simple, ~20 TFLOP/s).
 // No TMA, wgmma or pipelining of the tile loads yet: later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,26 +38,12 @@
 
 namespace {
 
-constexpr int BM = 64;    // q rows per block
+constexpr int BM = 64;    // q rows per block (fp32 variant)
 constexpr int BN = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block (16 x 16 register tiles of 4x4)
+constexpr int D = 64;     // head dim
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// value rounded to T and held in fp32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
 
 struct Params {
   const void* q;
@@ -76,12 +62,15 @@ struct Params {
   float eps;
 };
 
-// Loads rows [row0, row0 + 64) of one (S, D) head slice into dst (fp32, row
-// pitch D + 1). With G != nullptr each row is RMS-normalised in fp32,
-// x * (rsqrt(mean(x^2) + eps) * (g * gmul)), and rounded to T.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_stride, int row0,
-                                          int S, const float* g, float gmul, float eps) {
+// ---------------------------------------------------------------------------
+// fp32: register-tiled FMA variant
+// ---------------------------------------------------------------------------
+
+// Loads rows [row0, row0 + 64) of one fp32 (S, 64) head slice into dst (row
+// pitch D + 1). With g != nullptr each row is RMS-normalised,
+// x * (rsqrt(mean(x^2) + eps) * (g * gmul)).
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int64_t row_stride, int row0,
+                                              int S, const float* g, float gmul, float eps) {
   constexpr int TPR = NT / 64;  // threads per row
   constexpr int EPT = D / TPR;  // elements per thread
   const int r = threadIdx.x / TPR;
@@ -89,9 +78,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_
   const int row = row0 + r;
   float x[EPT];
   if (row < S) {
-    const T* p = src + row * row_stride + c0;
+    const float* p = src + row * row_stride + c0;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) x[e] = to_f32<T>(p[e]);
+    for (int e = 0; e < EPT; ++e) x[e] = p[e];
   } else {
 #pragma unroll
     for (int e = 0; e < EPT; ++e) x[e] = 0.f;
@@ -110,11 +99,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_
   const float rs = rsqrtf(ss / (float)D + eps);
   const float* gr = g + (int64_t)min(row, S - 1) * D + c0;
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) out[e] = round_to<T>(x[e] * (rs * (gr[e] * gmul)));
+  for (int e = 0; e < EPT; ++e) out[e] = x[e] * (rs * (gr[e] * gmul));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) qknorm_flash_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(NT) qknorm_flash_fwd_f32_kernel(Params p) {
   constexpr int DP = D + 1;       // padded row pitch (conflict-free column reads)
   constexpr int DJ = D / 16;      // O columns per thread
   extern __shared__ float smem[];
@@ -125,11 +113,11 @@ __global__ void __launch_bounds__(NT) qknorm_flash_fwd_kernel(Params p) {
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BM;
-  const T* qb = reinterpret_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = reinterpret_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = reinterpret_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* qb = reinterpret_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = reinterpret_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = reinterpret_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_tile<T, D>(Qs, qb, p.q_ss, q0, p.Sq, p.gq, p.qmul, p.eps);
+  load_tile_f32(Qs, qb, p.q_ss, q0, p.Sq, p.gq, p.qmul, p.eps);
 
   const int tx = threadIdx.x % 16;  // column group
   const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
@@ -144,8 +132,8 @@ __global__ void __launch_bounds__(NT) qknorm_flash_fwd_kernel(Params p) {
 
   for (int n0 = 0; n0 < p.Sk; n0 += BN) {
     __syncthreads();  // previous tile's Ks/Vs/Ps are no longer read
-    load_tile<T, D>(Ks, kb, p.k_ss, n0, p.Sk, p.gk, 1.f, p.eps);
-    load_tile<T, D>(Vs, vb, p.v_ss, n0, p.Sk, nullptr, 1.f, 0.f);
+    load_tile_f32(Ks, kb, p.k_ss, n0, p.Sk, p.gk, 1.f, p.eps);
+    load_tile_f32(Vs, vb, p.v_ss, n0, p.Sk, nullptr, 1.f, 0.f);
     __syncthreads();
 
     float s[4][4];
@@ -183,7 +171,7 @@ __global__ void __launch_bounds__(NT) qknorm_flash_fwd_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const float pij = exp2f(s[i][j] - mn);
         rs += pij;
-        Ps[(ty * 4 + i) * (BN + 1) + tx + 16 * j] = round_to<T>(pij);
+        Ps[(ty * 4 + i) * (BN + 1) + tx + 16 * j] = pij;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -208,31 +196,30 @@ __global__ void __launch_bounds__(NT) qknorm_flash_fwd_kernel(Params p) {
     }
   }
 
-  T* ob = reinterpret_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* ob = reinterpret_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[row * p.o_ss + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < DJ; ++j) ob[row * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
     if (tx == 0) p.lse[((int64_t)b * p.H + h) * p.Sq + row] = m[i] * kLn2 + logf(denom);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * (size_t)(BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
-  cudaError_t err = cudaFuncSetAttribute(qknorm_flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(qknorm_flash_fwd_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
-  qknorm_flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  qknorm_flash_fwd_f32_kernel<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D=64: tensor-core variant (mma.sync m16n8k16)
+// bf16: tensor-core variant (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 constexpr int MBM = 128;    // q rows per block: 8 warps x 16 rows
 constexpr int MNT = 256;
@@ -453,11 +440,12 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, in order
+// d: head dim, must be 64. dtype: 0 = float32, 1 = bfloat16 (16-byte aligned
+// pointers and strides). strides: 12 element strides, in order
 // (b, h, s) of q, k, v and o; the last axis of each must be contiguous.
 // Returns the cudaError_t of the launch (0 on success).
 int qknorm_flash_fwd(const void* q, const void* k, const void* v, const float* gq, const float* gk,
-                     void* o, float* lse, int B, int H, int Sq, int Sk, int D,
+                     void* o, float* lse, int B, int H, int Sq, int Sk, int d,
                      const long long* strides, float qmul, float eps, int dtype, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.gq = gq; p.gk = gk; p.o = o; p.lse = lse;
@@ -468,11 +456,9 @@ int qknorm_flash_fwd(const void* q, const void* k, const void* v, const float* g
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.qmul = qmul; p.eps = eps;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    if (dtype == 1) return (int)(mma_aligned(p) ? launch_mma(p, s) : launch<__nv_bfloat16, 64>(p, s));
-    return (int)launch<float, 64>(p, s);
-  }
-  if (D == 128) return (int)(dtype == 1 ? launch<__nv_bfloat16, 128>(p, s) : launch<float, 128>(p, s));
+  if (d != D) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_f32(p, s);
+  if (dtype == 1 && mma_aligned(p)) return (int)launch_mma(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,7 @@ Each source under ``ops/csrc/`` exposes a plain C interface and is compiled
 by hand into its own shared library (no PyTorch headers, so a build takes
 seconds) under ``<repo>/build/``, keyed by a hash of the source and the
 flags. The first call in a process builds what is missing; later calls load
-the cached library. ``start_builds`` launches one ``nvcc`` per source at
-once, so a caller can overlap the builds with other set-up work.
+the cached library.
 """
 from __future__ import annotations
 
@@ -16,7 +15,6 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -40,44 +38,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _command(name: str, out: Path) -> list:
-    return [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
-
-
-def start_builds(names: Iterable[str]) -> Dict[str, Optional[subprocess.Popen]]:
-    """Start one ``nvcc`` per missing library; returns {name: process or None}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs: Dict[str, Optional[subprocess.Popen]] = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            procs[name] = None
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        try:
-            procs[name] = subprocess.Popen(_command(name, tmp), stdout=log, stderr=subprocess.STDOUT)
-        finally:
-            log.close()
-    return procs
-
-
-def finish_builds(procs: Dict[str, Optional[subprocess.Popen]]) -> None:
-    """Wait for :func:`start_builds`; raise with the compiler log on failure."""
-    for name, proc in procs.items():
-        if proc is None:
-            continue
-        out = library_path(name)
-        rc = proc.wait()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed for {name} (rc={rc}):\n{out.with_suffix('.log').read_text()}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-
-
 def build(name: str) -> Path:
-    finish_builds(start_builds([name]))
-    return library_path(name)
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns its path.
+    Raises with the compiler log on failure."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc={proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,6 +7,8 @@ have, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py -q
 """
+import math
+
 import pytest
 import torch
 
@@ -27,24 +29,50 @@ def _randn(gen, *shape, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-@pytest.mark.parametrize("dtype,S,D,tol", [
-    (torch.bfloat16, 333, 64, 6e-2),   # tensor-core path, ragged key tail
-    (torch.float32, 197, 64, 1e-4),    # FMA path
-    (torch.bfloat16, 77, 128, 6e-2),   # FMA path, D=128
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
+
+
+def _k1_tols(ref, dtype):
+    """The bars of chip_smoke.py: fp32 differs by summation order only; bf16
+    rounds the normalised q once with the softmax scale folded in, which moves
+    O by 1-2 bf16 ulp of max|O| (bar: 4 ulp) and lse by <= 3e-3 (bar: 1e-2)."""
+    if dtype == torch.float32:
+        return 1e-4, 1e-3
+    return 4 * _bf16_ulp(ref.float().abs().max().item()), 1e-2
+
+
+@pytest.mark.parametrize("dtype,S", [
+    (torch.bfloat16, 333),   # tensor-core variant, ragged key tail
+    (torch.float32, 197),    # FMA variant
 ])
-def test_qknorm_flash_matches_plain(gen, dtype, S, D, tol):
-    """Same tolerances as chip_smoke.py: bf16 rounds the normalised q once
-    with the softmax scale folded in (logits move by up to a bf16 ulp);
-    fp32 differs by summation order only."""
-    q, k, v = (_randn(gen, 2, 3, S, D, dtype=dtype) for _ in range(3))
-    gq = 1.0 + 0.1 * _randn(gen, S, D)
-    gk = 1.0 + 0.1 * _randn(gen, S, D)
+def test_qknorm_flash_matches_plain(gen, dtype, S):
+    q, k, v = (_randn(gen, 2, 3, S, 64, dtype=dtype) for _ in range(3))
+    gq = 1.0 + 0.1 * _randn(gen, S, 64)
+    gk = 1.0 + 0.1 * _randn(gen, S, 64)
     before = A.qknorm_flash_attention.launches
-    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, D ** -0.5, 1e-6, return_lse=True)
-    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, D ** -0.5, 1e-6, return_lse=True)
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
     assert A.qknorm_flash_attention.launches == before + 1
-    assert (out.float() - ref.float()).abs().max().item() <= tol
-    assert (lse - ref_lse).abs().max().item() <= (1e-3 if dtype == torch.float32 else 0.1)
+    tol_o, tol_lse = _k1_tols(ref, dtype)
+    assert (out.float() - ref.float()).abs().max().item() <= tol_o
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+
+
+def test_qknorm_flash_bars_reject_a_kernel_that_ignores_gamma(gen):
+    """Negative control: the plain version with unit gamma maps is not within
+    the bars of the kernel run with the random ones."""
+    S = 333
+    q, k, v = (_randn(gen, 2, 3, S, 64, dtype=torch.bfloat16) for _ in range(3))
+    gq = 1.0 + 0.1 * _randn(gen, S, 64)
+    gk = 1.0 + 0.1 * _randn(gen, S, 64)
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
+    ones = torch.ones_like(gq)
+    wrong, wrong_lse = A.qknorm_attention_plain(q, k, v, ones, ones, 0.125, 1e-6, return_lse=True)
+    tol_o, tol_lse = _k1_tols(ref, torch.bfloat16)
+    assert ((out.float() - wrong.float()).abs().max().item() > tol_o
+            or (lse - wrong_lse).abs().max().item() > tol_lse)
 
 
 def test_qknorm_flash_takes_strided_views_and_is_deterministic(gen):
@@ -88,6 +116,11 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(gen):
     g = torch.ones(16, 16, device="cuda")
     with pytest.raises(ValueError):
         A.qknorm_flash_attention(q, q, q, g, g, 0.25, 1e-6)
+    # bf16 at an 8-byte offset: the tensor-core variant's 16-byte loads refuse it
+    q = _randn(gen, 1 * 2 * 16 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 2, 16, 64)
+    g = torch.ones(16, 64, device="cuda")
+    with pytest.raises(ValueError):
+        A.qknorm_flash_attention(q, q, q, g, g, 0.125, 1e-6)
     x = _randn(gen, 2, 8, 64).transpose(0, 1)  # not contiguous
     m = torch.ones(8, 1, 64, device="cuda")
     with pytest.raises(ValueError):
