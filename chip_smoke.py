@@ -5,18 +5,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
 printing one line and exiting non-zero on failure:
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   the seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``;
-2. kernels: K1 (fused qk-norm flash forward, CUDA C++), K5 (norm-modulate)
-   and K6 (residual-gate-modulate, both Triton) against their plain PyTorch
+   the seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``
+   (one nvcc per source, all started together);
+2. kernels: K1 (fused qk-norm flash forward), K2a/K2b (flash backward for dq
+   and for dk/dv, all CUDA C++), K5 (norm-modulate) and K6
+   (residual-gate-modulate, both Triton) against their plain PyTorch
    versions at the SD3.5-M shapes and a small ragged shape each, with
-   stated tolerances and CUDA-event timings;
-3. the slice at full width: SD3.5-M (random weights from a seed, bf16)
-   through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8 samples,
-   512 px, 10 steps, CFG 4.5, Flow-SDE with log-probs, decode) → brightness
-   reward → group advantages → no-grad replay of every stored transition,
-   whose ratio ``exp(new_lp - old_lp)`` must be exactly 1.0; then a
-   torch.profiler breakdown of one replayed step (device time by kernel,
-   idle share; the trace goes to ``chiprun_out/``).
+   stated tolerances, negative controls and CUDA-event timings;
+3. the serving slice at full width: SD3.5-M (random weights from a seed,
+   bf16) through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
+   samples, 512 px, 10 steps, CFG 4.5, Flow-SDE with log-probs, decode) →
+   brightness reward → group advantages → no-grad replay of every stored
+   transition, whose ratio ``exp(new_lp - old_lp)`` must be exactly 1.0;
+   then a torch.profiler breakdown of one replayed step (device time by
+   kernel, idle share; the trace goes to ``chiprun_out/``);
+4. grad: the LoRA gradient of a log-prob loss through the kernels at
+   SD3.5-M width and reduced depth (2 blocks, one with dual attention,
+   B=16), against the same gradient through the plain attention and plain
+   norms, with a negative control (K1's dq zeroed), and a non-zero gradient
+   on every LoRA leaf of the attention projections and AdaLN linears;
+5. train: the GRPO training slice at full width through ``load_trainer``
+   (LoRA rank 32 on the default targets, fp32 master weights, the rollout
+   geometry of phase 3, two grad steps accumulated into one AdamW update
+   per epoch, EMA 0.99 every 4) for two epochs: the replay ratio is exactly
+   1.0 on every grad step of both epochs (epoch 1 rolls out with the LoRA
+   that epoch 0 moved), the gradient norm is finite and non-zero, the LoRA
+   moves, and every kernel launches on the path; then a torch.profiler
+   breakdown of one grad step (forward, backward, optimizer).
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -25,6 +40,8 @@ package is not beside the script.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -80,13 +97,18 @@ def phase_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    from concurrent.futures import ThreadPoolExecutor
+
     from flow_factory_tpu_torch.ops import cuda_build
 
+    sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    cuda_build.build("qknorm_flash_fwd")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(cuda_build.build, sources))
     build_s = time.perf_counter() - t0
     log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvcc build {build_s:.2f} s")
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvcc build of {sources} "
+        f"{build_s:.2f} s")
     return card
 
 
@@ -197,6 +219,8 @@ def phase_kernels(results: dict) -> None:
         del q, k, v, out, ref, qn, kn
         torch.cuda.empty_cache()
 
+    phase_kernels_k2(results, randn)
+
     # ---- K5: LayerNorm/RMSNorm + modulate ------------------------------------
     # Tolerance: both compute fp32 stats (different summation order) and round
     # once to the output type: one bf16 ulp at the largest output, 1e-5
@@ -268,12 +292,122 @@ def phase_kernels(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _config():
+def _k2_check(tag: str, got, ref, dtype) -> None:
+    """K2 tolerances. fp32 differs from the plain version by summation order
+    only: 1e-5 of max|ref|. bf16: both versions round q*scale*log2(e), ds and
+    p to bf16 before their products and accumulate in fp32, so an output
+    moves only where a ds or p value near a rounding boundary rounds the
+    other way after another summation order, and by the final rounding:
+    the card tests saw at most half a bf16 ulp of max|ref|; the bar is 2
+    ulp of max|ref| per output."""
+    import torch
+
+    errs, tols = [], []
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        mag = r.float().abs().max().item()
+        tol = 1e-5 * max(mag, 1.0) if dtype == torch.float32 else 2 * bf16_ulp(mag)
+        errs.append((g.float() - r.float()).abs().max().item())
+        tols.append(tol)
+        _check(f"K2 {tag} {name} {tuple(g.shape)} {dtype}", errs[-1], tol)
+    return errs, tols
+
+
+def _k2_negative_control(name: str, got, wrong, tols) -> None:
+    """The K2 check must reject a plain version that computes something
+    else: some output (``None`` where it is not comparable) misses its bar."""
+    errs = [None if w is None else (g.float() - w.float()).abs().max().item() for g, w in zip(got, wrong)]
+    caught = any(e is not None and e > t for e, t in zip(errs, tols))
+    shown = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, e, t in zip(("dq", "dk", "dv"), errs, tols)
+                      if e is not None)
+    log(f"[kernels] negative control, {name}: max|d| {shown} {'rejected as it must be' if caught else 'NOT REJECTED'}")
+    if not caught:
+        fail(f"the K2 check cannot tell the kernels from wrong ones: {name}")
+
+
+def phase_kernels_k2(results: dict, randn) -> None:
+    """K2a (dq) and K2b (dk, dv) on the inputs K1's backward gives them: the
+    normalised q and k, v, O and the natural-log lse from K1's forward of the
+    same q/k/v (so p is the softmax the forward computed), and dO in the
+    head-interleaved layout of K1's output. The joint case is the
+    concatenated contiguous tensor, the self case the head-split strided
+    views; the small cases have a ragged tail in fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    for tag, B, H, S, D, dtype, strided, timed in (
+            ("joint", 16, 24, 1357, 64, torch.bfloat16, False, True),
+            ("self", 16, 24, 1024, 64, torch.bfloat16, True, True),
+            ("ragged-fp32", 2, 3, 197, 64, torch.float32, False, False),
+            ("ragged-bf16", 2, 3, 77, 64, torch.bfloat16, True, False)):
+        if strided:
+            q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
+        else:
+            q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
+        gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+        gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+        scale = D ** -0.5
+        out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+        qn = A._rms_scale(q, gq, 1e-6).to(dtype)
+        kn = A._rms_scale(k, gk, 1e-6).to(dtype)
+        dout = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
+        got = A.flash_backward(qn, kn, v, out, lse, dout, scale)
+        ref = A.flash_backward_plain(qn, kn, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        layout = "strided" if strided else "contiguous"
+        errs, tols = _k2_check(f"{tag} {layout}", got, ref, dtype)
+        del ref
+        d_, delta, lse2 = A._bwd_prologue(qn, out, lse, dout)
+        if tag == "joint":
+            zero = torch.zeros_like(delta)
+            _k2_negative_control("K2 joint vs a plain version without Delta", got,
+                                 (A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, zero, scale),
+                                  *A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, zero, scale)), tols)
+            n = S // 64 * 64  # the kernels' last whole key tile
+            _k2_negative_control(f"K2 joint vs a plain version without the {S - n}-key ragged tail", got,
+                                 (A.flash_bwd_dq_plain(qn, kn[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
+                                  None, None), tols)
+            again = A.flash_backward(qn, kn, v, out, lse, dout, scale)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[kernels] K2 joint: two backward passes give the same bits: {same}")
+            if not same:
+                fail("K2 is not deterministic")
+            del again
+        if not timed:
+            continue
+        ms_dq = time_ms(lambda: A.flash_bwd_dq(qn, kn, v, d_, lse2, delta, scale))
+        ms_dkv = time_ms(lambda: A.flash_bwd_dkv(qn, kn, v, d_, lse2, delta, scale))
+        plain_dq = time_ms(lambda: A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, delta, scale), iters=3)
+        plain_dkv = time_ms(lambda: A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, delta, scale), iters=3)
+        # the yardstick: SDPA's backward (dq, dk and dv in one call) on the same normalised q/k
+        leaves = [t.detach().requires_grad_() for t in (qn, kn, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True))
+        inputs = nbytes(qn, kn, v, d_, lse2, delta)
+        for name, fn_ms, plain_ms, flops, outs, err, replaces in (
+                ("flash_bwd_dq", ms_dq, plain_dq, 6 * B * H * S * S * D, (got[0],), errs[0], ":601"),
+                ("flash_bwd_dkv", ms_dkv, plain_dkv, 8 * B * H * S * S * D, got[1:], max(errs[1:]), ":653")):
+            byts = inputs + nbytes(*outs)
+            bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+            _record(results, tag, dict(
+                name=name, route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_bwd.cu",
+                replaces=f"flow_factory_tpu/ops/attention.py{replaces}",
+                max_abs_err=err, ms=fn_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
+                library_ms=lib_ms))
+            log(f"[kernels] {name} {tag}: kernel {fn_ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa backward "
+                f"{lib_ms:.3f} ms | bound {bound:.4f} ms ({flops / fn_ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, out, qn, kn, dout, got, leaves, o_lib
+        torch.cuda.empty_cache()
+
+
+def _config(**overrides):
     from flow_factory_tpu_torch.hparams import Arguments
 
     # the SD3.5-M GRPO workload (tests/fixtures/sd35_grpo.yaml) cut to
     # 2 prompts x group 4 and random weights
-    return Arguments.from_dict({
+    cfg = {
         "data": {"dataset_dir": "tests/fixtures/tiny_prompts"},
         "model": {"model_type": "sd3-5", "model_name_or_path": "", "variant": "medium",
                   "attn_backend": "auto", "master_dtype": "float32", "inference_dtype": "bfloat16"},
@@ -285,10 +419,13 @@ def _config():
                   "latent_storage_dtype": "fp16", "seed": 42},
         "eval": {}, "log": {},
         "rewards": [{"name": "brightness", "reward_model": "MyReward", "batch_size": 8}],
-    })
+    }
+    for section, values in overrides.items():
+        cfg[section] = {**cfg[section], **values}
+    return Arguments.from_dict(cfg)
 
 
-def phase_slice() -> dict:
+def phase_slice() -> None:
     import numpy as np
     import torch
 
@@ -366,41 +503,311 @@ def phase_slice() -> dict:
             fail(f"non-finite {name}")
     if bad or not ratios:
         fail(f"replay ratio != 1.0 at steps {sorted(bad)}: {bad}")
-    if any(counts[name] <= 0 for name in counts):
-        fail(f"a kernel of the path never launched: {counts}")
+    # the serving path runs the forward kernels; K2a/K2b belong to the training path
+    if any(counts[name] <= 0 for name in ("qknorm_flash_fwd", "ln_mul_add", "residual_gate_modulate")):
+        fail(f"a kernel of the serving path never launched: {counts}")
     phase_profile(adapter, samples, sde_steps[0])
     samples_per_s = len(samples) / secs["rollout+decode"]
     log(f"[slice] launches rollout {rollout_counts} | rollout+replay {counts}")
     log(f"[slice] phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
         f"{samples_per_s:.3f} samples/s (rollout+decode) | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | advantage/std {metrics['advantage/std']:.4f}")
-    return counts
 
 
-def phase_profile(adapter, samples, step: int) -> None:
-    """torch.profiler over one replayed step (the CFG-doubled transformer
-    forward plus the SDE step, as in the rollout): device time by kernel and
-    the device's idle share of the wall time. The trace goes to
-    chiprun_out/replay_step_trace.json."""
+def _profile(what: str, fn, trace: str) -> dict:
+    """torch.profiler over one call of ``fn`` after a warm call: device time
+    by kernel, launches, and the device's idle share of the wall time. The
+    trace goes to chiprun_out/<trace>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    adapter.replay_log_probs(samples, steps=[step])  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        adapter.replay_log_probs(samples, steps=[step])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
     busy_ms = sum(dev(e) for e in kernels)
-    log(f"[profile] one replay step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
-        f"idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=dev, reverse=True)[:12]:
+    launches = sum(e.count for e in kernels)
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.3f}, {launches} kernel launches")
+    for e in sorted(kernels, key=dev, reverse=True)[:14]:
         log(f"[profile]   {dev(e):9.3f} ms {100 * dev(e) / busy_ms:5.1f}% x{e.count:<4d} {e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "replay_step_trace.json"))
+    path = os.path.join("chiprun_out", trace)
+    prof.export_chrome_trace(path)
+    by_op = _device_ms_by_op(path)
+    for name, ms in by_op.most_common(10):
+        log(f"[profile]   by op {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% {name}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
+
+
+def _device_ms_by_op(trace_path: str):
+    """Device time of a torch.profiler chrome trace by what launched it: in
+    the backward the outermost autograd node (a Function's own backward
+    includes the VJPs it runs inside), in the forward the outermost op."""
+    import collections
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"),
+                 key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    parent, stack, launcher = {}, [], {}
+    for e in ops:  # nesting per thread from one sweep over start times
+        while stack and (stack[-1]["tid"] != e["tid"] or stack[-1]["ts"] + stack[-1]["dur"] < e["ts"] + e["dur"]):
+            stack.pop()
+        parent[id(e)] = stack[-1] if stack else None
+        stack.append(e)
+        launcher.setdefault(e["args"].get("External id"), e)
+
+    def phase(op):
+        outer, node = op, None
+        while parent[id(op)] is not None:
+            op = parent[id(op)]
+            if op["name"].startswith("autograd::engine::evaluate_function: "):
+                node = op["name"].split(": ", 1)[1]
+            outer = op
+        return f"backward {node}" if node else f"forward {outer['name']}"
+
+    ms = collections.Counter()
+    for k in events:
+        if k.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            op = launcher.get(k["args"].get("External id"))
+            ms[phase(op) if op else "unattributed"] += k["dur"] / 1e3
+    return ms
+
+
+def phase_profile(adapter, samples, step: int) -> None:
+    """One replayed step (the CFG-doubled transformer forward plus the SDE
+    step, as in the rollout)."""
+    _profile("one replay step", lambda: adapter.replay_log_probs(samples, steps=[step]),
+             "replay_step_trace.json")
+
+
+@contextlib.contextmanager
+def _swapped(module, **attrs):
+    """Module attributes replaced for the duration of a check."""
+    old = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def phase_grad() -> None:
+    """LoRA gradients through the kernels at SD3.5-M width, reduced depth:
+    two MMDiT-X blocks (the first with the dual self-attention, the second
+    context-pre-only), B=16, 1024 image + 333 context tokens, rank-32 LoRA on
+    the default targets and on the AdaLN linears (norm1, norm1_context),
+    ``lora_B`` drawn non-zero. The loss is the summed Flow-SDE log-prob of a
+    stored transition. The same gradient through the plain path (attention
+    backend ``native``, the norm wrappers swapped for their plain versions)
+    is the reference; a run with K2a's dq zeroed is the negative control."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import DEFAULT_TARGET_PATTERNS, init_lora, merge_lora
+    from flow_factory_tpu_torch.models.sd3.adapter import _preset
+    from flow_factory_tpu_torch.models.sd3.transformer import SD3Transformer
+    from flow_factory_tpu_torch.ops import attention as A
+    from flow_factory_tpu_torch.ops import norms as N
+    from flow_factory_tpu_torch.scheduler.flow_match_euler import sde_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = dataclasses.replace(_preset("medium", "auto", "bfloat16")["transformer"], depth=2,
+                              dual_attention_layers=(0,))
+    model = build_module(lambda: SD3Transformer(cfg), dev, torch.bfloat16, gen)
+    adaln = (r".*\.norm1(_context)?\.linear\.weight$",)
+    lora = init_lora(model, 32, gen, DEFAULT_TARGET_PATTERNS + adaln)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    names = [f"{path}.{k}" for path in sorted(lora) for k in ("lora_A", "lora_B")]
+    leaves = [lora[path][k] for path in sorted(lora) for k in ("lora_A", "lora_B")]
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = randn(B, 64, 64, cfg.in_channels)
+    ctx, pooled = randn(B, 333, cfg.context_dim), randn(B, cfg.pooled_dim)
+    full = lambda value: torch.full((B,), value, device=dev)
+    t, sigma, sigma_next = full(750.0), full(0.75), full(0.65)
+
+    def lora_grads():
+        v = functional_call(model, merge_lora(model, lora, 2.0), (x.bfloat16(), t, ctx, pooled))
+        step = dict(dynamics_type="Flow-SDE", noise_level=full(0.8), sigma_max=full(0.95),
+                    storage_dtype=torch.float16)
+        if not hasattr(lora_grads, "next_latents"):  # a transition drawn once, near the step's mean
+            lora_grads.next_latents = sde_step(v.detach(), x, sigma, sigma_next, generator=gen,
+                                               compute_log_prob=False, **step).next_latents
+        out = sde_step(v, x, sigma, sigma_next, next_latents=lora_grads.next_latents, **step)
+        return torch.autograd.grad(out.log_prob.sum(), leaves)
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    kern = lora_grads()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    secs = time.perf_counter() - t0
+    attn_modules = [m for m in model.modules() if hasattr(m, "attn_backend")]
+    with contextlib.ExitStack() as stack:
+        for m in attn_modules:
+            stack.enter_context(_swapped(m, attn_backend="native"))
+        stack.enter_context(_swapped(
+            N, ln_mul_add=lambda x, m, a, eps, dt, fold, rms=False: N._native_ln_mul_add(x, m, a, eps, dt, fold, rms),
+            residual_gate_modulate_rows=N._native_residual_gate_modulate))
+        plain = lora_grads()
+    with _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q)):
+        no_dq = lora_grads()
+    torch.cuda.synchronize()
+
+    def rel_errors(got):
+        return [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() for g, r in zip(got, plain)]
+
+    errs, wrong = rel_errors(kern), rel_errors(no_dq)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    # the bar: both paths run the same math in bf16 but round in other places
+    # (K1's folded softmax scale, the fp32 norms' summation order), which the
+    # backward carries into every LoRA leaf: worst leaf 1.2e-2 of its max
+    # (median 6.4e-3) on the card, so the bar is 3e-2
+    bar = 3e-2
+    log(f"[grad] SD3.5-M width, depth 2 (dual block 0), B={B}, S=1357: {len(leaves)} LoRA leaves, "
+        f"kernel-path grad in {secs:.2f} s, launches {counts}")
+    log(f"[grad] kernel path vs plain path, per-leaf max|d|/max|ref|: worst {errs[worst]:.3e} ({names[worst]}), "
+        f"median {statistics.median(errs):.3e} (bar {bar:.1e}) {'ok' if errs[worst] <= bar else 'FAILED'}")
+    caught = max(wrong) > bar
+    log(f"[grad] negative control, K1's dq zeroed: worst leaf {max(wrong):.3e} (bar {bar:.1e}) "
+        f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
+    if errs[worst] > bar:
+        fail(f"LoRA gradients through the kernels disagree with the plain path: {names[worst]} {errs[worst]}")
+    if not caught:
+        fail("the [grad] check cannot tell a backward without dq from the right one")
+    watched = ("attn.to_q", "attn.to_k", "attn.to_v", "attn.add_q_proj", "attn.add_k_proj", "attn.add_v_proj",
+               "attn2.to_q", "attn2.to_k", "attn2.to_v", "norm1.linear", "norm1_context.linear")
+    # the last block is context-pre-only: its context queries feed no output,
+    # so that projection's gradient is zero on both paths
+    unused = f"transformer_blocks.{cfg.depth - 1}.attn.add_q_proj."
+    live = lambda grads: {n for n, g in zip(names, grads) if g.abs().max().item() > 0}
+    checked = [n for n in names if any(w in n for w in watched) and not n.startswith(unused)]
+    dead = sorted(set(checked) - live(kern))
+    log(f"[grad] non-zero gradient on {len(checked) - len(dead)}/{len(checked)} LoRA leaves of the attention "
+        f"projections and AdaLN linears (the last block's context queries feed no output: zero on both paths: "
+        f"{not any(n.startswith(unused) for n in live(kern) | live(plain))})")
+    if dead or not checked or any(n.startswith(unused) for n in live(plain)):
+        fail(f"LoRA leaves with no gradient through the kernels: {dead}")
+    if any(counts[k] <= 0 for k in counts):
+        fail(f"a kernel never launched in the [grad] run: {counts}")
+    del model, lora, leaves, kern, plain, no_dq
+    torch.cuda.empty_cache()
+
+
+def _loss_value(info: dict, key: str, stat: str) -> float:
+    """The min or max of a per-grad-step metric over an optimize phase (the
+    phase reduces several steps into ``<key>_min``/``_max``, one step into
+    ``<key>``)."""
+    return info.get(f"{key}_{stat}", info[key])
+
+
+def phase_train() -> dict:
+    """The GRPO training slice at full width through ``load_trainer``, two
+    epochs, each phase timed; then a profile of one grad step."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = _config(
+        data={"cache_dir": os.path.join(here, "build", "preprocess_cache"), "sampler_type": "group_contiguous"},
+        model={"finetune_type": "lora", "lora_rank": 32, "lora_alpha": 64, "target_modules": "default"},
+        train={"clip_range": 1e-4, "adv_clip_range": 5.0, "kl_beta": 0.0, "learning_rate": 3e-4,
+               "ema_decay": 0.99, "ema_update_interval": 4, "gradient_accumulation_steps": 2,
+               "max_epochs": 2},
+        eval={"eval_freq": 0},
+        log={"logging_backend": "none", "save_freq": 0, "run_name": "chip_smoke_grpo",
+             "save_dir": os.path.join(here, "chiprun_out", "train")},
+    )
+    ta = cfg.training_args
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lora = trainer.adapter.trainable["transformer"]
+    log(f"[train] load_trainer (SD3.5-M, LoRA rank {cfg.model_args.lora_rank} on {len(lora)} weights, "
+        f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.1f} M trainable, preprocess "
+        f"included) {load_s:.1f} s; remat {trainer.adapter.component_configs['transformer'].remat}; "
+        f"gradient_accumulation_steps {ta.gradient_accumulation_steps}")
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    ops.reset_launch_counts()
+    grad_steps = 0
+    for epoch in range(ta.max_epochs):
+        trainer.epoch = epoch
+        trainer.scheduler.set_seed(ta.seed + epoch)
+        secs = {}
+        t0 = time.perf_counter()
+        samples = trainer.sample(epoch)
+        torch.cuda.synchronize()
+        secs["sample"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = trainer.prepare_feedback(samples)
+        secs["feedback"] = time.perf_counter() - t0
+        before = ops.launch_counts()["flash_bwd_dq"]
+        t0 = time.perf_counter()
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+        secs["optimize"] = time.perf_counter() - t0
+        trainer.adapter.ema_step(epoch)
+        steps = len(list(trainer._micro_batches(len(samples), epoch))) * len(trainer.scheduler.train_timesteps)
+        grad_steps += steps
+        ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
+        clip_hi = _loss_value(info, "train/clip_frac", "max")
+        gnorm = info["train/grad_norm"]
+        log(f"[train] epoch {epoch}: {len(samples)} samples, reward mean {metrics['reward/mean']:.4f}, "
+            f"{steps} grad steps (K2a launches {ops.launch_counts()['flash_bwd_dq'] - before}), ratio min "
+            f"{ratio_lo!r} max {ratio_hi!r} on every grad step, clip_frac max {clip_hi}, loss "
+            f"{info['train/loss']:.4e}, grad_norm {gnorm:.4e}, global step {trainer.global_step}")
+        log(f"[train] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+            f"{secs['optimize'] / steps:.3f} s per grad step (optimizer step included)")
+        if not (ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
+            fail(f"epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
+        if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
+            fail(f"epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[train] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail("the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] launches over two epochs (rollouts and grad steps) {counts} | {grad_steps} grad steps | "
+        f"peak memory {peak:.2f} GiB")
+    remat = trainer.adapter.component_configs["transformer"].remat
+    if any(counts[k] <= 0 for k in counts) or trainer.global_step != ta.max_epochs:
+        fail(f"a kernel never launched, or the optimizer did not step once per epoch: {counts}, "
+             f"global step {trainer.global_step}")
+    if not remat and not counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 37 * grad_steps:
+        fail(f"expected 37 K2a and K2b launches per grad step: {counts}")
+
+    batch = next(trainer.grad_step_batches(samples, ta.max_epochs - 1))
+
+    def grad_step():
+        _, grads = trainer.loss_and_grads(trainer.adapter.trainable, batch)
+        trainer.accumulate_grads(grads)
+        trainer.apply_accumulated()
+
+    _profile("one grad step (forward, backward, AdamW)", grad_step, "grad_step_trace.json")
+    trainer.cleanup()
+    return counts
 
 
 def main() -> int:
@@ -424,7 +831,11 @@ def main() -> int:
     card = phase_environment()
     results: dict = {}
     phase_kernels(results)
-    counts = phase_slice()
+    phase_slice()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_grad()
+    counts = phase_train()
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

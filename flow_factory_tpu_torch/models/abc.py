@@ -9,28 +9,51 @@ paths that run the SAME math:
   (one extra garbage slot takes the positions that are not stored);
 * :meth:`BaseAdapter._forward_impl` — one stored transition replayed without
   gradients, through the same velocity and step math and the same
-  storage-dtype round trip, so ``exp(new_lp - old_lp) == 1`` exactly.
+  storage-dtype round trip, so ``exp(new_lp - old_lp) == 1`` exactly;
+* :meth:`BaseAdapter.training_forward` — the same replay, differentiable in
+  the trainable tree (LoRA or full weights, master dtype).
 
-LoRA, EMA and the training forward come with the training slice.
+The velocity runs on the effective weights of :meth:`merged_params` through
+``torch.func.functional_call``: the rollout and the no-grad replay merge the
+LoRA once per call, the training forward once per step with gradients; one
+merge code path, so all three see the same bits.
 """
 from __future__ import annotations
 
+import logging
+import re
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ema import EMA, constant_decay, get_decay_schedule
 from ..samples import BaseSample
 from ..scheduler.flow_match_euler import FlowMatchEulerSDE, sde_step
-from ..utils.base import resolve_device
+from ..utils.base import make_generator, resolve_device
 from ..utils.weights import load_component
+from .lora import DEFAULT_TARGET_PATTERNS, init_lora, lora_param_count, merge_lora, zero_like_lora
+
+logger = logging.getLogger(__name__)
+
+#: {component: {name: tensor}} — LoRA ``{path: {lora_A, lora_B}}`` or full weights
+Trainable = Dict[str, Dict[str, Any]]
 
 
 class BaseAdapter(ABC):
     """Adapter = model modules + scheduler + the rollout and replay paths."""
 
     sample_class = BaseSample
+    #: components whose weights are trained (LoRA'd or fully)
+    default_trainable_components: Tuple[str, ...] = ("transformer",)
+    #: LoRA target patterns (regex over parameter names) for 'default'
+    default_target_patterns: Tuple[str, ...] = DEFAULT_TARGET_PATTERNS
+    #: the component that predicts the velocity
+    velocity_component: str = "transformer"
+    #: embedding keys the velocity reads from a batch
+    embed_keys: Tuple[str, ...] = ("prompt_embeds", "pooled_prompt_embeds",
+                                   "negative_prompt_embeds", "negative_pooled_prompt_embeds")
 
     def __init__(self, config, device=None):
         self.config = config
@@ -38,6 +61,7 @@ class BaseAdapter(ABC):
         self.scheduler_args = config.scheduler_args
         self.training_args = config.training_args
         self.device = resolve_device(device)
+        self.master_dtype = getattr(torch, self.model_args.master_dtype)
         self.inference_dtype = getattr(torch, self.model_args.inference_dtype)
         self._mode = "train"
         #: the model's ``nn.Module`` components, e.g. {'transformer': SD3Transformer}
@@ -46,6 +70,9 @@ class BaseAdapter(ABC):
         self.component_configs: Dict[str, Any] = {}
         self.load_models()
         self.scheduler = self.load_scheduler()
+        self._setup_trainable()
+        self.ema: Optional[EMA] = None
+        self._ref_store: Optional[EMA] = None
 
     # ------------------------------------------------------------------
     # Model surface
@@ -55,8 +82,9 @@ class BaseAdapter(ABC):
         """Populate ``self.modules`` / ``self.component_configs``."""
 
     @abstractmethod
-    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg) -> torch.Tensor:
-        """Velocity prediction (fp32) for latents (B, ...) at timesteps t (B,)."""
+    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
+        """Velocity prediction (fp32) for latents (B, ...) at timesteps t (B,),
+        on the effective weights ``params`` (:meth:`merged_params`) when given."""
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         """Per-model sigma-schedule knobs (shift, dynamic shifting...)."""
@@ -79,6 +107,138 @@ class BaseAdapter(ABC):
         """Load per-component state dicts (e.g. from :mod:`..utils.weights`), strictly."""
         for comp, sd in state_dicts.items():
             load_component(self.modules[comp], sd)
+
+    def preprocess_func(self, batch: Dict[str, Any], **kwargs) -> Dict[str, Any]:
+        """Stage-1 preprocessing: prompt encoding (families override)."""
+        out: Dict[str, Any] = {}
+        if "prompt" in batch:
+            out.update(self.encode_prompt(batch["prompt"], **kwargs))
+        return out
+
+    # ------------------------------------------------------------------
+    # Trainable parameters: LoRA or full
+    # ------------------------------------------------------------------
+    @property
+    def trainable_components(self) -> Tuple[str, ...]:
+        tm = self.model_args.target_modules
+        if isinstance(tm, str) and tm not in ("default", "all"):
+            return (tm.split(".")[0],)
+        if isinstance(tm, (list, tuple)):
+            comps = []
+            for t in tm:
+                comp = t.split(".")[0]
+                if comp in self.modules and comp not in comps:
+                    comps.append(comp)
+            if comps:
+                return tuple(comps)
+        return self.default_trainable_components
+
+    @property
+    def is_lora(self) -> bool:
+        return self.model_args.finetune_type == "lora"
+
+    @property
+    def lora_scale(self) -> float:
+        return self.model_args.lora_alpha / max(1, self.model_args.lora_rank)
+
+    def _lora_patterns(self) -> Tuple[str, ...]:
+        tm = self.model_args.target_modules
+        if isinstance(tm, (list, tuple)):
+            return tuple(rf".*\.{re.escape(t.split('.')[-1])}\.weight$" for t in tm)
+        return self.default_target_patterns
+
+    def _setup_trainable(self) -> None:
+        """LoRA trees (``lora_A`` drawn from a generator seeded by (seed,
+        component)) or full master-dtype copies, for every trainable
+        component that was loaded."""
+        seed = self.training_args.seed
+        trainable: Trainable = {}
+        for comp in self.trainable_components:
+            if comp not in self.modules:
+                continue
+            module = self.modules[comp]
+            if self.is_lora:
+                trainable[comp] = init_lora(module, self.model_args.lora_rank,
+                                            make_generator(self.device, "lora_init", seed, comp),
+                                            self._lora_patterns(), dtype=self.master_dtype)
+                logger.info("LoRA[%s]: %d params (rank %d)", comp, lora_param_count(trainable[comp]),
+                            self.model_args.lora_rank)
+            else:
+                trainable[comp] = {name: p.detach().to(self.master_dtype).clone().requires_grad_()
+                                   for name, p in module.named_parameters()}
+        self.trainable: Trainable = trainable
+
+    def load_lora(self, component: str, tree: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Replace a component's LoRA tree (e.g. from ``weights.lora_from_flax``),
+        strictly: the same paths and shapes as the live tree."""
+        live = self.trainable[component]
+        if set(tree) != set(live):
+            raise KeyError(f"LoRA paths differ: missing {sorted(set(live) - set(tree))[:5]}, "
+                           f"unexpected {sorted(set(tree) - set(live))[:5]}")
+        for path, ab in tree.items():
+            for k, v in ab.items():
+                if v.shape != live[path][k].shape:
+                    raise ValueError(f"{path}.{k}: shape {tuple(v.shape)} != {tuple(live[path][k].shape)}")
+        self.trainable[component] = {
+            path: {k: v.to(device=self.device, dtype=self.master_dtype).detach().clone().requires_grad_()
+                   for k, v in ab.items()} for path, ab in tree.items()}
+
+    def trainable_leaves(self, trainable: Optional[Trainable] = None) -> List[torch.Tensor]:
+        """Every tensor of the trainable tree, in a fixed order."""
+        trainable = self.trainable if trainable is None else trainable
+        return [v for comp in sorted(trainable) for name in sorted(trainable[comp])
+                for v in _leaves(trainable[comp][name])]
+
+    def merged_params(self, component: str, trainable: Optional[Trainable] = None) -> Dict[str, torch.Tensor]:
+        """Effective weights of ``component`` for ``functional_call`` (empty when
+        it is not trained): LoRA merged into the frozen weights, or the full
+        trainable weights. Differentiable in ``trainable`` when grad is on."""
+        trainable = self.trainable if trainable is None else trainable
+        if component not in trainable:
+            return {}
+        if self.is_lora:
+            return merge_lora(self.modules[component], trainable[component], self.lora_scale)
+        return dict(trainable[component])
+
+    # ------------------------------------------------------------------
+    # EMA and the reference policy
+    # ------------------------------------------------------------------
+    def init_ema(self) -> None:
+        ta = self.training_args
+        if getattr(ta, "ema_decay", 0.0) and ta.ema_decay > 0:
+            schedule = getattr(ta, "ema_decay_schedule", "constant")
+            decay_fn = constant_decay(ta.ema_decay) if schedule == "constant" else get_decay_schedule(schedule)
+            self.ema = EMA(self.trainable, decay_fn=decay_fn,
+                           update_interval=max(1, getattr(ta, "ema_update_interval", 1)))
+            logger.info("EMA enabled: decay=%s interval=%s", ta.ema_decay, ta.ema_update_interval)
+
+    def ema_step(self, step: Optional[int] = None) -> None:
+        if self.ema is not None:
+            self.ema.update(self.trainable, step=step)
+
+    @property
+    def ema_trainable(self) -> Trainable:
+        """EMA weights if enabled, else the live trainable tree."""
+        return self.trainable if self.ema is None else self.ema.params
+
+    def init_ref_parameters(self) -> None:
+        if self.is_lora:
+            return  # the zero LoRA needs no storage
+        self._ref_store = EMA(self.trainable, update_interval=0)
+
+    def ref_trainable(self) -> Trainable:
+        """Trainable tree of the frozen reference policy."""
+        if self.is_lora:
+            return {c: zero_like_lora(t) for c, t in self.trainable.items()}
+        if self._ref_store is None:
+            raise RuntimeError("init_ref_parameters() was not called for full finetuning")
+        return self._ref_store.params
+
+    def post_init(self) -> None:
+        """EMA and reference init once the trainer is wired."""
+        self.init_ema()
+        if self.training_args.requires_ref_model:
+            self.init_ref_parameters()
 
     # ------------------------------------------------------------------
     # Mode management
@@ -123,6 +283,7 @@ class BaseAdapter(ABC):
         logprob_store_slot: np.ndarray,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
         *,
         do_cfg: bool,
         compute_log_prob: bool,
@@ -148,7 +309,7 @@ class BaseAdapter(ABC):
         x = x0
         for i in range(len(timesteps)):
             t = torch.full((B,), float(timesteps[i]), dtype=torch.float32, device=x.device)
-            v = self._velocity(x, t, embeds, guidance_scale, do_cfg)
+            v = self._velocity(x, t, embeds, guidance_scale, do_cfg, params)
             out = sde_step(
                 v, x, float(sigmas[i]), float(sigmas[i + 1]),
                 dynamics_type=dynamics_type,
@@ -181,13 +342,14 @@ class BaseAdapter(ABC):
         guidance_scale: float,
         sigma_max,
         generator: Optional[torch.Generator] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
         *,
         do_cfg: bool,
         compute_log_prob: bool,
         dynamics_type: str,
     ):
         """Single-step replay (or sample) forward — the rollout's math path."""
-        v = self._velocity(latents, timestep, embeds, guidance_scale, do_cfg)
+        v = self._velocity(latents, timestep, embeds, guidance_scale, do_cfg, params)
         return sde_step(
             v, latents, sigma, sigma_next,
             dynamics_type=dynamics_type,
@@ -226,6 +388,8 @@ class BaseAdapter(ABC):
         latents = torch.from_numpy(np.stack([s.all_latents for s in samples])).to(dev)
         B = len(samples)
         full = lambda value: torch.full((B,), float(value), dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            params = self.merged_params(self.velocity_component)
         out: Dict[int, torch.Tensor] = {}
         for i in steps:
             # contiguous like the rollout's own tensors: equal layouts keep
@@ -235,9 +399,45 @@ class BaseAdapter(ABC):
                 full(first.timesteps[i]),
                 full(sigmas[i]), full(sigmas[i + 1]), full(noise_levels[i]), embeds,
                 float(first.extra_kwargs["guidance_scale"]),
-                full(sigmas[1] if len(sigmas) > 1 else 0.999),
+                full(sigmas[1] if len(sigmas) > 1 else 0.999), params=params,
                 do_cfg=do_cfg, compute_log_prob=True,
                 dynamics_type=self.scheduler.dynamics_type,
             )
             out[int(i)] = res.log_prob
         return out
+
+    def training_forward(
+        self,
+        trainable: Trainable,
+        batch: Dict[str, Any],
+        *,
+        compute_log_prob: bool = True,
+        generator: Optional[torch.Generator] = None,
+        dynamics_type: Optional[str] = None,
+    ):
+        """Replay (or re-sample) one stored transition, differentiable in
+        ``trainable``: the LoRA is merged with gradients, then the velocity
+        and :func:`sde_step` run exactly as in the rollout. ``batch`` holds
+        device tensors (``latents``, ``next_latents``, ``timestep``, ``sigma``,
+        ``sigma_next``, ``noise_level``, ``sigma_max``: (B,) fp32, embeds) and
+        the float ``guidance_scale``."""
+        embeds = {k: batch[k] for k in self.embed_keys if k in batch}
+        do_cfg = "negative_prompt_embeds" in embeds and bool(batch.get("do_cfg", True))
+        params = self.merged_params(self.velocity_component, trainable)
+        v = self._velocity(batch["latents"], batch["timestep"], embeds,
+                           float(batch.get("guidance_scale", self.training_args.guidance_scale)),
+                           do_cfg, params)
+        return sde_step(
+            v, batch["latents"], batch["sigma"], batch["sigma_next"],
+            dynamics_type=dynamics_type or self.scheduler.dynamics_type,
+            noise_level=batch.get("noise_level", 0.0),
+            generator=generator,
+            next_latents=batch.get("next_latents"),
+            compute_log_prob=compute_log_prob,
+            storage_dtype=self.storage_dtype,
+            sigma_max=batch.get("sigma_max", 0.999),
+        )
+
+
+def _leaves(node) -> List[torch.Tensor]:
+    return [node[k] for k in sorted(node)] if isinstance(node, dict) else [node]

@@ -10,15 +10,19 @@ Port of ``flow_factory_tpu/models/sd3/adapter.py``:
 * the schedule uses the resolution-dependent dynamic shift (mu from the
   image-token count);
 * every component is random-initialised from the seed directly on the
-  adapter's device in the inference dtype (no weights are downloaded).
+  adapter's device in the inference dtype (no weights are downloaded);
+* the LoRA is merged once per rollout; the transformer runs on the merged
+  weights through ``functional_call``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from ...samples import T2ISample
 from ...utils.base import make_generator
@@ -70,6 +74,8 @@ class SD35Adapter(BaseAdapter):
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "medium")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
+        if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
+            preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
         self.t5_max_length = preset["t5_max_length"]
         self.clip_max_length = preset["clip_max_length"]
         self.component_configs = {
@@ -136,14 +142,28 @@ class SD35Adapter(BaseAdapter):
         pooled = torch.cat([out_l.pooled, out_g.pooled], dim=-1)
         return {"prompt_embeds": prompt_embeds.float(), "pooled_prompt_embeds": pooled.float()}
 
+    def preprocess_func(self, batch: Dict[str, Any], **_) -> Dict[str, np.ndarray]:
+        """The dataset's stage-1 cache: prompt and negative-prompt embeddings
+        as host fp32 numpy (JAX ``sd3/adapter.py:292``)."""
+        out: Dict[str, np.ndarray] = {}
+        prompts = batch.get("prompt")
+        if prompts is not None:
+            host = lambda enc: {k: v.cpu().numpy() for k, v in enc.items()}
+            out.update(host(self.encode_prompt(prompts)))
+            neg = host(self.encode_prompt(batch.get("negative_prompt") or [""] * len(prompts)))
+            out["negative_prompt_embeds"] = neg["prompt_embeds"]
+            out["negative_pooled_prompt_embeds"] = neg["pooled_prompt_embeds"]
+        return out
+
     # ------------------------------------------------------------------
     # Velocity
     # ------------------------------------------------------------------
-    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg) -> torch.Tensor:
+    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
         model = self.modules["transformer"]
         dt = self.component_configs["transformer"].compute_dtype
+        run = lambda *args: functional_call(model, params, args) if params else model(*args)
         if do_cfg:
-            v = model(
+            v = run(
                 torch.cat([latents, latents]).to(dt),
                 torch.cat([t, t]),
                 torch.cat([embeds["negative_prompt_embeds"], embeds["prompt_embeds"]]),
@@ -151,7 +171,7 @@ class SD35Adapter(BaseAdapter):
             )
             v_uncond, v_cond = v.float().chunk(2)
             return v_uncond + guidance_scale * (v_cond - v_uncond)
-        return model(latents.to(dt), t, embeds["prompt_embeds"], embeds["pooled_prompt_embeds"]).float()
+        return run(latents.to(dt), t, embeds["prompt_embeds"], embeds["pooled_prompt_embeds"]).float()
 
     # ------------------------------------------------------------------
     # Rollout → samples
@@ -182,6 +202,7 @@ class SD35Adapter(BaseAdapter):
         generator: Optional[torch.Generator] = None,
         x0: Optional[torch.Tensor] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
+        trainable=None,
         store_means: bool = False,
         decode: bool = True,
         **_,
@@ -189,7 +210,8 @@ class SD35Adapter(BaseAdapter):
         """Full rollout → host-resident samples with trajectories and log-probs.
 
         Noise comes from ``generator`` (default: seeded from ``seed``); ``x0``
-        and per-step ``noise`` replace its draws when given."""
+        and per-step ``noise`` replace its draws when given. The LoRA of
+        ``trainable`` (default: the live tree) is merged once, here."""
         ta = self.training_args
         height = height or ta.height
         width = width or ta.width
@@ -227,9 +249,10 @@ class SD35Adapter(BaseAdapter):
             x0 = torch.randn((B, h, w, c), generator=generator, device=self.device, dtype=torch.float32)
         x0 = self.cast_latents(self._on_device(x0))
 
+        params = self.merged_params(self.velocity_component, trainable)
         x_final, lat_buf, lp_buf, mean_buf = self._rollout_impl(
             x0, embeds, g, sigmas, timesteps, noise_levels,
-            maps.latent_store_slot, maps.logprob_store_slot, generator, noise,
+            maps.latent_store_slot, maps.logprob_store_slot, generator, noise, params,
             do_cfg=do_cfg, compute_log_prob=compute_log_prob, dynamics_type=dynamics,
             num_latent_slots=maps.num_latent_slots, num_logprob_slots=maps.num_logprob_slots,
             store_means=store_means,

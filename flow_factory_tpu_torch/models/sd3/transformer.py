@@ -5,6 +5,9 @@ streams coupled by joint attention in every block; SD3.5-medium ("MMDiT-X")
 adds a latent-only self-attention in the early blocks
 (``dual_attention_layers``). Parameter names are diffusers'
 ``SD3Transformer2DModel`` names. Latents are channel-last (B, H, W, C).
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``; the JAX package's per-block ``nn.remat``,
+``sd3/transformer.py:213``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.norms import residual_gate_modulate
 from ..layers import (
@@ -44,6 +49,7 @@ class MMDiTConfig:
     dual_attention_layers: Tuple[int, ...] = ()
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
+    remat: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -161,7 +167,22 @@ class SD3Transformer(nn.Module):
         x = self.pos_embed(latents)
         temb = self.time_text_embed(timestep, pooled_projections)
         context = self.context_embedder(encoder_hidden_states)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            x, context = block(x, context, temb)
+            x, context = (_checkpointed(block, x, context, temb) if remat
+                          else block(x, context, temb))
         x = self.proj_out(self.norm_out(x, temb))
         return unpatchify(x, h, w, cfg.patch_size, cfg.out_channels)
+
+
+def _checkpointed(block: nn.Module, x, context, temb):
+    """One block under ``torch.utils.checkpoint``. The block's parameters go
+    in as explicit inputs and the block runs on them through
+    ``functional_call``, so the recompute in the backward sees the weights the
+    forward saw — the LoRA-merged ones when the caller swapped them in."""
+    names, params = zip(*block.named_parameters())
+
+    def run(x, context, temb, *weights):
+        return functional_call(block, dict(zip(names, weights)), (x, context, temb))
+
+    return checkpoint(run, x, context, temb, *params, use_reentrant=False)

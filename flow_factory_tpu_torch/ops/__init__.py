@@ -1,6 +1,10 @@
 """Hand-written Hopper kernels and their plain PyTorch versions."""
 from .attention import (
     dot_product_attention,
+    flash_backward,
+    flash_backward_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
     native_attention,
     qknorm_attention_plain,
     qknorm_dot_product_attention,
@@ -18,6 +22,8 @@ from .norms import (
 #: every kernel wrapper of the port; each carries a ``launches`` counter
 KERNEL_WRAPPERS = {
     "qknorm_flash_fwd": qknorm_flash_attention,
+    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dkv": flash_bwd_dkv,
     "ln_mul_add": ln_mul_add,
     "residual_gate_modulate": residual_gate_modulate_rows,
 }

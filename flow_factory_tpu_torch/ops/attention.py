@@ -1,4 +1,5 @@
-"""Attention ops: the fused qk-norm flash kernel (K1) and its plain version.
+"""Attention ops: the fused qk-norm flash kernel (K1), the flash backward
+kernels (K2a, K2b) and their plain versions.
 
 Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
 
@@ -6,7 +7,15 @@ Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
   ``csrc/qknorm_flash_fwd.cu`` (it replaces the TPU kernels
   ``_flash_fwd_single_kernel_qkn``/``_flash_fwd_kernel_qkn``). On a CPU tensor
   it computes :func:`qknorm_attention_plain`; on a CUDA tensor it launches the
-  kernel or raises — there is no fallback.
+  kernel through :class:`_QKNormFlash`, whose backward
+  (:func:`qknorm_flash_backward`, the JAX package's ``_qknorm_flash_bwd``)
+  recomputes the normalised q/k, runs K2a and K2b and chains the norm's VJP —
+  there is no fallback.
+* :func:`flash_bwd_dq` / :func:`flash_bwd_dkv` wrap the CUDA C++ kernels in
+  ``csrc/flash_bwd.cu`` (the TPU kernels ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``); :func:`flash_backward` runs both, or
+  :func:`flash_backward_plain` (the JAX ``_flash_backward`` step by step) on
+  a CPU tensor.
 * :func:`qknorm_attention_plain` composes :func:`_rms_scale` with
   :func:`native_attention`, the JAX package's plain path
   (``attention.py:206-213`` and ``:70-84``).
@@ -22,8 +31,11 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .norms import grads_where_needed
+
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _KERNEL_HEAD_DIM = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,34 +79,59 @@ def qknorm_attention_plain(q, k, v, gq, gk, scale: float, eps: float, return_lse
     return native_attention(qn, kn, v, scale=scale, return_lse=return_lse)
 
 
-def _check_kernel_inputs(q, k, v, gq, gk) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
-            and gq.device == q.device and gk.device == q.device):
-        raise ValueError("qknorm_flash_attention: q, k, v, gq, gk must be on one CUDA device")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"qknorm_flash_attention: q/k/v must share a dtype in "
-                        f"{list(_KERNEL_DTYPES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
+def _check_heads(name: str, q, k, v, *q_like) -> None:
+    """Checks shared by K1 and K2: q (B, H, Sq, D), k/v (B, H, Sk, D) and any
+    ``q_like`` (O, dO) tensors of q's shape, on one CUDA device in one kernel
+    dtype, head dim 64 and contiguous; the bf16 variants move 16-byte vectors,
+    so their pointers and (B, H, S) strides must keep 16-byte alignment."""
+    heads = (q, k, v, *q_like)
+    if not (q.is_cuda and all(t.device == q.device for t in heads)):
+        raise ValueError(f"{name}: every operand must be on one CUDA device")
+    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype for t in heads):
+        raise TypeError(f"{name}: operands must share a dtype in {list(_KERNEL_DTYPES)}; "
+                        f"got {[t.dtype for t in heads]}")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"qknorm_flash_attention: expected q (B,H,Sq,D), k/v (B,H,Sk,D); "
+        raise ValueError(f"{name}: expected q (B,H,Sq,D), k/v (B,H,Sk,D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Sq, D = q.shape
-    if k.shape[:2] != (B, H) or k.shape[3] != D:
-        raise ValueError(f"qknorm_flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if k.shape[:2] != (B, H) or k.shape[3] != D or any(t.shape != q.shape for t in q_like):
+        raise ValueError(f"{name}: shapes disagree: {[tuple(t.shape) for t in heads]}")
     if D != _KERNEL_HEAD_DIM:
-        raise ValueError(f"qknorm_flash_attention: head dim {D}; the kernel takes {_KERNEL_HEAD_DIM}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("qknorm_flash_attention: the head dim of q, k and v must be contiguous")
+        raise ValueError(f"{name}: head dim {D}; the kernel takes {_KERNEL_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in heads):
+        raise ValueError(f"{name}: the head dim of every operand must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(_vector_aligned(t) for t in heads):
+        raise ValueError(f"{name}: bf16 operands need 16-byte aligned pointers and (B, H, S) strides")
+
+
+def _vector_aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _check_kernel_inputs(q, k, v, gq, gk) -> None:
+    _check_heads("qknorm_flash_attention", q, k, v)
+    Sq, D = q.shape[2], q.shape[3]
     for name, g, S in (("gq", gq, Sq), ("gk", gk, k.shape[2])):
-        if g.dtype != torch.float32 or tuple(g.shape) != (S, D) or not g.is_contiguous():
+        if (g.device != q.device or g.dtype != torch.float32 or tuple(g.shape) != (S, D)
+                or not g.is_contiguous()):
             raise ValueError(f"qknorm_flash_attention: {name} must be a contiguous fp32 ({S}, {D}) "
-                             f"map; got {g.dtype} {tuple(g.shape)}")
-    # the bf16 variant moves 16-byte vectors (8 elements)
-    if q.dtype == torch.bfloat16 and not all(
-            t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)):
-        raise ValueError("qknorm_flash_attention: bf16 q, k, v need 16-byte aligned pointers and "
-                         "(B, H, S) strides")
+                             f"map on {q.device}; got {g.dtype} {tuple(g.shape)} on {g.device}")
     if any(g.data_ptr() % 16 for g in (gq, gk)):
         raise ValueError("qknorm_flash_attention: gq and gk need 16-byte aligned pointers")
+
+
+def _raise_on_error(lib, err: int, name: str, error_fn: str) -> None:
+    if err != 0:
+        msg = getattr(lib, error_fn)
+        msg.restype = ctypes.c_char_p
+        msg.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} launch failed: {msg(err).decode()} ({err})")
+
+
+def _head_interleaved(B: int, H: int, S: int, D: int, like: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, S, D) view of (B, S, H, D) memory: what the head merge
+    (and the head split's backward) reads without a transpose copy."""
+    return torch.empty((B, S, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
 def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
@@ -110,7 +147,7 @@ def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
     Sk = k.shape[2]
     # O is written head-interleaved, (B, S, H, D) in memory, so the output
     # projection reads it without a transpose copy; the view is (B, H, S, D)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _head_interleaved(B, H, Sq, D, q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
@@ -118,12 +155,48 @@ def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), gq.data_ptr(), gk.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, strides,
                  float(scale * _LOG2E), float(eps), _KERNEL_DTYPES[q.dtype], stream)
-    if err != 0:
-        msg = lib.qknorm_flash_error_string
-        msg.restype = ctypes.c_char_p
-        msg.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"qknorm_flash_fwd launch failed: {msg(err).decode()} ({err})")
+    _raise_on_error(lib, err, "qknorm_flash_fwd", "qknorm_flash_error_string")
     return out, lse
+
+
+def qknorm_flash_backward(q, k, v, gq, gk, out, lse, dout, scale: float, eps: float, needs):
+    """The backward of K1 (JAX ``_qknorm_flash_bwd``, ``attention.py:540-550``):
+    recompute the normalised q and k with the plain norm, run K2a and K2b on
+    them (their plain versions on a CPU tensor), and chain the norm's VJP.
+    ``needs`` flags which of (q, k, v, gq, gk) want a gradient; returns
+    (dq, dk, dv, dgq, dgk) with None for the rest."""
+    need_q, need_k, need_v, need_gq, need_gk = needs
+    with torch.enable_grad():
+        qd, gqd = q.detach().requires_grad_(need_q), gq.detach().requires_grad_(need_gq)
+        kd, gkd = k.detach().requires_grad_(need_k), gk.detach().requires_grad_(need_gk)
+        qn = _rms_scale(qd, gqd, eps).to(q.dtype)
+        kn = _rms_scale(kd, gkd, eps).to(k.dtype)
+    if not (dout.stride(-1) == 1 and (dout.dtype != torch.bfloat16 or _vector_aligned(dout))):
+        dout = dout.contiguous()  # the kernels read dO in place when its layout allows
+    dqn, dkn, dv = flash_backward(qn.detach(), kn.detach(), v, out, lse, dout, scale)
+    dq, dgq = grads_where_needed(qn, (qd, gqd), (need_q, need_gq), dqn)
+    dk, dgk = grads_where_needed(kn, (kd, gkd), (need_k, need_gk), dkn)
+    return dq, dk, dv if need_v else None, dgq, dgk
+
+
+class _QKNormFlash(torch.autograd.Function):
+    """K1 with the JAX package's custom VJP: the forward launches K1 and keeps
+    q, k, v, the scale maps, O and the natural-log lse; the backward is
+    :func:`qknorm_flash_backward`. lse is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gq, gk, scale: float, eps: float):
+        out, lse = _launch_kernel(q, k, v, gq, gk, scale, eps)
+        qknorm_flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, gq, gk, out, lse)
+        ctx.scale, ctx.eps = scale, eps
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        return (*qknorm_flash_backward(*ctx.saved_tensors, dout, ctx.scale, ctx.eps,
+                                       ctx.needs_input_grad[:5]), None, None)
 
 
 def qknorm_flash_attention(q, k, v, gq, gk, scale: float, eps: float, return_lse: bool = False):
@@ -131,19 +204,162 @@ def qknorm_flash_attention(q, k, v, gq, gk, scale: float, eps: float, return_lse
 
     ``gq`` (Sq, D) / ``gk`` (Sk, D) are fp32 per-position scale maps. Returns O
     in q.dtype, and the natural-log lse (B, H, Sq) fp32 when asked. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (counted in
-    ``qknorm_flash_attention.launches``) or raise."""
+    take the plain version (autograd differentiates it); CUDA tensors launch
+    the kernel (counted in ``qknorm_flash_attention.launches``) through
+    :class:`_QKNormFlash`, so gradients run K2a and K2b, or raise."""
     if q.device.type == "cpu":
         return qknorm_attention_plain(q, k, v, gq, gk, scale, eps, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"qknorm_flash_attention: unsupported device {q.device}")
     _check_kernel_inputs(q, k, v, gq, gk)
-    out, lse = _launch_kernel(q, k, v, gq, gk, scale, eps)
-    qknorm_flash_attention.launches += 1
+    out, lse = _QKNormFlash.apply(q, k, v, gq, gk, float(scale), float(eps))
     return (out, lse) if return_lse else out
 
 
 qknorm_flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flash backward: K2a (dq) and K2b (dk, dv)
+# ---------------------------------------------------------------------------
+
+def _bwd_prologue(q, out, lse, dout):
+    """dO in q's dtype, Δ = rowsum(dO∘O) in fp32 and the base-2 lse
+    (JAX ``_flash_backward``, ``attention.py:711-717``)."""
+    dout = dout.to(q.dtype)
+    delta = torch.sum(dout.float() * out.float(), dim=-1)
+    return dout, delta, (lse * _LOG2E).contiguous()
+
+
+def _prescaled_q(q, scale: float):
+    """q·(scale·log2e) in q's dtype, the constant rounded to q's dtype first —
+    the JAX launcher multiplies by a weakly typed Python float (:716)."""
+    return q * torch.tensor(scale * _LOG2E, dtype=q.dtype, device=q.device)
+
+
+def _bwd_probs_and_ds(qs, k, v, dout, lse2, delta):
+    """p = exp2(min(s − lse2, 0)) and ds = p∘(dO vᵀ − Δ), both fp32."""
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(torch.clamp(s - lse2[..., None], max=0.0))
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse2, delta, scale: float):
+    """Plain version of K2a (JAX ``_flash_bwd_dq_kernel``): dq = scale·Σ ds·k
+    with ds rounded to k's dtype, fp32 accumulation, in q's dtype."""
+    _, ds = _bwd_probs_and_ds(_prescaled_q(q, scale), k, v, dout, lse2, delta)
+    return (torch.matmul(ds.to(k.dtype).float(), k.float()) * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse2, delta, scale: float):
+    """Plain version of K2b (JAX ``_flash_bwd_dkv_kernel``): dk = ln2·Σ dsᵀq̃
+    with ds rounded to q's dtype, dv = Σ pᵀdO with p rounded to dO's dtype."""
+    qs = _prescaled_q(q, scale)
+    p, ds = _bwd_probs_and_ds(qs, k, v, dout, lse2, delta)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qs.float()) * _LN2
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, out, lse, dout, scale: float):
+    """Plain version of K2a + K2b: the JAX ``_flash_backward`` (:708-785) step
+    by step. ``lse`` is the forward's natural-log lse; returns (dq, dk, dv)."""
+    dout, delta, lse2 = _bwd_prologue(q, out, lse, dout)
+    return (flash_bwd_dq_plain(q, k, v, dout, lse2, delta, scale),
+            *flash_bwd_dkv_plain(q, k, v, dout, lse2, delta, scale))
+
+
+def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
+    _check_heads(name, q, k, v, dout)
+    B, H, Sq, _ = q.shape
+    for what, t in (("lse2", lse2), ("delta", delta)):
+        if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous fp32 ({B}, {H}, {Sq}) on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _bwd_kernel_args(q, k, v, dout, lse2, delta):
+    B, H, Sq, D = q.shape
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr()], [B, H, Sq, k.shape[2], D]
+
+
+def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
+    """K2a: dq (B, H, Sq, D) in q's dtype, head-interleaved in memory.
+
+    ``lse2`` is the forward's lse times log2(e) and ``delta`` = rowsum(dO∘O),
+    both fp32 (B, H, Sq) contiguous; q is pre-scaled inside the kernel. CPU
+    tensors take :func:`flash_bwd_dq_plain`; CUDA tensors launch the kernel
+    (counted in ``flash_bwd_dq.launches``) or raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, dout, lse2, delta, scale)
+    _check_bwd_inputs("flash_bwd_dq", q, k, v, dout, lse2, delta)
+    from .cuda_build import load
+
+    lib = load("flash_bwd")
+    fn = lib.flash_bwd_dq
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    B, H, Sq, D = q.shape
+    dq = _head_interleaved(B, H, Sq, D, q)
+    ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
+    strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, dout, dq) for s in t.stride()[:3]))
+    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, dq.data_ptr(), *dims, strides, qmul, float(scale), _KERNEL_DTYPES[q.dtype], stream)
+    _raise_on_error(lib, err, "flash_bwd_dq", "flash_bwd_error_string")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float):
+    """K2b: (dk, dv) (B, H, Sk, D) in k's / v's dtype, head-interleaved in
+    memory. Arguments as :func:`flash_bwd_dq`. CPU tensors take
+    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel (counted in
+    ``flash_bwd_dkv.launches``) or raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, dout, lse2, delta, scale)
+    _check_bwd_inputs("flash_bwd_dkv", q, k, v, dout, lse2, delta)
+    from .cuda_build import load
+
+    lib = load("flash_bwd")
+    fn = lib.flash_bwd_dkv
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    B, H, Sk, D = k.shape
+    dk, dv = _head_interleaved(B, H, Sk, D, k), _head_interleaved(B, H, Sk, D, v)
+    ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
+    strides = (ctypes.c_longlong * 18)(*(s for t in (q, k, v, dout, dk, dv) for s in t.stride()[:3]))
+    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, qmul, _KERNEL_DTYPES[q.dtype], stream)
+    _raise_on_error(lib, err, "flash_bwd_dkv", "flash_bwd_error_string")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_backward(q, k, v, out, lse, dout, scale: float):
+    """Flash-attention backward, (dq, dk, dv), from the forward's O and
+    natural-log lse: the prologue (Δ, base-2 lse) in PyTorch as the JAX package
+    leaves it to XLA, then K2a and K2b — or their plain versions on a CPU
+    tensor."""
+    dout, delta, lse2 = _bwd_prologue(q, out, lse, dout)
+    dq = flash_bwd_dq(q, k, v, dout, lse2, delta, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse2, delta, scale)
+    return dq, dk, dv
 
 
 def qknorm_dot_product_attention(

@@ -18,9 +18,11 @@ registers (BLOCK_D = next power of two, masked), so each input byte is read
 once and each output byte written once; stats and modulation stay in fp32.
 
 On a CPU tensor the wrappers compute the plain versions (``_native_*``, the
-JAX package's ``_native_ln_mul_add`` / ``_native_residual_gate_modulate``);
-on a CUDA tensor they launch the kernel (counted in ``<wrapper>.launches``)
-or raise. The TPU's ``FFT_FUSED_NORMS``/``FFT_RGM`` A/B switches are not
+JAX package's ``_native_ln_mul_add`` / ``_native_residual_gate_modulate``),
+which autograd differentiates; on a CUDA tensor they launch the kernel
+(counted in ``<wrapper>.launches``) through a ``torch.autograd.Function``
+whose backward is the VJP of the plain version, as the JAX package's
+``custom_vjp`` is — or raise. The TPU's ``FFT_FUSED_NORMS``/``FFT_RGM`` A/B switches are not
 ported: on CUDA the kernels always run.
 """
 from __future__ import annotations
@@ -162,15 +164,26 @@ def _check_mod(name: str, m: torch.Tensor, x: torch.Tensor, per_token_ok: bool) 
                          f"{x.device}; got {m.dtype} {tuple(m.shape)} on {m.device}")
 
 
-def ln_mul_add(x, mul, add, eps: float, out_dtype, fold: bool, rms: bool = False):
-    """K5. ``mul``/``add``: fp32 (B, 1, D) or (B, S, D)."""
-    if x.device.type == "cpu":
-        return _native_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
-    _check_rows("ln_mul_add", x, out_dtype)
-    _check_mod("ln_mul_add", mul, x, True)
-    _check_mod("ln_mul_add", add, x, True)
-    if mul.shape != add.shape:
-        raise ValueError(f"ln_mul_add: mul {tuple(mul.shape)} and add {tuple(add.shape)} differ")
+def grads_where_needed(outputs, inputs, needs, cotangents):
+    """Gradients of ``outputs`` w.r.t. those ``inputs`` whose ``needs`` is set
+    (None for the rest): the tail of every kernel Function's backward."""
+    wanted = [x for x, need in zip(inputs, needs) if need]
+    if not wanted:
+        return (None,) * len(inputs)
+    grads = iter(torch.autograd.grad(outputs, wanted, cotangents))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+def _recompute_vjp(plain, saved, needs, cotangents):
+    """The backward of a kernel whose TPU counterpart has none: the VJP of its
+    plain composition, recomputed from the saved inputs."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        outputs = plain(*inputs)
+    return grads_where_needed(outputs, inputs, needs, cotangents)
+
+
+def _launch_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms):
     B, S, D = x.shape
     out = torch.empty((B, S, D), dtype=out_dtype, device=x.device)
     if x.numel():
@@ -185,11 +198,74 @@ def ln_mul_add(x, mul, add, eps: float, out_dtype, fold: bool, rms: bool = False
     return out
 
 
+class _LnMulAdd(torch.autograd.Function):
+    """K5; the backward is the VJP of the plain composition, recomputed from
+    the saved inputs (JAX ``_fused_ln_mul_add_bwd``, ``norms.py:158-163``)."""
+
+    @staticmethod
+    def forward(ctx, x, mul, add, eps, out_dtype, fold, rms):
+        ctx.save_for_backward(x, mul, add)
+        ctx.cfg = (eps, out_dtype, fold, rms)
+        return _launch_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda x, m, a: _native_ln_mul_add(x, m, a, *ctx.cfg)
+        return (*_recompute_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g),
+                None, None, None, None)
+
+
+def ln_mul_add(x, mul, add, eps: float, out_dtype, fold: bool, rms: bool = False):
+    """K5. ``mul``/``add``: fp32 (B, 1, D) or (B, S, D). CPU tensors take the
+    plain version; CUDA tensors launch the kernel through :class:`_LnMulAdd`."""
+    if x.device.type == "cpu":
+        return _native_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
+    _check_rows("ln_mul_add", x, out_dtype)
+    _check_mod("ln_mul_add", mul, x, True)
+    _check_mod("ln_mul_add", add, x, True)
+    if mul.shape != add.shape:
+        raise ValueError(f"ln_mul_add: mul {tuple(mul.shape)} and add {tuple(add.shape)} differ")
+    return _LnMulAdd.apply(x, mul, add, float(eps), out_dtype, bool(fold), bool(rms))
+
+
 ln_mul_add.launches = 0
 
 
+def _launch_rgm(x, branch, gate, mul, add, eps, out_dtype):
+    B, S, D = x.shape
+    x_new = torch.empty_like(x)
+    x_mod = torch.empty((B, S, D), dtype=out_dtype, device=x.device)
+    if x.numel():
+        _, kernel = _triton_kernels()
+        block, warps = _launch_config(D)
+        with torch.cuda.device(x.device):
+            kernel[(B * S,)](x, branch, gate, mul, add, x_new, x_mod, S, D, float(eps),
+                             BF16=x.dtype == torch.bfloat16, BLOCK_D=block, num_warps=warps)
+        residual_gate_modulate_rows.launches += 1
+    return x_new, x_mod
+
+
+class _ResidualGateModulate(torch.autograd.Function):
+    """K6; the backward is the VJP of the plain composition, recomputed from
+    the saved inputs (JAX ``_rgm_fused_bwd``, ``norms.py:358-364``)."""
+
+    @staticmethod
+    def forward(ctx, x, branch, gate, mul, add, eps, out_dtype):
+        ctx.save_for_backward(x, branch, gate, mul, add)
+        ctx.cfg = (eps, out_dtype)
+        return _launch_rgm(x, branch, gate, mul, add, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g_new, g_mod):
+        plain = lambda x, b, gt, m, a: _native_residual_gate_modulate(x, b, gt, m, a, *ctx.cfg)
+        return (*_recompute_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:5], (g_new, g_mod)),
+                None, None)
+
+
 def residual_gate_modulate_rows(x, branch, gate, mul, add, eps: float, out_dtype):
-    """K6. x/branch (B, S, D); gate (B, D) fp32; mul/add (B, 1, D) fp32."""
+    """K6. x/branch (B, S, D); gate (B, D) fp32; mul/add (B, 1, D) fp32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel through
+    :class:`_ResidualGateModulate`."""
     if x.device.type == "cpu":
         return _native_residual_gate_modulate(x, branch, gate, mul, add, eps, out_dtype)
     name = "residual_gate_modulate"
@@ -202,16 +278,7 @@ def residual_gate_modulate_rows(x, branch, gate, mul, add, eps: float, out_dtype
                          f"{gate.dtype} {tuple(gate.shape)}")
     _check_mod(name, mul, x, False)
     _check_mod(name, add, x, False)
-    x_new = torch.empty_like(x)
-    x_mod = torch.empty((B, S, D), dtype=out_dtype, device=x.device)
-    if x.numel():
-        _, kernel = _triton_kernels()
-        block, warps = _launch_config(D)
-        with torch.cuda.device(x.device):
-            kernel[(B * S,)](x, branch, gate, mul, add, x_new, x_mod, S, D, float(eps),
-                             BF16=x.dtype == torch.bfloat16, BLOCK_D=block, num_warps=warps)
-        residual_gate_modulate_rows.launches += 1
-    return x_new, x_mod
+    return _ResidualGateModulate.apply(x, branch, gate, mul, add, float(eps), out_dtype)
 
 
 residual_gate_modulate_rows.launches = 0

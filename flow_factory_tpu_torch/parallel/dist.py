@@ -47,3 +47,26 @@ def host_allgather_objects(objs: List[Any]) -> List[List[Any]]:
     """Gather picklable objects from every process: one list per process."""
     _single_process("host_allgather_objects")
     return [list(objs)]
+
+
+def barrier(name: str) -> None:
+    """Wait for every process (a no-op for one)."""
+    _single_process(f"barrier {name!r}")
+
+
+def reduce_loss_info(loss_info: dict) -> dict:
+    """Metric reduction over the steps of a phase (and, later, processes):
+    a metric with several values → flat ``metric`` (mean) and
+    ``metric_{std,min,max}`` keys; one value → its mean."""
+    _single_process("reduce_loss_info")
+    out: dict = {}
+    for name in sorted(loss_info):
+        v = np.asarray(loss_info[name], np.float64).reshape(-1)
+        n = max(v.size, 1)
+        mean = v.sum() / n
+        out[name] = float(mean)
+        if v.size > 1:
+            out[f"{name}_std"] = float(np.sqrt(max((v * v).sum() / n - mean * mean, 0.0)))
+            out[f"{name}_min"] = float(v.min())
+            out[f"{name}_max"] = float(v.max())
+    return out

@@ -42,7 +42,7 @@ class RewardProcessor:
     def score(self, samples: List[BaseSample]) -> Dict[str, np.ndarray]:
         results: Dict[str, np.ndarray] = {}
         for model in self.reward_models:
-            if not isinstance(model, PointwiseRewardModel):
+            if model.reward_type != "pointwise":  # by type, so reward aliases pass
                 raise NotImplementedError(
                     f"reward {model.name!r} is {model.reward_type}: only pointwise rewards are ported")
             results[model.name] = self._score_pointwise(model, samples)
@@ -57,3 +57,41 @@ class RewardProcessor:
             s.extra_kwargs["rewards"] = rewards
             s.extra_kwargs["reward"] = sum(self.reward_weights.get(k, 1.0) * v for k, v in rewards.items())
         return per_model
+
+
+class RewardBuffer:
+    """Accumulates a rollout's samples and scores them at :meth:`finalize`
+    (JAX ``RewardBuffer``, ``reward_processor.py:204``), pointwise and
+    synchronous: asynchronous and groupwise scoring are not ported yet, and a
+    model configured for them raises here rather than being scored another way."""
+
+    def __init__(self, reward_models: Sequence[BaseRewardModel],
+                 reward_weights: Optional[Dict[str, float]] = None):
+        for m in reward_models:
+            if getattr(m.args, "async_reward", False):
+                raise NotImplementedError(f"reward {m.name!r}: async rewards are not ported yet")
+            if m.reward_type != "pointwise":
+                raise NotImplementedError(f"reward {m.name!r} is {m.reward_type}: only pointwise "
+                                          "rewards are ported")
+        self.processor = RewardProcessor(reward_models,
+                                         reward_weights or {m.name: m.weight for m in reward_models})
+        self._samples: List[BaseSample] = []
+
+    def add_samples(self, samples: Sequence[BaseSample]) -> None:
+        self._samples.extend(samples)
+
+    @property
+    def samples(self) -> List[BaseSample]:
+        return self._samples
+
+    def finalize(self) -> List[BaseSample]:
+        """Score every model and attach ``rewards`` / ``reward`` to the samples."""
+        self.processor.score_and_attach(self._samples)
+        return self._samples
+
+    def clear(self) -> None:
+        self._samples = []
+
+    def cleanup(self) -> None:
+        for m in self.processor.reward_models:
+            m.cleanup()

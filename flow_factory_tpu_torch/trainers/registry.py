@@ -1,0 +1,28 @@
+"""Trainer registry of the port: config ``trainer_type`` → trainer class,
+imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
+Only GRPO and GRPO-Guard are ported so far."""
+from __future__ import annotations
+
+import importlib
+from typing import Type
+
+_TRAINER_REGISTRY = {
+    "grpo": "flow_factory_tpu_torch.trainers.grpo:GRPOTrainer",
+    "grpo_guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
+    "grpo-guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
+}
+_NOT_PORTED = ("dpo", "nft", "awm", "dgpo", "crd")
+
+
+def resolve_trainer_class(trainer_type: str) -> Type:
+    key = str(trainer_type).lower()
+    if key in _NOT_PORTED:
+        raise NotImplementedError(f"trainer {trainer_type!r} is not ported yet")
+    target = _TRAINER_REGISTRY.get(key, trainer_type)
+    if ":" in target:
+        module_name, cls_name = target.split(":")
+    elif "." in target:
+        module_name, cls_name = target.rsplit(".", 1)
+    else:
+        raise KeyError(f"Unknown trainer_type {trainer_type!r}; known: {sorted(_TRAINER_REGISTRY)}")
+    return getattr(importlib.import_module(module_name), cls_name)

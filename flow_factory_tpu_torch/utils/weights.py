@@ -204,3 +204,39 @@ def sd35_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
     """All SD3.5 components' flax trees → the port's state dicts."""
     maps = sd35_component_maps(configs)
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
+# ---------------------------------------------------------------------------
+# LoRA trees: flax {path/kernel: {a (in, r), b (r, out)}} ↔ the port's PEFT
+# layout {module path: {lora_A (r, in), lora_B (out, r)}}
+# ---------------------------------------------------------------------------
+
+def lora_from_flax(lora: Mapping[str, Mapping[str, Any]], module_map: ModuleMap
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA tree (numpy leaves) → the port's names and layout (strict:
+    a path no rule maps raises)."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    unmatched = []
+    for path, ab in lora.items():
+        port = module_map.get(path[: -len("/kernel")]) if path.endswith("/kernel") else None
+        if port is None or set(ab) != {"a", "b"}:
+            unmatched.append(path)
+            continue
+        out[port] = {"lora_A": torch.from_numpy(np.array(np.asarray(ab["a"]).T)),
+                     "lora_B": torch.from_numpy(np.array(np.asarray(ab["b"]).T))}
+    if unmatched:
+        raise KeyError(f"LoRA bridge: {len(unmatched)} flax paths have no rule: {unmatched[:10]}")
+    return out
+
+
+def lora_to_flax(tree: Mapping[str, Mapping[str, torch.Tensor]], module_map: ModuleMap
+                 ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's LoRA tree (or its gradients) → flax paths and layout, numpy
+    (strict: a port path with no flax module raises)."""
+    inverse = {port: flax for flax, port in module_map.items()}
+    missing = [path for path in tree if path not in inverse]
+    if missing:
+        raise KeyError(f"LoRA bridge: {len(missing)} port paths have no flax module: {missing[:10]}")
+    return {f"{inverse[path]}/kernel": {"a": ab["lora_A"].detach().cpu().numpy().T.copy(),
+                                        "b": ab["lora_B"].detach().cpu().numpy().T.copy()}
+            for path, ab in tree.items()}

@@ -13,7 +13,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, imported in a fresh interpreter, leaves
+    """Every module of the port — the training slice's ``trainers``, ``data``,
+    ``ema`` and ``train`` among them — imported in a fresh interpreter, leaves
     jax, flax and flow_factory_tpu out of sys.modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -23,8 +24,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "flow_factory_tpu"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 30 else 0)
+        need = {pkg.__name__ + "." + m for m in ("trainers.grpo", "trainers.abc", "data.dataset",
+                                                 "data.sampler", "data.loader", "ema.ema", "train",
+                                                 "models.lora")}
+        print(len(names), bad, sorted(need - set(names)))
+        sys.exit(1 if bad or need - set(names) or len(names) < 30 else 0)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

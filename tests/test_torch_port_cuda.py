@@ -1,5 +1,6 @@
-"""PyTorch port, on the card: kernels K1, K5 and K6 against their plain
-versions, and the no-fallback guards on CUDA tensors.
+"""PyTorch port, on the card: kernels K1, K2a/K2b, K5 and K6 against their
+plain versions, gradients through their autograd Functions against plain
+autograd, and the no-fallback guards on CUDA tensors.
 
 Marked ``cuda``; every test skips without a CUDA device. On a machine with
 an NVIDIA GPU (the suite's conftest imports JAX, which that machine need not
@@ -129,3 +130,178 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(gen):
     with pytest.raises(ValueError):
         N.residual_gate_modulate_rows(y, y, torch.ones(2, 64, device="cuda", dtype=torch.float16),
                                       m[:2], m[:2], 1e-6, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K2a / K2b: the flash backward
+# ---------------------------------------------------------------------------
+
+def _k2_inputs(gen, B, H, Sq, Sk, dtype, strided):
+    """q/k/v/dO in the head-split strided layout (or contiguous), O and lse
+    from the plain forward of the same inputs."""
+    def heads(S):
+        if strided:
+            return _randn(gen, B, S, H, 64, dtype=dtype).transpose(1, 2)
+        return _randn(gen, B, H, S, 64, dtype=dtype)
+
+    q, k, v, dout = heads(Sq), heads(Sk), heads(Sk), heads(Sq)
+    out, lse = A.native_attention(q, k, v, scale=0.125, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def _k2_tol(ref, dtype):
+    """The bars of chip_smoke.py. fp32: summation order only, 1e-5 relative
+    to max|ref|. bf16: p and ds round to bf16 in both versions, but a value
+    near a rounding boundary can round the other way after a different
+    summation order; half a bf16 ulp of max|ref| seen, bar 2 ulp."""
+    mag = ref.float().abs().max().item()
+    return 1e-5 * max(mag, 1.0) if dtype == torch.float32 else 2 * _bf16_ulp(mag)
+
+
+@pytest.mark.parametrize("dtype,Sq,Sk,strided", [
+    (torch.bfloat16, 333, 333, True),    # tensor-core variant, ragged tail, head-split views
+    (torch.bfloat16, 200, 333, False),   # Sq != Sk
+    (torch.float32, 197, 130, True),     # FMA variant
+])
+def test_flash_backward_matches_plain(gen, dtype, Sq, Sk, strided):
+    q, k, v, out, lse, dout = _k2_inputs(gen, 2, 3, Sq, Sk, dtype, strided)
+    before = (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    got = A.flash_backward(q, k, v, out, lse, dout, 0.125)
+    ref = A.flash_backward_plain(q, k, v, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err, tol = (g.float() - r.float()).abs().max().item(), _k2_tol(r, dtype)
+        print(f"K2 {dtype} {Sq}x{Sk} {name}: max|d| {err:.3e} tol {tol:.3e}")
+        assert g.shape == r.shape and err <= tol, name
+
+
+def test_flash_backward_bars_reject_wrong_plain_versions(gen):
+    """Negative controls: a plain version without Δ, and one without the
+    ragged key tail, both miss the kernel by more than the bar."""
+    q, k, v, out, lse, dout = _k2_inputs(gen, 2, 3, 333, 333, torch.bfloat16, True)
+    dq, dk, _ = A.flash_backward(q, k, v, out, lse, dout, 0.125)
+    d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    no_delta = A.flash_bwd_dq_plain(q, k, v, d32, lse2, torch.zeros_like(delta), 0.125)
+    n = 320  # the last whole 64-key tile
+    no_tail = A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d32, lse2, delta, 0.125)
+    tol = _k2_tol(no_delta, torch.bfloat16)
+    assert (dq.float() - no_delta.float()).abs().max().item() > tol
+    assert (dq.float() - no_tail.float()).abs().max().item() > tol
+
+
+def test_flash_backward_is_deterministic(gen):
+    q, k, v, out, lse, dout = _k2_inputs(gen, 2, 3, 333, 333, torch.bfloat16, True)
+    a = A.flash_backward(q, k, v, out, lse, dout, 0.125)
+    b = A.flash_backward(q, k, v, out, lse, dout, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_backward_refuses_what_it_does_not_take(gen):
+    q, k, v, out, lse, dout = _k2_inputs(gen, 1, 2, 64, 64, torch.bfloat16, False)
+    d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    with pytest.raises(TypeError):  # mixed dtypes
+        A.flash_bwd_dq(q, k.float(), v, d32, lse2, delta, 0.125)
+    odd = _randn(gen, 1 * 2 * 64 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError):  # 8-byte offset: the 16-byte loads refuse it
+        A.flash_bwd_dkv(odd, k, v, d32, lse2, delta, 0.125)
+    with pytest.raises(ValueError):  # head dim 32
+        A.flash_bwd_dq(q[..., :32], k[..., :32], v[..., :32], d32[..., :32], lse2, delta, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# Autograd through K1, K5 and K6
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, weights):
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    return outs, torch.autograd.grad(loss, leaves)
+
+
+def test_qknorm_flash_records_a_node_and_its_grads_match_plain_autograd(gen):
+    """fp32: the K1 Function's gradients (K2a/K2b + the norm VJP) against
+    autograd through the plain version: 1e-4 relative to each max."""
+    S = 197
+    q, k, v = (_randn(gen, 2, 3, S, 64) for _ in range(3))
+    gq, gk = 1.0 + 0.1 * _randn(gen, S, 64), 1.0 + 0.1 * _randn(gen, S, 64)
+    w = _randn(gen, 2, 3, S, 64)
+    kern = lambda *t: A.qknorm_flash_attention(*t, 0.125, 1e-6)
+    plain = lambda *t: A.qknorm_attention_plain(*t, 0.125, 1e-6)
+    (o,), g_kern = _grads(kern, (q, k, v, gq, gk), (w,))
+    _, g_plain = _grads(plain, (q, k, v, gq, gk), (w,))
+    assert o.grad_fn is not None
+    for name, a, b in zip(("dq", "dk", "dv", "dgq", "dgk"), g_kern, g_plain):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+@pytest.mark.parametrize("which", ["ln_mul_add", "rgm"])
+def test_norm_kernels_record_a_node_and_grads_match_plain_autograd(gen, which):
+    """The K5/K6 backward is the plain composition's VJP, so with a loss
+    linear in the outputs the gradients equal plain autograd's (1e-6
+    relative, fp32; bf16 inputs take the same path)."""
+    x, br = _randn(gen, 2, 45, 1536), _randn(gen, 2, 45, 1536)
+    mul, add = 1.0 + 0.1 * _randn(gen, 2, 1, 1536), 0.1 * _randn(gen, 2, 1, 1536)
+    gate = _randn(gen, 2, 1536)
+    if which == "ln_mul_add":
+        kern = lambda x, m, a: N.ln_mul_add(x, m, a, 1e-6, torch.float32, fold=False)
+        plain = lambda x, m, a: N._native_ln_mul_add(x, m, a, 1e-6, torch.float32, False)
+        inputs, weights = (x, mul, add), (_randn(gen, 2, 45, 1536),)
+    else:
+        kern = lambda *t: N.residual_gate_modulate_rows(*t, 1e-6, torch.float32)
+        plain = lambda *t: N._native_residual_gate_modulate(*t, 1e-6, torch.float32)
+        inputs, weights = (x, br, gate, mul, add), (_randn(gen, 2, 45, 1536), _randn(gen, 2, 45, 1536))
+    outs, g_kern = _grads(kern, inputs, weights)
+    _, g_plain = _grads(plain, inputs, weights)
+    assert all(o.grad_fn is not None for o in outs)
+    for a, b in zip(g_kern, g_plain):
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+def test_lora_gradients_reach_attention_and_adaln_through_the_kernels(gen):
+    """A two-block MMDiT with head dim 64 in bf16 on the card: the LoRA
+    gradient of a loss on the velocity through K1/K2/K5/K6 against the plain
+    attention and plain norms, every leaf within 5e-2 of its max (bf16
+    activations, two roundings of the same math), and every LoRA leaf on the
+    attention projections and the AdaLN linears non-zero."""
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import DEFAULT_TARGET_PATTERNS, init_lora, merge_lora
+    from flow_factory_tpu_torch.models.sd3.transformer import MMDiTConfig, SD3Transformer
+
+    cfg = MMDiTConfig.tiny(hidden_dim=128, num_heads=2, dtype="bfloat16")
+    model = build_module(lambda: SD3Transformer(cfg), torch.device("cuda"), torch.bfloat16, gen)
+    patterns = DEFAULT_TARGET_PATTERNS + (r".*\.norm1(_context)?\.linear\.weight$",)
+    lora = init_lora(model, 4, gen, patterns)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 0.01, generator=gen)
+    x, t = _randn(gen, 2, 16, 16, 16), torch.full((2,), 500.0, device="cuda")
+    ctx, pooled = _randn(gen, 2, 12, cfg.context_dim), _randn(gen, 2, cfg.pooled_dim)
+    w = _randn(gen, 2, 16, 16, 16)
+
+    def lora_grads():
+        leaves = [ab[k] for ab in lora.values() for k in ("lora_A", "lora_B")]
+        v = functional_call(model, merge_lora(model, lora, 2.0), (x.bfloat16(), t, ctx, pooled))
+        return dict(zip([f"{p}.{k}" for p in lora for k in ("lora_A", "lora_B")],
+                        torch.autograd.grad((v.float() * w).sum(), leaves)))
+
+    kern = lora_grads()
+    for m in model.modules():
+        if hasattr(m, "attn_backend"):
+            m.attn_backend = "native"
+    ln, rgm = N.ln_mul_add, N.residual_gate_modulate_rows
+    N.ln_mul_add = lambda x, m, a, eps, dt, fold, rms=False: N._native_ln_mul_add(x, m, a, eps, dt, fold, rms)
+    N.residual_gate_modulate_rows = N._native_residual_gate_modulate
+    try:
+        plain = lora_grads()
+    finally:
+        N.ln_mul_add, N.residual_gate_modulate_rows = ln, rgm
+    for name, g in kern.items():
+        ref = plain[name]
+        assert (g - ref).abs().max().item() <= 5e-2 * ref.abs().max().item(), name
+        if any(s in name for s in ("attn.to_q", "attn.add_k_proj", "attn2.to_v", "norm1.linear",
+                                   "norm1_context.linear")):
+            assert g.abs().max().item() > 0, name
