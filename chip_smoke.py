@@ -8,10 +8,11 @@ printing one line and exiting non-zero on failure:
    the seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``
    (one nvcc per source, all started together);
 2. kernels: K1 (fused qk-norm flash forward), K2a/K2b (flash backward for dq
-   and for dk/dv, all CUDA C++), K5 (norm-modulate) and K6
-   (residual-gate-modulate, both Triton) against their plain PyTorch
-   versions at the SD3.5-M shapes and a small ragged shape each, with
-   stated tolerances, negative controls and CUDA-event timings;
+   and for dk/dv), K3 (plain flash forward, head dim 128 and 64; all CUDA
+   C++), K5 (norm-modulate) and K6 (residual-gate-modulate, both Triton)
+   against their plain PyTorch versions at the SD3.5-M and Wan2.1-1.3B
+   shapes and small ragged shapes, with stated tolerances, negative
+   controls and CUDA-event timings;
 3. the serving slice at full width: SD3.5-M (random weights from a seed,
    bf16) through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
    samples, 512 px, 10 steps, CFG 4.5, Flow-SDE with log-probs, decode) →
@@ -19,6 +20,14 @@ printing one line and exiting non-zero on failure:
    transition, whose ratio ``exp(new_lp - old_lp)`` must be exactly 1.0;
    then a torch.profiler breakdown of one replayed step (device time by
    kernel, idle share; the trace goes to ``chiprun_out/``);
+3b. wan: the Wan2.1-T2V-1.3B serving slice at full width (random weights
+   from a seed, bf16: the 30-layer DiT, UMT5-XXL, the causal video VAE)
+   through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
+   videos, 256 px x 5 frames, 10 steps, CFG 5.0, Flow-SDE with log-probs,
+   decode) → brightness reward → group advantages → no-grad replay (ratio
+   exactly 1.0 on every stored step), K3 and K5 launched exactly as often
+   as the code predicts, a 28-step UniPC eval rollout, and a profile of one
+   replayed step;
 4. grad: the LoRA gradient of a log-prob loss through the kernels at
    SD3.5-M width and reduced depth (2 blocks, one with dual attention,
    B=16), against the same gradient through the plain attention and plain
@@ -53,6 +62,8 @@ import time
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+#: the kernels of the SD3.5 GRPO path (K3 runs on the Wan path only)
+SD35_KERNELS = ("qknorm_flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_mul_add", "residual_gate_modulate")
 
 
 def log(msg: str) -> None:
@@ -64,21 +75,25 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` in milliseconds."""
+def time_ms(fn, iters: int = 10, warmup: int = 2, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn``: the CUDA-event time of ``iters``
+    back-to-back calls over ``iters``, the median of ``reps`` such runs. The
+    host keeps the queue full, so a call's launch overhead counts only where
+    it is longer than the device's work."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -220,6 +235,7 @@ def phase_kernels(results: dict) -> None:
         torch.cuda.empty_cache()
 
     phase_kernels_k2(results, randn)
+    phase_kernels_k3(results, randn)
 
     # ---- K5: LayerNorm/RMSNorm + modulate ------------------------------------
     # Tolerance: both compute fp32 stats (different summation order) and round
@@ -402,6 +418,73 @@ def phase_kernels_k2(results: dict, randn) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_kernels_k3(results: dict, randn) -> None:
+    """K3 (the plain flash forward) at the Wan2.1-1.3B shapes: self-attention
+    over the 512 video tokens of 256 px x 5 frames (q/k/v the head-split
+    views of the projections), cross-attention to the 512 UMT5 tokens (q
+    contiguous, k/v head-split views of the context projections), the
+    reference's eval geometry 480 px x 13 frames (4*30*30 = 3600 tokens, a
+    ragged 16-key tail) and a small ragged head-dim-64 shape.
+
+    Tolerances are K1's: 4 bf16 ulp of max|O| on O and 1e-2 on lse. Both
+    versions round q*scale*log2(e) once and p to bf16 before PV; the
+    kernel's online softmax rounds p against a running max over 64-key
+    tiles, the plain version against the row max, which moves O by an ulp
+    or two. Negative controls that must miss these bars: a plain version
+    whose logits carry the scale but not log2(e) (every shape), and one that
+    takes the zero-padded key tail for real keys (the ragged shapes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    for tag, B, H, Sq, Sk, D in (
+            ("wan-self", 16, 12, 512, 512, 128),
+            ("wan-cross", 16, 12, 512, 512, 128),
+            ("eval-480px-13f", 4, 12, 3600, 3600, 128),
+            ("ragged-d64", 2, 3, 300, 77, 64)):
+        heads = lambda S: randn(B, S, H, D).transpose(1, 2)  # view of a (B, S, H*D) projection
+        q = randn(B, H, Sq, D) if tag == "wan-cross" else heads(Sq)
+        k, v = heads(Sk), heads(Sk)
+        scale = D ** -0.5
+        out, lse = A.flash_attention(q, k, v, scale, return_lse=True)
+        ref, ref_lse = A.flash_attention_plain(q, k, v, scale, return_lse=True)
+        torch.cuda.synchronize()
+        tol_o, tol_lse = 4 * bf16_ulp(ref.float().abs().max().item()), 1e-2
+        err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
+        layout = "q contiguous, k/v views" if tag == "wan-cross" else "q/k/v views"
+        _check(f"K3 {tag} O q{tuple(q.shape)} k{tuple(k.shape)} bf16 {layout}", err_o, tol_o)
+        _check(f"K3 {tag} lse", err_lse, tol_lse)
+        _negative_control(f"K3 {tag} vs a plain version without log2(e) in its logits", (out, lse),
+                          A.flash_attention_plain(q, k, v, scale / A._LOG2E, return_lse=True), tol_o, tol_lse)
+        pad = (-Sk) % 64
+        if pad:
+            padded = lambda t: F.pad(t, (0, 0, 0, pad))
+            _negative_control(f"K3 {tag} vs a plain version that takes the {pad} padded keys for real",
+                              (out, lse), A.flash_attention_plain(q, padded(k), padded(v), scale, return_lse=True),
+                              tol_o, tol_lse)
+        again = A.flash_attention(q, k, v, scale)
+        same = torch.equal(out, again)
+        log(f"[kernels] K3 {tag}: two launches give the same bits: {same}")
+        if not same:
+            fail("K3 is not deterministic")
+        ms = time_ms(lambda: A.flash_attention(q, k, v, scale))
+        plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, scale), iters=3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        flops = A.attention_flops(B, H, Sq, Sk, D)
+        byts = nbytes(q, k, v, out, lse)
+        bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+        _record(results, tag, dict(
+            name="flash_fwd", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_fwd.cu",
+            replaces="flow_factory_tpu/ops/attention.py:101", max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
+            library_ms=lib_ms))
+        log(f"[kernels] K3 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms"
+            f" | bound {bound:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, out, ref, again
+        torch.cuda.empty_cache()
+
+
 def _config(**overrides):
     from flow_factory_tpu_torch.hparams import Arguments
 
@@ -514,6 +597,155 @@ def phase_slice() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | advantage/std {metrics['advantage/std']:.4f}")
 
 
+def _wan_config():
+    from flow_factory_tpu_torch.hparams import Arguments
+
+    # examples/grpo/lora/wan21/t2v.yaml (Wan2.1-T2V-1.3B GRPO) cut to size:
+    # 2 prompts x group 4 = 8 videos (B = 16 under CFG) instead of 48 x 24;
+    # random bf16 weights from seed 42 (no checkpoint in the repo) for the
+    # DiT, UMT5-XXL and the VAE; HashTokenizer ids; the brightness reward
+    # instead of PickScore. Widths, depth and geometry are the config's own.
+    return Arguments.from_dict({
+        "data": {"dataset_dir": "dataset/vid_prompt"},
+        "model": {"model_type": "wan2-t2v", "model_name_or_path": "", "variant": "1.3b",
+                  "finetune_type": "lora", "lora_rank": 32, "lora_alpha": 64, "target_modules": "default",
+                  "attn_backend": "auto", "master_dtype": "float32", "inference_dtype": "bfloat16"},
+        "scheduler": {"dynamics_type": "Flow-SDE", "noise_level": 0.8, "num_sde_steps": 2,
+                      "sde_steps": [1, 2, 3, 4, 5], "seed": 42},
+        "train": {"trainer_type": "grpo", "advantage_aggregation": "sum", "resolution": 256,
+                  "num_inference_steps": 10, "guidance_scale": 5.0, "per_device_batch_size": 8,
+                  "group_size": 4, "unique_sample_num_per_epoch": 2, "num_frames": 5, "seed": 42},
+        "eval": {"resolution": 256, "num_inference_steps": 28, "guidance_scale": 5.0},
+        "log": {},
+        "rewards": [{"name": "brightness", "reward_model": "MyReward", "batch_size": 8}],
+    })
+
+
+def phase_wan() -> dict:
+    """The Wan2.1-T2V-1.3B serving slice at full width; returns the launch
+    counts of the 10-step rollout."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.advantage import AdvantageProcessor
+    from flow_factory_tpu_torch.models import load_adapter
+    from flow_factory_tpu_torch.rewards import RewardProcessor, load_reward_models
+
+    cfg = _wan_config()
+    ta = cfg.training_args
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "dataset/vid_prompt/train.txt")) as f:
+        prompts = [line.strip() for line in f if line.strip()][:2]
+    batch = [p for p in prompts for _ in range(ta.group_size)]
+    secs = {}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapter = load_adapter(cfg)  # cuda
+    torch.cuda.synchronize()
+    secs["load_adapter"] = time.perf_counter() - t0
+    tcfg = adapter.component_configs["transformer"]
+    n_params = {c: sum(p.numel() for p in m.parameters()) / 1e9 for c, m in adapter.modules.items()}
+    log(f"[wan] Wan2.1-T2V-1.3B loaded: hidden {tcfg.hidden_dim}, layers {tcfg.num_layers}, heads "
+        f"{tcfg.num_heads} of {tcfg.head_dim}, ffn {tcfg.ffn_dim}; params (B) "
+        f"{ {c: round(n, 3) for c, n in n_params.items()} }; scheduler {type(adapter.scheduler).__name__}; "
+        f"LoRA on {len(adapter.trainable['transformer'])} weights; {secs['load_adapter']:.1f} s")
+
+    t0 = time.perf_counter()
+    enc = adapter.encode_prompt(batch)
+    neg = adapter.encode_prompt([""] * len(batch))
+    torch.cuda.synchronize()
+    secs["encode"] = time.perf_counter() - t0
+    kw = dict(height=256, width=256, num_frames=5, guidance_scale=5.0, trajectory_indices="all")
+    adapter.rollout()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    samples = adapter.inference(prompt=batch, prompt_embeds=enc["prompt_embeds"],
+                                negative_prompt_embeds=neg["prompt_embeds"], num_inference_steps=10,
+                                compute_log_prob=True, seed=ta.seed, decode=True, **kw)
+    torch.cuda.synchronize()
+    secs["rollout+decode"] = time.perf_counter() - t0
+    rollout_counts = ops.launch_counts()
+
+    t0 = time.perf_counter()
+    RewardProcessor(load_reward_models(cfg.reward_args), cfg.reward_args.reward_weights).score_and_attach(samples)
+    metrics = AdvantageProcessor(group_size=ta.group_size, aggregation=ta.advantage_aggregation,
+                                 reward_weights=cfg.reward_args.reward_weights).compute_advantages(samples)
+    secs["reward+advantage"] = time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new_lp = adapter.replay_log_probs(samples)
+    torch.cuda.synchronize()
+    secs["replay"] = time.perf_counter() - t0
+    replay_counts = ops.launch_counts()
+
+    old = np.stack([s.log_probs for s in samples], axis=1)  # (T, B)
+    sde_steps = [int(i) for i in np.nonzero(samples[0].extra_kwargs["noise_levels"])[0]]
+    ratios = {i: np.exp(lp.double().cpu().numpy() - old[i].astype(np.float64)) for i, lp in new_lp.items()}
+    bad = {i: r.tolist() for i, r in ratios.items() if not np.all(r == 1.0)}
+    videos = np.stack([s.video for s in samples])
+    rewards = np.asarray([s.extra_kwargs["reward"] for s in samples])
+    advantages = np.asarray([s.extra_kwargs["advantage"] for s in samples])
+    log(f"[wan] videos {videos.shape} range [{videos.min():.3f}, {videos.max():.3f}] | rewards "
+        f"{np.round(rewards, 4).tolist()} | advantages {np.round(advantages, 3).tolist()}")
+    log(f"[wan] replayed steps {sorted(new_lp)} (SDE steps {sde_steps}); ratio==1.0 exactly on "
+        f"{len(ratios) - len(bad)}/{len(ratios)}; old lp at SDE steps "
+        f"{np.round(old[sde_steps].mean(axis=1), 4).tolist()}")
+    if videos.shape != (8, 5, 3, 256, 256):
+        fail(f"unexpected video batch {videos.shape}")
+    for name, arr in (("videos", videos), ("log-probs", old), ("rewards", rewards), ("advantages", advantages)):
+        if not np.all(np.isfinite(arr)):
+            fail(f"non-finite {name}")
+    if bad or len(ratios) != 10:
+        fail(f"replay ratio != 1.0 at steps {sorted(bad)}: {bad}")
+    # per DiT forward: 2 attentions and 3 K5 norms a block, 1 K5 in the head
+    per_forward = {"flash_fwd": 2 * tcfg.num_layers, "ln_mul_add": 3 * tcfg.num_layers + 1}
+    want = {name: 10 * n for name, n in per_forward.items()}
+    got = {name: rollout_counts[name] for name in want}
+    got_replay = {name: replay_counts[name] for name in want}
+    log(f"[wan] launches rollout {rollout_counts} | replay of {len(new_lp)} steps {replay_counts} "
+        f"(predicted {want} each)")
+    if got != want or got_replay != want:
+        fail(f"K3/K5 launches differ from the prediction: rollout {got}, replay {got_replay}, want {want}")
+
+    # the decode alone, again on the last stored latents (its share of rollout+decode)
+    last = torch.from_numpy(np.stack([s.all_latents[-1] for s in samples])).to(adapter.device)
+    t0 = time.perf_counter()
+    adapter.decode_latents(last, num_frames=5)
+    torch.cuda.synchronize()
+    secs["decode alone"] = time.perf_counter() - t0
+    phase_profile(adapter, samples, sde_steps[0], "wan_replay_step_trace.json")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # eval: UniPC order 2 predictor-corrector, 28 steps, ODE (log-probs zero)
+    adapter.eval()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = adapter.inference(prompt=batch[::ta.group_size], prompt_embeds=enc["prompt_embeds"][::ta.group_size],
+                           negative_prompt_embeds=neg["prompt_embeds"][::ta.group_size],
+                           num_inference_steps=28, seed=ta.seed, **kw)
+    torch.cuda.synchronize()
+    secs["eval 28 steps+decode"] = time.perf_counter() - t0
+    eval_counts = ops.launch_counts()
+    adapter.rollout()
+    ev_videos = np.stack([s.video for s in ev])
+    log(f"[wan] eval (UniPC order {adapter.scheduler.solver_order}, 28 steps, {len(ev)} prompts): videos "
+        f"{ev_videos.shape} range [{ev_videos.min():.3f}, {ev_videos.max():.3f}], launches {eval_counts}")
+    if ev_videos.shape != (2, 5, 3, 256, 256) or not np.all(np.isfinite(ev_videos)):
+        fail(f"eval videos {ev_videos.shape} not finite or of the wrong shape")
+    if eval_counts["flash_fwd"] != 28 * per_forward["flash_fwd"] or \
+            eval_counts["ln_mul_add"] != 28 * per_forward["ln_mul_add"]:
+        fail(f"eval launches {eval_counts} differ from 28 x {per_forward}")
+
+    log(f"[wan] phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+        f"{len(samples) / secs['rollout+decode']:.3f} samples/s (rollout+decode) | peak memory "
+        f"{peak:.2f} GiB | advantage/std {metrics['advantage/std']:.4f}")
+    del adapter, samples, ev
+    return rollout_counts
+
+
 def _profile(what: str, fn, trace: str) -> dict:
     """torch.profiler over one call of ``fn`` after a warm call: device time
     by kernel, launches, and the device's idle share of the wall time. The
@@ -580,11 +812,10 @@ def _device_ms_by_op(trace_path: str):
     return ms
 
 
-def phase_profile(adapter, samples, step: int) -> None:
+def phase_profile(adapter, samples, step: int, trace: str = "replay_step_trace.json") -> None:
     """One replayed step (the CFG-doubled transformer forward plus the SDE
     step, as in the rollout)."""
-    _profile("one replay step", lambda: adapter.replay_log_probs(samples, steps=[step]),
-             "replay_step_trace.json")
+    _profile("one replay step", lambda: adapter.replay_log_probs(samples, steps=[step]), trace)
 
 
 @contextlib.contextmanager
@@ -703,7 +934,7 @@ def phase_grad() -> None:
         f"{not any(n.startswith(unused) for n in live(kern) | live(plain))})")
     if dead or not checked or any(n.startswith(unused) for n in live(plain)):
         fail(f"LoRA leaves with no gradient through the kernels: {dead}")
-    if any(counts[k] <= 0 for k in counts):
+    if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the [grad] run: {counts}")
     del model, lora, leaves, kern, plain, no_dq
     torch.cuda.empty_cache()
@@ -792,7 +1023,7 @@ def phase_train() -> dict:
     log(f"[train] launches over two epochs (rollouts and grad steps) {counts} | {grad_steps} grad steps | "
         f"peak memory {peak:.2f} GiB")
     remat = trainer.adapter.component_configs["transformer"].remat
-    if any(counts[k] <= 0 for k in counts) or trainer.global_step != ta.max_epochs:
+    if any(counts[k] <= 0 for k in SD35_KERNELS) or trainer.global_step != ta.max_epochs:
         fail(f"a kernel never launched, or the optimizer did not step once per epoch: {counts}, "
              f"global step {trainer.global_step}")
     if not remat and not counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 37 * grad_steps:
@@ -833,9 +1064,15 @@ def main() -> int:
     phase_kernels(results)
     phase_slice()
     gc.collect()
+    torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
+    wan_counts = phase_wan()
+    gc.collect()
     torch.cuda.empty_cache()
     phase_grad()
     counts = phase_train()
+    # each kernel's launches on its main path: K3 in the Wan rollout, the
+    # others in the SD3.5 GRPO epochs
+    counts["flash_fwd"] = wan_counts["flash_fwd"]
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

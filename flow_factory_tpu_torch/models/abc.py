@@ -7,6 +7,8 @@ paths that run the SAME math:
 * :meth:`BaseAdapter._rollout_impl` — the denoise loop: velocity, then
   :func:`sde_step`, writing each step into preallocated slot-mapped buffers
   (one extra garbage slot takes the positions that are not stored);
+  :meth:`BaseAdapter.rollout_compute` sends an eval rollout of a UniPC
+  scheduler to :meth:`BaseAdapter._unipc_eval_impl` instead;
 * :meth:`BaseAdapter._forward_impl` — one stored transition replayed without
   gradients, through the same velocity and step math and the same
   storage-dtype round trip, so ``exp(new_lp - old_lp) == 1`` exactly;
@@ -31,6 +33,8 @@ import torch
 from ..ema import EMA, constant_decay, get_decay_schedule
 from ..samples import BaseSample
 from ..scheduler.flow_match_euler import FlowMatchEulerSDE, sde_step
+from ..scheduler.registry import get_scheduler_class
+from ..scheduler.unipc import compute_unipc_orders, init_unipc_carry, unipc_eval_step
 from ..utils.base import make_generator, resolve_device
 from ..utils.weights import load_component
 from .lora import DEFAULT_TARGET_PATTERNS, init_lora, lora_param_count, merge_lora, zero_like_lora
@@ -51,9 +55,11 @@ class BaseAdapter(ABC):
     default_target_patterns: Tuple[str, ...] = DEFAULT_TARGET_PATTERNS
     #: the component that predicts the velocity
     velocity_component: str = "transformer"
-    #: embedding keys the velocity reads from a batch
-    embed_keys: Tuple[str, ...] = ("prompt_embeds", "pooled_prompt_embeds",
-                                   "negative_prompt_embeds", "negative_pooled_prompt_embeds")
+    #: embedding keys the velocity reads from a batch (a sample's field or
+    #: ``extra_kwargs`` entry of that name)
+    embed_keys: Tuple[str, ...] = ("prompt_embeds", "negative_prompt_embeds")
+    #: scheduler registry key used when the config names none (Wan: 'unipc')
+    default_scheduler: str = "flow_match_euler"
 
     def __init__(self, config, device=None):
         self.config = config
@@ -91,10 +97,11 @@ class BaseAdapter(ABC):
         return {}
 
     def load_scheduler(self) -> FlowMatchEulerSDE:
+        """The scheduler class of ``scheduler_type`` or the adapter's
+        ``default_scheduler``; the UniPC eval knobs ride as attributes."""
         sa = self.scheduler_args
-        if sa.scheduler_type not in (None, "flow_match_euler"):
-            raise NotImplementedError(f"scheduler {sa.scheduler_type!r} is not ported yet")
-        return FlowMatchEulerSDE(
+        cls = get_scheduler_class(sa.scheduler_type or self.default_scheduler)
+        sched = cls(
             noise_level=sa.noise_level,
             sde_steps=sa.sde_steps,
             num_sde_steps=sa.num_sde_steps,
@@ -102,6 +109,9 @@ class BaseAdapter(ABC):
             dynamics_type=sa.dynamics_type,
             **self.scheduler_defaults(),
         )
+        sched.solver_order = int(getattr(sa, "solver_order", 2))
+        sched.lower_order_final = bool(getattr(sa, "lower_order_final", True))
+        return sched
 
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load per-component state dicts (e.g. from :mod:`..utils.weights`), strictly."""
@@ -266,6 +276,11 @@ class BaseAdapter(ABC):
     def storage_dtype(self) -> torch.dtype:
         return self.training_args.storage_dtype
 
+    def _on_device(self, x) -> torch.Tensor:
+        """Host numpy or a tensor → fp32 on the adapter's device."""
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=torch.float32).to(self.device)
+
     def cast_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """Storage-dtype round trip — the train-inference consistency guard."""
         return latents.to(self.storage_dtype).float()
@@ -329,6 +344,55 @@ class BaseAdapter(ABC):
             x = out.next_latents
         return x, lat_buf[:-1], lp_buf[:-1], (mean_buf[:-1] if store_means else None)
 
+    def rollout_compute(self, *args, **kwargs):
+        """The rollout: the SDE step loop, or in eval mode the UniPC
+        predictor-corrector when the scheduler provides it (Wan)."""
+        if getattr(self.scheduler, "use_unipc_eval", False) and self.scheduler.is_eval:
+            return self._unipc_eval_impl(*args, **kwargs)
+        return self._rollout_impl(*args, **kwargs)
+
+    @torch.no_grad()
+    def _unipc_eval_impl(
+        self,
+        x0: torch.Tensor,
+        embeds: Dict[str, torch.Tensor],
+        guidance_scale: float,
+        sigmas: np.ndarray,
+        timesteps: np.ndarray,
+        noise_levels: np.ndarray,
+        latent_store_slot: np.ndarray,
+        logprob_store_slot: np.ndarray,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
+        *,
+        do_cfg: bool,
+        compute_log_prob: bool,
+        dynamics_type: str,
+        num_latent_slots: int,
+        num_logprob_slots: int,
+        store_means: bool = False,
+    ):
+        """Eval-mode UniPC(bh2) rollout with :meth:`_rollout_impl`'s signature
+        (the noise arguments are unused: it is deterministic); the carry is
+        explicit, the orders come from the host schedule, log-probs are
+        zeros. Returns (x_final fp32, latent buffer, log-prob buffer, None)."""
+        B = x0.shape[0]
+        st = self.storage_dtype
+        lat_buf = torch.zeros((num_latent_slots + 1, *x0.shape), dtype=st, device=x0.device)
+        lat_buf[int(latent_store_slot[0])] = x0.to(st)
+        lp_buf = torch.zeros((num_logprob_slots + 1, B), dtype=torch.float32, device=x0.device)
+        pred_orders, corr_orders = compute_unipc_orders(
+            len(timesteps), self.scheduler.solver_order, self.scheduler.lower_order_final)
+        carry = init_unipc_carry(x0)
+        for i in range(len(timesteps)):
+            t = torch.full((B,), float(timesteps[i]), dtype=torch.float32, device=x0.device)
+            v = self._velocity(carry.x, t, embeds, guidance_scale, do_cfg, params)
+            carry, x_next = unipc_eval_step(carry, v, float(sigmas[i]), float(sigmas[i + 1]),
+                                            int(pred_orders[i]), int(corr_orders[i]))
+            lat_buf[int(latent_store_slot[i + 1])] = x_next.to(st)
+        return carry.x, lat_buf[:-1], lp_buf[:-1], None
+
     @torch.no_grad()
     def _forward_impl(
         self,
@@ -375,14 +439,12 @@ class BaseAdapter(ABC):
             steps = [i for i in range(len(first.timesteps))
                      if lp_map[i] >= 0 and lat_map[i] >= 0 and lat_map[i + 1] >= 0]
         dev = self.device
-        stack = lambda key: torch.from_numpy(np.stack([s.extra_kwargs[key] for s in samples])).to(dev)
-        embeds = {"prompt_embeds": torch.from_numpy(np.stack([s.prompt_embeds for s in samples])).to(dev),
-                  "pooled_prompt_embeds": stack("pooled_prompt_embeds")}
-        do_cfg = first.negative_prompt_embeds is not None
-        if do_cfg:
-            embeds["negative_prompt_embeds"] = torch.from_numpy(
-                np.stack([s.negative_prompt_embeds for s in samples])).to(dev)
-            embeds["negative_pooled_prompt_embeds"] = stack("negative_pooled_prompt_embeds")
+        embeds = {}
+        for key in self.embed_keys:  # a sample field, or an extra_kwargs entry
+            values = [getattr(s, key, None) for s in samples]
+            if all(v is not None for v in values):
+                embeds[key] = torch.from_numpy(np.stack(values)).to(dev)
+        do_cfg = "negative_prompt_embeds" in embeds
         sigmas = first.extra_kwargs["sigmas"]
         noise_levels = first.extra_kwargs["noise_levels"]
         latents = torch.from_numpy(np.stack([s.all_latents for s in samples])).to(dev)

@@ -8,24 +8,27 @@ in fp32 and go through :mod:`..ops.norms`; attention goes through
 :mod:`..ops.attention`, so on a CUDA tensor every block runs kernels K1, K5
 and K6.
 
-Three conventions of the JAX package are load-bearing here:
+Conventions of the JAX package that are load-bearing here:
 * ``AdaLayerNormZero`` is shift-first; with 9 chunks (SD3.5 dual attention)
   both modulated outputs come from the same pre-attention LayerNorm;
 * ``AdaLayerNormContinuous`` is scale-first;
 * ``JointAttention`` puts the context tokens first, with per-position q/k
-  scale maps (context rows take the added-norm scale).
+  scale maps (context rows take the added-norm scale);
+* the Wan/LTX qk-norm is RMS across heads: γ has shape (D,) and the mean
+  square spans every head (:func:`_across_heads_rms`);
+* RoPE rotates interleaved pairs with fp32 tables (:func:`apply_rope`).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention, qknorm_dot_product_attention
-from ..ops.norms import adaln_modulate
+from ..ops.norms import adaln_modulate, fused_layernorm
 
 
 class Linear(nn.Linear):
@@ -66,6 +69,18 @@ class NormParams(nn.Module):
         nn.init.zeros_(self.bias)
 
 
+class FusedLayerNorm(NormParams):
+    """Affine fp32 LayerNorm (flax ``nn.LayerNorm`` semantics, eps 1e-6) in
+    one pass through kernel K5's fold path (JAX ``layers.py:251``)."""
+
+    def __init__(self, dim: int, out_dtype: Optional[torch.dtype] = None):
+        super().__init__(dim)
+        self.out_dtype = out_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_layernorm(x, self.weight, self.bias, out_dtype=self.out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Random init (the flax initialisers' distributions, drawn from a generator)
 # ---------------------------------------------------------------------------
@@ -86,7 +101,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
             lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
@@ -248,11 +263,11 @@ class GELUProj(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear → tanh-GELU → Linear (diffusers ``ff.net.0.proj`` / ``ff.net.2``)."""
+    """Linear → tanh-GELU → Linear (diffusers ``ff.net.0.proj`` / ``ff.net.2``;
+    Wan's ``ffn``)."""
 
-    def __init__(self, hidden_dim: int, compute_dtype: torch.dtype, mult: float = 4.0):
+    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype):
         super().__init__()
-        inner = int(hidden_dim * mult)
         self.net = nn.ModuleList([GELUProj(hidden_dim, inner, compute_dtype), nn.Identity(),
                                   Linear(inner, hidden_dim, compute_dtype=compute_dtype)])
 
@@ -274,6 +289,47 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, H, S, E) → (B, S, H*E) (the JAX ``MergeProj`` contraction input)."""
     B, H, S, E = x.shape
     return x.transpose(1, 2).reshape(B, S, H * E)
+
+
+class HeadProj(Linear):
+    """Projection emitting the attention layout (B, H, S, E) as a head-split
+    view of the (B, S, H*E) product (JAX ``layers.py:346``); an
+    ``nn.Linear`` by its parameters, so diffusers names hold."""
+
+    def __init__(self, in_features: int, heads: int, head_dim: int, compute_dtype: torch.dtype):
+        super().__init__(in_features, heads * head_dim, compute_dtype=compute_dtype)
+        self.heads = heads
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return split_heads(super().forward(x), self.heads)
+
+
+class MergeProj(Linear):
+    """Output projection consuming (B, H, S, E) (JAX ``layers.py:374``): the
+    head merge is a view when the attention output is head-interleaved in
+    memory, as the flash kernels write it."""
+
+    def forward(self, attn: torch.Tensor) -> torch.Tensor:
+        return super().forward(merge_heads(attn))
+
+
+def _across_heads_rms(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS-normalise (B, H, S, E) over the full hidden dim (H*E jointly), the
+    diffusers ``rms_norm_across_heads`` form of Wan and LTX: fp32 stats,
+    γ (D,) reshaped (H, E), cast back to x's dtype."""
+    B, H, S, E = x.shape
+    x32 = x.float()
+    ms = torch.mean(x32 * x32, dim=(1, 3), keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * gamma.float().reshape(1, H, 1, E)).to(x.dtype)
+
+
+class AcrossHeadsQKNorm(ScaleParam):
+    """One γ (D,) of the JAX ``AcrossHeadsQKNorm`` pair (``layers.py:321``):
+    an attention holds one for q (``norm_q``) and one for k (``norm_k``),
+    diffusers' names; the mean square spans every head."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _across_heads_rms(x, self.weight)
 
 
 class JointAttention(nn.Module):
@@ -345,3 +401,32 @@ class SelfAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, backend=self.attn_backend)
         return self.to_out[0](merge_heads(out))
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (video DiTs)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(ids: torch.Tensor, axes_dim: Sequence[int], theta: float = 10000.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-axis RoPE tables (JAX ``layers.py:508``): ``ids`` (L, A) integer
+    coordinates per token and axis, ``axes_dim`` the rotary dims per axis
+    (summing to the head dim). Returns fp32 (cos, sin), each (L, head_dim/2)."""
+    ids = ids.float()
+    parts_cos, parts_sin = [], []
+    for a, dim in enumerate(axes_dim):
+        half = dim // 2
+        freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=ids.device) * 2.0 / dim))
+        angles = ids[:, a][:, None] * freqs[None, :]
+        parts_cos.append(torch.cos(angles))
+        parts_sin.append(torch.sin(angles))
+    return torch.cat(parts_cos, dim=-1), torch.cat(parts_sin, dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, H, L, D) by per-position (L, D/2) tables, interleaved pairs,
+    in fp32; the result is contiguous in x's dtype."""
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

@@ -8,6 +8,8 @@ from typing import Dict, Type
 _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "sd3-5": "flow_factory_tpu_torch.models.sd3.adapter:SD35Adapter",
     "sd3.5": "flow_factory_tpu_torch.models.sd3.adapter:SD35Adapter",
+    "wan2-t2v": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
+    "wan21": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
 }
 
 

@@ -65,6 +65,8 @@ def _preset(name: str, attn_backend: str, inference_dtype: str) -> Dict[str, Any
 
 class SD35Adapter(BaseAdapter):
     sample_class = T2ISample
+    embed_keys = ("prompt_embeds", "pooled_prompt_embeds",
+                  "negative_prompt_embeds", "negative_pooled_prompt_embeds")
 
     # ------------------------------------------------------------------
     # Loading
@@ -179,10 +181,6 @@ class SD35Adapter(BaseAdapter):
     def latent_shape(self, height: int, width: int) -> Tuple[int, int, int]:
         return (height // self.vae_downscale, width // self.vae_downscale, self.latent_channels)
 
-    def _on_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                               dtype=torch.float32).to(self.device)
-
     @torch.no_grad()
     def inference(
         self,
@@ -250,7 +248,7 @@ class SD35Adapter(BaseAdapter):
         x0 = self.cast_latents(self._on_device(x0))
 
         params = self.merged_params(self.velocity_component, trainable)
-        x_final, lat_buf, lp_buf, mean_buf = self._rollout_impl(
+        x_final, lat_buf, lp_buf, mean_buf = self.rollout_compute(
             x0, embeds, g, sigmas, timesteps, noise_levels,
             maps.latent_store_slot, maps.logprob_store_slot, generator, noise, params,
             do_cfg=do_cfg, compute_log_prob=compute_log_prob, dynamics_type=dynamics,

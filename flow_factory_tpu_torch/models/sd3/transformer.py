@@ -93,9 +93,9 @@ class JointTransformerBlock(nn.Module):
                                    cfg.attn_backend, dt)
         if use_dual_attention:
             self.attn2 = SelfAttention(D, cfg.num_heads, cfg.qk_norm, cfg.attn_backend, dt)
-        self.ff = FeedForward(D, dt)
+        self.ff = FeedForward(D, 4 * D, dt)
         if not context_pre_only:
-            self.ff_context = FeedForward(D, dt)
+            self.ff_context = FeedForward(D, 4 * D, dt)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, temb: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -1,9 +1,10 @@
-"""T5 v1.1 encoder (port of ``flow_factory_tpu/models/text_encoders/t5.py``).
+"""T5 v1.1 and UMT5 encoders (port of ``flow_factory_tpu/models/text_encoders/t5.py``).
 
 Hand-ported: the card's machine has no ``transformers``. Parameter names are
-``transformers``' ``T5EncoderModel`` names. RMS ``T5LayerNorm`` (no mean, no
-bias), relative-position-bucket attention bias owned by block 0 and shared,
-no q scaling, gated tanh-GELU feed-forward.
+``transformers``' ``T5EncoderModel`` / ``UMT5EncoderModel`` names. RMS
+``T5LayerNorm`` (no mean, no bias), relative-position-bucket attention bias
+owned by block 0 and shared (T5) or owned by every block (UMT5,
+``per_layer_rel_bias``), no q scaling, gated tanh-GELU feed-forward.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ class T5Config:
     head_dim: int = 64
     rel_pos_buckets: int = 32
     rel_pos_max_distance: int = 128
+    #: UMT5 (Wan's text encoder): every block owns its relative-attention bias table
+    per_layer_rel_bias: bool = False
     dtype: str = "bfloat16"
 
     @property
@@ -37,6 +40,13 @@ class T5Config:
     @staticmethod
     def xxl(**o) -> "T5Config":
         return T5Config(**o)
+
+    @staticmethod
+    def umt5_xxl(**o) -> "T5Config":
+        """Wan2.x text encoder: UMT5-XXL (per-block bias tables, vocab 256384)."""
+        base = dict(vocab_size=256384, per_layer_rel_bias=True)
+        base.update(o)
+        return T5Config(**base)
 
     @staticmethod
     def tiny(**o) -> "T5Config":
@@ -137,7 +147,8 @@ class T5Block(nn.Module):
 class T5Stack(nn.Module):
     def __init__(self, cfg: T5Config):
         super().__init__()
-        self.block = nn.ModuleList([T5Block(cfg, i == 0) for i in range(cfg.num_layers)])
+        self.block = nn.ModuleList([T5Block(cfg, i == 0 or cfg.per_layer_rel_bias)
+                                    for i in range(cfg.num_layers)])
         self.final_layer_norm = ScaleParam(cfg.hidden_dim)
 
 

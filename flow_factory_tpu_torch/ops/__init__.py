@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions."""
 from .attention import (
     dot_product_attention,
+    flash_attention,
+    flash_attention_plain,
     flash_backward,
     flash_backward_plain,
     flash_bwd_dkv,
@@ -22,6 +24,7 @@ from .norms import (
 #: every kernel wrapper of the port; each carries a ``launches`` counter
 KERNEL_WRAPPERS = {
     "qknorm_flash_fwd": qknorm_flash_attention,
+    "flash_fwd": flash_attention,
     "flash_bwd_dq": flash_bwd_dq,
     "flash_bwd_dkv": flash_bwd_dkv,
     "ln_mul_add": ln_mul_add,

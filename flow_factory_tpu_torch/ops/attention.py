@@ -1,5 +1,5 @@
-"""Attention ops: the fused qk-norm flash kernel (K1), the flash backward
-kernels (K2a, K2b) and their plain versions.
+"""Attention ops: the fused qk-norm flash kernel (K1), the plain flash
+forward (K3), the flash backward kernels (K2a, K2b) and their plain versions.
 
 Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
 
@@ -16,13 +16,22 @@ Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
   ``_flash_bwd_dkv_kernel``); :func:`flash_backward` runs both, or
   :func:`flash_backward_plain` (the JAX ``_flash_backward`` step by step) on
   a CPU tensor.
+* :func:`flash_attention` wraps the CUDA C++ kernel in ``csrc/flash_fwd.cu``
+  (K3, the TPU kernels ``_flash_fwd_kernel``/``_flash_fwd_single_kernel``):
+  bf16, head dim 64 or 128, through :class:`_Flash`, whose backward is
+  :func:`flash_backward` as the JAX ``_flash_attention`` custom VJP's is. Its
+  plain version :func:`flash_attention_plain` is the JAX ``_flash_forward``
+  step by step; a CPU tensor takes it.
 * :func:`qknorm_attention_plain` composes :func:`_rms_scale` with
   :func:`native_attention`, the JAX package's plain path
   (``attention.py:206-213`` and ``:70-84``).
 
 Backends (``model.attn_backend``): ``auto``/``flash``/``splash`` take the
-kernel on CUDA, ``native`` is the explicit plain path on any device,
-``hybrid`` and ``ring`` are not ported yet and raise.
+kernels on CUDA, ``native`` is the explicit plain path on any device,
+``hybrid`` and ``ring`` are not ported yet and raise. On a CPU tensor
+:func:`dot_product_attention` runs :func:`native_attention` for every
+flash-class backend, which is what the JAX package runs off the TPU
+(``auto`` → ``native``, ``attention.py:957``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _KERNEL_HEAD_DIM = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_K3_HEAD_DIMS = (64, 128)
 
 
 def native_attention(
@@ -79,16 +89,18 @@ def qknorm_attention_plain(q, k, v, gq, gk, scale: float, eps: float, return_lse
     return native_attention(qn, kn, v, scale=scale, return_lse=return_lse)
 
 
-def _check_heads(name: str, q, k, v, *q_like) -> None:
-    """Checks shared by K1 and K2: q (B, H, Sq, D), k/v (B, H, Sk, D) and any
-    ``q_like`` (O, dO) tensors of q's shape, on one CUDA device in one kernel
-    dtype, head dim 64 and contiguous; the bf16 variants move 16-byte vectors,
-    so their pointers and (B, H, S) strides must keep 16-byte alignment."""
+def _check_heads(name: str, q, k, v, *q_like, head_dims=(_KERNEL_HEAD_DIM,),
+                 dtypes=tuple(_KERNEL_DTYPES)) -> None:
+    """Checks shared by K1, K2 and K3: q (B, H, Sq, D), k/v (B, H, Sk, D) and
+    any ``q_like`` (O, dO) tensors of q's shape, on one CUDA device in one
+    kernel dtype, a head dim the kernel takes, contiguous; the bf16 variants
+    move 16-byte vectors, so their pointers and (B, H, S) strides must keep
+    16-byte alignment."""
     heads = (q, k, v, *q_like)
     if not (q.is_cuda and all(t.device == q.device for t in heads)):
         raise ValueError(f"{name}: every operand must be on one CUDA device")
-    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype for t in heads):
-        raise TypeError(f"{name}: operands must share a dtype in {list(_KERNEL_DTYPES)}; "
+    if q.dtype not in dtypes or any(t.dtype != q.dtype for t in heads):
+        raise TypeError(f"{name}: operands must share a dtype in {list(dtypes)}; "
                         f"got {[t.dtype for t in heads]}")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: expected q (B,H,Sq,D), k/v (B,H,Sk,D); "
@@ -96,8 +108,8 @@ def _check_heads(name: str, q, k, v, *q_like) -> None:
     B, H, Sq, D = q.shape
     if k.shape[:2] != (B, H) or k.shape[3] != D or any(t.shape != q.shape for t in q_like):
         raise ValueError(f"{name}: shapes disagree: {[tuple(t.shape) for t in heads]}")
-    if D != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {D}; the kernel takes {_KERNEL_HEAD_DIM}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head dim {D}; the kernel takes {list(head_dims)}")
     if any(t.stride(-1) != 1 for t in heads):
         raise ValueError(f"{name}: the head dim of every operand must be contiguous")
     if q.dtype == torch.bfloat16 and not all(_vector_aligned(t) for t in heads):
@@ -362,6 +374,93 @@ def flash_backward(q, k, v, out, lse, dout, scale: float):
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# K3: the plain flash forward
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
+    """Plain version of K3: the JAX ``_flash_forward`` (:268-341) step by
+    step — q pre-scaled by scale·log2e in q's dtype (:279), base-2 logits in
+    fp32, exp2 against the row max, p rounded to v's dtype before PV with
+    fp32 accumulation, O = acc / l in q's dtype, natural-log lse = m·ln2 +
+    ln l. The card holds the kernel against it; the CPU path of
+    :func:`dot_product_attention` runs :func:`native_attention` instead."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(_prescaled_q(q, scale).float(), k.float().transpose(-1, -2))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    out = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(q.dtype)
+    if return_lse:
+        return out, (m * _LN2 + torch.log(l))[..., 0]
+    return out
+
+
+def _launch_flash(q, k, v, scale: float):
+    from .cuda_build import load
+
+    lib = load("flash_fwd")
+    fn = lib.flash_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    B, H, Sq, D = q.shape
+    out = _head_interleaved(B, H, Sq, D, q)  # the head merge reads it without a copy
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 B, H, Sq, k.shape[2], D, strides, qmul, stream)
+    _raise_on_error(lib, err, "flash_fwd", "flash_fwd_error_string")
+    return out, lse
+
+
+class _Flash(torch.autograd.Function):
+    """K3 with the JAX ``_flash_attention`` custom VJP (:788-804): the forward
+    launches K3 and keeps q, k, v, O and the natural-log lse; the backward is
+    :func:`flash_backward` (K2a/K2b, which take head dim 64 only so far)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = _launch_flash(q, k, v, scale)
+        flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not (dout.stride(-1) == 1 and _vector_aligned(dout)):
+            dout = dout.contiguous()  # the kernels read dO in place when its layout allows
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
+    """K3: non-causal flash attention. bf16 q (B, H, Sq, D), k/v (B, H, Sk, D),
+    D in {64, 128}; returns O in q's dtype (head-interleaved in memory) and,
+    when asked, the natural-log lse (B, H, Sq) fp32. CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel (counted in
+    ``flash_attention.launches``) through :class:`_Flash`, or raise."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_heads("flash_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+    out, lse = _Flash.apply(q, k, v, float(scale))
+    return (out, lse) if return_lse else out
+
+
+flash_attention.launches = 0
+
+
 def qknorm_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -391,14 +490,21 @@ def qknorm_dot_product_attention(
 
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, backend: str = "auto"):
-    """Attention without a qk-norm. Only the plain path exists so far: the
-    plain flash kernel (K3) is not ported, so a CUDA tensor on a flash-class
-    backend raises instead of silently running the plain version."""
-    if backend == "native" or (backend in ("auto", "flash", "splash") and q.device.type == "cpu"):
+    """Attention without a qk-norm (JAX ``dot_product_attention``, :942).
+
+    ``native`` — and every flash-class backend on a CPU tensor, as the JAX
+    package runs off the TPU — is :func:`native_attention`. On a CUDA tensor
+    ``auto``/``flash``/``splash`` launch K3 (:func:`flash_attention`), which
+    takes no dense mask; ``hybrid`` and ``ring`` are not ported and raise."""
+    flash = backend in ("auto", "flash", "splash")
+    if backend == "native" or (flash and q.device.type == "cpu"):
         return native_attention(q, k, v, scale=scale, mask=mask)
-    if backend in ("auto", "flash", "splash", "hybrid", "ring"):
-        raise NotImplementedError(
-            f"attention backend {backend!r} on {q.device.type}: the plain flash kernel is not ported yet")
+    if flash:
+        if mask is not None:
+            raise NotImplementedError(f"attention backend {backend!r} takes no dense mask; use 'native'")
+        return flash_attention(q, k, v, scale=scale)
+    if backend in ("hybrid", "ring"):
+        raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
     raise ValueError(f"Unknown attention backend {backend!r}")
 
 

@@ -8,9 +8,12 @@ names are diffusers' / transformers' names. Layouts:
 * Dense kernels (in, out) → Linear weights (out, in); the attention head
   projections (``HeadProj`` (D_in, H*E), ``MergeProj`` (H*E, D_out)) are Dense
   kernels of the same layout;
-* Conv kernels HWIO → OIHW;
-* norm ``scale`` → ``weight``; embeddings keep their (rows, dim) layout;
-* the SD3 position grid (1, G, G, D) → diffusers' (1, G*G, D) buffer.
+* Conv kernels HWIO → OIHW, and 3-D (kt, kh, kw, I, O) → (O, I, kt, kh, kw);
+* norm ``scale`` → ``weight``; the Wan VAE's ``gamma`` keeps its name and
+  (C,) shape; embeddings keep their (rows, dim) layout;
+* the SD3 position grid (1, G, G, D) → diffusers' (1, G*G, D) buffer;
+* the Wan patch embedding, a Dense over (pt, ph, pw, C) voxels in flax →
+  diffusers' Conv3d weight (D, C, pt, ph, pw).
 
 The bridge is strict: a flax leaf that no rule consumes raises here, and
 :func:`load_component` loads with ``strict=True``, so a port parameter left
@@ -45,10 +48,12 @@ def _convert_leaf(leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
             return "weight", arr.T
         if arr.ndim == 4:
             return "weight", np.transpose(arr, (3, 2, 0, 1))
+        if arr.ndim == 5:
+            return "weight", np.transpose(arr, (4, 3, 0, 1, 2))
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     if leaf in ("scale", "embedding"):
         return "weight", arr
-    if leaf in ("bias", "weight"):
+    if leaf in ("bias", "weight", "gamma"):
         return leaf, arr
     raise KeyError(leaf)
 
@@ -141,10 +146,12 @@ def clip_text_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
     return m, raw
 
 
-def t5_encoder_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
+def t5_encoder_map(num_layers: int, per_layer_rel_bias: bool = False) -> Tuple[ModuleMap, RawMap]:
+    """T5 (bias table on block 0) or UMT5 (``per_layer_rel_bias``: on every block)."""
     m: ModuleMap = {"token_embedding": "shared", "final_ln": "encoder.final_layer_norm"}
-    raw: RawMap = {"block_0/attn/rel_bias": (
-        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", lambda a: a)}
+    raw: RawMap = {f"block_{i}/attn/rel_bias": (
+        f"encoder.block.{i}.layer.0.SelfAttention.relative_attention_bias.weight", lambda a: a)
+        for i in (range(num_layers) if per_layer_rel_bias else (0,))}
     for i in range(num_layers):
         o, b = f"block_{i}", f"encoder.block.{i}"
         m[f"{o}/ln1"] = f"{b}.layer.0.layer_norm"
@@ -203,6 +210,119 @@ def sd35_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
     """All SD3.5 components' flax trees → the port's state dicts."""
     maps = sd35_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
+def wan_transformer_map(num_layers: int, patch_size=(1, 2, 2)) -> Tuple[ModuleMap, RawMap]:
+    """The Wan DiT (inverse of the JAX ``wan_transformer_key_map``,
+    ``utils/checkpoint.py:382``, T2V)."""
+    pt, ph, pw = patch_size
+
+    def patch_kernel(a: np.ndarray) -> np.ndarray:  # (pt*ph*pw*C, D) → (D, C, pt, ph, pw)
+        return np.transpose(a.reshape(pt, ph, pw, -1, a.shape[-1]), (4, 3, 0, 1, 2))
+
+    m: ModuleMap = {
+        "patch_embedding": "patch_embedding",
+        "time_embed/linear_1": "condition_embedder.time_embedder.linear_1",
+        "time_embed/linear_2": "condition_embedder.time_embedder.linear_2",
+        "time_proj": "condition_embedder.time_proj",
+        "ctx_proj0": "condition_embedder.text_embedder.linear_1",
+        "ctx_proj1": "condition_embedder.text_embedder.linear_2",
+        "head_out": "proj_out",
+    }
+    raw: RawMap = {"head_table": ("scale_shift_table", lambda a: a),
+                   "patch_embedding/kernel": ("patch_embedding.weight", patch_kernel)}
+    for i in range(num_layers):
+        o, b = f"block_{i}", f"blocks.{i}"
+        raw[f"{o}/scale_shift_table"] = (f"{b}.scale_shift_table", lambda a: a)
+        for src, attn in (("sa", "attn1"), ("ca", "attn2")):
+            for name in ("q", "k", "v"):
+                m[f"{o}/{src}_{name}"] = f"{b}.{attn}.to_{name}"
+            m[f"{o}/{src}_out"] = f"{b}.{attn}.to_out.0"
+            m[f"{o}/{src}_qk_norm/q_norm"] = f"{b}.{attn}.norm_q"
+            m[f"{o}/{src}_qk_norm/k_norm"] = f"{b}.{attn}.norm_k"
+        m[f"{o}/norm2"] = f"{b}.norm2"
+        m[f"{o}/ffn1"] = f"{b}.ffn.net.0.proj"
+        m[f"{o}/ffn2"] = f"{b}.ffn.net.2"
+    return m, raw
+
+
+def wan_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
+    """The Wan 2.1 video VAE (inverse of the JAX ``wan_vae_key_map``,
+    ``utils/checkpoint.py:1176``): flax ``.../conv`` scopes of the causal
+    convs are the port's Conv3d modules themselves."""
+    m: ModuleMap = {}
+
+    def resblock(src: str, dst: str, shortcut: bool) -> None:
+        m[f"{src}/norm1"] = f"{dst}.norm1"
+        m[f"{src}/norm2"] = f"{dst}.norm2"
+        m[f"{src}/conv1/conv"] = f"{dst}.conv1"
+        m[f"{src}/conv2/conv"] = f"{dst}.conv2"
+        if shortcut:
+            m[f"{src}/conv_shortcut/conv"] = f"{dst}.conv_shortcut"
+
+    def attnblock(src: str, dst: str) -> None:
+        m[f"{src}/norm"] = f"{dst}.norm"
+        m[f"{src}/to_qkv"] = f"{dst}.to_qkv"
+        m[f"{src}/proj"] = f"{dst}.proj"
+
+    def resample(src: str, dst: str, temporal: bool) -> None:
+        m[f"{src}/resample_1"] = f"{dst}.resample.1"
+        if temporal:
+            m[f"{src}/time_conv/conv"] = f"{dst}.time_conv"
+
+    for side in ("encoder", "decoder"):
+        m[f"{side}/conv_in/conv"] = f"{side}.conv_in"
+        m[f"{side}/conv_out/conv"] = f"{side}.conv_out"
+        m[f"{side}/norm_out"] = f"{side}.norm_out"
+        for j in range(2):
+            resblock(f"{side}/mid_block/resnets_{j}", f"{side}.mid_block.resnets.{j}", False)
+        attnblock(f"{side}/mid_block/attentions_0", f"{side}.mid_block.attentions.0")
+    m["quant_conv/conv"] = "quant_conv"
+    m["post_quant_conv/conv"] = "post_quant_conv"
+
+    n_spatial = len(cfg.channel_mults) - 1
+    t_flags = cfg.temporal_down_flags()
+    for side, mults, flags, extra, scale, prev in (
+            ("encoder", tuple(cfg.channel_mults), t_flags, 0, 1.0, cfg.base_channels),
+            ("decoder", tuple(reversed(cfg.channel_mults)), tuple(reversed(t_flags)), 1,
+             1.0 / 2 ** n_spatial, cfg.base_channels * cfg.channel_mults[-1])):
+        blocks = "down_blocks" if side == "encoder" else "up_blocks"
+        idx = 0
+        for i, mult in enumerate(mults):
+            ch = cfg.base_channels * mult
+            for _ in range(cfg.layers_per_block + extra):
+                resblock(f"{side}/{blocks}_{idx}", f"{side}.{blocks}.{idx}", prev != ch)
+                prev, idx = ch, idx + 1
+                if scale in cfg.attn_scales:
+                    attnblock(f"{side}/{blocks}_{idx}", f"{side}.{blocks}.{idx}")
+                    idx += 1
+            if i < n_spatial:
+                resample(f"{side}/{blocks}_{idx}", f"{side}.{blocks}.{idx}", flags[i])
+                idx += 1
+                if side == "encoder":
+                    scale /= 2.0
+                else:
+                    scale *= 2.0
+                    prev = ch // 2
+    return m, {}
+
+
+def wan_t2v_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every Wan T2V adapter component, keyed like ``adapter.params``."""
+    t = configs["transformer"]
+    return {
+        "transformer": wan_transformer_map(t.num_layers, t.patch_size),
+        "text_encoder": t5_encoder_map(configs["text_encoder"].num_layers,
+                                       configs["text_encoder"].per_layer_rel_bias),
+        "vae": wan_vae_map(configs["vae"]),
+    }
+
+
+def wan_t2v_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All Wan T2V components' flax trees → the port's state dicts."""
+    maps = wan_t2v_component_maps(configs)
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 

@@ -14,7 +14,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port — the training slice's ``trainers``, ``data``,
-    ``ema`` and ``train`` among them — imported in a fresh interpreter, leaves
+    ``ema`` and ``train``, and the Wan slice's ``models.wan`` and
+    ``scheduler.unipc`` among them — imported in a fresh interpreter, leaves
     jax, flax and flow_factory_tpu out of sys.modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -26,7 +27,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "flow_factory_tpu"))
         need = {pkg.__name__ + "." + m for m in ("trainers.grpo", "trainers.abc", "data.dataset",
                                                  "data.sampler", "data.loader", "ema.ema", "train",
-                                                 "models.lora")}
+                                                 "models.lora", "models.wan", "models.wan.t2v",
+                                                 "models.wan.transformer", "models.wan.video_vae",
+                                                 "scheduler.unipc", "scheduler.registry")}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or need - set(names) or len(names) < 30 else 0)
     """)

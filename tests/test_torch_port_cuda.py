@@ -1,6 +1,6 @@
-"""PyTorch port, on the card: kernels K1, K2a/K2b, K5 and K6 against their
-plain versions, gradients through their autograd Functions against plain
-autograd, and the no-fallback guards on CUDA tensors.
+"""PyTorch port, on the card: kernels K1, K2a/K2b, K3, K5 and K6 against
+their plain versions, gradients through their autograd Functions against
+plain autograd, and the no-fallback guards on CUDA tensors.
 
 Marked ``cuda``; every test skips without a CUDA device. On a machine with
 an NVIDIA GPU (the suite's conftest imports JAX, which that machine need not
@@ -305,3 +305,105 @@ def test_lora_gradients_reach_attention_and_adaln_through_the_kernels(gen):
         if any(s in name for s in ("attn.to_q", "attn.add_k_proj", "attn2.to_v", "norm1.linear",
                                    "norm1_context.linear")):
             assert g.abs().max().item() > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K3: the plain flash forward
+# ---------------------------------------------------------------------------
+
+def _k3_inputs(gen, B, H, Sq, Sk, D, strided):
+    def heads(S):
+        if strided:  # the head-split view of a (B, S, H*D) projection
+            return _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+        return _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    return heads(Sq), heads(Sk), heads(Sk)
+
+
+def _k3_errors(out, lse, ref, ref_lse):
+    return (out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item()
+
+
+def _k3_tols(ref):
+    """K1's bars: 4 bf16 ulp of max|O| on O, 1e-2 on lse. Both versions round
+    q·scale·log2e once and p to bf16 before PV; the kernel's online softmax
+    rounds p against a running max, which moves O by an ulp or two."""
+    return 4 * _bf16_ulp(ref.float().abs().max().item()), 1e-2
+
+
+@pytest.mark.parametrize("D,Sq,Sk,strided", [
+    (128, 512, 512, True),    # Wan self-attention layout (head-split views)
+    (128, 300, 77, False),    # ragged q rows and key tail
+    (64, 300, 77, True),
+    (64, 128, 333, False),
+])
+def test_flash_fwd_matches_plain(gen, D, Sq, Sk, strided):
+    q, k, v = _k3_inputs(gen, 2, 3, Sq, Sk, D, strided)
+    before = A.flash_attention.launches
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16 and lse.shape == (2, 3, Sq)
+    err_o, err_lse = _k3_errors(out, lse, ref, ref_lse)
+    tol_o, tol_lse = _k3_tols(ref)
+    print(f"K3 D{D} {Sq}x{Sk}: O {err_o:.3e} (tol {tol_o:.3e}), lse {err_lse:.3e}")
+    assert err_o <= tol_o and err_lse <= tol_lse
+
+
+def test_flash_fwd_bars_reject_wrong_plain_versions(gen):
+    """Negative controls: the plain version run on the zero-padded key tail
+    as if it were real keys, and one whose logits carry the scale but not
+    log2(e) (its exp2 is then not the softmax), both miss the bars."""
+    q, k, v = _k3_inputs(gen, 2, 3, 300, 77, 128, True)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, _ = A.flash_attention_plain(q, k, v, return_lse=True)
+    tol_o, tol_lse = _k3_tols(ref)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 128 - 77))
+    for wrong in (A.flash_attention_plain(q, pad(k), pad(v), return_lse=True),
+                  A.flash_attention_plain(q, k, v, 128 ** -0.5 / A._LOG2E, return_lse=True)):
+        err_o, err_lse = _k3_errors(out, lse, *wrong)
+        assert err_o > tol_o or err_lse > tol_lse
+
+
+def test_flash_fwd_is_deterministic_and_reads_views_in_place(gen):
+    q, k, v = _k3_inputs(gen, 2, 3, 200, 200, 128, True)
+    a = A.flash_attention(q, k, v)
+    b = A.flash_attention(q, k, v)
+    c = A.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert a.transpose(1, 2).is_contiguous()  # head-interleaved: the head merge is a view
+
+
+def test_flash_fwd_refuses_what_it_does_not_take(gen):
+    q, k, v = _k3_inputs(gen, 1, 2, 64, 64, 128, False)
+    with pytest.raises(TypeError):  # fp32
+        A.flash_attention(q.float(), k.float(), v.float())
+    q96 = _randn(gen, 1, 2, 64, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim 96
+        A.flash_attention(q96, q96, q96)
+    odd = _randn(gen, 1 * 2 * 64 * 128 + 4, dtype=torch.bfloat16)[4:].view(1, 2, 64, 128)
+    with pytest.raises(ValueError):  # 8-byte offset: the 16-byte loads refuse it
+        A.flash_attention(odd, k, v)
+    with pytest.raises(NotImplementedError):  # no dense mask on the kernel
+        A.dot_product_attention(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device="cuda"))
+
+
+def test_flash_fwd_records_a_node_and_its_grads_match_plain_autograd(gen):
+    """D=64, where K2a/K2b exist: the _Flash Function's gradients (K2a/K2b
+    on the kernel's O and lse) against autograd through the plain version,
+    bf16. The Function's backward, as the JAX custom VJP, takes Δ from the
+    bf16-rounded O where autograd differentiates the unrounded softmax: the
+    plain versions of the two paths differ by 4.5e-3 of each gradient's max
+    on the CPU, so the bar is 2e-2. At D=128 the backward raises K2's
+    head-dim error until the Wan training slice."""
+    q, k, v = _k3_inputs(gen, 2, 3, 200, 200, 64, True)
+    w = _randn(gen, 2, 3, 200, 64)
+    (o,), g_kern = _grads(lambda *t: A.flash_attention(*t), (q, k, v), (w,))
+    _, g_plain = _grads(lambda *t: A.flash_attention_plain(*t), (q, k, v), (w,))
+    assert o.grad_fn is not None
+    for name, a, b in zip(("dq", "dk", "dv"), g_kern, g_plain):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
+    q, k, v = _k3_inputs(gen, 1, 2, 64, 64, 128, False)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    with pytest.raises(ValueError):
+        A.flash_attention(*leaves).float().sum().backward()
