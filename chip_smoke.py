@@ -8,7 +8,7 @@ printing one line and exiting non-zero on failure:
    the seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``
    (one nvcc per source, all started together);
 2. kernels: K1 (fused qk-norm flash forward), K2a/K2b (flash backward for dq
-   and for dk/dv), K3 (plain flash forward, head dim 128 and 64; all CUDA
+   and for dk/dv, head dim 64 and 128), K3 (plain flash forward, head dim 128 and 64; all CUDA
    C++), K5 (norm-modulate) and K6 (residual-gate-modulate, both Triton)
    against their plain PyTorch versions at the SD3.5-M and Wan2.1-1.3B
    shapes and small ragged shapes, with stated tolerances, negative
@@ -40,7 +40,18 @@ printing one line and exiting non-zero on failure:
    1.0 on every grad step of both epochs (epoch 1 rolls out with the LoRA
    that epoch 0 moved), the gradient norm is finite and non-zero, the LoRA
    moves, and every kernel launches on the path; then a torch.profiler
-   breakdown of one grad step (forward, backward, optimizer).
+   breakdown of one grad step (forward, backward, optimizer);
+6. the Wan counterpart of 4 (``[grad]``): LoRA gradients through K3, K2a/K2b
+   at head dim 128 and K5 at Wan2.1-1.3B width, depth 2, B=16, against the
+   plain path, with the dq-zeroed negative control;
+7. wan-train: the Wan2.1-T2V-1.3B GRPO training slice at full width through
+   ``load_trainer`` (the rollout geometry of 3b, LoRA rank 32 on the 300
+   default targets, fp32 master weights, two grad steps accumulated into
+   one AdamW update per epoch, EMA 0.99 every 4) for two epochs: ratio
+   exactly 1.0 on every grad step, K2a/K2b 60 launches a grad step and K3
+   60 a training forward, the LoRA moves; then the 28-step UniPC evaluation
+   of the 2 test prompts under the EMA weights, and a profile of one grad
+   step.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,9 +62,11 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import gzip
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,9 +359,9 @@ def phase_kernels_k2(results: dict, randn) -> None:
     same q/k/v (so p is the softmax the forward computed), and dO in the
     head-interleaved layout of K1's output. The joint case is the
     concatenated contiguous tensor, the self case the head-split strided
-    views; the small cases have a ragged tail in fp32 and bf16."""
+    views; the small cases have a ragged tail in fp32 and bf16; then the
+    head-dim-128 shapes of the Wan blocks."""
     import torch
-    import torch.nn.functional as F
 
     from flow_factory_tpu_torch.ops import attention as A
 
@@ -390,31 +403,97 @@ def phase_kernels_k2(results: dict, randn) -> None:
             if not same:
                 fail("K2 is not deterministic")
             del again
-        if not timed:
-            continue
-        ms_dq = time_ms(lambda: A.flash_bwd_dq(qn, kn, v, d_, lse2, delta, scale))
-        ms_dkv = time_ms(lambda: A.flash_bwd_dkv(qn, kn, v, d_, lse2, delta, scale))
-        plain_dq = time_ms(lambda: A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, delta, scale), iters=3)
-        plain_dkv = time_ms(lambda: A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, delta, scale), iters=3)
-        # the yardstick: SDPA's backward (dq, dk and dv in one call) on the same normalised q/k
-        leaves = [t.detach().requires_grad_() for t in (qn, kn, v)]
-        o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
-        lib_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True))
-        inputs = nbytes(qn, kn, v, d_, lse2, delta)
-        for name, fn_ms, plain_ms, flops, outs, err, replaces in (
-                ("flash_bwd_dq", ms_dq, plain_dq, 6 * B * H * S * S * D, (got[0],), errs[0], ":601"),
-                ("flash_bwd_dkv", ms_dkv, plain_dkv, 8 * B * H * S * S * D, got[1:], max(errs[1:]), ":653")):
-            byts = inputs + nbytes(*outs)
-            bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
-            _record(results, tag, dict(
-                name=name, route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_bwd.cu",
-                replaces=f"flow_factory_tpu/ops/attention.py{replaces}",
-                max_abs_err=err, ms=fn_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
-                library_ms=lib_ms))
-            log(f"[kernels] {name} {tag}: kernel {fn_ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa backward "
-                f"{lib_ms:.3f} ms | bound {bound:.4f} ms ({flops / fn_ms / 1e9:.1f} TFLOP/s)")
-        del q, k, v, out, qn, kn, dout, got, leaves, o_lib
+        if timed:
+            _k2_time_and_record(results, tag, "", qn, kn, v, dout, d_, lse2, delta, scale, got, errs)
+        del q, k, v, out, qn, kn, dout, got
+        torch.cuda.empty_cache()
+
+    phase_kernels_k2_wan(results, randn)
+
+
+def _k2_time_and_record(results: dict, tag: str, suffix: str, q, k, v, dout, d_, lse2, delta, scale, got,
+                        errs) -> None:
+    """CUDA-event times of K2a and K2b, their plain versions and SDPA's whole
+    backward (dq, dk and dv in one call, the yardstick) on the same q/k/v,
+    and each kernel's bound; recorded under ``flash_bwd_dq<suffix>`` and
+    ``flash_bwd_dkv<suffix>``."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    ms_dq = time_ms(lambda: A.flash_bwd_dq(q, k, v, d_, lse2, delta, scale))
+    ms_dkv = time_ms(lambda: A.flash_bwd_dkv(q, k, v, d_, lse2, delta, scale))
+    plain_dq = time_ms(lambda: A.flash_bwd_dq_plain(q, k, v, d_, lse2, delta, scale), iters=3)
+    plain_dkv = time_ms(lambda: A.flash_bwd_dkv_plain(q, k, v, d_, lse2, delta, scale), iters=3)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True))
+    inputs = nbytes(q, k, v, d_, lse2, delta)
+    for name, fn_ms, plain_ms, flops, outs, err, replaces in (
+            ("flash_bwd_dq", ms_dq, plain_dq, 6 * B * H * Sq * Sk * D, (got[0],), errs[0], ":601"),
+            ("flash_bwd_dkv", ms_dkv, plain_dkv, 8 * B * H * Sq * Sk * D, got[1:], max(errs[1:]), ":653")):
+        byts = inputs + nbytes(*outs)
+        bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+        _record(results, tag, dict(
+            name=name + suffix, route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_bwd.cu",
+            replaces=f"flow_factory_tpu/ops/attention.py{replaces}",
+            max_abs_err=err, ms=fn_ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
+            library_ms=lib_ms))
+        log(f"[kernels] {name}{suffix} {tag}: kernel {fn_ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa backward "
+            f"{lib_ms:.3f} ms | bound {bound:.4f} ms ({flops / fn_ms / 1e9:.1f} TFLOP/s)")
+    del leaves, o_lib
+
+
+def phase_kernels_k2_wan(results: dict, randn) -> None:
+    """K2a/K2b at head dim 128 on the inputs K3's backward gives them in the
+    Wan2.1-1.3B blocks: O and lse from K3's forward of the same q/k/v, dO
+    head-interleaved as the head merge's backward hands it over. wan-self
+    (B16 H12 S512): q/k contiguous as ``apply_rope`` returns them, v a
+    head-split view of its projection; wan-cross: k/v head-split views of
+    the context projections; a small ragged shape (Sq 300, Sk 77 = 64 + 13).
+    Bars are ``_k2_check``'s (2 bf16 ulp of max|ref|). Negative controls
+    that must miss them: a plain version without Δ (wan-self), and one
+    without the 13-key ragged tail (the ragged shape)."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    for tag, B, H, Sq, Sk in (("wan-self", 16, 12, 512, 512), ("wan-cross", 16, 12, 512, 512),
+                              ("ragged-d128", 2, 3, 300, 77)):
+        D, scale = 128, 128 ** -0.5
+        view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
+        q = randn(B, H, Sq, D) if tag != "ragged-d128" else view(Sq)
+        k = randn(B, H, Sk, D) if tag == "wan-self" else view(Sk)
+        v, dout = view(Sk), view(Sq)
+        out, lse = A.flash_attention(q, k, v, scale, return_lse=True)
+        got = A.flash_backward(q, k, v, out, lse, dout, scale)
+        ref = A.flash_backward_plain(q, k, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
+        del ref
+        d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+        if tag == "wan-self":
+            zero = torch.zeros_like(delta)
+            _k2_negative_control("K2 D128 wan-self vs a plain version without Delta", got,
+                                 (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
+                                  *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
+        if tag == "ragged-d128":
+            n = Sk // 64 * 64  # the kernels' last whole key tile
+            _k2_negative_control(f"K2 D128 ragged vs a plain version without the {Sk - n}-key ragged tail", got,
+                                 (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
+                                  None, None), tols)
+        again = A.flash_backward(q, k, v, out, lse, dout, scale)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[kernels] K2 D128 {tag}: two backward passes give the same bits: {same}")
+        if not same:
+            fail("K2 at head dim 128 is not deterministic")
+        if tag != "ragged-d128":
+            _k2_time_and_record(results, tag, "_d128", q, k, v, dout, d_, lse2, delta, scale, got, errs)
+        del q, k, v, out, dout, got, again
         torch.cuda.empty_cache()
 
 
@@ -597,7 +676,7 @@ def phase_slice() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | advantage/std {metrics['advantage/std']:.4f}")
 
 
-def _wan_config():
+def _wan_config(**overrides):
     from flow_factory_tpu_torch.hparams import Arguments
 
     # examples/grpo/lora/wan21/t2v.yaml (Wan2.1-T2V-1.3B GRPO) cut to size:
@@ -605,7 +684,7 @@ def _wan_config():
     # random bf16 weights from seed 42 (no checkpoint in the repo) for the
     # DiT, UMT5-XXL and the VAE; HashTokenizer ids; the brightness reward
     # instead of PickScore. Widths, depth and geometry are the config's own.
-    return Arguments.from_dict({
+    cfg = {
         "data": {"dataset_dir": "dataset/vid_prompt"},
         "model": {"model_type": "wan2-t2v", "model_name_or_path": "", "variant": "1.3b",
                   "finetune_type": "lora", "lora_rank": 32, "lora_alpha": 64, "target_modules": "default",
@@ -618,7 +697,10 @@ def _wan_config():
         "eval": {"resolution": 256, "num_inference_steps": 28, "guidance_scale": 5.0},
         "log": {},
         "rewards": [{"name": "brightness", "reward_model": "MyReward", "batch_size": 8}],
-    })
+    }
+    for section, values in overrides.items():
+        cfg[section] = {**cfg[section], **values}
+    return Arguments.from_dict(cfg)
 
 
 def phase_wan() -> dict:
@@ -749,7 +831,7 @@ def phase_wan() -> dict:
 def _profile(what: str, fn, trace: str) -> dict:
     """torch.profiler over one call of ``fn`` after a warm call: device time
     by kernel, launches, and the device's idle share of the wall time. The
-    trace goes to chiprun_out/<trace>."""
+    trace goes to chiprun_out/<trace>.gz."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -772,6 +854,9 @@ def _profile(what: str, fn, trace: str) -> dict:
     path = os.path.join("chiprun_out", trace)
     prof.export_chrome_trace(path)
     by_op = _device_ms_by_op(path)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:  # ~10x smaller
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
     for name, ms in by_op.most_common(10):
         log(f"[profile]   by op {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% {name}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
@@ -831,55 +916,40 @@ def _swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def phase_grad() -> None:
-    """LoRA gradients through the kernels at SD3.5-M width, reduced depth:
-    two MMDiT-X blocks (the first with the dual self-attention, the second
-    context-pre-only), B=16, 1024 image + 333 context tokens, rank-32 LoRA on
-    the default targets and on the AdaLN linears (norm1, norm1_context),
-    ``lora_B`` drawn non-zero. The loss is the summed Flow-SDE log-prob of a
-    stored transition. The same gradient through the plain path (attention
-    backend ``native``, the norm wrappers swapped for their plain versions)
-    is the reference; a run with K2a's dq zeroed is the negative control."""
-    import dataclasses
-
+def _lora_grad_check(what: str, model, lora, forward, x, gen):
+    """LoRA gradients of the summed Flow-SDE log-prob of one transition
+    (drawn once, near the step's mean) through the kernels, against the same
+    gradient through the plain path (attention backend ``native``, the norm
+    wrappers swapped for their plain versions), and a run with K2a's dq
+    zeroed that must miss the bar. ``forward(params)`` is the velocity of
+    ``model`` on the LoRA-merged weights ``params`` at latents ``x``. The
+    bar: both paths run the same math in bf16 but round in other places
+    (the kernels' folded softmax scale and bf16 p, the fp32 norms' summation
+    order), which the backward carries into every LoRA leaf: worst leaf
+    1.2e-2 (SD3.5) and 1.4e-2 (Wan) of its max on the card, so 3e-2.
+    Returns (leaf names, kernel-path grads, plain-path grads, launch counts
+    of the kernel path)."""
     import torch
-    from torch.func import functional_call
 
     from flow_factory_tpu_torch import ops
-    from flow_factory_tpu_torch.models.layers import build_module
-    from flow_factory_tpu_torch.models.lora import DEFAULT_TARGET_PATTERNS, init_lora, merge_lora
-    from flow_factory_tpu_torch.models.sd3.adapter import _preset
-    from flow_factory_tpu_torch.models.sd3.transformer import SD3Transformer
+    from flow_factory_tpu_torch.models.lora import merge_lora
     from flow_factory_tpu_torch.ops import attention as A
     from flow_factory_tpu_torch.ops import norms as N
     from flow_factory_tpu_torch.scheduler.flow_match_euler import sde_step
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cfg = dataclasses.replace(_preset("medium", "auto", "bfloat16")["transformer"], depth=2,
-                              dual_attention_layers=(0,))
-    model = build_module(lambda: SD3Transformer(cfg), dev, torch.bfloat16, gen)
-    adaln = (r".*\.norm1(_context)?\.linear\.weight$",)
-    lora = init_lora(model, 32, gen, DEFAULT_TARGET_PATTERNS + adaln)
-    for ab in lora.values():  # b != 0, else the gradient of a is zero
-        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
     names = [f"{path}.{k}" for path in sorted(lora) for k in ("lora_A", "lora_B")]
     leaves = [lora[path][k] for path in sorted(lora) for k in ("lora_A", "lora_B")]
-    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-    B = 16
-    x = randn(B, 64, 64, cfg.in_channels)
-    ctx, pooled = randn(B, 333, cfg.context_dim), randn(B, cfg.pooled_dim)
-    full = lambda value: torch.full((B,), value, device=dev)
-    t, sigma, sigma_next = full(750.0), full(0.75), full(0.65)
+    full = lambda value: torch.full((x.shape[0],), value, device=x.device)
+    sigma, sigma_next = full(0.75), full(0.65)
+    step = dict(dynamics_type="Flow-SDE", noise_level=full(0.8), sigma_max=full(0.95), storage_dtype=torch.float16)
+    drawn = []
 
     def lora_grads():
-        v = functional_call(model, merge_lora(model, lora, 2.0), (x.bfloat16(), t, ctx, pooled))
-        step = dict(dynamics_type="Flow-SDE", noise_level=full(0.8), sigma_max=full(0.95),
-                    storage_dtype=torch.float16)
-        if not hasattr(lora_grads, "next_latents"):  # a transition drawn once, near the step's mean
-            lora_grads.next_latents = sde_step(v.detach(), x, sigma, sigma_next, generator=gen,
-                                               compute_log_prob=False, **step).next_latents
-        out = sde_step(v, x, sigma, sigma_next, next_latents=lora_grads.next_latents, **step)
+        v = forward(merge_lora(model, lora, 2.0)).float()
+        if not drawn:
+            drawn.append(sde_step(v.detach(), x, sigma, sigma_next, generator=gen, compute_log_prob=False,
+                                  **step).next_latents)
+        out = sde_step(v, x, sigma, sigma_next, next_latents=drawn[0], **step)
         return torch.autograd.grad(out.log_prob.sum(), leaves)
 
     t0 = time.perf_counter()
@@ -888,10 +958,10 @@ def phase_grad() -> None:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     secs = time.perf_counter() - t0
-    attn_modules = [m for m in model.modules() if hasattr(m, "attn_backend")]
     with contextlib.ExitStack() as stack:
-        for m in attn_modules:
-            stack.enter_context(_swapped(m, attn_backend="native"))
+        for m in model.modules():
+            if hasattr(m, "attn_backend"):
+                stack.enter_context(_swapped(m, attn_backend="native"))
         stack.enter_context(_swapped(
             N, ln_mul_add=lambda x, m, a, eps, dt, fold, rms=False: N._native_ln_mul_add(x, m, a, eps, dt, fold, rms),
             residual_gate_modulate_rows=N._native_residual_gate_modulate))
@@ -905,22 +975,55 @@ def phase_grad() -> None:
 
     errs, wrong = rel_errors(kern), rel_errors(no_dq)
     worst = max(range(len(errs)), key=errs.__getitem__)
-    # the bar: both paths run the same math in bf16 but round in other places
-    # (K1's folded softmax scale, the fp32 norms' summation order), which the
-    # backward carries into every LoRA leaf: worst leaf 1.2e-2 of its max
-    # (median 6.4e-3) on the card, so the bar is 3e-2
     bar = 3e-2
-    log(f"[grad] SD3.5-M width, depth 2 (dual block 0), B={B}, S=1357: {len(leaves)} LoRA leaves, "
-        f"kernel-path grad in {secs:.2f} s, launches {counts}")
+    log(f"[grad] {what}: {len(leaves)} LoRA leaves, kernel-path grad in {secs:.2f} s, launches {counts}")
     log(f"[grad] kernel path vs plain path, per-leaf max|d|/max|ref|: worst {errs[worst]:.3e} ({names[worst]}), "
         f"median {statistics.median(errs):.3e} (bar {bar:.1e}) {'ok' if errs[worst] <= bar else 'FAILED'}")
     caught = max(wrong) > bar
-    log(f"[grad] negative control, K1's dq zeroed: worst leaf {max(wrong):.3e} (bar {bar:.1e}) "
+    log(f"[grad] negative control, K2a's dq zeroed: worst leaf {max(wrong):.3e} (bar {bar:.1e}) "
         f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
     if errs[worst] > bar:
-        fail(f"LoRA gradients through the kernels disagree with the plain path: {names[worst]} {errs[worst]}")
+        fail(f"{what}: LoRA gradients through the kernels disagree with the plain path: {names[worst]} {errs[worst]}")
     if not caught:
-        fail("the [grad] check cannot tell a backward without dq from the right one")
+        fail(f"{what}: the [grad] check cannot tell a backward without dq from the right one")
+    return names, kern, plain, counts
+
+
+def phase_grad() -> None:
+    """LoRA gradients through the kernels at SD3.5-M width, reduced depth:
+    two MMDiT-X blocks (the first with the dual self-attention, the second
+    context-pre-only), B=16, 1024 image + 333 context tokens, rank-32 LoRA on
+    the default targets and on the AdaLN linears (norm1, norm1_context),
+    ``lora_B`` drawn non-zero, checked by :func:`_lora_grad_check`; and a
+    non-zero gradient on every LoRA leaf of the attention projections and
+    AdaLN linears."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import DEFAULT_TARGET_PATTERNS, init_lora
+    from flow_factory_tpu_torch.models.sd3.adapter import _preset
+    from flow_factory_tpu_torch.models.sd3.transformer import SD3Transformer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = dataclasses.replace(_preset("medium", "auto", "bfloat16")["transformer"], depth=2,
+                              dual_attention_layers=(0,))
+    model = build_module(lambda: SD3Transformer(cfg), dev, torch.bfloat16, gen)
+    adaln = (r".*\.norm1(_context)?\.linear\.weight$",)
+    lora = init_lora(model, 32, gen, DEFAULT_TARGET_PATTERNS + adaln)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = randn(B, 64, 64, cfg.in_channels)
+    ctx, pooled = randn(B, 333, cfg.context_dim), randn(B, cfg.pooled_dim)
+    t = torch.full((B,), 750.0, device=dev)
+    names, kern, plain, counts = _lora_grad_check(
+        f"SD3.5-M width, depth 2 (dual block 0), B={B}, S=1357", model, lora,
+        lambda params: functional_call(model, params, (x.bfloat16(), t, ctx, pooled)), x, gen)
     watched = ("attn.to_q", "attn.to_k", "attn.to_v", "attn.add_q_proj", "attn.add_k_proj", "attn.add_v_proj",
                "attn2.to_q", "attn2.to_k", "attn2.to_v", "norm1.linear", "norm1_context.linear")
     # the last block is context-pre-only: its context queries feed no output,
@@ -936,7 +1039,7 @@ def phase_grad() -> None:
         fail(f"LoRA leaves with no gradient through the kernels: {dead}")
     if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the [grad] run: {counts}")
-    del model, lora, leaves, kern, plain, no_dq
+    del model, lora, kern, plain
     torch.cuda.empty_cache()
 
 
@@ -947,13 +1050,92 @@ def _loss_value(info: dict, key: str, stat: str) -> float:
     return info.get(f"{key}_{stat}", info[key])
 
 
-def phase_train() -> dict:
-    """The GRPO training slice at full width through ``load_trainer``, two
-    epochs, each phase timed; then a profile of one grad step."""
+def _train_epochs(trainer, tag: str, want_in_optimize) -> dict:
+    """The epochs of ``trainer`` driven phase by phase, each timed: the
+    replay ratio exactly 1.0 and clip_frac 0 on every grad step (epoch 1
+    rolls out with the LoRA that epoch 0 moved), a finite non-zero grad
+    norm, the LoRA B moved after the first update, one optimizer step an
+    epoch, and the launches of each optimize phase equal to
+    ``want_in_optimize(grad steps)``; then a profile of one grad step.
+    Returns the launch counts of the epochs."""
     import numpy as np
     import torch
 
     from flow_factory_tpu_torch import ops
+
+    ta = trainer.training_args
+    lora = trainer.adapter.trainable["transformer"]
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    ops.reset_launch_counts()
+    grad_steps = 0
+    for epoch in range(ta.max_epochs):
+        trainer.epoch = epoch
+        trainer.scheduler.set_seed(ta.seed + epoch)
+        secs = {}
+        t0 = time.perf_counter()
+        samples = trainer.sample(epoch)
+        torch.cuda.synchronize()
+        secs["sample"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = trainer.prepare_feedback(samples)
+        secs["feedback"] = time.perf_counter() - t0
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+        secs["optimize"] = time.perf_counter() - t0
+        during = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        trainer.adapter.ema_step(epoch)
+        steps = len(list(trainer._micro_batches(len(samples), epoch))) * len(trainer.scheduler.train_timesteps)
+        grad_steps += steps
+        ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
+        clip_hi = _loss_value(info, "train/clip_frac", "max")
+        gnorm = info["train/grad_norm"]
+        log(f"[{tag}] epoch {epoch}: {len(samples)} samples, reward mean {metrics['reward/mean']:.4f}, {steps} "
+            f"grad steps, launches in optimize {during}, ratio min {ratio_lo!r} max {ratio_hi!r} on every grad "
+            f"step, clip_frac max {clip_hi}, loss {info['train/loss']:.4e}, grad_norm {gnorm:.4e}, global step "
+            f"{trainer.global_step}")
+        log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+            f"{secs['optimize'] / steps:.3f} s per grad step (optimizer step included)")
+        if not (ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
+            fail(f"[{tag}] epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
+        if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
+            fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
+        want = want_in_optimize(steps)
+        if any(during[k] != n for k, n in want.items()):
+            fail(f"[{tag}] epoch {epoch}: launches in optimize {during}, expected {want}")
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail(f"[{tag}] the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] launches over two epochs (rollouts and grad steps) {counts} | {grad_steps} grad steps | "
+        f"peak memory {peak:.2f} GiB")
+    if trainer.global_step != ta.max_epochs:
+        fail(f"[{tag}] the optimizer did not step once per epoch: global step {trainer.global_step}")
+    return counts
+
+
+def _profile_grad_step(trainer, what: str, trace: str) -> None:
+    """One grad step (forward, backward, accumulation, AdamW) on the first
+    batch of the last epoch's rollout, profiled."""
+    batch = next(trainer.grad_step_batches(trainer.reward_buffer.samples, trainer.training_args.max_epochs - 1))
+
+    def grad_step():
+        _, grads = trainer.loss_and_grads(trainer.adapter.trainable, batch)
+        trainer.accumulate_grads(grads)
+        trainer.apply_accumulated()
+
+    _profile(what, grad_step, trace)
+
+
+def phase_train() -> dict:
+    """The GRPO training slice at full width through ``load_trainer``, two
+    epochs, each phase timed; then a profile of one grad step."""
+    import torch
+
     from flow_factory_tpu_torch.trainers import load_trainer
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -978,65 +1160,115 @@ def phase_train() -> dict:
         f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.1f} M trainable, preprocess "
         f"included) {load_s:.1f} s; remat {trainer.adapter.component_configs['transformer'].remat}; "
         f"gradient_accumulation_steps {ta.gradient_accumulation_steps}")
-    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
-    ops.reset_launch_counts()
-    grad_steps = 0
-    for epoch in range(ta.max_epochs):
-        trainer.epoch = epoch
-        trainer.scheduler.set_seed(ta.seed + epoch)
-        secs = {}
-        t0 = time.perf_counter()
-        samples = trainer.sample(epoch)
-        torch.cuda.synchronize()
-        secs["sample"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        metrics = trainer.prepare_feedback(samples)
-        secs["feedback"] = time.perf_counter() - t0
-        before = ops.launch_counts()["flash_bwd_dq"]
-        t0 = time.perf_counter()
-        info = trainer.optimize(samples, epoch)
-        torch.cuda.synchronize()
-        secs["optimize"] = time.perf_counter() - t0
-        trainer.adapter.ema_step(epoch)
-        steps = len(list(trainer._micro_batches(len(samples), epoch))) * len(trainer.scheduler.train_timesteps)
-        grad_steps += steps
-        ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
-        clip_hi = _loss_value(info, "train/clip_frac", "max")
-        gnorm = info["train/grad_norm"]
-        log(f"[train] epoch {epoch}: {len(samples)} samples, reward mean {metrics['reward/mean']:.4f}, "
-            f"{steps} grad steps (K2a launches {ops.launch_counts()['flash_bwd_dq'] - before}), ratio min "
-            f"{ratio_lo!r} max {ratio_hi!r} on every grad step, clip_frac max {clip_hi}, loss "
-            f"{info['train/loss']:.4e}, grad_norm {gnorm:.4e}, global step {trainer.global_step}")
-        log(f"[train] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
-            f"{secs['optimize'] / steps:.3f} s per grad step (optimizer step included)")
-        if not (ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
-            fail(f"epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
-        if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
-            fail(f"epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
-        if epoch == 0:
-            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
-            log(f"[train] LoRA B after the first update: max|change| {moved:.3e}")
-            if not moved > 0:
-                fail("the LoRA did not move after the optimizer step")
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] launches over two epochs (rollouts and grad steps) {counts} | {grad_steps} grad steps | "
-        f"peak memory {peak:.2f} GiB")
-    remat = trainer.adapter.component_configs["transformer"].remat
-    if any(counts[k] <= 0 for k in SD35_KERNELS) or trainer.global_step != ta.max_epochs:
-        fail(f"a kernel never launched, or the optimizer did not step once per epoch: {counts}, "
-             f"global step {trainer.global_step}")
-    if not remat and not counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 37 * grad_steps:
-        fail(f"expected 37 K2a and K2b launches per grad step: {counts}")
+    # a backward per attention: 24 joint + 13 dual self-attentions
+    counts = _train_epochs(trainer, "train", lambda steps: {"flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps})
+    if any(counts[k] <= 0 for k in SD35_KERNELS):
+        fail(f"a kernel never launched in the SD3.5 GRPO epochs: {counts}")
+    _profile_grad_step(trainer, "one grad step (forward, backward, AdamW)", "grad_step_trace.json")
+    trainer.cleanup()
+    return counts
 
-    batch = next(trainer.grad_step_batches(samples, ta.max_epochs - 1))
 
-    def grad_step():
-        _, grads = trainer.loss_and_grads(trainer.adapter.trainable, batch)
-        trainer.accumulate_grads(grads)
-        trainer.apply_accumulated()
+def phase_grad_wan() -> None:
+    """LoRA gradients through the kernels at Wan2.1-1.3B width, reduced
+    depth: two blocks, B=16 (the CFG batch), 512 video tokens (256 px x 5
+    frames) and 512 UMT5 context tokens, rank-32 LoRA on the 20 Wan targets
+    of the two blocks, ``lora_B`` drawn non-zero, checked by
+    :func:`_lora_grad_check`; a non-zero gradient on every leaf, and K3,
+    K2a and K2b launched once per attention."""
+    import dataclasses
 
-    _profile("one grad step (forward, backward, AdamW)", grad_step, "grad_step_trace.json")
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import init_lora
+    from flow_factory_tpu_torch.models.wan.t2v import WAN_LORA_TARGETS
+    from flow_factory_tpu_torch.models.wan.transformer import WanConfig, WanTransformer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cfg = dataclasses.replace(WanConfig.wan21_1_3b(), num_layers=2)
+    model = build_module(lambda: WanTransformer(cfg), dev, torch.bfloat16, gen)
+    lora = init_lora(model, 32, gen, WAN_LORA_TARGETS)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = randn(B, 2, 32, 32, cfg.in_channels)  # 2 latent frames of 32 x 32: 512 tokens
+    ctx = randn(B, 512, cfg.context_dim)
+    t = torch.full((B,), 750.0, device=dev)
+    names, kern, _, counts = _lora_grad_check(
+        f"Wan2.1-1.3B width, depth 2, B={B}, 512 video + 512 context tokens", model, lora,
+        lambda params: functional_call(model, params, (x, t, ctx)), x, gen)
+    dead = [n for n, g in zip(names, kern) if not g.abs().max().item() > 0]
+    log(f"[grad] Wan: non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves")
+    per_forward = 2 * cfg.num_layers
+    want = {"flash_fwd": per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
+    if dead or any(counts[k] != n for k, n in want.items()) or counts["ln_mul_add"] <= 0:
+        fail(f"Wan [grad]: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
+    del model, lora, kern
+    torch.cuda.empty_cache()
+
+
+def phase_wan_train() -> dict:
+    """The Wan2.1-T2V-1.3B GRPO training slice at full width through
+    ``load_trainer``: the rollout geometry of ``[wan]``, LoRA rank 32 on the
+    300 default targets, fp32 master weights, AdamW 3e-4, clip 1e-4, adv
+    clip 5, two grad steps accumulated into one update per epoch, EMA 0.99
+    every 4, two epochs; then the evaluation that ``eval_freq: 2`` runs at
+    the start of epoch 2 (a 28-step UniPC rollout of the 2 test prompts
+    under the EMA weights) and a profile of one grad step. Returns the
+    launch counts of the two epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = _wan_config(
+        data={"cache_dir": os.path.join(here, "build", "preprocess_cache"), "sampler_type": "group_contiguous"},
+        train={"clip_range": 1e-4, "adv_clip_range": 5.0, "kl_beta": 0.0, "learning_rate": 3e-4,
+               "ema_decay": 0.99, "ema_update_interval": 4, "gradient_accumulation_steps": 2, "max_epochs": 2},
+        eval={"eval_freq": 2, "per_device_batch_size": 8, "seed": 42},
+        log={"logging_backend": "none", "save_freq": 0, "run_name": "chip_smoke_wan_grpo",
+             "save_dir": os.path.join(here, "chiprun_out", "train")},
+    )
+    ta = cfg.training_args
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tcfg = trainer.adapter.component_configs["transformer"]
+    lora = trainer.adapter.trainable["transformer"]
+    log(f"[wan-train] load_trainer (Wan2.1-T2V-1.3B, LoRA rank {cfg.model_args.lora_rank} on {len(lora)} weights, "
+        f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.2f} M trainable, preprocess "
+        f"included) {load_s:.1f} s; remat {tcfg.remat}; gradient_accumulation_steps "
+        f"{ta.gradient_accumulation_steps}; EMA {ta.ema_decay} every {ta.ema_update_interval}")
+    # K3 launches of one DiT forward, K2a/K2b of one backward: self + cross per block
+    per_forward = 2 * tcfg.num_layers
+    counts = _train_epochs(trainer, "wan-train", lambda steps: {
+        "flash_bwd_dq": per_forward * steps, "flash_bwd_dkv": per_forward * steps,
+        "flash_fwd": per_forward * steps * (2 if tcfg.remat else 1)})  # remat runs each forward again
+
+    # the evaluation that eval_freq 2 runs before epoch 2: UniPC, 28 steps, EMA weights
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    eval_metrics = trainer.evaluate(ta.max_epochs)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    during = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    steps = cfg.eval_args.num_inference_steps
+    log(f"[wan-train] evaluate ({type(trainer.scheduler).__name__} order {trainer.scheduler.solver_order}, "
+        f"{steps} steps, EMA weights): {json.dumps({k: round(v, 5) for k, v in eval_metrics.items()})}, "
+        f"launches {during}, {eval_s:.2f} s")
+    if not (eval_metrics.get("eval/num_samples") == 2.0 and all(np.isfinite(v) for v in eval_metrics.values())):
+        fail(f"Wan evaluate: {eval_metrics}")
+    if during["flash_fwd"] != steps * per_forward:
+        fail(f"Wan evaluate: K3 launches {during['flash_fwd']}, expected {steps} steps x {per_forward}")
+    _profile_grad_step(trainer, "one Wan grad step (forward, backward, AdamW)", "wan_grad_step_trace.json")
     trainer.cleanup()
     return counts
 
@@ -1070,9 +1302,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_grad()
     counts = phase_train()
-    # each kernel's launches on its main path: K3 in the Wan rollout, the
-    # others in the SD3.5 GRPO epochs
+    gc.collect()
+    torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the Wan trainer loads
+    phase_grad_wan()
+    wan_train_counts = phase_wan_train()
+    # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
+    # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
     counts["flash_fwd"] = wan_counts["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        counts[f"{name}_d128"] = wan_train_counts[name]
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -285,6 +285,24 @@ class BaseAdapter(ABC):
         """Storage-dtype round trip — the train-inference consistency guard."""
         return latents.to(self.storage_dtype).float()
 
+    def initial_latents(self, shape, generator, x0=None) -> Tuple[torch.Tensor, torch.Generator]:
+        """A rollout's x0 of ``shape`` (B, ...) — ``x0`` when given, else
+        drawn — through the storage-dtype round trip, and the generator of its
+        step noise. ``generator`` is one generator (one draw for the batch) or
+        one per row (an eval prompt's own, ``generators_for_prompts``): row i
+        then comes from generator i and the step noise from the first, as the
+        JAX adapters draw x0 from per-row keys and fold the scan's key from
+        the first (``wan/t2v.py:413-419``)."""
+        rows = generator if isinstance(generator, (list, tuple)) else None
+        if rows is not None and len(rows) != shape[0]:
+            raise ValueError(f"{len(rows)} generators for a batch of {shape[0]}")
+        if x0 is None and rows is None:
+            x0 = torch.randn(shape, generator=generator, device=self.device, dtype=torch.float32)
+        elif x0 is None:
+            x0 = torch.stack([torch.randn(shape[1:], generator=g, device=self.device, dtype=torch.float32)
+                              for g in rows])
+        return self.cast_latents(self._on_device(x0)), (generator if rows is None else rows[0])
+
     @torch.no_grad()
     def _rollout_impl(
         self,

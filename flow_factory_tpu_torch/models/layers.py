@@ -26,9 +26,26 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, qknorm_dot_product_attention
 from ..ops.norms import adaln_modulate, fused_layernorm
+
+
+def checkpointed(block: nn.Module, *inputs):
+    """One block under ``torch.utils.checkpoint`` (the JAX package's
+    per-block ``nn.remat``). The block's parameters go in as explicit inputs
+    and the block runs on them through ``functional_call``, so the recompute
+    in the backward sees the weights the forward saw — the LoRA-merged ones
+    when the caller swapped them in."""
+    names, params = zip(*block.named_parameters())
+    n = len(inputs)
+
+    def run(*args):
+        return functional_call(block, dict(zip(names, args[n:])), args[:n])
+
+    return checkpoint(run, *inputs, *params, use_reentrant=False)
 
 
 class Linear(nn.Linear):

@@ -17,7 +17,7 @@ Port of ``flow_factory_tpu/models/sd3/adapter.py``:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -197,7 +197,7 @@ class SD35Adapter(BaseAdapter):
         compute_log_prob: bool = True,
         trajectory_indices: Optional[Any] = "all",
         seed: Optional[int] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[Union[torch.Generator, Sequence[torch.Generator]]] = None,
         x0: Optional[torch.Tensor] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
         trainable=None,
@@ -207,7 +207,8 @@ class SD35Adapter(BaseAdapter):
     ) -> List[T2ISample]:
         """Full rollout → host-resident samples with trajectories and log-probs.
 
-        Noise comes from ``generator`` (default: seeded from ``seed``); ``x0``
+        Noise comes from ``generator`` (default: seeded from ``seed``; one
+        per row for per-prompt eval noise, :meth:`initial_latents`); ``x0``
         and per-step ``noise`` replace its draws when given. The LoRA of
         ``trainable`` (default: the live tree) is merged once, here."""
         ta = self.training_args
@@ -243,9 +244,7 @@ class SD35Adapter(BaseAdapter):
 
         if generator is None:
             generator = make_generator(self.device, "rollout", ta.seed if seed is None else seed)
-        if x0 is None:
-            x0 = torch.randn((B, h, w, c), generator=generator, device=self.device, dtype=torch.float32)
-        x0 = self.cast_latents(self._on_device(x0))
+        x0, generator = self.initial_latents((B, h, w, c), generator, x0)
 
         params = self.merged_params(self.velocity_component, trainable)
         x_final, lat_buf, lp_buf, mean_buf = self.rollout_compute(

@@ -16,8 +16,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.norms import residual_gate_modulate
 from ..layers import (
@@ -30,6 +28,7 @@ from ..layers import (
     PooledTextEmbedding,
     SelfAttention,
     TimestepEmbedding,
+    checkpointed,
     unpatchify,
 )
 
@@ -169,20 +168,8 @@ class SD3Transformer(nn.Module):
         context = self.context_embedder(encoder_hidden_states)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            x, context = (_checkpointed(block, x, context, temb) if remat
+            x, context = (checkpointed(block, x, context, temb) if remat
                           else block(x, context, temb))
         x = self.proj_out(self.norm_out(x, temb))
         return unpatchify(x, h, w, cfg.patch_size, cfg.out_channels)
 
-
-def _checkpointed(block: nn.Module, x, context, temb):
-    """One block under ``torch.utils.checkpoint``. The block's parameters go
-    in as explicit inputs and the block runs on them through
-    ``functional_call``, so the recompute in the backward sees the weights the
-    forward saw — the LoRA-merged ones when the caller swapped them in."""
-    names, params = zip(*block.named_parameters())
-
-    def run(x, context, temb, *weights):
-        return functional_call(block, dict(zip(names, weights)), (x, context, temb))
-
-    return checkpoint(run, x, context, temb, *params, use_reentrant=False)

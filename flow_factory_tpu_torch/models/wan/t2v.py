@@ -14,7 +14,8 @@ presets, the I2V image stream and the chunked decode.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,6 +77,8 @@ class WanT2VAdapter(BaseAdapter):
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "1.3b")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
+        if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
+            preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
         self.t5_max_length = preset["t5_max_length"]
         self.component_configs = {
             "transformer": preset["transformer"],
@@ -168,7 +171,7 @@ class WanT2VAdapter(BaseAdapter):
         compute_log_prob: bool = True,
         trajectory_indices: Optional[Any] = "all",
         seed: Optional[int] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[Union[torch.Generator, Sequence[torch.Generator]]] = None,
         x0: Optional[torch.Tensor] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
         trainable=None,
@@ -178,7 +181,8 @@ class WanT2VAdapter(BaseAdapter):
     ) -> List[T2VSample]:
         """Full rollout → host-resident samples with trajectories, log-probs
         and videos (T, C, H, W) in [0, 1]. Noise comes from ``generator``
-        (default: seeded from ``seed``); ``x0`` and per-step ``noise``
+        (default: seeded from ``seed``; one per row for per-prompt eval
+        noise, :meth:`initial_latents`); ``x0`` and per-step ``noise``
         replace its draws when given. In eval mode the scheduler's UniPC
         predictor-corrector runs and the log-probs are zeros."""
         ta = self.training_args
@@ -208,9 +212,7 @@ class WanT2VAdapter(BaseAdapter):
 
         if generator is None:
             generator = make_generator(self.device, "rollout", ta.seed if seed is None else seed)
-        if x0 is None:
-            x0 = torch.randn((B, *shape), generator=generator, device=self.device, dtype=torch.float32)
-        x0 = self.cast_latents(self._on_device(x0))
+        x0, generator = self.initial_latents((B, *shape), generator, x0)
 
         params = self.merged_params(self.velocity_component, trainable)
         x_final, lat_buf, lp_buf, mean_buf = self.rollout_compute(

@@ -15,8 +15,10 @@ the JAX package computes it: one product over (pt, ph, pw, C) voxels. Three
 things follow the JAX package exactly: the modulation table and
 ``time_proj`` run in fp32; the gates are cast to x's dtype before they
 multiply; the context is cast to the compute dtype before the text
-embedder. Per-token timesteps (Wan2.2 TI2V) and the I2V image stream are
-not ported and raise.
+embedder. ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``; the JAX package's ``nn.remat(WanBlock)``,
+``wan/transformer.py:242``). Per-token timesteps (Wan2.2 TI2V) and the
+I2V image stream are not ported and raise.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from ..layers import (
     MergeProj,
     TimestepEmbedding,
     apply_rope,
+    checkpointed,
     rope_frequencies,
 )
 
@@ -55,6 +58,7 @@ class WanConfig:
     axes_dim: Tuple[int, ...] = (44, 42, 42)  # rope dims for (t, h, w); sums to head_dim
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
+    remat: bool = False  # gradient checkpointing (recompute each block in the backward)
     #: Wan2.1 I2V CLIP image tokens (not ported: a non-zero value raises)
     image_context_tokens: int = 0
 
@@ -195,8 +199,10 @@ class WanTransformer(nn.Module):
                            torch.arange(gh, device=dev).repeat_interleave(gw).repeat(gt),
                            torch.arange(gw, device=dev).repeat(gt * gh)], dim=-1)
         cos, sin = rope_frequencies(ids, cfg.axes_dim)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, context, temb6, cos, sin)
+            x = (checkpointed(block, x, context, temb6, cos, sin) if remat
+                 else block(x, context, temb6, cos, sin))
 
         # head: (1, 2, D) table + the raw time embedding, shift first
         head_mod = self.scale_shift_table.float() + temb[:, None, :].float()

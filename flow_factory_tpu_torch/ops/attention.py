@@ -48,6 +48,8 @@ _LN2 = 0.6931471805599453
 _KERNEL_HEAD_DIM = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _K3_HEAD_DIMS = (64, 128)
+#: head dims K2a/K2b take, by dtype (fp32 at 128 has no variant, as for K3)
+_K2_HEAD_DIMS = {torch.float32: (64,), torch.bfloat16: (64, 128)}
 
 
 def native_attention(
@@ -283,7 +285,7 @@ def flash_backward_plain(q, k, v, out, lse, dout, scale: float):
 
 
 def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
-    _check_heads(name, q, k, v, dout)
+    _check_heads(name, q, k, v, dout, head_dims=_K2_HEAD_DIMS.get(q.dtype, (_KERNEL_HEAD_DIM,)))
     B, H, Sq, _ = q.shape
     for what, t in (("lse2", lse2), ("delta", delta)):
         if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq)
@@ -421,7 +423,7 @@ def _launch_flash(q, k, v, scale: float):
 class _Flash(torch.autograd.Function):
     """K3 with the JAX ``_flash_attention`` custom VJP (:788-804): the forward
     launches K3 and keeps q, k, v, O and the natural-log lse; the backward is
-    :func:`flash_backward` (K2a/K2b, which take head dim 64 only so far)."""
+    :func:`flash_backward` (K2a/K2b at K3's head dim, 64 or 128)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):

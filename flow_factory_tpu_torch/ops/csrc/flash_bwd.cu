@@ -15,7 +15,10 @@
 // What bounds them on an H100: at the SD3.5-M shapes (B=16, H=24, S=1357 or
 // 1024, D=64) K2a does 6*B*H*S^2*D FLOP (2.7e11 / 1.5e11) and K2b
 // 8*B*H*S^2*D (3.6e11 / 2.1e11) against ~1e8 bytes, so the bound is the
-// tensor-core rate (989 TFLOP/s bf16), not the 3.35 TB/s memory.
+// tensor-core rate (989 TFLOP/s bf16), not the 3.35 TB/s memory. At the
+// Wan2.1-1.3B shape (B=16, H=12, S=512, D=128) K2a does 3.9e10 FLOP against
+// ~1.3e8 bytes and K2b 5.2e10 against ~1.5e8: ~300 FLOP a byte, on the line
+// where the two bounds meet (0.04-0.05 ms each).
 //
 // Design (neither copies the TPU block structure, whose sequential grid
 // carried sums in VMEM scratch across grid steps):
@@ -30,16 +33,29 @@
 // columns past Sk get p = 0 in K2a and their dk/dv rows are never stored in
 // K2b. Strides of every (b, h, s) axis are passed, so the head-split views of
 // the attention layers, K1's head-interleaved O and whatever dO autograd hands
-// over are read in place. Head dim 64 only. Two variants:
-// * bf16 (the SD3.5 path): 128-row tiles of the outer axis, 8 warps each
+// over are read in place. Three variants:
+// * bf16, head dim 64 (the SD3.5 path): 128-row tiles of the outer axis, 8 warps each
 //   owning 16 rows; every product on the tensor cores with mma.sync m16n8k16
 //   (bf16 in, fp32 accumulate); p and ds are re-packed in registers as A
 //   operands; the B operands of the row-major tiles come from ldmatrix.trans;
 //   tiles move as 16-byte vectors, so every pointer and (b, h, s) stride must
 //   keep 16-byte alignment, else the launch is refused.
-// * fp32: 64-row tiles, 256 threads, register-tiled 4x4 fp32 FMAs from shared
-//   memory (right and simple).
-// No TMA, wgmma, pipelining or fused dq/dkv pass yet: later work.
+// * bf16, head dim 128 (the Wan path): the head-dim-64 design does not widen.
+//   Its warps hold their 16 resident rows as A fragments; at D=128 those,
+//   the doubled accumulators (dk and dv: 128 fp32 a thread) and the score
+//   tiles pass the 255 registers a thread can have. So the resident tiles
+//   (q~ and dO in K2a, K and V in K2b) stay in shared memory and each k-step
+//   reads its A fragment from there; blocks are 4 warps (64 outer rows);
+//   K2a streams 64-key tiles, K2b 32-row q tiles (its score tiles then take
+//   32 registers, not 64). The streamed tiles come in with cp.async into two
+//   shared-memory stages (tile n+1 in flight while tile n is multiplied, as
+//   in K3); K2b scales each q tile by qmul in place once it has landed, every
+//   thread the vectors it copied itself. Dynamic shared memory: 104.4 KB for
+//   K2a, 69.6 KB for K2b. Same roundings, masks, layouts and alignment rules
+//   as the head-dim-64 variant.
+// * fp32, head dim 64: 64-row tiles, 256 threads, register-tiled 4x4 fp32
+//   FMAs from shared memory (right and simple).
+// No TMA, wgmma or fused dq/dkv pass yet: later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -337,12 +353,14 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// B fragments of a row-major [k][n] bf16 tile: rows k0..k0+15, columns n0..n0+7
+// B fragments of a row-major [k][n] bf16 tile (row pitch P): rows k0..k0+15,
+// columns n0..n0+7
+template <int P>
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
                                                   int k0, int n0) {
   const int lane = threadIdx.x & 31;
   const unsigned addr = static_cast<unsigned>(
-      __cvta_generic_to_shared(tile + (k0 + (lane & 15)) * MP + n0));
+      __cvta_generic_to_shared(tile + (k0 + (lane & 15)) * P + n0));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(b0), "=r"(b1)
                : "r"(addr));
@@ -419,7 +437,7 @@ __device__ __forceinline__ void mma_xb(float (&acc)[8][4], const float (&x)[8][4
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, tile, kk * 16, j * 8);
+      ldmatrix_x2_trans<MP>(b0, b1, tile, kk * 16, j * 8);
       mma_16816(acc[j], a, b0, b1);
     }
   }
@@ -587,6 +605,268 @@ cudaError_t launch_mma(const Params& p, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, head dim 128: resident tiles in shared memory, streamed tiles in a
+// two-stage cp.async ring
+// ---------------------------------------------------------------------------
+constexpr int WD = 128;      // head dim of this variant
+constexpr int WP = WD + 8;   // bf16 row pitch (272 B): conflict-free fragment loads and ldmatrix
+constexpr int WNT = 128;     // 4 warps, each owning 16 rows of the outer axis
+constexpr int WR = 64;       // outer rows per block
+constexpr int WK = 64;       // K2a: keys per streamed tile
+constexpr int WQ = 32;       // K2b: q rows per streamed tile
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+// ROWS x 128 of a bf16 (S, 128) head slice -> row-major shared memory (pitch
+// WP) with cp.async, 16 bytes a copy; rows past S are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void async_rows_w(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t row_stride,
+                                             int row0, int S) {
+  constexpr int VPR = WD / 8;  // 16-byte vectors per row
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += WNT) {
+    const int r = idx / VPR, c = (idx % VPR) * 8, row = row0 + r;
+    const bool ok = row < S;
+    cp_async16(dst + r * WP + c, src + (int64_t)(ok ? row : 0) * row_stride + c, ok);
+  }
+}
+
+// Multiplies in place, by `mul` in fp32 with one rounding to bf16, the
+// vectors of a tile that this thread copied with async_rows_w<ROWS> (so its
+// own wait_group is enough before it reads them).
+template <int ROWS>
+__device__ __forceinline__ void scale_rows_w(__nv_bfloat16* tile, float mul) {
+  constexpr int VPR = WD / 8;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += WNT) {
+    uint4* v = reinterpret_cast<uint4*>(tile + (idx / VPR) * WP + (idx % VPR) * 8);
+    uint4 u = *v;
+    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(hv[e]);
+      hv[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+    }
+    *v = u;
+  }
+}
+
+// acc[NJ][4] (16 x 8NJ) = R . C^T: R the warp's 16 rows (from row wr) of a
+// [.][128] shared tile, its A fragments read at each k-step; C a row-major
+// [8NJ][128] shared tile read as the col-major B operand.
+template <int NJ>
+__device__ __forceinline__ void mma_abt_w(float (&acc)[NJ][4], const __nv_bfloat16* rows, int wr,
+                                          const __nv_bfloat16* cols) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk) {
+    const uint32_t a[4] = {ld32(&rows[(wr + g) * WP + kk * 16 + 2 * t]),
+                           ld32(&rows[(wr + g + 8) * WP + kk * 16 + 2 * t]),
+                           ld32(&rows[(wr + g) * WP + kk * 16 + 8 + 2 * t]),
+                           ld32(&rows[(wr + g + 8) * WP + kk * 16 + 8 + 2 * t])};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      mma_16816(acc[j], a, ld32(&cols[(j * 8 + g) * WP + kk * 16 + 2 * t]),
+                ld32(&cols[(j * 8 + g) * WP + kk * 16 + 8 + 2 * t]));
+  }
+}
+
+// acc[16][4] (16 x 128) += X . T: X (16 x 16KS) an fp32 accumulator fragment
+// rounded to bf16 as the A operand, T a row-major [16KS][128] shared tile.
+template <int KS>
+__device__ __forceinline__ void mma_xb_w(float (&acc)[WD / 8][4], const float (&x)[2 * KS][4],
+                                         const __nv_bfloat16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]), pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int j = 0; j < WD / 8; ++j) {
+      uint32_t b0, b1;
+      ldmatrix_x2_trans<WP>(b0, b1, tile, kk * 16, j * 8);
+      mma_16816(acc[j], a, b0, b1);
+    }
+  }
+}
+
+// Rows wr+g and wr+g+8 of a (16 x 128) accumulator, times `mul`, to bf16 rows
+// of `out` (row stride `ss`) from row `row0`; rows at or past S are skipped.
+__device__ __forceinline__ void store_rows_w(__nv_bfloat16* out, int64_t ss, int row0, int S,
+                                             const float (&acc)[WD / 8][4], float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < WD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(WNT, 2) flash_bwd_dq_w_kernel(Params p) {
+  // q~ rows and dO rows of this block, then two stages of (K, V) tiles
+  extern __shared__ __align__(16) __nv_bfloat16 wbuf[];
+  __nv_bfloat16* Qs = wbuf;
+  __nv_bfloat16* Os = Qs + WR * WP;
+  __nv_bfloat16* ring = Os + WR * WP;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WR;
+  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
+
+  async_rows_w<WR>(Qs, qb, p.q_ss, q0, p.Sq);
+  async_rows_w<WR>(Os, ob, p.o_ss, q0, p.Sq);
+  async_rows_w<WK>(ring, kb, p.k_ss, 0, p.Sk);
+  async_rows_w<WK>(ring + WK * WP, vb, p.v_ss, 0, p.Sk);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  scale_rows_w<WR>(Qs, p.qmul);  // q~ = q * qmul, rounded once
+
+  // this thread's rows are wr+g (fragment slots 0,1) and wr+g+8 (slots 2,3)
+  float lse[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    lse[r] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
+    del[r] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
+  }
+  float acc[WD / 8][4];
+#pragma unroll
+  for (int j = 0; j < WD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int n0 = 0, it = 0; n0 < p.Sk; n0 += WK, ++it) {
+    __syncthreads();  // the q~ tile is staged, or the stage refilled next is no longer read
+    if (n0 + WK < p.Sk) {  // prefetch the next key tile into the other stage
+      __nv_bfloat16* next = ring + 2 * ((it + 1) & 1) * WK * WP;
+      async_rows_w<WK>(next, kb, p.k_ss, n0 + WK, p.Sk);
+      async_rows_w<WK>(next + WK * WP, vb, p.v_ss, n0 + WK, p.Sk);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies have landed
+    __syncthreads();
+    const __nv_bfloat16* Kt = ring + 2 * (it & 1) * WK * WP;
+    const __nv_bfloat16* Vt = Kt + WK * WP;
+
+    float s[WK / 8][4], dp[WK / 8][4];
+    mma_abt_w<WK / 8>(s, Qs, wr, Kt);
+    mma_abt_w<WK / 8>(dp, Os, wr, Vt);
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pv = n0 + j * 8 + 2 * t + (e & 1) < p.Sk ? exp2f(fminf(s[j][e] - lse[r], 0.f)) : 0.f;
+        s[j][e] = pv * (dp[j][e] - del[r]);  // ds, rounded to bf16 as the A operand
+      }
+    mma_xb_w<WK / 16>(acc, s, Kt);
+  }
+
+  auto* dqb = reinterpret_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows_w(dqb, p.dq_ss, q0 + wr, p.Sq, acc, p.scale);
+}
+
+__global__ void __launch_bounds__(WNT, 2) flash_bwd_dkv_w_kernel(Params p) {
+  // key rows and value rows of this block, then two stages of (q~, dO) tiles
+  extern __shared__ __align__(16) __nv_bfloat16 wbuf[];
+  __nv_bfloat16* Ks = wbuf;
+  __nv_bfloat16* Vs = Ks + WR * WP;
+  __nv_bfloat16* ring = Vs + WR * WP;
+  __shared__ float lse_s[2][WQ], del_s[2][WQ];
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * WR;
+  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
+
+  async_rows_w<WR>(Ks, kb, p.k_ss, k0, p.Sk);
+  async_rows_w<WR>(Vs, vb, p.v_ss, k0, p.Sk);
+  async_rows_w<WQ>(ring, qb, p.q_ss, 0, p.Sq);
+  async_rows_w<WQ>(ring + WQ * WP, ob, p.o_ss, 0, p.Sq);
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (threadIdx.x < WQ) {
+    const int row = threadIdx.x;
+    lse_s[0][threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
+    del_s[0][threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
+  }
+
+  float acck[WD / 8][4], accv[WD / 8][4];
+#pragma unroll
+  for (int j = 0; j < WD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
+
+  for (int m0 = 0, it = 0; m0 < p.Sq; m0 += WQ, ++it) {
+    const int stage = it & 1;
+    __syncthreads();  // the stage refilled next (tiles, lse_s, del_s) is no longer read
+    if (m0 + WQ < p.Sq) {  // prefetch the next q tile into the other stage
+      __nv_bfloat16* next = ring + 2 * (stage ^ 1) * WQ * WP;
+      async_rows_w<WQ>(next, qb, p.q_ss, m0 + WQ, p.Sq);
+      async_rows_w<WQ>(next + WQ * WP, ob, p.o_ss, m0 + WQ, p.Sq);
+      if (threadIdx.x < WQ) {
+        const int row = m0 + WQ + threadIdx.x;
+        lse_s[stage ^ 1][threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
+        del_s[stage ^ 1][threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies have landed
+    __nv_bfloat16* Qt = ring + 2 * stage * WQ * WP;
+    const __nv_bfloat16* Ot = Qt + WQ * WP;
+    scale_rows_w<WQ>(Qt, p.qmul);  // q~ = q * qmul, rounded once
+    __syncthreads();
+
+    // transposed scores: rows are this warp's keys, columns the tile's q rows
+    float st[WQ / 8][4], dpt[WQ / 8][4];
+    mma_abt_w<WQ / 8>(st, Ks, wr, Qt);
+    mma_abt_w<WQ / 8>(dpt, Vs, wr, Ot);
+#pragma unroll
+    for (int j = 0; j < WQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const float pv = exp2f(fminf(st[j][e] - lse_s[stage][c], 0.f));
+        st[j][e] = pv;                                  // p^T, rounded to bf16 as the A operand
+        dpt[j][e] = pv * (dpt[j][e] - del_s[stage][c]);  // ds^T, likewise
+      }
+    mma_xb_w<WQ / 16>(accv, st, Ot);
+    mma_xb_w<WQ / 16>(acck, dpt, Qt);
+  }
+
+  auto* dkb = reinterpret_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  auto* dvb = reinterpret_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows_w(dkb, p.dk_ss, k0 + wr, p.Sk, acck, kLn2);
+  store_rows_w(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
+}
+
+cudaError_t launch_w(const Params& p, bool dkv, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)WP * (2 * WR + 4 * (dkv ? WQ : WK));
+  auto kernel = dkv ? flash_bwd_dkv_w_kernel : flash_bwd_dq_w_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(((dkv ? p.Sk : p.Sq) + WR - 1) / WR, p.H, p.B);
+  kernel<<<grid, WNT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse2,
                    const float* delta, int B, int H, int Sq, int Sk, const long long* s, float qmul,
                    float scale) {
@@ -607,9 +887,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 int launch(const Params& p, bool dkv, int d, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (d != D) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_f32(p, dkv, s);
-  if (dtype == 1 && mma_aligned(p, dkv)) return (int)launch_mma(p, dkv, s);
+  if (d == D && dtype == 0) return (int)launch_f32(p, dkv, s);
+  if (dtype != 1 || !mma_aligned(p, dkv)) return (int)cudaErrorInvalidValue;
+  if (d == D) return (int)launch_mma(p, dkv, s);
+  if (d == WD) return (int)launch_w(p, dkv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -617,9 +898,10 @@ int launch(const Params& p, bool dkv, int d, int dtype, void* stream) {
 
 extern "C" {
 
-// Common arguments: q, k, v, dout (B, H, S, 64) in one type; lse2 (base-2
-// lse) and delta fp32 contiguous (B, H, Sq); d: head dim, must be 64; dtype:
-// 0 = float32, 1 = bfloat16 (16-byte aligned pointers and strides); qmul:
+// Common arguments: q, k, v, dout (B, H, S, d) in one type; lse2 (base-2
+// lse) and delta fp32 contiguous (B, H, Sq); d: head dim, 64 (float32 or
+// bfloat16) or 128 (bfloat16); dtype: 0 = float32, 1 = bfloat16 (16-byte
+// aligned pointers and strides); qmul:
 // scale * log2(e) rounded to the input type. Returns the cudaError_t of the
 // launch (0 on success).
 

@@ -8,9 +8,12 @@ Port of ``flow_factory_tpu/trainers/abc.py``:
   epsilon and weight decay passed explicitly, over the trainable leaves only;
 * gradient accumulation is an explicit fp32 sum, divided by the count
   before the step;
-* the loop runs on one process; evaluation (``eval_freq > 0``), checkpoint
-  saving (``save_freq > 0``) and logging backends other than ``none`` are
-  not ported and raise at construction.
+* every ``eval_freq`` epochs, before the epoch's rollout, :meth:`evaluate`
+  rolls out the test split under the EMA weights, each prompt from its own
+  generator, and scores it pointwise;
+* the loop runs on one process; checkpoint saving (``save_freq > 0``) and
+  logging backends other than ``none`` are not ported and raise at
+  construction.
 """
 from __future__ import annotations
 
@@ -19,17 +22,40 @@ import time
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..advantage import AdvantageProcessor
 from ..data import get_dataloader
 from ..logger import load_logger
 from ..models.abc import BaseAdapter
-from ..parallel.dist import get_num_processes, get_world_size
+from ..parallel.dist import get_num_processes, get_world_size, host_allgather_objects
 from ..rewards import MultiRewardLoader, RewardBuffer
 from ..samples import BaseSample
+from ..utils.base import generators_for_prompts
 
 logger = logging.getLogger(__name__)
+
+
+def gather_eval_reward_metrics(samples: List[BaseSample]) -> Dict[str, float]:
+    """Eval reward statistics over every process's samples, per reward model
+    (JAX ``gather_eval_reward_metrics``, ``trainers/abc.py:41``): the mean
+    and std of the weighted reward, the sample count, and each model's mean
+    and std."""
+    local_rows = [(float(s.extra_kwargs.get("reward", 0.0)),
+                   {k: float(v) for k, v in s.extra_kwargs.get("rewards", {}).items()}) for s in samples]
+    rows = [r for lst in host_allgather_objects(local_rows) for r in lst]
+    rewards = np.asarray([r[0] for r in rows])
+    metrics = {
+        "eval/reward_mean": float(rewards.mean()) if len(rewards) else 0.0,
+        "eval/reward_std": float(rewards.std()) if len(rewards) else 0.0,
+        "eval/num_samples": float(len(rewards)),
+    }
+    for name in sorted({k for _, d in rows for k in d}):
+        vals = np.asarray([d.get(name, 0.0) for _, d in rows])
+        metrics[f"eval/reward/{name}/mean"] = float(vals.mean())
+        metrics[f"eval/reward/{name}/std"] = float(vals.std())
+    return metrics
 
 
 def make_optimizer(params: Sequence[torch.Tensor], training_args) -> torch.optim.AdamW:
@@ -66,8 +92,6 @@ class BaseTrainer(ABC):
         self.scheduler = adapter.scheduler
         self.epoch = 0
         self.global_step = 0
-        if self.eval_args.eval_freq:
-            raise NotImplementedError("evaluation (eval.eval_freq > 0) is not ported yet; set eval_freq: 0")
         if self.log_args.save_freq:
             raise NotImplementedError("checkpoint saving (log.save_freq > 0) is not ported yet; set save_freq: 0")
 
@@ -94,10 +118,17 @@ class BaseTrainer(ABC):
 
     def _init_rewards(self) -> None:
         ta = self.training_args
-        ra = self.config.reward_args
+        ra, era = self.config.reward_args, self.config.eval_reward_args
         weights = ra.reward_weights if ra else None
         distributed_groups = self.config.data_args.sampler_type == "distributed_k_repeat"
-        self.reward_buffer = RewardBuffer(MultiRewardLoader().load(ra), reward_weights=weights)
+        loader = MultiRewardLoader()
+        train_models = loader.load(ra)
+        self.reward_buffer = RewardBuffer(train_models, reward_weights=weights)
+        # the eval rewards default to the training ones; a RewardBuffer takes
+        # pointwise models only, which is what the JAX evaluate's
+        # finalize(split="pointwise") scores
+        self.eval_reward_buffer = RewardBuffer(loader.load(era) if era else train_models,
+                                               reward_weights=era.reward_weights if era else weights)
         self.advantage_processor = AdvantageProcessor(
             group_size=ta.group_size,
             aggregation=getattr(ta, "advantage_aggregation", "sum"),
@@ -167,6 +198,8 @@ class BaseTrainer(ABC):
             self.epoch = epoch
             t0 = time.time()
             self.scheduler.set_seed(ta.seed + epoch)
+            if self.eval_args.eval_freq and epoch % self.eval_args.eval_freq == 0 and self.test_loader:
+                self.evaluate(epoch)
             samples, metrics, loss_info = self._run_epoch_phases(epoch)
             self.adapter.ema_step(epoch)
             self.logger_backend.log_data({**metrics, **loss_info, "time/epoch_s": time.time() - t0}, epoch)
@@ -187,5 +220,45 @@ class BaseTrainer(ABC):
     @abstractmethod
     def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]: ...
 
+    def evaluate(self, epoch: int) -> Dict[str, float]:
+        """One eval rollout of the test split under the EMA weights (JAX
+        ``evaluate``, ``trainers/abc.py:380-469``): the eval geometry, no
+        log-probs or trajectory, each prompt's x0 from its own generator; the
+        loader's tail padding dropped; pointwise scoring; the metrics logged
+        at ``epoch``. Synchronous, batch after batch (no ``PendingRollout``
+        yet); media are not logged (the port's backends take scalars)."""
+        if self.test_loader is None:
+            return {}
+        self.adapter.eval()
+        ea = self.eval_args
+        samples: List[BaseSample] = []
+        for batch in self.test_loader:
+            out = self.adapter.inference(
+                prompt=batch["prompt"],
+                prompt_embeds=batch.get("prompt_embeds"),
+                pooled_prompt_embeds=batch.get("pooled_prompt_embeds"),
+                negative_prompt_embeds=batch.get("negative_prompt_embeds"),
+                negative_pooled_prompt_embeds=batch.get("negative_pooled_prompt_embeds"),
+                height=ea.height,
+                width=ea.width,
+                num_inference_steps=ea.num_inference_steps,
+                guidance_scale=ea.guidance_scale,
+                compute_log_prob=False,
+                trajectory_indices=None,
+                generator=generators_for_prompts(batch["prompt"], ea.seed or 0, self.adapter.device),
+                trainable=self.adapter.ema_trainable,
+                **{k: v for k, v in self.condition_kwargs(batch).items()
+                   if k not in ("height", "width", "guidance_scale")},
+            )
+            samples.extend(out[: len(out) - int(batch.get("_num_pad") or 0)])
+        self.eval_reward_buffer.add_samples(samples)
+        self.eval_reward_buffer.finalize()
+        metrics = gather_eval_reward_metrics(samples)
+        self.logger_backend.log_data(metrics, epoch)
+        self.eval_reward_buffer.clear()
+        self.adapter.train()
+        return metrics
+
     def cleanup(self) -> None:
         self.reward_buffer.cleanup()
+        self.eval_reward_buffer.cleanup()

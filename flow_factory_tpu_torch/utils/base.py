@@ -7,7 +7,7 @@ are explicit: entry points default to ``cuda`` and never fall back to the CPU.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Optional, Union
+from typing import Any, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -42,6 +42,14 @@ def make_generator(device: Union[str, torch.device], *parts: Any) -> torch.Gener
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(derive_seed(*parts))
     return gen
+
+
+def generators_for_prompts(prompts: Iterable[str], seed: int,
+                           device: Union[str, torch.device]) -> List[torch.Generator]:
+    """One generator per prompt, seeded from (prompt, seed): the port's
+    counterpart of the JAX ``keys_for_prompts`` (``utils/base.py:82``). A
+    prompt gets the same eval noise whatever batch it lands in."""
+    return [make_generator(device, "prompt", p, seed) for p in prompts]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

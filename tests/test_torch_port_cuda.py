@@ -136,13 +136,13 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(gen):
 # K2a / K2b: the flash backward
 # ---------------------------------------------------------------------------
 
-def _k2_inputs(gen, B, H, Sq, Sk, dtype, strided):
+def _k2_inputs(gen, B, H, Sq, Sk, dtype, strided, D=64):
     """q/k/v/dO in the head-split strided layout (or contiguous), O and lse
     from the plain forward of the same inputs."""
     def heads(S):
         if strided:
-            return _randn(gen, B, S, H, 64, dtype=dtype).transpose(1, 2)
-        return _randn(gen, B, H, S, 64, dtype=dtype)
+            return _randn(gen, B, S, H, D, dtype=dtype).transpose(1, 2)
+        return _randn(gen, B, H, S, D, dtype=dtype)
 
     q, k, v, dout = heads(Sq), heads(Sk), heads(Sk), heads(Sq)
     out, lse = A.native_attention(q, k, v, scale=0.125, return_lse=True)
@@ -207,6 +207,63 @@ def test_flash_backward_refuses_what_it_does_not_take(gen):
         A.flash_bwd_dkv(odd, k, v, d32, lse2, delta, 0.125)
     with pytest.raises(ValueError):  # head dim 32
         A.flash_bwd_dq(q[..., :32], k[..., :32], v[..., :32], d32[..., :32], lse2, delta, 0.125)
+    q, k, v, out, lse, dout = _k2_inputs(gen, 1, 2, 64, 64, torch.float32, False, D=128)
+    d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    for fn in (A.flash_bwd_dq, A.flash_bwd_dkv):
+        with pytest.raises(ValueError):  # fp32 at head dim 128: no variant
+            fn(q, k, v, d32, lse2, delta, 128 ** -0.5)
+
+
+def _k2_w_inputs(gen, case):
+    """K2 at head dim 128 on the layouts of the Wan blocks: self-attention
+    q/k as ``apply_rope`` returns them (contiguous), v a head-split view of its
+    projection; cross-attention k/v head-split views of the context
+    projections; dO head-interleaved as the head merge's backward hands it
+    over. O and lse from K3's forward of the same inputs."""
+    B, H, D = 2, 3, 128
+    Sq, Sk = (300, 77) if case == "ragged" else (512, 512)
+    view = lambda S: _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    dense = lambda S: _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    q = dense(Sq) if case != "ragged" else view(Sq)
+    k = dense(Sk) if case == "wan-self" else view(Sk)
+    v = view(Sk)
+    dout = view(Sq)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("case", ["wan-self", "wan-cross", "ragged"])
+def test_flash_backward_d128_matches_plain(gen, case):
+    """K2a/K2b at head dim 128 (bf16) within 2 bf16 ulp of max|ref| of the
+    plain version, one launch each; the ragged case has a 300-row q tail and
+    a 77-key tail."""
+    q, k, v, out, lse, dout = _k2_w_inputs(gen, case)
+    before = (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    got = A.flash_backward(q, k, v, out, lse, dout, 128 ** -0.5)
+    ref = A.flash_backward_plain(q, k, v, out, lse, dout, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err, tol = (g.float() - r.float()).abs().max().item(), _k2_tol(r, torch.bfloat16)
+        print(f"K2 D128 {case} {name}: max|d| {err:.3e} tol {tol:.3e}")
+        assert g.shape == r.shape and g.transpose(1, 2).is_contiguous() and err <= tol, name
+
+
+def test_flash_backward_d128_is_deterministic_and_rejects_wrong_plain_versions(gen):
+    """Two passes give the same bits; a plain version without Δ, and one
+    without the 13-key ragged tail (77 = 64 + 13), miss the kernel's dq by
+    more than the bar."""
+    q, k, v, out, lse, dout = _k2_w_inputs(gen, "ragged")
+    scale = 128 ** -0.5
+    a = A.flash_backward(q, k, v, out, lse, dout, scale)
+    b = A.flash_backward(q, k, v, out, lse, dout, scale)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    no_delta = A.flash_bwd_dq_plain(q, k, v, d32, lse2, torch.zeros_like(delta), scale)
+    no_tail = A.flash_bwd_dq_plain(q, k[:, :, :64], v[:, :, :64], d32, lse2, delta, scale)
+    tol = _k2_tol(A.flash_bwd_dq_plain(q, k, v, d32, lse2, delta, scale), torch.bfloat16)
+    assert (a[0].float() - no_delta.float()).abs().max().item() > tol
+    assert (a[0].float() - no_tail.float()).abs().max().item() > tol
 
 
 # ---------------------------------------------------------------------------
@@ -388,22 +445,20 @@ def test_flash_fwd_refuses_what_it_does_not_take(gen):
         A.dot_product_attention(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device="cuda"))
 
 
-def test_flash_fwd_records_a_node_and_its_grads_match_plain_autograd(gen):
-    """D=64, where K2a/K2b exist: the _Flash Function's gradients (K2a/K2b
-    on the kernel's O and lse) against autograd through the plain version,
-    bf16. The Function's backward, as the JAX custom VJP, takes Δ from the
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_records_a_node_and_its_grads_match_plain_autograd(gen, D):
+    """The _Flash Function's gradients (K2a/K2b on the kernel's O and lse)
+    against autograd through the plain version, bf16, at both head dims. The
+    Function's backward, as the JAX custom VJP, takes Δ from the
     bf16-rounded O where autograd differentiates the unrounded softmax: the
     plain versions of the two paths differ by 4.5e-3 of each gradient's max
-    on the CPU, so the bar is 2e-2. At D=128 the backward raises K2's
-    head-dim error until the Wan training slice."""
-    q, k, v = _k3_inputs(gen, 2, 3, 200, 200, 64, True)
-    w = _randn(gen, 2, 3, 200, 64)
+    on the CPU, so the bar is 2e-2."""
+    q, k, v = _k3_inputs(gen, 2, 3, 200, 200, D, True)
+    w = _randn(gen, 2, 3, 200, D)
+    before = A.flash_bwd_dq.launches
     (o,), g_kern = _grads(lambda *t: A.flash_attention(*t), (q, k, v), (w,))
+    assert A.flash_bwd_dq.launches == before + 1
     _, g_plain = _grads(lambda *t: A.flash_attention_plain(*t), (q, k, v), (w,))
     assert o.grad_fn is not None
     for name, a, b in zip(("dq", "dk", "dv"), g_kern, g_plain):
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
-    q, k, v = _k3_inputs(gen, 1, 2, 64, 64, 128, False)
-    leaves = [t.requires_grad_() for t in (q, k, v)]
-    with pytest.raises(ValueError):
-        A.flash_attention(*leaves).float().sum().backward()

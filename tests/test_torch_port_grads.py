@@ -33,23 +33,30 @@ def _attention_inputs(seed, B, H, Sq, Sk, D=64):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Sk", [(130, 130), (200, 200), (77, 200)])
-def test_flash_backward_plain_matches_jax(dtype, Sq, Sk):
+@pytest.mark.parametrize("Sq,Sk,D", [
+    pytest.param(130, 130, 64, id="130-130"),
+    pytest.param(200, 200, 64, id="200-200"),
+    pytest.param(77, 200, 64, id="77-200"),
+    pytest.param(300, 77, 128, id="300-77-d128"),   # Wan's head dim, ragged q rows and keys
+    pytest.param(130, 200, 128, id="130-200-d128"),
+])
+def test_flash_backward_plain_matches_jax(dtype, Sq, Sk, D):
     """``flash_backward_plain`` vs JAX ``_flash_backward`` (interpret mode,
-    128-row blocks, so every case pads a ragged tail) on dq, dk and dv.
-    fp32: 1e-6 (summation order only; 3.6e-7 seen). bf16: both round
-    q·scale·log2e, ds and p to bf16 before their products, so an element
-    differs only where a value near a rounding boundary rounds the other way
-    after another summation order; the bar is 1 bf16 ulp of max|ref| (half an
-    ulp seen)."""
-    q, k, v, dout = _attention_inputs(Sq * 1000 + Sk, 1, 2, Sq, Sk)
+    128-row blocks, so every case pads a ragged tail) on dq, dk and dv, at
+    head dim 64 (SD3.5) and 128 (Wan). fp32: 1e-6 (summation order only;
+    3.6e-7 seen). bf16: both round q·scale·log2e, ds and p to bf16 before
+    their products, so an element differs only where a value near a rounding
+    boundary rounds the other way after another summation order; the bar is
+    1 bf16 ulp of max|ref| (half an ulp seen)."""
+    q, k, v, dout = _attention_inputs(Sq * 1000 + Sk, 1, 2, Sq, Sk, D)
+    scale = D ** -0.5
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, dout))
-    out, lse = tattn.native_attention(tq, tk, tv, scale=SCALE, return_lse=True)
-    ours = tattn.flash_backward_plain(tq, tk, tv, out, lse, tdo, SCALE)
+    out, lse = tattn.native_attention(tq, tk, tv, scale=scale, return_lse=True)
+    ours = tattn.flash_backward_plain(tq, tk, tv, out, lse, tdo, scale)
     as_j = lambda t: jnp.asarray(t.float().numpy()).astype(jdt)
     theirs = jattn._flash_backward(as_j(tq), as_j(tk), as_j(tv), as_j(out), jnp.asarray(lse.numpy()),
-                                   as_j(tdo), SCALE, 128, 128)
+                                   as_j(tdo), scale, 128, 128)
     for name, a, b in zip(("dq", "dk", "dv"), ours, theirs):
         ref = np.asarray(b.astype(jnp.float32))
         assert a.dtype == tdt and a.shape == ref.shape

@@ -364,13 +364,18 @@ def test_training_slice_runs_two_epochs_on_the_smoke_config(tmp_path, trainer_ty
 
 
 def test_unported_paths_raise(tmp_path):
-    """Evaluation, checkpoint saving and other logging backends are not
-    ported: asking for them raises instead of being skipped."""
+    """Checkpoint saving and other logging backends are not ported: asking
+    for them raises instead of being skipped. Evaluation is ported:
+    ``eval_freq > 0`` builds a trainer with an eval reward buffer."""
     from flow_factory_tpu_torch.trainers import load_trainer
     from flow_factory_tpu_torch.trainers.registry import resolve_trainer_class
 
-    for field, value in (("eval_args.eval_freq", 1), ("log_args.save_freq", 1),
-                         ("log_args.logging_backend", "wandb")):
+    cfg = _smoke_config(tmp_path)
+    cfg.eval_args.eval_freq = 1
+    trainer = load_trainer(cfg, device="cpu")
+    assert trainer.test_loader is not None and trainer.eval_reward_buffer.samples == []
+    trainer.cleanup()
+    for field, value in (("log_args.save_freq", 1), ("log_args.logging_backend", "wandb")):
         cfg = _smoke_config(tmp_path)
         section, name = field.split(".")
         setattr(getattr(cfg, section), name, value)
