@@ -393,7 +393,7 @@ def phase_kernels_k2(results: dict, randn) -> None:
             _k2_negative_control("K2 joint vs a plain version without Delta", got,
                                  (A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, zero, scale),
                                   *A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, zero, scale)), tols)
-            n = S // 64 * 64  # the kernels' last whole key tile
+            n = S // 64 * 64  # the last whole key tile of K2a's ring (64 keys)
             _k2_negative_control(f"K2 joint vs a plain version without the {S - n}-key ragged tail", got,
                                  (A.flash_bwd_dq_plain(qn, kn[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
                                   None, None), tols)
@@ -408,7 +408,41 @@ def phase_kernels_k2(results: dict, randn) -> None:
         del q, k, v, out, qn, kn, dout, got
         torch.cuda.empty_cache()
 
+    _k2_host_cost(randn)
     phase_kernels_k2_wan(results, randn)
+
+
+def _k2_host_cost(randn, calls: int = 200) -> None:
+    """Host microseconds a K2a wrapper call takes to enqueue at a tiny shape
+    (B1 H1 S64, so the card never holds the host back): head dim 64, which
+    computes the TMA geometry and encodes four tensor maps on the host for
+    every call, against head dim 128, which builds none; and the Python
+    geometry alone (``_tma_args``, four views)."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    host_us = {}
+    for D in (64, 128):
+        q, k, v, dout = (randn(1, 1, 64, D) for _ in range(4))
+        lse2 = torch.zeros(1, 1, 64, device="cuda")
+        delta = torch.zeros_like(lse2)
+        for _ in range(10):
+            A.flash_bwd_dq(q, k, v, dout, lse2, delta, D ** -0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            A.flash_bwd_dq(q, k, v, dout, lse2, delta, D ** -0.5)
+        host_us[D] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        if D == 64:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                A._tma_args(q, k, v, dout)
+            geometry_us = (time.perf_counter() - t0) / calls * 1e6
+    log(f"[kernels] K2 host cost a call: K2a wrapper D64 {host_us[64]:.1f} us (TMA geometry + 4 tensor maps) | "
+        f"D128 {host_us[128]:.1f} us (none) | tensor maps {host_us[64] - host_us[128]:.1f} us, of which the "
+        f"Python geometry {geometry_us:.1f} us")
 
 
 def _k2_time_and_record(results: dict, tag: str, suffix: str, q, k, v, dout, d_, lse2, delta, scale, got,
@@ -431,6 +465,8 @@ def _k2_time_and_record(results: dict, tag: str, suffix: str, q, k, v, dout, d_,
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
     lib_ms = time_ms(lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True))
+    log(f"[kernels] K2{suffix} {tag}: K2a + K2b {ms_dq + ms_dkv:.3f} ms = {(ms_dq + ms_dkv) / lib_ms:.2f}x "
+        f"SDPA's whole backward ({lib_ms:.3f} ms)")
     inputs = nbytes(q, k, v, d_, lse2, delta)
     for name, fn_ms, plain_ms, flops, outs, err, replaces in (
             ("flash_bwd_dq", ms_dq, plain_dq, 6 * B * H * Sq * Sk * D, (got[0],), errs[0], ":601"),
@@ -444,7 +480,8 @@ def _k2_time_and_record(results: dict, tag: str, suffix: str, q, k, v, dout, d_,
             bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
             library_ms=lib_ms))
         log(f"[kernels] {name}{suffix} {tag}: kernel {fn_ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa backward "
-            f"{lib_ms:.3f} ms | bound {bound:.4f} ms ({flops / fn_ms / 1e9:.1f} TFLOP/s)")
+            f"{lib_ms:.3f} ms ({fn_ms / lib_ms:.2f}x) | bound {bound:.4f} ms ({fn_ms / bound:.2f}x) | "
+            f"{flops / fn_ms / 1e9:.1f} TFLOP/s")
     del leaves, o_lib
 
 

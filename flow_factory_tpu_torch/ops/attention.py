@@ -294,6 +294,38 @@ def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
                              f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+#: CUtensorMapDataType of the element types the TMA path takes
+_TMA_DTYPES = {torch.bfloat16: 9}  # CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+_TMA_BOX_ROWS = 64  # the rows of one streamed or resident tile of K2a/K2b at head dim 64
+
+
+def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
+    """The TMA geometry of a (B, H, S, D) view, as ``csrc/flash_bwd.cu``'s
+    4-D tensor maps take it: the global dims innermost first (D, S, H, B),
+    the byte strides of S, H and B, the box (D, 64, 1, 1) and the
+    CUtensorMapDataType — 12 integers. The view is read in place, whatever
+    the order of its strides; TMA needs every byte stride to be a multiple
+    of 16, so another stride raises."""
+    stride = t.stride()
+    if t.ndim != 4 or stride[3] != 1 or t.dtype not in _TMA_DTYPES:
+        raise ValueError(f"tma_geometry: expected a (B, H, S, D) view with a contiguous head dim in "
+                         f"{list(_TMA_DTYPES)}; got {t.dtype} {tuple(t.shape)} strides {stride}")
+    B, H, S, D = tuple(t.shape)  # unpacking the torch.Size itself is several times slower
+    es = t.element_size()
+    strides = (stride[2] * es, stride[1] * es, stride[0] * es)
+    if strides[0] % 16 or strides[1] % 16 or strides[2] % 16:
+        raise ValueError(f"tma_geometry: byte strides (S, H, B) {strides} must be multiples of 16")
+    return (D, S, H, B) + strides + (D, _TMA_BOX_ROWS, 1, 1, _TMA_DTYPES[t.dtype])
+
+
+def _tma_args(q, k, v, dout):
+    """The 4 x 12 geometry values of q, k, v and dO for the head-dim-64
+    bf16 kernels; None (a null pointer) for the other variants."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != _KERNEL_HEAD_DIM:
+        return None
+    return (ctypes.c_longlong * 48)(*(g for t in (q, k, v, dout) for g in tma_geometry(t)))
+
+
 def _bwd_kernel_args(q, k, v, dout, lse2, delta):
     B, H, Sq, D = q.shape
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
@@ -304,9 +336,11 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
     """K2a: dq (B, H, Sq, D) in q's dtype, head-interleaved in memory.
 
     ``lse2`` is the forward's lse times log2(e) and ``delta`` = rowsum(dO∘O),
-    both fp32 (B, H, Sq) contiguous; q is pre-scaled inside the kernel. CPU
-    tensors take :func:`flash_bwd_dq_plain`; CUDA tensors launch the kernel
-    (counted in ``flash_bwd_dq.launches``) or raise."""
+    both fp32 (B, H, Sq) contiguous; q is pre-scaled inside the kernel. bf16
+    at head dim 64 takes the wgmma kernel, whose operands arrive by TMA from
+    the maps :func:`tma_geometry` describes. CPU tensors take
+    :func:`flash_bwd_dq_plain`; CUDA tensors launch the kernel (counted in
+    ``flash_bwd_dq.launches``) or raise."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse2, delta, scale)
     _check_bwd_inputs("flash_bwd_dq", q, k, v, dout, lse2, delta)
@@ -316,8 +350,8 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
     fn = lib.flash_bwd_dq
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     B, H, Sq, D = q.shape
     dq = _head_interleaved(B, H, Sq, D, q)
     ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
@@ -325,7 +359,8 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
     qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, dq.data_ptr(), *dims, strides, qmul, float(scale), _KERNEL_DTYPES[q.dtype], stream)
+        err = fn(*ptrs, dq.data_ptr(), *dims, strides, _tma_args(q, k, v, dout), qmul, float(scale),
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on_error(lib, err, "flash_bwd_dq", "flash_bwd_error_string")
     flash_bwd_dq.launches += 1
     return dq
@@ -348,7 +383,8 @@ def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float):
     fn = lib.flash_bwd_dkv
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
     B, H, Sk, D = k.shape
     dk, dv = _head_interleaved(B, H, Sk, D, k), _head_interleaved(B, H, Sk, D, v)
     ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
@@ -356,7 +392,8 @@ def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float):
     qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, qmul, _KERNEL_DTYPES[q.dtype], stream)
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, _tma_args(q, k, v, dout), qmul,
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on_error(lib, err, "flash_bwd_dkv", "flash_bwd_error_string")
     flash_bwd_dkv.launches += 1
     return dk, dv

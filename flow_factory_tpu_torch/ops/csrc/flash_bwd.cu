@@ -34,16 +34,55 @@
 // K2b. Strides of every (b, h, s) axis are passed, so the head-split views of
 // the attention layers, K1's head-interleaved O and whatever dO autograd hands
 // over are read in place. Three variants:
-// * bf16, head dim 64 (the SD3.5 path): 128-row tiles of the outer axis, 8 warps each
-//   owning 16 rows; every product on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, fp32 accumulate); p and ds are re-packed in registers as A
-//   operands; the B operands of the row-major tiles come from ldmatrix.trans;
-//   tiles move as 16-byte vectors, so every pointer and (b, h, s) stride must
-//   keep 16-byte alignment, else the launch is refused.
-// * bf16, head dim 128 (the Wan path): the head-dim-64 design does not widen.
-//   Its warps hold their 16 resident rows as A fragments; at D=128 those,
-//   the doubled accumulators (dk and dv: 128 fp32 a thread) and the score
-//   tiles pass the 255 registers a thread can have. So the resident tiles
+// * bf16, head dim 64 (the SD3.5 path), for Hopper (sm_90a): every product
+//   on wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate). A block is two
+//   consumer warpgroups of 64 outer rows each (128 q rows in K2a, 128 keys in
+//   K2b) and a producer (a warp in K2a, a warpgroup in K2b: see
+//   flash_bwd_dkv_wgmma_kernel); the outer rows stay in shared memory, the
+//   inner axis streams in 64-row tiles (K/V in K2a; q/dO plus their lse2 and
+//   Delta in K2b) through a 4-stage TMA ring, each stage with a "full"
+//   mbarrier (K2a: the TMA bytes; K2b: the producer's threads, once they have
+//   made q~ and written lse2/Delta) and an "empty" one (the 8 consumer
+//   warps). A warpgroup issues S = q~K^T and dP = dO V^T (K2a) or
+//   S^T = K q~^T and dP^T = V dO^T (K2b)
+//   from shared memory, turns them into p and ds in registers, packs those to
+//   bf16 A fragments and issues dQ += dS K (K2a) or dV += P^T dO and dK +=
+//   dS^T q~ (K2b) with the streamed tile as a transposed B; the next tile's
+//   scores are issued behind those before the warpgroup waits. Accumulators:
+//   K2a 96 fp32 a thread (S, dP, dQ), K2b 128 (S^T, dP^T, dK, dV). Dynamic
+//   shared memory 99.1 KB, one block an SM. What to get right, named where
+//   it is done:
+//   - descriptor and swizzle agreement: a 64-column bf16 row is exactly 128
+//     bytes, so the tensor maps use CU_TENSOR_MAP_SWIZZLE_128B and every wgmma
+//     descriptor the 128B mode over 1024-byte aligned tiles (gdesc); a wrong
+//     stride offset or mode gives wrong numbers without a fault, hence the
+//     card tests at contiguous and head-split layouts;
+//   - transposed B (dS K, P^T dO, dS^T q~): the tile's rows are the
+//     contraction, read MN-major through the transpose immediate, which
+//     wgmma allows for 16-bit types only (wgmma_rs_t);
+//   - q~ rounded once: K2a's consumers scale their resident q rows in shared
+//     memory, K2b's producer each landed q tile (a tile behind the copies
+//     it issues, behind a third barrier per stage, "land"); the generic-proxy
+//     writes are fenced (fence.proxy.async.shared::cta) before wgmma reads
+//     them. (Scaling q in the wrapper instead would add a pass over q to
+//     every K2b call: 2 x 67 MB at the SD3.5 joint shape.)
+//   - the tensor maps: 4-D (D, S, H, B) with each view's byte strides, so
+//     strided views are read in place and rows past S arrive as zeros; built
+//     on the host for each call from the geometry the wrapper computes,
+//     passed as __grid_constant__ parameters, the encoder found with
+//     cudaGetDriverEntryPoint so that the build rule stays the other sources';
+//   - wgmma fences and waits: wgmma.fence before every product that reads
+//     registers written since, wait_group 0 before an accumulator is read or
+//     an A fragment rewritten, and fence_acc so that the compiler moves no
+//     accumulator access across either; no other instruction writes an
+//     accumulator (nothing zeroes one, p and ds go straight into A
+//     fragments), else ptxas serializes the products (its warning C7515).
+//   Pointers and (b, h, s) strides keep 16-byte alignment (TMA's rule too),
+//   else the launch is refused.
+// * bf16, head dim 128 (the Wan path), mma.sync m16n8k16: warps holding
+//   their 16 resident rows as A fragments do not widen to D=128 (those, the
+//   doubled accumulators and the score tiles pass the 255 registers a
+//   thread can have). So the resident tiles
 //   (q~ and dO in K2a, K and V in K2b) stay in shared memory and each k-step
 //   reads its A fragment from there; blocks are 4 warps (64 outer rows);
 //   K2a streams 64-key tiles, K2b 32-row q tiles (its score tiles then take
@@ -52,10 +91,11 @@
 //   in K3); K2b scales each q tile by qmul in place once it has landed, every
 //   thread the vectors it copied itself. Dynamic shared memory: 104.4 KB for
 //   K2a, 69.6 KB for K2b. Same roundings, masks, layouts and alignment rules
-//   as the head-dim-64 variant.
+//   as the head-dim-64 variant. No TMA or wgmma here yet: later work.
 // * fp32, head dim 64: 64-row tiles, 256 threads, register-tiled 4x4 fp32
 //   FMAs from shared memory (right and simple).
-// No TMA, wgmma or fused dq/dkv pass yet: later work.
+// No fused dq/dkv pass: it would need atomics or a B*H*Sq*Sk dS buffer.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder itself comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -329,13 +369,8 @@ cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core variant (mma.sync m16n8k16)
+// bf16 helpers of the tensor-core variants (mma.sync m16n8k16, head dim 128)
 // ---------------------------------------------------------------------------
-constexpr int MR = 128;     // rows of the outer axis per block: 8 warps x 16 rows
-constexpr int MT = 64;      // rows of the inner (looped) axis per tile
-constexpr int MNT = 256;
-constexpr int MP = 64 + 8;  // bf16 row pitch (144 B): conflict-free fragment loads
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -366,105 +401,257 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, co
                : "r"(addr));
 }
 
-// ROWS x 64 of a bf16 (S, 64) head slice → row-major shared memory (pitch MP),
-// 4 threads per row, 16-byte loads and stores. Each value is multiplied by
-// `mul` in fp32 and rounded once to bf16 (exact for mul = 1); rows past S are
-// zeros.
-template <int ROWS>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int64_t row_stride, int row0, int S, float mul) {
-  const int c0 = (threadIdx.x & 3) * 16;
-#pragma unroll
-  for (int rr = 0; rr < ROWS; rr += MNT / 4) {
-    const int r = rr + (threadIdx.x >> 2), row = row0 + r;
-    uint4 out[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-    if (row < S) {
-      const uint4* src4 = reinterpret_cast<const uint4*>(src + (int64_t)row * row_stride + c0);
-      const uint4 u[2] = {src4[0], src4[1]};
-      const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(u);
-      uint32_t* w = reinterpret_cast<uint32_t*>(out);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float2 f = __bfloat1622float2(hv[e]);
-        w[e] = pack_bf16(f.x * mul, f.y * mul);
-      }
-    }
-    uint4* d = reinterpret_cast<uint4*>(dst + r * MP + c0);
-    d[0] = out[0];
-    d[1] = out[1];
-  }
+// ---------------------------------------------------------------------------
+// bf16, head dim 64: wgmma fed by a TMA ring (sm_90a)
+// ---------------------------------------------------------------------------
+constexpr int GR = 64;                  // rows of a tile: wgmma M, the TMA box, the streamed step
+constexpr int GWG = 2;                  // consumer warpgroups a block, each owning GR outer rows
+constexpr int GNT_DQ = (4 * GWG + 1) * 32;   // K2a: + one producer warp
+constexpr int GNT_DKV = 4 * (GWG + 1) * 32;  // K2b: + one producer warpgroup
+// K2b's registers a thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 is the
+// 384 x 168 the block starts with
+constexpr int GREGS_CONSUMER = 224;
+constexpr int GREGS_PRODUCER = 56;
+constexpr int GSTAGES = 4;              // streamed tiles in flight
+constexpr int GTILE = GR * D;           // elements of a 64 x 64 tile: 8 KB, 64 rows of 128 bytes
+constexpr uint32_t GTILE_BYTES = GTILE * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A fragments of the warp's 16 rows (from row `wr` of a shared tile) x 64
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], const __nv_bfloat16* tile, int wr) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = ld32(&tile[(wr + g) * MP + kk * 16 + 2 * t]);
-    f[kk][1] = ld32(&tile[(wr + g + 8) * MP + kk * 16 + 2 * t]);
-    f[kk][2] = ld32(&tile[(wr + g) * MP + kk * 16 + 8 + 2 * t]);
-    f[kk][3] = ld32(&tile[(wr + g + 8) * MP + kk * 16 + 8 + 2 * t]);
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// acc[8][4] (16 x 64) = A (16 x 64, fragments) . tile^T, tile a row-major
-// [64 rows][64] shared tile read as the col-major B operand
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const __nv_bfloat16* tile) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Until the phase of parity `parity` of the barrier has completed. A wait
+// that lasts ~2^34 cycles (seconds) traps: a broken ring faults the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One 64 x 64 box of a (D, S, H, B) tensor map, rows `row`..`row`+63 of head
+// (b, h), into a 1024-byte aligned tile; rows past S arrive as zeros.
+__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                         int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 64 x 64 bf16 tile as TMA's 128-byte swizzle
+// lays it out (row r at 128 r, its 16-byte chunk c at chunk c ^ (r % 8)),
+// from `byte_offset` into the tile: the swizzle mode 128B, the stride byte
+// offset 1024 (one 8-row group) and the leading one 1 (unused: with 64
+// columns a product never steps into a second 128-byte column). K-major use
+// (rows are the outer axis, the head dim contracted) steps 32 bytes a k-step
+// of 16; MN-major use (the transposed B of dS.K, P^T.dO and dS^T.q~, the tile's
+// rows contracted) steps 16 rows = 2048 bytes.
+__device__ __forceinline__ uint64_t gdesc(const __nv_bfloat16* tile, uint32_t byte_offset) {
+  const uint64_t addr = (smem_u32(tile) + byte_offset) & 0x3FFFF;
+  return (addr >> 4) | (uint64_t(1) << 16) | (uint64_t(64) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving reads or writes of an accumulator across an
+// issue or a wait: the tensor cores write it asynchronously.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_ACC32                                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OUT32(d)                                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),            \
+      "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),            \
+      "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, fp32) = [d +] A . B^T: A and B K-major tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = [d +] A . B: A (64 x 16) bf16 fragments in registers, B
+// an MN-major shared tile (the transpose immediate, allowed for 16-bit types).
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d = R . C^T over the head dim: R and C two K-major 64 x 64 tiles.
+__device__ __forceinline__ void wgmma_rows_cols(float (&d)[32], const __nv_bfloat16* rows,
+                                                const __nv_bfloat16* cols) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(d, gdesc(rows, kk * 32), gdesc(cols, kk * 32), kk > 0);
+}
+
+// acc (+)= X . T: X (64 x 64) as bf16 A fragments, T a streamed tile whose 64
+// rows are contracted (read MN-major). Accumulator slots i, i+1 (one row, two
+// adjacent columns) of a 64 x 64 fp32 tile pack into fragment a[i / 8][i / 2
+// % 4]: k-step kk takes the tile's columns 16kk..16kk+15. The first tile
+// overwrites acc. No instruction but a wgmma ever writes an accumulator (p
+// and ds go straight into fragments; nothing zeroes): any other write
+// between an issue and its wait makes ptxas serialize the products.
+__device__ __forceinline__ void wgmma_x_tile(float (&acc)[32], const uint32_t (&a)[4][4],
+                                             const __nv_bfloat16* tile, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(acc, a[kk], gdesc(tile, kk * 16 * 128), kk > 0 || !first);
+}
+
+// Rows g and g+8 of the warp's 16 (from row `row0`) of a 64 x 64 accumulator,
+// times `mul`, to bf16 rows of `out` (row stride `ss`); rows at or past S are
+// skipped.
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, int64_t ss, int row0, int S, const float (&acc)[32],
+                                          float mul) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      mma_16816(acc[j], a[kk], ld32(&tile[(j * 8 + g) * MP + kk * 16 + 2 * t]),
-                ld32(&tile[(j * 8 + g) * MP + kk * 16 + 8 + 2 * t]));
-}
-
-// acc[8][4] (16 x 64) += X (16 x 64, an fp32 accumulator fragment rounded to
-// bf16 as the A operand) . tile, tile a row-major [64][64] shared tile
-__device__ __forceinline__ void mma_xb(float (&acc)[8][4], const float (&x)[8][4],
-                                       const __nv_bfloat16* tile) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    // accumulator tiles 2kk and 2kk+1 hold the 16 inner columns of k-step kk
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]), pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans<MP>(b0, b1, tile, kk * 16, j * 8);
-      mma_16816(acc[j], a, b0, b1);
-    }
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
 }
 
-__global__ void __launch_bounds__(MNT) flash_bwd_dq_mma_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 Rs[MR * MP];  // q~ rows, then dO rows
-  __shared__ __align__(16) __nv_bfloat16 Ks[MT * MP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MT * MP];
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * MR;
-  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
 
-  uint32_t qf[4][4], of[4][4];  // A fragments of the warp's q~ and dO rows
-  load_rows_bf16<MR>(Rs, qb, p.q_ss, q0, p.Sq, p.qmul);
-  __syncthreads();
-  load_a_frags(qf, Rs, wr);
-  __syncthreads();
-  load_rows_bf16<MR>(Rs, ob, p.o_ss, q0, p.Sq, 1.f);
-  __syncthreads();
-  load_a_frags(of, Rs, wr);
+// Shared memory: two resident tiles per consumer warpgroup, GSTAGES stages of
+// two streamed tiles, the stages' lse2/Delta (K2b), the barriers, and 1 KB to
+// align the tiles to the swizzle's 1024-byte period.
+constexpr size_t GSMEM = 1024 + (size_t)GTILE_BYTES * 2 * (GWG + GSTAGES) + GSTAGES * 2 * GR * sizeof(float) +
+                         (3 * GSTAGES + 1) * sizeof(uint64_t);
 
-  // this thread's rows are wr+g (fragment slots 0,1) and wr+g+8 (slots 2,3)
+struct GLayout {
+  __nv_bfloat16* res;   // [2 * GWG] tiles: (q~ | K) of warpgroup w at w, (dO | V) at GWG + w
+  __nv_bfloat16* ring;  // [GSTAGES][2] tiles: (K, V) in K2a, (q~, dO) in K2b
+  float* lse;           // [GSTAGES][GR]
+  float* del;           // [GSTAGES][GR]
+  uint64_t* full;       // [GSTAGES]: the stage is ready for the consumers
+  uint64_t* empty;      // [GSTAGES]: every consumer warp is done with the stage
+  uint64_t* land;       // [GSTAGES]: K2b's copies of the stage have landed
+  uint64_t* res_full;   // the resident tiles have landed
+};
+
+__device__ __forceinline__ GLayout g_layout(uint8_t* raw) {
+  GLayout L;
+  L.res = reinterpret_cast<__nv_bfloat16*>(align1024(raw));
+  L.ring = L.res + 2 * GWG * GTILE;
+  L.lse = reinterpret_cast<float*>(L.ring + 2 * GSTAGES * GTILE);
+  L.del = L.lse + GSTAGES * GR;
+  L.full = reinterpret_cast<uint64_t*>(L.del + GSTAGES * GR);
+  L.empty = L.full + GSTAGES;
+  L.land = L.empty + GSTAGES;
+  L.res_full = L.land + GSTAGES;
+  return L;
+}
+
+// K2a. Warps 0-7 are two consumer warpgroups of 64 q rows each; warp 8 is the
+// producer: one lane puts the q and dO rows in place, then streams (K, V)
+// tiles of 64 keys through the ring.
+__global__ void __launch_bounds__(GNT_DQ, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                              Params p) {
+  extern __shared__ uint8_t graw[];
+  const GLayout L = g_layout(graw);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * GWG * GR;
+  const int ntiles = (p.Sk + GR - 1) / GR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&L.full[s], 1);
+      mbar_init(&L.empty[s], 4 * GWG);
+    }
+    mbar_init(L.res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * GWG) {  // producer
+    if (lane == 0) {
+      mbar_arrive_tx(L.res_full, 2 * GWG * GTILE_BYTES);
+      for (int w = 0; w < GWG; ++w) {
+        tma_tile(L.res + w * GTILE, &tq, L.res_full, q0 + w * GR, h, b);
+        tma_tile(L.res + (GWG + w) * GTILE, &to, L.res_full, q0 + w * GR, h, b);
+      }
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n % GSTAGES;
+        if (n >= GSTAGES) mbar_wait(&L.empty[s], (n / GSTAGES - 1) & 1);
+        mbar_arrive_tx(&L.full[s], 2 * GTILE_BYTES);
+        tma_tile(L.ring + 2 * s * GTILE, &tk, &L.full[s], n * GR, h, b);
+        tma_tile(L.ring + (2 * s + 1) * GTILE, &tv, &L.full[s], n * GR, h, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int wr = wg * GR + (warp & 3) * 16;  // the warp's first row in the block
+  __nv_bfloat16* Qw = L.res + wg * GTILE;
+  const __nv_bfloat16* Ow = L.res + (GWG + wg) * GTILE;
+  mbar_wait(L.res_full, 0);
+  // q~ = q * qmul in fp32, rounded once, in place: the warpgroup's own tile.
+  // These are generic-proxy writes that wgmma (the async proxy) reads next.
+  for (int i = threadIdx.x & 127; i < GTILE / 8; i += 128) {
+    uint4* v = reinterpret_cast<uint4*>(Qw) + i;
+    uint4 u = *v;
+    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(hv[e]);
+      hv[e] = __floats2bfloat162_rn(f.x * p.qmul, f.y * p.qmul);
+    }
+    *v = u;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+  // this thread's rows are wr+g (accumulator slots 4j, 4j+1) and wr+g+8 (4j+2, 4j+3)
   float lse[2], del[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -472,118 +659,249 @@ __global__ void __launch_bounds__(MNT) flash_bwd_dq_mma_kernel(Params p) {
     lse[r] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
     del[r] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
   }
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float acc[32], s[32], dp[32];  // written first by wgmma (see wgmma_x_tile)
+  uint32_t a[4][4];
 
-  for (int n0 = 0; n0 < p.Sk; n0 += MT) {
-    __syncthreads();  // the previous tile's Ks/Vs are no longer read
-    load_rows_bf16<MT>(Ks, kb, p.k_ss, n0, p.Sk, 1.f);
-    load_rows_bf16<MT>(Vs, vb, p.v_ss, n0, p.Sk, 1.f);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt(s, qf, Ks);
-    mma_abt(dp, of, Vs);
+  mbar_wait(&L.full[0], 0);
+  wgmma_fence();
+  wgmma_rows_cols(s, Qw, L.ring);
+  wgmma_rows_cols(dp, Ow, L.ring + GTILE);
+  wgmma_commit();
+  for (int n = 0; n < ntiles; ++n) {
+    const __nv_bfloat16* Kt = L.ring + 2 * (n % GSTAGES) * GTILE;
+    wgmma_wait_all();  // S and dP of tile n, and dQ of tile n - 1
+    fence_acc(s);
+    fence_acc(dp);
+    fence_acc(acc);
+    if (n > 0 && lane == 0) mbar_arrive(&L.empty[(n - 1) % GSTAGES]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pv = n0 + j * 8 + 2 * t + (e & 1) < p.Sk ? exp2f(fminf(s[j][e] - lse[r], 0.f)) : 0.f;
-        s[j][e] = pv * (dp[j][e] - del[r]);  // ds, rounded to bf16 as the A operand
-      }
-    mma_xb(acc, s, Ks);
+    for (int i = 0; i < 32; i += 2) {  // slots i, i+1: row r, columns col, col + 1
+      const int r = (i >> 1) & 1, col = n * GR + (i >> 2) * 8 + 2 * t;
+      const float p0 = exp2f(fminf(s[i] - (col < p.Sk ? lse[r] : INFINITY), 0.f));  // p = 0 past Sk
+      const float p1 = exp2f(fminf(s[i + 1] - (col + 1 < p.Sk ? lse[r] : INFINITY), 0.f));
+      a[i >> 3][(i >> 1) & 3] = pack_bf16(p0 * (dp[i] - del[r]), p1 * (dp[i + 1] - del[r]));  // ds
+    }
+    wgmma_fence();
+    wgmma_x_tile(acc, a, Kt, n == 0);  // dQ += dS . K
+    wgmma_commit();
+    if (n + 1 < ntiles) {  // the next tile's scores run behind this tile's dQ
+      const int s1 = (n + 1) % GSTAGES;
+      mbar_wait(&L.full[s1], ((n + 1) / GSTAGES) & 1);
+      wgmma_fence();
+      wgmma_rows_cols(s, Qw, L.ring + 2 * s1 * GTILE);
+      wgmma_rows_cols(dp, Ow, L.ring + (2 * s1 + 1) * GTILE);
+      wgmma_commit();
+    }
   }
+  wgmma_wait_all();
+  fence_acc(acc);
 
   auto* dqb = reinterpret_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)row * p.dq_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
-  }
+  store_acc(dqb, p.dq_ss, q0 + wr, p.Sq, acc, p.scale);
 }
 
-__global__ void __launch_bounds__(MNT) flash_bwd_dkv_mma_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 Rs[MR * MP];  // key rows, then value rows
-  __shared__ __align__(16) __nv_bfloat16 Qs[MT * MP];
-  __shared__ __align__(16) __nv_bfloat16 Os[MT * MP];
-  __shared__ float lse_s[MT], del_s[MT];
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * MR;
-  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
-
-  uint32_t kf[4][4], vf[4][4];  // A fragments of the warp's key and value rows
-  load_rows_bf16<MR>(Rs, kb, p.k_ss, k0, p.Sk, 1.f);
-  __syncthreads();
-  load_a_frags(kf, Rs, wr);
-  __syncthreads();
-  load_rows_bf16<MR>(Rs, vb, p.v_ss, k0, p.Sk, 1.f);
-  __syncthreads();
-  load_a_frags(vf, Rs, wr);
-
-  float acck[8][4], accv[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
-
-  for (int m0 = 0; m0 < p.Sq; m0 += MT) {
-    __syncthreads();  // the previous tile's Qs/Os/lse_s/del_s are no longer read
-    load_rows_bf16<MT>(Qs, qb, p.q_ss, m0, p.Sq, p.qmul);
-    load_rows_bf16<MT>(Os, ob, p.o_ss, m0, p.Sq, 1.f);
-    if (threadIdx.x < MT) {
-      const int row = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
-      del_s[threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
+// K2b. Warps 0-7 are two consumer warpgroups of 64 keys each; warps 8-11 are
+// the producer warpgroup: it puts the K and V rows in place, then streams
+// (q, dO) tiles of 64 rows through the ring. One tile behind the copies it
+// issues, it turns each landed q tile into q~ in place, writes the tile's
+// lse2 and Delta, and only then marks the stage full. A whole producer
+// warpgroup, so that setmaxnreg can hand its registers to the consumers
+// (their S^T, dP^T, dK and dV take 128 a thread; the block starts with 168):
+// ptxas still reports 120 bytes of spills and some wgmma serialized for
+// registers (C7512), and more spills without setmaxnreg.
+__global__ void __launch_bounds__(GNT_DKV, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                               Params p) {
+  extern __shared__ uint8_t graw[];
+  const GLayout L = g_layout(graw);
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * GWG * GR;
+  const int ntiles = (p.Sq + GR - 1) / GR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&L.land[s], 1);    // the TMA bytes
+      mbar_init(&L.full[s], 128);  // the producer's threads, once q~, lse2 and Delta are written
+      mbar_init(&L.empty[s], 4 * GWG);
     }
-    __syncthreads();
-
-    // transposed scores: rows are this warp's keys, columns the tile's q rows
-    float st[8][4], dpt[8][4];
-    mma_abt(st, kf, Qs);
-    mma_abt(dpt, vf, Os);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const float pv = exp2f(fminf(st[j][e] - lse_s[c], 0.f));
-        st[j][e] = pv;                          // p^T, rounded to bf16 as the A operand
-        dpt[j][e] = pv * (dpt[j][e] - del_s[c]);  // ds^T, likewise
-      }
-    mma_xb(accv, st, Os);
-    mma_xb(acck, dpt, Qs);
+    mbar_init(L.res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp >= 4 * GWG) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(GREGS_PRODUCER));
+    const int pt = threadIdx.x - 128 * GWG;
+    if (pt == 0) {
+      mbar_arrive_tx(L.res_full, 2 * GWG * GTILE_BYTES);
+      for (int w = 0; w < GWG; ++w) {
+        tma_tile(L.res + w * GTILE, &tk, L.res_full, k0 + w * GR, h, b);
+        tma_tile(L.res + (GWG + w) * GTILE, &tv, L.res_full, k0 + w * GR, h, b);
+      }
+    }
+    const int64_t base = row_base(p, b, h);
+    float lse_next = 0.f, del_next = 0.f;  // row pt of tile n, loaded while tile n - 1 is finished
+    for (int n = 0; n <= ntiles; ++n) {
+      const float lse_m = lse_next, del_m = del_next;
+      if (n < ntiles) {  // copy tile n
+        const int s = n % GSTAGES;
+        if (pt == 0) {
+          if (n >= GSTAGES) mbar_wait(&L.empty[s], (n / GSTAGES - 1) & 1);
+          mbar_arrive_tx(&L.land[s], 2 * GTILE_BYTES);
+          tma_tile(L.ring + 2 * s * GTILE, &tq, &L.land[s], n * GR, h, b);
+          tma_tile(L.ring + (2 * s + 1) * GTILE, &to, &L.land[s], n * GR, h, b);
+        }
+        const int row = n * GR + pt;  // padded q rows: p = exp2(-inf) = 0
+        if (pt < GR) {
+          lse_next = row < p.Sq ? p.lse2[base + row] : INFINITY;
+          del_next = row < p.Sq ? p.delta[base + row] : 0.f;
+        }
+      }
+      if (n == 0) continue;
+      const int m = n - 1, s = m % GSTAGES;  // finish tile n - 1
+      mbar_wait(&L.land[s], (m / GSTAGES) & 1);
+      // q~ = q * qmul in fp32, rounded once, in place: generic-proxy writes
+      // that wgmma (the async proxy) reads once the stage is full
+      uint4* tile = reinterpret_cast<uint4*>(L.ring + 2 * s * GTILE);
+      uint4 u[GTILE / 8 / 128];
+#pragma unroll
+      for (int j = 0; j < GTILE / 8 / 128; ++j) u[j] = tile[pt + 128 * j];
+#pragma unroll
+      for (int j = 0; j < GTILE / 8 / 128; ++j) {
+        __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(hv[e]);
+          hv[e] = __floats2bfloat162_rn(f.x * p.qmul, f.y * p.qmul);
+        }
+        tile[pt + 128 * j] = u[j];
+      }
+      if (pt < GR) {
+        L.lse[s * GR + pt] = lse_m;
+        L.del[s * GR + pt] = del_m;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&L.full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(GREGS_CONSUMER));
+  const int wg = warp >> 2, t = lane & 3;
+  const int wr = wg * GR + (warp & 3) * 16;  // the warp's first key in the block
+  const __nv_bfloat16* Kw = L.res + wg * GTILE;
+  const __nv_bfloat16* Vw = L.res + (GWG + wg) * GTILE;
+  float acck[32], accv[32], st[32], dpt[32];  // written first by wgmma (see wgmma_x_tile)
+  uint32_t pa[4][4], sa[4][4];
+  mbar_wait(L.res_full, 0);
+
+  mbar_wait(&L.full[0], 0);
+  wgmma_fence();
+  wgmma_rows_cols(st, Kw, L.ring);  // transposed scores: rows are keys, columns the tile's q rows
+  wgmma_rows_cols(dpt, Vw, L.ring + GTILE);
+  wgmma_commit();
+  for (int n = 0; n < ntiles; ++n) {
+    const int stage = n % GSTAGES;
+    const __nv_bfloat16* Qt = L.ring + 2 * stage * GTILE;
+    const __nv_bfloat16* Ot = Qt + GTILE;
+    const float* lse = L.lse + stage * GR;
+    const float* del = L.del + stage * GR;
+    wgmma_wait_all();  // S^T and dP^T of tile n, and dK, dV of tile n - 1
+    fence_acc(st);
+    fence_acc(dpt);
+    fence_acc(acck);
+    fence_acc(accv);
+    if (n > 0 && lane == 0) mbar_arrive(&L.empty[(n - 1) % GSTAGES]);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {  // slots i, i+1: one key, q rows c, c + 1
+      const int c = (i >> 2) * 8 + 2 * t;
+      const float p0 = exp2f(fminf(st[i] - lse[c], 0.f)), p1 = exp2f(fminf(st[i + 1] - lse[c + 1], 0.f));
+      pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);                                          // p^T
+      sa[i >> 3][(i >> 1) & 3] = pack_bf16(p0 * (dpt[i] - del[c]), p1 * (dpt[i + 1] - del[c + 1]));  // ds^T
+    }
+    wgmma_fence();
+    wgmma_x_tile(accv, pa, Ot, n == 0);  // dV += P^T . dO
+    wgmma_x_tile(acck, sa, Qt, n == 0);  // dK += dS^T . q~
+    wgmma_commit();
+    if (n + 1 < ntiles) {  // the next tile's scores run behind this tile's dK, dV
+      const int s1 = (n + 1) % GSTAGES;
+      mbar_wait(&L.full[s1], ((n + 1) / GSTAGES) & 1);
+      wgmma_fence();
+      wgmma_rows_cols(st, Kw, L.ring + 2 * s1 * GTILE);
+      wgmma_rows_cols(dpt, Vw, L.ring + (2 * s1 + 1) * GTILE);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait_all();
+  fence_acc(acck);
+  fence_acc(accv);
 
   auto* dkb = reinterpret_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
   auto* dvb = reinterpret_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + wr + g + 8 * r;
-    if (row >= p.Sk) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)row * p.dk_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acck[j][2 * r] * kLn2, acck[j][2 * r + 1] * kLn2);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)row * p.dv_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(accv[j][2 * r], accv[j][2 * r + 1]);
-    }
-  }
+  store_acc(dkb, p.dk_ss, k0 + wr, p.Sk, acck, kLn2);
+  store_acc(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
 }
 
-// The tensor-core variant moves 16-byte vectors: every pointer and stride it
-// touches must keep 8-element (16-byte) alignment.
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query so
+// that this source links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// One operand's tensor map from the 12 values the wrapper computed: global
+// dims innermost first (D, S, H, B), the byte strides of S, H and B, the box
+// (D, rows, 1, 1) and the CUtensorMapDataType. The kernels take only bf16
+// 64 x 64 boxes; 128-byte swizzle (what gdesc reads), rows past S zero-filled.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (g[0] != D || g[7] != D || g[8] != GR || g[9] != 1 || g[10] != 1 || g[11] != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2], (cuuint64_t)g[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tma: 4 x 12 geometry values, of q, k, v and dO in that order.
+cudaError_t launch_wgmma(const Params& p, bool dkv, const long long* tma, cudaStream_t stream) {
+  if (tma == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = encode_map(&maps[i], ptrs[i], tma + 12 * i);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = dkv ? flash_bwd_dkv_wgmma_kernel : flash_bwd_dq_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GSMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(((dkv ? p.Sk : p.Sq) + GWG * GR - 1) / (GWG * GR), p.H, p.B);
+  kernel<<<grid, dkv ? GNT_DKV : GNT_DQ, GSMEM, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+// The tensor-core variants move 16-byte vectors: every pointer and stride
+// they touch must keep 8-element (16-byte) alignment.
 bool mma_aligned(const Params& p, bool dkv) {
   auto a16 = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
   const int64_t common[] = {p.q_sb, p.q_sh, p.q_ss, p.k_sb, p.k_sh, p.k_ss,
@@ -594,15 +912,6 @@ bool mma_aligned(const Params& p, bool dkv) {
   if (!dkv) return a16(p.dq) && p.dq_sb % 8 == 0 && p.dq_sh % 8 == 0 && p.dq_ss % 8 == 0;
   return a16(p.dk) && a16(p.dv) && p.dk_sb % 8 == 0 && p.dk_sh % 8 == 0 && p.dk_ss % 8 == 0 &&
          p.dv_sb % 8 == 0 && p.dv_sh % 8 == 0 && p.dv_ss % 8 == 0;
-}
-
-cudaError_t launch_mma(const Params& p, bool dkv, cudaStream_t stream) {
-  dim3 grid(((dkv ? p.Sk : p.Sq) + MR - 1) / MR, p.H, p.B);
-  if (dkv)
-    flash_bwd_dkv_mma_kernel<<<grid, MNT, 0, stream>>>(p);
-  else
-    flash_bwd_dq_mma_kernel<<<grid, MNT, 0, stream>>>(p);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -885,11 +1194,11 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   return p;
 }
 
-int launch(const Params& p, bool dkv, int d, int dtype, void* stream) {
+int launch(const Params& p, bool dkv, int d, int dtype, const long long* tma, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (d == D && dtype == 0) return (int)launch_f32(p, dkv, s);
   if (dtype != 1 || !mma_aligned(p, dkv)) return (int)cudaErrorInvalidValue;
-  if (d == D) return (int)launch_mma(p, dkv, s);
+  if (d == D) return (int)launch_wgmma(p, dkv, tma, s);
   if (d == WD) return (int)launch_w(p, dkv, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -901,29 +1210,31 @@ extern "C" {
 // Common arguments: q, k, v, dout (B, H, S, d) in one type; lse2 (base-2
 // lse) and delta fp32 contiguous (B, H, Sq); d: head dim, 64 (float32 or
 // bfloat16) or 128 (bfloat16); dtype: 0 = float32, 1 = bfloat16 (16-byte
-// aligned pointers and strides); qmul:
-// scale * log2(e) rounded to the input type. Returns the cudaError_t of the
+// aligned pointers and strides); qmul: scale * log2(e) rounded to the input
+// type; tma: for bf16 at head dim 64, the TMA geometry of q, k, v and dout
+// (4 x 12 values, see encode_map), else null. Returns the cudaError_t of the
 // launch (0 on success).
 
 // K2a. strides: 15 element strides, (b, h, s) of q, k, v, dout and dq.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse2,
                  const float* delta, void* dq, int B, int H, int Sq, int Sk, int d,
-                 const long long* strides, float qmul, float scale, int dtype, void* stream) {
+                 const long long* strides, const long long* tma, float qmul, float scale, int dtype,
+                 void* stream) {
   Params p = make_params(q, k, v, dout, lse2, delta, B, H, Sq, Sk, strides, qmul, scale);
   p.dq = dq;
   p.dq_sb = strides[12]; p.dq_sh = strides[13]; p.dq_ss = strides[14];
-  return launch(p, false, d, dtype, stream);
+  return launch(p, false, d, dtype, tma, stream);
 }
 
 // K2b. strides: 18 element strides, (b, h, s) of q, k, v, dout, dk and dv.
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse2,
                   const float* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, int d,
-                  const long long* strides, float qmul, int dtype, void* stream) {
+                  const long long* strides, const long long* tma, float qmul, int dtype, void* stream) {
   Params p = make_params(q, k, v, dout, lse2, delta, B, H, Sq, Sk, strides, qmul, 1.f);
   p.dk = dk; p.dv = dv;
   p.dk_sb = strides[12]; p.dk_sh = strides[13]; p.dk_ss = strides[14];
   p.dv_sb = strides[15]; p.dv_sh = strides[16]; p.dv_ss = strides[17];
-  return launch(p, true, d, dtype, stream);
+  return launch(p, true, d, dtype, tma, stream);
 }
 
 const char* flash_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -137,14 +137,16 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(gen):
 # ---------------------------------------------------------------------------
 
 def _k2_inputs(gen, B, H, Sq, Sk, dtype, strided, D=64):
-    """q/k/v/dO in the head-split strided layout (or contiguous), O and lse
-    from the plain forward of the same inputs."""
-    def heads(S):
-        if strided:
+    """q/k/v/dO in the head-split strided layout (or contiguous; "mixed": q
+    and dO contiguous, k and v head-split), O and lse from the plain forward
+    of the same inputs."""
+    def heads(S, split):
+        if split:
             return _randn(gen, B, S, H, D, dtype=dtype).transpose(1, 2)
         return _randn(gen, B, H, S, D, dtype=dtype)
 
-    q, k, v, dout = heads(Sq), heads(Sk), heads(Sk), heads(Sq)
+    outer = strided is True
+    q, k, v, dout = heads(Sq, outer), heads(Sk, bool(strided)), heads(Sk, bool(strided)), heads(Sq, outer)
     out, lse = A.native_attention(q, k, v, scale=0.125, return_lse=True)
     return q, k, v, out, lse, dout
 
@@ -159,8 +161,18 @@ def _k2_tol(ref, dtype):
 
 
 @pytest.mark.parametrize("dtype,Sq,Sk,strided", [
-    (torch.bfloat16, 333, 333, True),    # tensor-core variant, ragged tail, head-split views
+    (torch.bfloat16, 333, 333, True),    # wgmma variant, ragged tail, head-split views
     (torch.bfloat16, 200, 333, False),   # Sq != Sk
+    # the wgmma variant's tiles: 64 rows streamed, 128 outer rows a block
+    (torch.bfloat16, 64, 64, False),     # one tile each way
+    (torch.bfloat16, 63, 65, True),      # one tile - 1 / + 1
+    (torch.bfloat16, 65, 63, False),
+    (torch.bfloat16, 40, 40, True),      # below one tile
+    (torch.bfloat16, 40, 200, "mixed"),  # Sq < one tile < Sk, q/dO contiguous, k/v head-split
+    (torch.bfloat16, 200, 40, "mixed"),
+    (torch.bfloat16, 128, 128, True),    # one block of outer rows
+    (torch.bfloat16, 127, 129, False),   # one block - 1 / + 1
+    (torch.bfloat16, 129, 127, True),
     (torch.float32, 197, 130, True),     # FMA variant
 ])
 def test_flash_backward_matches_plain(gen, dtype, Sq, Sk, strided):
@@ -183,7 +195,7 @@ def test_flash_backward_bars_reject_wrong_plain_versions(gen):
     dq, dk, _ = A.flash_backward(q, k, v, out, lse, dout, 0.125)
     d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
     no_delta = A.flash_bwd_dq_plain(q, k, v, d32, lse2, torch.zeros_like(delta), 0.125)
-    n = 320  # the last whole 64-key tile
+    n = 320  # the last whole key tile of K2a (64 keys)
     no_tail = A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d32, lse2, delta, 0.125)
     tol = _k2_tol(no_delta, torch.bfloat16)
     assert (dq.float() - no_delta.float()).abs().max().item() > tol
