@@ -4,15 +4,21 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
 printing one line and exiting non-zero on failure:
 
-1. environment: the card's name and power limit, torch/CUDA versions, and
-   the seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``
-   (one nvcc per source, all started together);
+1. environment: the card's name and power limit, torch/CUDA versions, the
+   seconds to build the CUDA kernels from ``flow_factory_tpu_torch/ops/csrc``
+   (one nvcc per source, all started together), and what ``-Xptxas -v``
+   and the SASS say of the forward kernels (registers, spills, shared
+   memory, setmaxnreg);
 2. kernels: K1 (fused qk-norm flash forward), K2a/K2b (flash backward for dq
    and for dk/dv, head dim 64 and 128), K3 (plain flash forward, head dim 128 and 64; all CUDA
    C++), K5 (norm-modulate) and K6 (residual-gate-modulate, both Triton)
    against their plain PyTorch versions at the SD3.5-M and Wan2.1-1.3B
    shapes and small ragged shapes, with stated tolerances, negative
-   controls and CUDA-event timings;
+   controls and CUDA-event timings; for K1 and K3 also the profiler's
+   device time, the wrapper's host cost a call, the bound with the ex2
+   term, the ratios to SDPA and to the bound, and a batch slice's bits;
+   then the masked dispatch on the card (native, no K3 launch; flash
+   raises);
 3. the serving slice at full width: SD3.5-M (random weights from a seed,
    bf16) through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
    samples, 512 px, 10 steps, CFG 4.5, Flow-SDE with log-probs, decode) →
@@ -61,11 +67,13 @@ package is not beside the script.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import gzip
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -75,6 +83,9 @@ import time
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+#: H100 SXM special-function rate: 16 ex2 a clock an SM (CUDA C Programming
+#: Guide, arithmetic throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+PEAK_EX2 = 16 * 132 * 1.98e9
 #: the kernels of the SD3.5 GRPO path (K3 runs on the Wan path only)
 SD35_KERNELS = ("qknorm_flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_mul_add", "residual_gate_modulate")
 
@@ -119,6 +130,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def gpu_state() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now, as
+    nvidia-smi reads them (clocks move kernel times between phases)."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+                              "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    except OSError:
+        return "not read"
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not read"
+
+
 def phase_environment():
     import torch
 
@@ -137,7 +159,45 @@ def phase_environment():
     log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvcc build of {sources} "
         f"{build_s:.2f} s")
+    _log_ptxas_figures(cuda_build)
     return card
+
+
+def _log_ptxas_figures(cuda_build) -> None:
+    """What ``nvcc -Xptxas -v`` said of the forward kernels (registers at
+    launch, spills), their dynamic shared memory, and the registers that
+    setmaxnreg gives each warpgroup, read from the SASS where cuobjdump is
+    there."""
+    import ctypes
+
+    smem = {(64, "0"): ctypes.CDLL(str(cuda_build.library_path("flash_fwd"))).flash_fwd_smem_bytes(64),
+            (128, "0"): ctypes.CDLL(str(cuda_build.library_path("flash_fwd"))).flash_fwd_smem_bytes(128),
+            (64, "1"): ctypes.CDLL(str(cuda_build.library_path("qknorm_flash_fwd"))).qknorm_flash_fwd_smem_bytes()}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_fwd", "qknorm_flash_fwd"):
+        lib = cuda_build.library_path(name)
+        text = lib.with_suffix(".log").read_text()
+        sass = {}
+        if os.path.exists(cuobjdump):
+            out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True).stdout
+            for fn in out.split("Function : ")[1:]:
+                regs = re.findall(r"USETMAXREG\S*\s+(?:\S+,\s*)?0x([0-9a-f]+)", fn)
+                sass[fn.splitlines()[0].strip()] = [int(v, 16) for v in regs]
+        for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers", text):
+            mangled, stack, st, ld, regs = m.groups()
+            inst = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+            if inst:
+                D, norm = int(inst.group(1)), inst.group(2)
+                what = f"flash_fwd_wgmma_kernel<{D}, {'true' if norm == '1' else 'false'}> ({name}.cu)"
+                extra = f", dynamic shared memory {smem[(D, norm)]} B"
+                extra += f", setmaxnreg {sass.get(mangled, 'not read')}" if sass else ", setmaxnreg not read"
+            elif "key_norm_kernel" in mangled:
+                what, extra = f"key_norm_kernel ({name}.cu)", ""
+            else:
+                continue
+            log(f"[env] ptxas {what}: {regs} registers at launch, {st} bytes spill stores, {ld} bytes spill "
+                f"loads, {stack} bytes stack{extra}")
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -167,6 +227,128 @@ def _record(results: dict, tag: str, entry: dict) -> None:
     first = results.setdefault(entry["name"], {**entry, "shape": tag, "shapes": {}})
     if first is not entry and first["shape"] != tag:
         first["shapes"][tag] = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+
+
+#: the K1/K3 shapes whose device time the profiler takes after the
+#: end-to-end phases: (line name, a function that makes inputs of the shape
+#: and returns the call, its time line's other numbers)
+DEVICE_TIME_JOBS: list = []
+
+
+def _k1_call(B: int, H: int, S: int, D: int, strided: bool, scale: float):
+    """K1 on fresh bf16 inputs of a timed shape and layout, as a call."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    q, k, v = (torch.randn((B, S, H, D) if strided else (B, H, S, D), device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    if strided:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    g = (1.0 + 0.1 * torch.randn(S, D, device="cuda")).contiguous()
+    return functools.partial(A.qknorm_flash_attention, q, k, v, g, g.clone(), scale, 1e-6)
+
+
+def _k3_call(B: int, H: int, Sq: int, Sk: int, D: int, q_contiguous: bool, scale: float):
+    """K3 on fresh bf16 inputs of a timed shape: k/v (and q unless
+    ``q_contiguous``) head-split views of (B, S, H*D) projections."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    view = lambda S: torch.randn(B, S, H, D, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+    q = torch.randn(B, H, Sq, D, device="cuda", dtype=torch.bfloat16) if q_contiguous else view(Sq)
+    return functools.partial(A.flash_attention, q, view(Sk), view(Sk), scale)
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: every CUDA kernel torch.profiler
+    records over ``calls`` back-to-back calls, summed, over ``calls`` (the
+    CUDA-event time of back-to-back calls is the host's where the wrapper
+    takes longer to enqueue than the kernel to run). Profiling leaves the
+    host slower for the rest of the process (the host-bound Wan eval took
+    longer after a profile on the card), so these profiles run after the
+    end-to-end phases."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    return sum(dev(e) for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue (at a shape so
+    small that the card never holds the host back, or a few calls of a real
+    one, whose work queues behind)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _fwd_bound(B: int, H: int, Sq: int, Sk: int, D: int, byts: int):
+    """The least time of a flash forward on the card, in ms, and what sets
+    it: the bytes, the products (4 B H Sq Sk D FLOP) or the exponentials (one
+    ex2 a score, B H Sq Sk, at PEAK_EX2). Also the products' and the
+    exponentials' times, the bound without the ex2 term (as the forward rows
+    had it before) and the two terms one after the other."""
+    t_bytes, t_ops = byts / PEAK_BYTES, 4 * B * H * Sq * Sk * D / PEAK_BF16_FLOPS
+    t_ex2 = B * H * Sq * Sk / PEAK_EX2
+    bound = max(t_bytes, t_ops, t_ex2)
+    return bound * 1e3, "bytes" if bound == t_bytes else "operations", t_ops * 1e3, t_ex2 * 1e3, \
+        max(t_bytes, t_ops) * 1e3, (t_ops + t_ex2) * 1e3
+
+
+def _fwd_batch_slice_same(name: str, run, *inputs) -> None:
+    """A kernel on the first half of the batch gives the bits of the first
+    half of its output on the whole batch: no row depends on another batch
+    row (rollout under CFG against replay and training forwards)."""
+    import torch
+
+    out, lse = run(*inputs)
+    half = inputs[0].shape[0] // 2
+    part, part_lse = run(*(t[:half] for t in inputs[:3]), *inputs[3:])
+    same = torch.equal(part, out[:half]) and torch.equal(part_lse, lse[:half])
+    log(f"[kernels] {name}: the first {half} batch rows alone give the bits of the whole batch's: {same}")
+    if not same:
+        fail(f"{name}: a batch slice changes the bits")
+
+
+def _fwd_time_line(name: str, ms: float, plain_ms: float, lib_ms: float, bound, dev_ms=None, host_us=None) -> None:
+    """A K1/K3 timing line: by CUDA events and the wrapper's host time a
+    call here, again with the profiler's device time at the end of the run
+    (``phase_device_times``)."""
+    bound_ms, bound_by, ops_ms, ex2_ms, old_bound, serial = bound
+    t, what = (ms, "events") if dev_ms is None else (dev_ms, "device")
+    head = (f"kernel {ms:.3f} ms (events) | host {host_us:.1f} us a call | plain {plain_ms:.3f} ms"
+            if dev_ms is None else f"device {dev_ms:.4f} ms (profiler) | kernel {ms:.3f} ms (events)")
+    log(f"[kernels] {name}: {head} | sdpa {lib_ms:.3f} ms ({what}/sdpa {t / lib_ms:.2f}x) | bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({what}/bound {t / bound_ms:.2f}x; products {ops_ms:.4f}, ex2 {ex2_ms:.4f}, the two one "
+        f"after the other {serial:.4f}, bound without ex2 {old_bound:.4f}) | "
+        f"{ops_ms * PEAK_BF16_FLOPS / 1e12 / t:.1f} TFLOP/s")
+
+
+def phase_device_times() -> None:
+    """The profiler's device time of each K1/K3 shape the kernel phase kept,
+    after the end-to-end phases (see ``_device_ms``)."""
+    log(f"[kernels] card before the device times (SM clock, max, power, temperature): {gpu_state()}")
+    for name, make_call, ms, lib_ms, bound in DEVICE_TIME_JOBS:
+        _fwd_time_line(name, ms, None, lib_ms, bound, _device_ms(make_call()))
+    log(f"[kernels] card after the device times: {gpu_state()}")
+    DEVICE_TIME_JOBS.clear()
 
 
 def phase_kernels(results: dict) -> None:
@@ -227,25 +409,31 @@ def phase_kernels(results: dict) -> None:
                                                        return_lse=True), tol_o, tol_lse)
         if not timed:
             continue
-        ms = time_ms(lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6))
+        log(f"[kernels] card before K1 {tag}'s timings (SM clock, max, power, temperature): {gpu_state()}")
+        k1 = lambda *t: A.qknorm_flash_attention(*t, scale, 1e-6, return_lse=True)
+        _fwd_batch_slice_same(f"K1 {tag}", k1, q, k, v, gq, gk)
+        call = lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6)
+        ms, host_us = time_ms(call), _host_us(call, 50)
         plain_ms = time_ms(lambda: A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6), iters=3)
         qn = A._rms_scale(q, gq, 1e-6).to(dtype)
         kn = A._rms_scale(k, gk, 1e-6).to(dtype)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, v, scale=scale))
-        flops = A.attention_flops(B, H, S, S, D)
-        byts = nbytes(q, k, v, gq, gk, out, lse)
-        bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+        bound = _fwd_bound(B, H, S, S, D, nbytes(q, k, v, gq, gk, out, lse))
         _record(results, tag, dict(
             name="qknorm_flash_fwd", route="cuda",
             source="flow_factory_tpu_torch/ops/csrc/qknorm_flash_fwd.cu",
             replaces="flow_factory_tpu/ops/attention.py:368",
-            max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
+            max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
             library_ms=lib_ms))
-        log(f"[kernels] K1 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms"
-            f" | bound {bound:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+        _fwd_time_line(f"K1 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
+        DEVICE_TIME_JOBS.append((f"K1 {tag}", functools.partial(_k1_call, B, H, S, D, strided, scale), ms, lib_ms,
+                                 bound))
         del q, k, v, out, ref, qn, kn
         torch.cuda.empty_cache()
+    g = torch.ones(64, 64, device=dev)
+    tiny = [randn(1, 1, 64, 64) for _ in range(3)]
+    log(f"[kernels] K1 host cost a call (B1 H1 S64 bf16, the wrapper, its key pre-pass and wgmma launches, "
+        f"3 tensor maps): {_host_us(lambda: A.qknorm_flash_attention(*tiny, g, g, 0.125, 1e-6)):.1f} us")
 
     phase_kernels_k2(results, randn)
     phase_kernels_k3(results, randn)
@@ -584,21 +772,43 @@ def phase_kernels_k3(results: dict, randn) -> None:
         log(f"[kernels] K3 {tag}: two launches give the same bits: {same}")
         if not same:
             fail("K3 is not deterministic")
-        ms = time_ms(lambda: A.flash_attention(q, k, v, scale))
+        _fwd_batch_slice_same(f"K3 {tag}", lambda *t: A.flash_attention(*t, scale, return_lse=True), q, k, v)
+        call = lambda: A.flash_attention(q, k, v, scale)
+        ms, host_us = time_ms(call), _host_us(call, 50)
         plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, scale), iters=3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        flops = A.attention_flops(B, H, Sq, Sk, D)
-        byts = nbytes(q, k, v, out, lse)
-        bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+        bound = _fwd_bound(B, H, Sq, Sk, D, nbytes(q, k, v, out, lse))
         _record(results, tag, dict(
             name="flash_fwd", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_fwd.cu",
             replaces="flow_factory_tpu/ops/attention.py:101", max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
-            library_ms=lib_ms))
-        log(f"[kernels] K3 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms"
-            f" | bound {bound:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
+        _fwd_time_line(f"K3 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
+        DEVICE_TIME_JOBS.append((f"K3 {tag}", functools.partial(_k3_call, B, H, Sq, Sk, D, tag == "wan-cross", scale),
+                                 ms, lib_ms, bound))
         del q, k, v, out, ref, again
         torch.cuda.empty_cache()
+    tiny = [randn(1, 1, 64, 128) for _ in range(3)]
+    log(f"[kernels] K3 host cost a call (B1 H1 S64 D128, the wrapper and its launch, 3 tensor maps): "
+        f"{_host_us(lambda: A.flash_attention(*tiny)):.1f} us")
+
+    # F6: the JAX rule for a dense mask on the card. auto runs native
+    # attention (bit-equal to native_attention's) and launches no K3; flash
+    # raises.
+    q, k, v = (randn(2, 12, 77, 128) for _ in range(3))
+    mask = torch.rand(77, 77, device="cuda") > 0.3
+    before = A.flash_attention.launches
+    masked = A.dot_product_attention(q, k, v, mask=mask)
+    same = torch.equal(masked, A.native_attention(q, k, v, mask=mask))
+    try:
+        A.dot_product_attention(q, k, v, mask=mask, backend="flash")
+        raised = False
+    except NotImplementedError:
+        raised = True
+    added = A.flash_attention.launches - before
+    log(f"[kernels] F6: masked auto on the card equals native_attention: {same}, K3 launches it added: {added}; "
+        f"masked flash raises NotImplementedError: {raised}")
+    if not (same and added == 0 and raised):
+        fail("the masked dispatch does not follow the JAX rule")
 
 
 def _config(**overrides):
@@ -1343,6 +1553,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the Wan trainer loads
     phase_grad_wan()
     wan_train_counts = phase_wan_train()
+    phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
     counts["flash_fwd"] = wan_counts["flash_fwd"]

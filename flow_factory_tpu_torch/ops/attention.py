@@ -26,16 +26,20 @@ Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
   :func:`native_attention`, the JAX package's plain path
   (``attention.py:206-213`` and ``:70-84``).
 
-Backends (``model.attn_backend``): ``auto``/``flash``/``splash`` take the
-kernels on CUDA, ``native`` is the explicit plain path on any device,
-``hybrid`` and ``ring`` are not ported yet and raise. On a CPU tensor
-:func:`dot_product_attention` runs :func:`native_attention` for every
-flash-class backend, which is what the JAX package runs off the TPU
-(``auto`` → ``native``, ``attention.py:957``).
+Backends (``model.attn_backend``): :func:`attention_route` is the JAX
+``dot_product_attention`` rule (``attention.py:955-975``) on the port.
+``auto`` without a mask takes K3 on CUDA and :func:`native_attention` on the
+CPU (the JAX package's ``auto`` off the TPU); ``auto`` with a mask is
+``native`` on every device; ``flash``/``splash`` take K3 (its plain version
+on a CPU tensor, what the JAX package's Pallas kernel computes in interpret
+mode off the TPU) and raise on a mask on every device; ``native`` is the
+plain path on any device; ``hybrid`` and ``ring`` are not ported yet and
+raise. The qk-norm attention has no mask: its flash-class backends take K1.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -148,28 +152,52 @@ def _head_interleaved(B: int, H: int, S: int, D: int, like: torch.Tensor) -> tor
     return torch.empty((B, S, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
+@functools.lru_cache(maxsize=None)
+def _c_function(lib: str, name: str, argtypes: tuple):
+    """``name`` of the library built from ``csrc/<lib>.cu``, its types set
+    once: a wrapper call then pays only for the call."""
     from .cuda_build import load
 
-    lib = load("qknorm_flash_fwd")
-    fn = lib.qknorm_flash_fwd
+    fn = getattr(load(lib), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = list(argtypes)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """x rounded to ``dtype``, as the JAX launchers' ``q * (scale * _LOG2E)``
+    rounds the weakly typed constant to q's dtype."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+_PTR, _INT, _FLOAT, _I64S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
+_K1_ARGS = (_PTR,) * 7 + (_INT,) * 5 + (_I64S, _I64S, _PTR, _FLOAT, _FLOAT, _INT, _PTR)
+_K3_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (_I64S, _I64S, _FLOAT, _PTR)
+
+
+def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
+    fn = _c_function("qknorm_flash_fwd", "qknorm_flash_fwd", _K1_ARGS)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     # O is written head-interleaved, (B, S, H, D) in memory, so the output
     # projection reads it without a transpose copy; the view is (B, H, S, D)
     out = _head_interleaved(B, H, Sq, D, q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    # bf16: the kernel's pre-pass writes the normalised keys to kn, which its
+    # wgmma kernel reads by TMA; the fp32 variant reads k itself
+    kn = torch.empty((B, H, Sk, D), dtype=q.dtype, device=q.device) if q.dtype == torch.bfloat16 else None
+    strides = _strides4(q, k, v, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), gq.data_ptr(), gk.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, strides,
+                 None if kn is None else _fwd_tma_args(q, kn, v), None if kn is None else kn.data_ptr(),
                  float(scale * _LOG2E), float(eps), _KERNEL_DTYPES[q.dtype], stream)
-    _raise_on_error(lib, err, "qknorm_flash_fwd", "qknorm_flash_error_string")
+    if err:
+        from .cuda_build import load
+
+        _raise_on_error(load("qknorm_flash_fwd"), err, "qknorm_flash_fwd", "qknorm_flash_error_string")
     return out, lse
 
 
@@ -297,25 +325,53 @@ def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
 #: CUtensorMapDataType of the element types the TMA path takes
 _TMA_DTYPES = {torch.bfloat16: 9}  # CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
 _TMA_BOX_ROWS = 64  # the rows of one streamed or resident tile of K2a/K2b at head dim 64
+#: the boxes (columns, rows) of the forward kernels' maps, by head dim: q's
+#: and k/v's, a 64-column (128-byte, one swizzle line) half of a q tile of
+#: 128 rows or of a key tile, 128 keys at head dim 64 and 64 at 128
+#: (``csrc/flash_fwd_wgmma.cuh``); head dim 128 takes two halves a tile
+_FWD_TMA_BOXES = {64: ((64, 128), (64, 128)), 128: ((64, 128), (64, 64))}
 
 
-def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
-    """The TMA geometry of a (B, H, S, D) view, as ``csrc/flash_bwd.cu``'s
-    4-D tensor maps take it: the global dims innermost first (D, S, H, B),
-    the byte strides of S, H and B, the box (D, 64, 1, 1) and the
-    CUtensorMapDataType — 12 integers. The view is read in place, whatever
-    the order of its strides; TMA needs every byte stride to be a multiple
-    of 16, so another stride raises."""
+def tma_geometry(t: torch.Tensor, box: Optional[Tuple[int, int]] = None) -> Tuple[int, ...]:
+    """The TMA geometry of a (B, H, S, D) view, as the 4-D tensor maps of
+    ``csrc/hopper.cuh`` take it: the global dims innermost first (D, S, H,
+    B), the byte strides of S, H and B, the box (cols, rows, 1, 1) and the
+    CUtensorMapDataType — 12 integers. ``box`` is (cols, rows), by default
+    (D, 64), K2a/K2b's tiles; cols must divide D and span at most 128 bytes
+    (the 128-byte swizzle), so a 128-wide head arrives as two 64-column
+    boxes. The view is read in place, whatever the order of its strides; TMA
+    needs every byte stride to be a multiple of 16, so another stride
+    raises."""
     stride = t.stride()
     if t.ndim != 4 or stride[3] != 1 or t.dtype not in _TMA_DTYPES:
         raise ValueError(f"tma_geometry: expected a (B, H, S, D) view with a contiguous head dim in "
                          f"{list(_TMA_DTYPES)}; got {t.dtype} {tuple(t.shape)} strides {stride}")
     B, H, S, D = tuple(t.shape)  # unpacking the torch.Size itself is several times slower
     es = t.element_size()
+    cols, rows = (D, _TMA_BOX_ROWS) if box is None else box
+    if D % cols or cols * es > 128 or not 0 < rows <= 256:
+        raise ValueError(f"tma_geometry: box {cols} x {rows} does not tile head dim {D} in 128-byte lines "
+                         f"of at most 256 rows")
     strides = (stride[2] * es, stride[1] * es, stride[0] * es)
     if strides[0] % 16 or strides[1] % 16 or strides[2] % 16:
         raise ValueError(f"tma_geometry: byte strides (S, H, B) {strides} must be multiples of 16")
-    return (D, S, H, B) + strides + (D, _TMA_BOX_ROWS, 1, 1, _TMA_DTYPES[t.dtype])
+    return (D, S, H, B) + strides + (cols, rows, 1, 1, _TMA_DTYPES[t.dtype])
+
+
+_I64X12, _I64X36 = ctypes.c_longlong * 12, ctypes.c_longlong * 36
+
+
+def _strides4(q, k, v, out):
+    """The (b, h, s) element strides of q, k, v and O, as the forward kernels
+    take them."""
+    return _I64X12(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + out.stride()[:3]))
+
+
+def _fwd_tma_args(q, k, v):
+    """The 3 x 12 geometry values of q, k and v for the bf16 forward kernels
+    (K1, K3)."""
+    q_box, kv_box = _FWD_TMA_BOXES[q.shape[-1]]
+    return _I64X36(*(tma_geometry(q, q_box) + tma_geometry(k, kv_box) + tma_geometry(v, kv_box)))
 
 
 def _tma_args(q, k, v, dout):
@@ -356,7 +412,7 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
     dq = _head_interleaved(B, H, Sq, D, q)
     ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
     strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, dout, dq) for s in t.stride()[:3]))
-    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    qmul = _rounded(scale * _LOG2E, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, dq.data_ptr(), *dims, strides, _tma_args(q, k, v, dout), qmul, float(scale),
@@ -389,7 +445,7 @@ def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float):
     dk, dv = _head_interleaved(B, H, Sk, D, k), _head_interleaved(B, H, Sk, D, v)
     ptrs, dims = _bwd_kernel_args(q, k, v, dout, lse2, delta)
     strides = (ctypes.c_longlong * 18)(*(s for t in (q, k, v, dout, dk, dv) for s in t.stride()[:3]))
-    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    qmul = _rounded(scale * _LOG2E, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, _tma_args(q, k, v, dout), qmul,
@@ -422,8 +478,9 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None, return_lse: bo
     step — q pre-scaled by scale·log2e in q's dtype (:279), base-2 logits in
     fp32, exp2 against the row max, p rounded to v's dtype before PV with
     fp32 accumulation, O = acc / l in q's dtype, natural-log lse = m·ln2 +
-    ln l. The card holds the kernel against it; the CPU path of
-    :func:`dot_product_attention` runs :func:`native_attention` instead."""
+    ln l. The card holds the kernel against it; :func:`dot_product_attention`
+    runs it for ``flash``/``splash`` on a CPU tensor, as the JAX package runs
+    its Pallas kernel in interpret mode off the TPU."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.matmul(_prescaled_q(q, scale).float(), k.float().transpose(-1, -2))
@@ -437,23 +494,20 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None, return_lse: bo
 
 
 def _launch_flash(q, k, v, scale: float):
-    from .cuda_build import load
-
-    lib = load("flash_fwd")
-    fn = lib.flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    fn = _c_function("flash_fwd", "flash_fwd", _K3_ARGS)
     B, H, Sq, D = q.shape
     out = _head_interleaved(B, H, Sq, D, q)  # the head merge reads it without a copy
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    qmul = float(torch.tensor(scale * _LOG2E, dtype=q.dtype))
+    strides = _strides4(q, k, v, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 B, H, Sq, k.shape[2], D, strides, qmul, stream)
-    _raise_on_error(lib, err, "flash_fwd", "flash_fwd_error_string")
+                 B, H, Sq, k.shape[2], D, strides, _fwd_tma_args(q, k, v), _rounded(scale * _LOG2E, q.dtype),
+                 stream)
+    if err:
+        from .cuda_build import load
+
+        _raise_on_error(load("flash_fwd"), err, "flash_fwd", "flash_fwd_error_string")
     return out, lse
 
 
@@ -528,23 +582,37 @@ def qknorm_dot_product_attention(
     raise ValueError(f"Unknown attention backend {backend!r}")
 
 
-def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, backend: str = "auto"):
-    """Attention without a qk-norm (JAX ``dot_product_attention``, :942).
-
-    ``native`` — and every flash-class backend on a CPU tensor, as the JAX
-    package runs off the TPU — is :func:`native_attention`. On a CUDA tensor
-    ``auto``/``flash``/``splash`` launch K3 (:func:`flash_attention`), which
-    takes no dense mask; ``hybrid`` and ``ring`` are not ported and raise."""
-    flash = backend in ("auto", "flash", "splash")
-    if backend == "native" or (flash and q.device.type == "cpu"):
-        return native_attention(q, k, v, scale=scale, mask=mask)
-    if flash:
-        if mask is not None:
-            raise NotImplementedError(f"attention backend {backend!r} takes no dense mask; use 'native'")
-        return flash_attention(q, k, v, scale=scale)
-    if backend in ("hybrid", "ring"):
-        raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
+def attention_route(backend: str, masked: bool, device_type: str) -> str:
+    """What :func:`dot_product_attention` runs for ``backend``, a mask or
+    none, on a tensor of ``device_type``: ``"native"``
+    (:func:`native_attention`) or ``"flash"`` (:func:`flash_attention`: K3 on
+    CUDA, its plain version on the CPU), or the error the call raises. The
+    JAX rule (``attention.py:955-975``) with CUDA in the TPU's place: ``auto``
+    is ``flash`` on the accelerator without a mask and ``native`` otherwise
+    (on every device with a mask); ``splash`` is ``flash``; ``flash`` with a
+    mask raises on every device, as do ``hybrid`` and ``ring``, which are not
+    ported and raise without one too."""
+    if backend == "native":
+        return "native"
+    if backend == "auto":
+        return "native" if masked or device_type == "cpu" else "flash"
+    if backend in ("flash", "splash", "hybrid", "ring"):
+        name = "flash" if backend == "splash" else backend
+        if masked:
+            raise NotImplementedError(f"{name} backend does not take a dense mask; use 'native'")
+        if name != "flash":
+            raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
+        return "flash"
     raise ValueError(f"Unknown attention backend {backend!r}")
+
+
+def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, backend: str = "auto"):
+    """Attention without a qk-norm (JAX ``dot_product_attention``, :942),
+    routed by :func:`attention_route`. On a CUDA tensor K3 takes bf16 at head
+    dim 64 or 128 and raises on anything else: there is no silent native."""
+    if attention_route(backend, mask is not None, q.device.type) == "native":
+        return native_attention(q, k, v, scale=scale, mask=mask)
+    return flash_attention(q, k, v, scale=scale)
 
 
 def attention_flops(B: int, H: int, Sq: int, Sk: int, D: int) -> int:

@@ -101,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int D = 64;  // head dim
@@ -375,11 +377,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -416,107 +413,11 @@ constexpr int GSTAGES = 4;              // streamed tiles in flight
 constexpr int GTILE = GR * D;           // elements of a 64 x 64 tile: 8 KB, 64 rows of 128 bytes
 constexpr uint32_t GTILE_BYTES = GTILE * 2;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// Until the phase of parity `parity` of the barrier has completed. A wait
-// that lasts ~2^34 cycles (seconds) traps: a broken ring faults the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
 // One 64 x 64 box of a (D, S, H, B) tensor map, rows `row`..`row`+63 of head
 // (b, h), into a 1024-byte aligned tile; rows past S arrive as zeros.
 __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row,
                                          int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a 64 x 64 bf16 tile as TMA's 128-byte swizzle
-// lays it out (row r at 128 r, its 16-byte chunk c at chunk c ^ (r % 8)),
-// from `byte_offset` into the tile: the swizzle mode 128B, the stride byte
-// offset 1024 (one 8-row group) and the leading one 1 (unused: with 64
-// columns a product never steps into a second 128-byte column). K-major use
-// (rows are the outer axis, the head dim contracted) steps 32 bytes a k-step
-// of 16; MN-major use (the transposed B of dS.K, P^T.dO and dS^T.q~, the tile's
-// rows contracted) steps 16 rows = 2048 bytes.
-__device__ __forceinline__ uint64_t gdesc(const __nv_bfloat16* tile, uint32_t byte_offset) {
-  const uint64_t addr = (smem_u32(tile) + byte_offset) & 0x3FFFF;
-  return (addr >> 4) | (uint64_t(1) << 16) | (uint64_t(64) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keeps the compiler from moving reads or writes of an accumulator across an
-// issue or a wait: the tensor cores write it asynchronously.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_ACC32                                                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),            \
-      "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),            \
-      "+f"(d[30]), "+f"(d[31])
-
-// d (64 x 64, fp32) = [d +] A . B^T: A and B K-major tiles in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, fp32) = [d +] A . B: A (64 x 16) bf16 fragments in registers, B
-// an MN-major shared tile (the transpose immediate, allowed for 16-bit types).
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  tma_load(dst, map, bar, 0, row, h, b);
 }
 
 // d = R . C^T over the head dim: R and C two K-major 64 x 64 tiles.
@@ -554,10 +455,6 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, int64_t ss, int ro
       *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + j * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // Shared memory: two resident tiles per consumer warpgroup, GSTAGES stages of
@@ -842,45 +739,10 @@ __global__ void __launch_bounds__(GNT_DKV, 1)
   store_acc(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query so
-// that this source links no libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                       &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// One operand's tensor map from the 12 values the wrapper computed: global
-// dims innermost first (D, S, H, B), the byte strides of S, H and B, the box
-// (D, rows, 1, 1) and the CUtensorMapDataType. The kernels take only bf16
-// 64 x 64 boxes; 128-byte swizzle (what gdesc reads), rows past S zero-filled.
+// One operand's tensor map (hopper.cuh's encode_map): the kernels take bf16
+// 64 x 64 boxes of head dim 64.
 cudaError_t encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if (g[0] != D || g[7] != D || g[8] != GR || g[9] != 1 || g[10] != 1 || g[11] != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
-    return cudaErrorInvalidValue;
-  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2], (cuuint64_t)g[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, ptr, g, D, D, GR);
 }
 
 // tma: 4 x 12 geometry values, of q, k, v and dO in that order.

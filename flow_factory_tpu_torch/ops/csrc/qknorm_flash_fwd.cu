@@ -10,28 +10,24 @@
 //
 // What bounds it on an H100: at the SD3.5-M shapes (B=16, H=24, S=1357 or
 // 1024, D=64) the work is 4*B*H*S^2*D = 1.8e11 / 1.0e11 FLOP against ~1e8 bytes
-// of q/k/v/O, so the bound is the tensor-core rate (989 TFLOP/s bf16), not the
-// 3.35 TB/s memory.
+// of q/k/v/O, so the tensor-core rate (989 TFLOP/s bf16) bounds it, not the
+// 3.35 TB/s memory; at D=64 the exponentials (one ex2 a score, 7.1e8 / 4.0e8
+// of them at 16 a clock an SM) take nearly as long as the products.
 //
-// Design: one block per (64-row q tile, head, batch); the key axis is a loop
-// inside the block; no block talks to another, so there are no atomics and
-// the summation order is fixed: rollout and replay give the same bits. The q
-// tile is normalised once (its scale map times scale*log2 e) and each 64-row
-// key tile on load with its per-position gk, in fp32, each value rounded once
-// to the input type exactly where the TPU kernel casts to o_ref.dtype; P is
-// rounded to the input type before the PV product as the TPU kernel casts p
-// to v's type; both products accumulate in fp32. Rows past Sq load as zeros
-// and are never stored; key columns past Sk get the -1e30 of `_kpad_bias` and
-// zero V rows. Head dim 64 only (SD3.5-M and -L). Two variants:
-// * bf16 (the SD3.5 path): 128-row q tiles, 8 warps each owning 16 q rows;
-//   both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate); the score fragment is re-packed in registers as the A
-//   operand of PV (no shared-memory round trip for P); V's B fragments come
-//   from ldmatrix.trans; tiles move as 16-byte vectors, so every pointer and
-//   (b, h, s) stride must keep 16-byte alignment, else the launch is refused.
+// No block talks to another, so there are no atomics and the summation
+// order is fixed: rollout and replay give the same bits. Head dim 64 only
+// (SD3.5-M and -L). Two variants:
+// * bf16 (the SD3.5 path), two launches: key_norm_kernel normalises every
+//   key row once into a contiguous bf16 buffer, then flash_fwd_wgmma.cuh's
+//   kernel with the norm (<64, true>) normalises each q tile in shared
+//   memory (scale * log2 e folded into gq) and runs K3's wgmma forward on
+//   the normalised keys: both products on wgmma, key tiles of 128 through a
+//   TMA ring, two consumer warpgroups taking turns on the tensor cores.
 // * fp32: 64-row q tiles, 256 threads, register-tiled 4x4 fp32 FMAs from
-//   shared memory (right and simple, ~20 TFLOP/s).
-// No TMA, wgmma or pipelining of the tile loads yet: later work.
+//   shared memory (right and simple, ~20 TFLOP/s). Rows past Sq load as zeros
+//   and are never stored; key columns past Sk get the -1e30 of `_kpad_bias`.
+#include "flash_fwd_wgmma.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -218,235 +214,88 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor-core variant (mma.sync m16n8k16)
-// ---------------------------------------------------------------------------
-constexpr int MBM = 128;    // q rows per block: 8 warps x 16 rows
-constexpr int MNT = 256;
-constexpr int MP = 64 + 8;  // bf16 row pitch (144 B): conflict-free fragment loads
+// K1's key norm, a pre-pass: every (b, h, s) row of k RMS-normalised once
+// into a contiguous (B, H, Sk, 64) bf16 buffer that the wgmma kernel reads,
+// bf16(x * (rsqrt(mean(x^2) + eps) * g[s])); 8 threads a row, one 16-byte
+// chunk each. Normalising each K tile inside the kernel instead made every
+// q tile's block renormalise every key (11 times at the SD3.5 joint shape)
+// and read gk's fp32 rows, twice K's bytes, again from L2: on the card that
+// was slower than this pass's one read and write of k.
+struct NormRows {
+  const __nv_bfloat16* x;
+  int64_t sb, sh, ss;
+  const float* g;
+  int S;
+  int64_t rows;  // B * H * S
+  __nv_bfloat16* out;
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of a row-major [k][n] bf16 tile: rows k0..k0+15, columns n0..n0+7
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                                  int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const unsigned addr = static_cast<unsigned>(
-      __cvta_generic_to_shared(tile + (k0 + (lane & 15)) * MP + n0));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-// ROWS x 64 of a bf16 (S, 64) head slice → row-major shared memory (pitch MP),
-// 4 threads per row, 16-byte loads and stores; RMS-normalised when g is set.
-template <int ROWS>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int64_t row_stride, int row0, int S, const float* g,
-                                               float gmul, float eps) {
-  const int c0 = (threadIdx.x & 3) * 16;
+__global__ void __launch_bounds__(256) key_norm_kernel(const NormRows t, int H, float eps) {
+  const int64_t row = (int64_t)blockIdx.x * 32 + (threadIdx.x >> 3);
+  const int c = threadIdx.x & 7;
+  const bool valid = row < t.rows;
+  const int64_t r = valid ? row : 0;
+  const int s = (int)(r % t.S);
+  const int64_t bh = r / t.S;
+  const int h = (int)(bh % H);
+  const int64_t b = bh / H;
+  uint4 u = *reinterpret_cast<const uint4*>(t.x + b * t.sb + h * t.sh + s * t.ss + c * 8);
+  __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+  float x[8], sq = 0.f;
 #pragma unroll
-  for (int rr = 0; rr < ROWS; rr += MNT / 4) {
-    const int r = rr + (threadIdx.x >> 2), row = row0 + r;
-    float x[16];
-    if (row < S) {
-      const uint4* p = reinterpret_cast<const uint4*>(src + row * row_stride + c0);
-      const uint4 u[2] = {p[0], p[1]};
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(u);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        x[2 * e] = f.x;
-        x[2 * e + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) x[e] = 0.f;
-    }
-    if (g != nullptr) {
-      float ss = 0.f;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) ss += x[e] * x[e];
-      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-      const float rs = rsqrtf(ss / 64.f + eps);
-      const float4* gr = reinterpret_cast<const float4*>(g + (int64_t)min(row, S - 1) * 64 + c0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 gv = gr[e];
-        x[4 * e] = x[4 * e] * (rs * (gv.x * gmul));
-        x[4 * e + 1] = x[4 * e + 1] * (rs * (gv.y * gmul));
-        x[4 * e + 2] = x[4 * e + 2] * (rs * (gv.z * gmul));
-        x[4 * e + 3] = x[4 * e + 3] * (rs * (gv.w * gmul));
-      }
-    }
-    uint4 out[2];
-    uint32_t* w = reinterpret_cast<uint32_t*>(out);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = pack_bf16(x[2 * e], x[2 * e + 1]);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * MP + c0);
-    d[0] = out[0];
-    d[1] = out[1];
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(hv[e]);
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+    sq += f.x * f.x;
+    sq += f.y * f.y;
   }
-}
-
-__global__ void __launch_bounds__(MNT, 2) qknorm_flash_fwd_mma_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[MBM * MP];
-  __shared__ __align__(16) __nv_bfloat16 Ks[64 * MP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[64 * MP];
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * MBM;
-  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  load_rows_bf16<MBM>(Qs, qb, p.q_ss, q0, p.Sq, p.gq, p.qmul, p.eps);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
-  uint32_t qf[4][4];                        // A fragments of the warp's 16 x 64 q rows
+  sq += __shfl_xor_sync(0xffffffffu, sq, 1);  // the row's 8 lanes
+  sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+  sq += __shfl_xor_sync(0xffffffffu, sq, 4);
+  const float rs = rsqrtf(sq / 64.f + eps);
+  const float4 g0 = __ldg(reinterpret_cast<const float4*>(t.g + (int64_t)s * 64 + c * 8));
+  const float4 g1 = __ldg(reinterpret_cast<const float4*>(t.g + (int64_t)s * 64 + c * 8 + 4));
+  const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qf[kk][0] = ld32(&Qs[(wr + g) * MP + kk * 16 + 2 * t]);
-    qf[kk][1] = ld32(&Qs[(wr + g + 8) * MP + kk * 16 + 2 * t]);
-    qf[kk][2] = ld32(&Qs[(wr + g) * MP + kk * 16 + 8 + 2 * t]);
-    qf[kk][3] = ld32(&Qs[(wr + g + 8) * MP + kk * 16 + 8 + 2 * t]);
-  }
-  // this thread's rows are wr+g (fragment slots 0,1) and wr+g+8 (slots 2,3)
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int n0 = 0; n0 < p.Sk; n0 += 64) {
-    __syncthreads();  // the previous tile's Ks/Vs are no longer read
-    load_rows_bf16<64>(Ks, kb, p.k_ss, n0, p.Sk, p.gk, 1.f, p.eps);
-    load_rows_bf16<64>(Vs, vb, p.v_ss, n0, p.Sk, nullptr, 1.f, 0.f);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mma_16816(s[j], qf[kk], ld32(&Ks[(j * 8 + g) * MP + kk * 16 + 2 * t]),
-                  ld32(&Ks[(j * 8 + g) * MP + kk * 16 + 8 + 2 * t]));
-
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n0 + j * 8 + 2 * t + e >= p.Sk) s[j][2 * r + e] = kNegInf;
-          mc = fmaxf(mc, s[j][2 * r + e]);
-        }
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-      const float mn = fmaxf(m[r], mc);
-      alpha[r] = exp2f(m[r] - mn);
-      m[r] = mn;
-      float rs = 0.f;  // this thread's part of the row sum, reduced at the end
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pij = exp2f(s[j][2 * r + e] - mn);
-          s[j][2 * r + e] = pij;
-          rs += pij;
-        }
-      l[r] = alpha[r] * l[r] + rs;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    // P rounded to bf16 as the A operand: score tiles 2kk and 2kk+1 hold the
-    // 16 key columns of PV's k-step kk
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, Vs, kk * 16, j * 8);
-        mma_16816(acc[j], a, b0, b1);
-      }
-    }
-  }
-
-  auto* ob = reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const int row = q0 + wr + g + 8 * r;
-    if (row >= p.Sq) continue;
-    const float denom = fmaxf(lr, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * p.o_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
-    if (t == 0) p.lse[((int64_t)b * p.H + h) * p.Sq + row] = m[r] * kLn2 + logf(denom);
-  }
-}
-
-// The tensor-core variant moves 16-byte vectors: every pointer and stride
-// must keep 8-element (16-byte) alignment.
-bool mma_aligned(const Params& p) {
-  auto a16 = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
-  const int64_t s[] = {p.q_sb, p.q_sh, p.q_ss, p.k_sb, p.k_sh, p.k_ss,
-                       p.v_sb, p.v_sh, p.v_ss, p.o_sb, p.o_sh, p.o_ss};
-  for (int64_t v : s)
-    if (v % 8 != 0) return false;
-  return a16(p.q) && a16(p.k) && a16(p.v) && a16(p.o) && a16(p.gq) && a16(p.gk);
-}
-
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  dim3 grid((p.Sq + MBM - 1) / MBM, p.H, p.B);
-  qknorm_flash_fwd_mma_kernel<<<grid, MNT, 0, stream>>>(p);
-  return cudaGetLastError();
+  for (int e = 0; e < 4; ++e)
+    hv[e] = __floats2bfloat162_rn(x[2 * e] * (rs * gv[2 * e]), x[2 * e + 1] * (rs * gv[2 * e + 1]));
+  if (valid) *reinterpret_cast<uint4*>(t.out + row * 64 + c * 8) = u;
 }
 
 }  // namespace
 
 extern "C" {
 
-// d: head dim, must be 64. dtype: 0 = float32, 1 = bfloat16 (16-byte aligned
-// pointers and strides). strides: 12 element strides, in order
-// (b, h, s) of q, k, v and o; the last axis of each must be contiguous.
-// Returns the cudaError_t of the launch (0 on success).
+// d: head dim, must be 64. dtype: 0 = float32, 1 = bfloat16. strides: 12
+// element strides, in order (b, h, s) of q, k, v and o; the last axis of each
+// must be contiguous. For bf16: kn, a contiguous (B, H, Sk, 64) bf16 scratch
+// buffer for the normalised keys, and tma, the 3 x 12 TMA geometry values of
+// q, kn and v (64 x 128 boxes); both null for float32. Returns the
+// cudaError_t of the launches (0 on success).
 int qknorm_flash_fwd(const void* q, const void* k, const void* v, const float* gq, const float* gk,
                      void* o, float* lse, int B, int H, int Sq, int Sk, int d,
-                     const long long* strides, float qmul, float eps, int dtype, void* stream) {
+                     const long long* strides, const long long* tma, void* kn, float qmul, float eps, int dtype,
+                     void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (d != D) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    FwdParams f;
+    f.gq = gq; f.gk = gk;
+    f.o = static_cast<__nv_bfloat16*>(o);
+    f.lse = lse;
+    f.B = B; f.H = H; f.Sq = Sq; f.Sk = Sk;
+    f.o_sb = strides[9]; f.o_sh = strides[10]; f.o_ss = strides[11];
+    f.qmul = qmul; f.eps = eps;
+    if (!fwd_aligned(f) || kn == nullptr) return (int)cudaErrorInvalidValue;
+    const NormRows nk = {static_cast<const __nv_bfloat16*>(k), strides[3], strides[4], strides[5], gk, Sk,
+                         (int64_t)B * H * Sk, static_cast<__nv_bfloat16*>(kn)};
+    key_norm_kernel<<<(unsigned)((nk.rows + 31) / 32), 256, 0, s>>>(nk, H, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_fwd_wgmma<64, true>(f, q, kn, v, tma, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.gq = gq; p.gk = gk; p.o = o; p.lse = lse;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk;
@@ -455,12 +304,11 @@ int qknorm_flash_fwd(const void* q, const void* k, const void* v, const float* g
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.qmul = qmul; p.eps = eps;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (d != D) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_f32(p, s);
-  if (dtype == 1 && mma_aligned(p)) return (int)launch_mma(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_f32(p, s);
 }
+
+// Dynamic shared memory of the bf16 launch, in bytes (for logs).
+int qknorm_flash_fwd_smem_bytes() { return (int)FwdShape<64, true>::SMEM; }
 
 const char* qknorm_flash_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

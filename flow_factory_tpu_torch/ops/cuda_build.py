@@ -2,8 +2,9 @@
 
 Each source under ``ops/csrc/`` exposes a plain C interface and is compiled
 by hand into its own shared library (no PyTorch headers, so a build takes
-seconds) under ``<repo>/build/``, keyed by a hash of the source and the
-flags. The first call in a process builds what is missing; later calls load
+seconds) under ``<repo>/build/``, keyed by a hash of the source, the
+``csrc/*.cuh`` headers it includes (``hopper.cuh``, ``flash_fwd_wgmma.cuh``)
+and the flags. The first call in a process builds what is missing; later calls load
 the cached library.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,10 +34,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list:
+    """``src`` and every header under its directory that it includes, directly
+    or through another header, each once, in the order first reached."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo.extend(path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """The library of ``<csrc>/<name>.cu``, keyed by the source, the headers it
+    includes and the flags: an edited header builds a new library."""
+    h = hashlib.sha256()
+    for path in _sources(csrc / f"{name}.cu"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

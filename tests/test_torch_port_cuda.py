@@ -453,8 +453,14 @@ def test_flash_fwd_refuses_what_it_does_not_take(gen):
     odd = _randn(gen, 1 * 2 * 64 * 128 + 4, dtype=torch.bfloat16)[4:].view(1, 2, 64, 128)
     with pytest.raises(ValueError):  # 8-byte offset: the 16-byte loads refuse it
         A.flash_attention(odd, k, v)
-    with pytest.raises(NotImplementedError):  # no dense mask on the kernel
-        A.dot_product_attention(q, k, v, mask=torch.ones(64, 64, dtype=torch.bool, device="cuda"))
+    # the JAX rule: ``auto`` with a dense mask is native attention, ``flash``
+    # with one raises; neither launches K3
+    mask = torch.rand(64, 64, generator=gen, device="cuda") > 0.3
+    before = A.flash_attention.launches
+    assert torch.equal(A.dot_product_attention(q, k, v, mask=mask), A.native_attention(q, k, v, mask=mask))
+    with pytest.raises(NotImplementedError):
+        A.dot_product_attention(q, k, v, mask=mask, backend="flash")
+    assert A.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -474,3 +480,74 @@ def test_flash_fwd_records_a_node_and_its_grads_match_plain_autograd(gen, D):
     assert o.grad_fn is not None
     for name, a, b in zip(("dq", "dk", "dv"), g_kern, g_plain):
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 at the edges of the wgmma forward's tiles: 128 q rows a block,
+# key tiles of 128 (head dim 64) or 64 (head dim 128)
+# ---------------------------------------------------------------------------
+
+_FWD_EDGES = [
+    (128, 128, "contiguous"),  # one q tile, one key tile at D=64 (two at D=128)
+    (127, 129, "head-split"),  # a tile - 1 q rows, + 1 keys
+    (129, 127, "mixed"),       # + 1 q rows, - 1 keys; q contiguous, k/v head-split (Wan's cross-attention)
+    (64, 64, "contiguous"),    # below a q tile; one 64-key tile at D=128
+    (65, 63, "head-split"),    # one key tile - 1 at D=128, + 1 q rows past a half tile
+    (1, 1, "mixed"),
+    (300, 40, "mixed"),        # Sk < 64: one ragged key tile
+    (40, 300, "head-split"),   # Sq < 64 < Sk
+    (257, 193, "contiguous"),  # 128 x 2 + 1 q rows, 64 x 3 + 1 keys
+]
+
+
+def _fwd_views(gen, B, H, Sq, Sk, D, layout):
+    def heads(S, split):
+        if split:  # the head-split view of a (B, S, H*D) projection
+            return _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+        return _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    return heads(Sq, layout == "head-split"), heads(Sk, layout != "contiguous"), heads(Sk, layout != "contiguous")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk,layout", _FWD_EDGES)
+def test_flash_fwd_at_the_tile_edges(gen, D, Sq, Sk, layout):
+    q, k, v = _fwd_views(gen, 2, 3, Sq, Sk, D, layout)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    err_o, err_lse = _k3_errors(out, lse, ref, ref_lse)
+    tol_o, tol_lse = _k3_tols(ref)
+    print(f"K3 D{D} {Sq}x{Sk} {layout}: O {err_o:.3e} (tol {tol_o:.3e}), lse {err_lse:.3e}")
+    assert out.shape == ref.shape and err_o <= tol_o and err_lse <= tol_lse
+
+
+@pytest.mark.parametrize("Sq,Sk,layout", _FWD_EDGES)
+def test_qknorm_flash_at_the_tile_edges(gen, Sq, Sk, layout):
+    q, k, v = _fwd_views(gen, 2, 3, Sq, Sk, 64, layout)
+    gq = 1.0 + 0.1 * _randn(gen, Sq, 64)
+    gk = 1.0 + 0.1 * _randn(gen, Sk, 64)
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, 0.125, 1e-6, return_lse=True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = _k1_tols(ref, torch.bfloat16)
+    err_o, err_lse = (out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item()
+    print(f"K1 {Sq}x{Sk} {layout}: O {err_o:.3e} (tol {tol_o:.3e}), lse {err_lse:.3e}")
+    assert out.shape == ref.shape and err_o <= tol_o and err_lse <= tol_lse
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3 D64", "K3 D128"])
+def test_a_batch_slice_gives_the_bits_of_the_whole_batch(gen, kernel):
+    """Each output row depends only on its q row and its (b, h)'s keys in a
+    fixed order: the kernel on the first 8 of 16 batch rows gives the bits
+    of the first 8 rows of the kernel on all 16 (rollout under CFG against
+    replay and training forwards of a part of the batch)."""
+    D = 128 if kernel == "K3 D128" else 64
+    q, k, v = _fwd_views(gen, 16, 2, 200, 200, D, "head-split")
+    if kernel == "K1":
+        g = 1.0 + 0.1 * _randn(gen, 200, 64)
+        run = lambda *t: A.qknorm_flash_attention(*t, g, g, 0.125, 1e-6, return_lse=True)
+    else:
+        run = lambda *t: A.flash_attention(*t, return_lse=True)
+    out, lse = run(q, k, v)
+    part, part_lse = run(q[:8], k[:8], v[:8])
+    assert torch.equal(part, out[:8]) and torch.equal(part_lse, lse[:8])

@@ -1,0 +1,112 @@
+"""PyTorch port, on the CPU: the attention dispatcher's routing
+(``attention_route``) held to the JAX ``dot_product_attention`` rule
+(``flow_factory_tpu/ops/attention.py:955-975``) for every backend, with a
+dense mask or none, on the CPU and on an accelerator. The JAX side is
+observed, not restated: its ``dot_product_attention`` runs on the same
+seeded numpy inputs, off the TPU as it is and with ``_on_tpu`` patched true
+for the accelerator column (its Pallas kernel then runs in interpret mode),
+and its outcome is read as the error it raises, or ``native`` where the
+result is bit-equal to its ``native_attention``, else ``flash``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flow_factory_tpu.ops import attention as J
+from flow_factory_tpu_torch.ops import attention as T
+
+BACKENDS = ("auto", "flash", "splash", "native", "hybrid", "ring", "bogus")
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 2, 16, 64)).astype(np.float32) for _ in range(3))
+    mask = rng.random((1, 1, 16, 16)) > 0.3
+    mask[..., 0] = True  # every row keeps a key
+    return q, k, v, mask
+
+
+def _outcome(call):
+    try:
+        return call()
+    except NotImplementedError:
+        return "NotImplementedError"
+    except ValueError:
+        return "ValueError"
+
+
+def _jax_route(backend: str, masked: bool, accelerator: bool, monkeypatch) -> str:
+    if accelerator:
+        monkeypatch.setattr(J, "_on_tpu", lambda: True)
+    q, k, v, mask = (jnp.asarray(a) for a in _inputs())
+    m = mask if masked else None
+    out = _outcome(lambda: J.dot_product_attention(q, k, v, mask=m, backend=backend))
+    if isinstance(out, str):
+        return out
+    return "native" if np.array_equal(np.asarray(out), np.asarray(J.native_attention(q, k, v, mask=m))) else "flash"
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_attention_route_follows_the_jax_rule(backend, masked, device, monkeypatch):
+    """auto with a mask is native on every device; flash/splash with a mask
+    raise on every device; auto without one takes K3 on CUDA and native on
+    the CPU. hybrid and ring are not ported: they raise where JAX runs."""
+    port = _outcome(lambda: T.attention_route(backend, masked, device))
+    want = _jax_route(backend, masked, device == "cuda", monkeypatch)
+    if backend in ("hybrid", "ring") and not masked:
+        assert want in ("native", "flash") and port == "NotImplementedError"
+        with pytest.raises(NotImplementedError, match="not ported"):
+            T.attention_route(backend, masked, device)
+    else:
+        assert port == want, (backend, masked, device, port, want)
+
+
+def test_masked_auto_is_native_attention_on_the_cpu():
+    """``auto`` with a mask runs ``native_attention`` with the mask: bit-equal
+    to the port's own, and to the JAX native path within 1e-6 on seeded
+    fp32 inputs (XLA's and PyTorch's CPU matmul and exp differ in the last
+    bits, 4.8e-7 here); ``flash`` with the mask raises."""
+    q, k, v, mask = _inputs()
+    tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+    out = T.dot_product_attention(tq, tk, tv, mask=tm, backend="auto")
+    assert torch.equal(out, T.native_attention(tq, tk, tv, mask=tm))
+    ref = np.asarray(J.dot_product_attention(*(jnp.asarray(a) for a in (q, k, v)), mask=jnp.asarray(mask),
+                                             backend="auto"))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=0)
+    for backend in ("flash", "splash"):
+        with pytest.raises(NotImplementedError):
+            T.dot_product_attention(tq, tk, tv, mask=tm, backend=backend)
+
+
+def test_masked_auto_matches_the_jax_native_path_bit_for_bit_where_the_arithmetic_is_exact():
+    """The mask's semantics bit for bit: with q = 0 every kept key scores 0
+    and every masked one -1e30, each row keeps 1, 2, 4 or 8 keys (seeded), and
+    v holds small integers, so softmax weights of 2^-j and their sums are
+    exact in both frameworks: the port's masked ``auto`` equals the JAX
+    masked ``auto`` exactly."""
+    rng = np.random.default_rng(1)
+    B, H, S, D = 1, 2, 16, 64
+    q = np.zeros((B, H, S, D), np.float32)
+    k = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    v = rng.integers(-8, 9, (B, H, S, D)).astype(np.float32)
+    mask = np.zeros((B, 1, S, S), bool)
+    for i in range(S):
+        mask[0, 0, i, rng.permutation(S)[:2 ** (i % 4)]] = True
+    out = T.dot_product_attention(*(torch.from_numpy(a) for a in (q, k, v)), mask=torch.from_numpy(mask),
+                                  backend="auto")
+    ref = np.asarray(J.dot_product_attention(*(jnp.asarray(a) for a in (q, k, v)), mask=jnp.asarray(mask),
+                                             backend="auto"))
+    assert np.array_equal(out.numpy(), ref)
+    assert not np.array_equal(ref, np.asarray(J.native_attention(*(jnp.asarray(a) for a in (q, k, v)))))
+
+
+def test_cpu_routes_reach_their_functions():
+    """The CPU path of each route: native (auto, native) is
+    ``native_attention``, flash (flash, splash) is K3's plain version."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs())
+    for backend in ("auto", "native"):
+        assert torch.equal(T.dot_product_attention(q, k, v, backend=backend), T.native_attention(q, k, v))
+    for backend in ("flash", "splash"):
+        assert torch.equal(T.dot_product_attention(q, k, v, backend=backend), T.flash_attention_plain(q, k, v))

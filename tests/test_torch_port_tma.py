@@ -69,3 +69,42 @@ def test_tma_geometry_refuses_what_the_maps_do_not_take():
         A.tma_geometry(torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16).transpose(2, 3))
     with pytest.raises(ValueError):  # not (B, H, S, D)
         A.tma_geometry(torch.zeros(2, 64, 64, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "head-split", "fused-qkv"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,S", [(2, 3, 77), (16, 12, 512)])
+def test_tma_geometry_with_the_forward_box_tiles_the_head_dim(layout, D, B, H, S):
+    """The forward kernels' maps (K1, K3) take (64, 128) boxes: one 128-byte
+    swizzle line of 64 columns by 128 rows, so a 128-wide head arrives as two
+    boxes at columns 0 and 64. The geometry still describes the whole view,
+    and the boxes' columns cover the head dim exactly."""
+    t = _view(layout, B, H, S, D)
+    g = A.tma_geometry(t, (64, 128))
+    assert g[:4] == (D, S, H, B)
+    assert g[7:] == (64, 128, 1, 1, BF16)
+    assert torch.equal(_rebuilt(t, g), t)
+    halves = [_rebuilt(t, g)[..., c:c + g[7]] for c in range(0, D, g[7])]
+    assert len(halves) == D // 64 and torch.equal(torch.cat(halves, dim=-1), t)
+    assert g[:7] == A.tma_geometry(t, (64, 64))[:7]  # the box changes nothing else
+
+
+def test_tma_geometry_refuses_a_box_the_swizzle_does_not_take():
+    t = _view("contiguous", 1, 2, 64, 128)
+    for box in ((128, 64), (48, 64), (64, 512), (64, 0)):  # 256-byte lines, not dividing D, too many rows
+        with pytest.raises(ValueError, match="box"):
+            A.tma_geometry(t, box)
+    with pytest.raises(ValueError, match="box"):
+        A.tma_geometry(t)  # the default box is the whole head dim: 256 bytes at D = 128
+
+
+def test_forward_tma_args_are_three_geometries_of_the_forward_box():
+    q, k, v = (_view(layout, 2, 3, 77, 128) for layout in ("contiguous", "head-split", "fused-qkv"))
+    args = list(A._fwd_tma_args(q, k, v))
+    assert len(args) == 36
+    # a 128-row q tile; key tiles of 64 rows at head dim 128 (128 at 64)
+    assert args == [*A.tma_geometry(q, (64, 128)), *A.tma_geometry(k, (64, 64)), *A.tma_geometry(v, (64, 64))]
+    q64, k64, v64 = (_view(layout, 2, 3, 77) for layout in ("contiguous", "head-split", "fused-qkv"))
+    assert list(A._fwd_tma_args(q64, k64, v64)) == [x for t in (q64, k64, v64) for x in A.tma_geometry(t, (64, 128))]
+    with pytest.raises(ValueError):  # fp32 has no TMA path (K1's fp32 variant takes none)
+        A._fwd_tma_args(q.float(), k.float(), v.float())

@@ -153,14 +153,18 @@ def test_flash_attention_plain_matches_jax_interpret(D, dtype):
 
 
 def test_dot_product_attention_dispatch_on_cpu():
-    """On a CPU tensor every flash-class backend is ``native_attention``, as
-    the JAX package runs off the TPU; hybrid/ring are not ported."""
+    """On a CPU tensor ``auto`` and ``native`` are ``native_attention`` and
+    ``flash``/``splash`` K3's plain version, as the JAX package runs
+    ``native`` and its Pallas kernel (in interpret mode) off the TPU;
+    hybrid/ring are not ported."""
     from flow_factory_tpu_torch.ops import attention as T
 
     q = torch.randn(1, 2, 20, 128)
     ref = T.native_attention(q, q, q)
-    for backend in ("auto", "flash", "splash", "native"):
+    for backend in ("auto", "native"):
         assert torch.equal(T.dot_product_attention(q, q, q, backend=backend), ref)
+    for backend in ("flash", "splash"):
+        assert torch.equal(T.dot_product_attention(q, q, q, backend=backend), T.flash_attention_plain(q, q, q))
     with pytest.raises(NotImplementedError):
         T.dot_product_attention(q, q, q, backend="ring")
 
