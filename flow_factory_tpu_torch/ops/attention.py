@@ -267,9 +267,11 @@ qknorm_flash_attention.launches = 0
 
 def _bwd_prologue(q, out, lse, dout):
     """dO in q's dtype, Δ = rowsum(dO∘O) in fp32 and the base-2 lse
-    (JAX ``_flash_backward``, ``attention.py:711-717``)."""
+    (JAX ``_flash_backward``, ``attention.py:711-717``). O is promoted to fp32
+    inside the product, so no fp32 copy of it is made: the same products and
+    sums, one pass over memory fewer."""
     dout = dout.to(q.dtype)
-    delta = torch.sum(dout.float() * out.float(), dim=-1)
+    delta = torch.sum(dout.float() * out, dim=-1)
     return dout, delta, (lse * _LOG2E).contiguous()
 
 
@@ -324,7 +326,10 @@ def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
 
 #: CUtensorMapDataType of the element types the TMA path takes
 _TMA_DTYPES = {torch.bfloat16: 9}  # CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-_TMA_BOX_ROWS = 64  # the rows of one streamed or resident tile of K2a/K2b at head dim 64
+_TMA_BOX_ROWS = 64  # the rows of one streamed or resident tile of K2a/K2b
+#: K2a/K2b's box at both head dims: 64 columns (one 128-byte swizzle line) by
+#: 64 rows, so a 128-wide head arrives as two boxes a tile (``csrc/flash_bwd.cu``)
+_BWD_TMA_BOX = (64, _TMA_BOX_ROWS)
 #: the boxes (columns, rows) of the forward kernels' maps, by head dim: q's
 #: and k/v's, a 64-column (128-byte, one swizzle line) half of a q tile of
 #: 128 rows or of a key tile, 128 keys at head dim 64 and 64 at 128
@@ -375,11 +380,12 @@ def _fwd_tma_args(q, k, v):
 
 
 def _tma_args(q, k, v, dout):
-    """The 4 x 12 geometry values of q, k, v and dO for the head-dim-64
-    bf16 kernels; None (a null pointer) for the other variants."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] != _KERNEL_HEAD_DIM:
+    """The 4 x 12 geometry values of q, k, v and dO for the bf16 kernels
+    (head dim 64 or 128), each a map of 64 x 64 boxes; None (a null pointer)
+    for the fp32 variant."""
+    if q.dtype != torch.bfloat16:
         return None
-    return (ctypes.c_longlong * 48)(*(g for t in (q, k, v, dout) for g in tma_geometry(t)))
+    return (ctypes.c_longlong * 48)(*(g for t in (q, k, v, dout) for g in tma_geometry(t, _BWD_TMA_BOX)))
 
 
 def _bwd_kernel_args(q, k, v, dout, lse2, delta):
@@ -393,8 +399,8 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
 
     ``lse2`` is the forward's lse times log2(e) and ``delta`` = rowsum(dO∘O),
     both fp32 (B, H, Sq) contiguous; q is pre-scaled inside the kernel. bf16
-    at head dim 64 takes the wgmma kernel, whose operands arrive by TMA from
-    the maps :func:`tma_geometry` describes. CPU tensors take
+    (head dim 64 or 128) takes a wgmma kernel, whose operands arrive by TMA
+    from the maps :func:`tma_geometry` describes. CPU tensors take
     :func:`flash_bwd_dq_plain`; CUDA tensors launch the kernel (counted in
     ``flash_bwd_dq.launches``) or raise."""
     if q.device.type == "cpu":

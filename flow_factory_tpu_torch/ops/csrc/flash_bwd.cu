@@ -33,14 +33,14 @@
 // columns past Sk get p = 0 in K2a and their dk/dv rows are never stored in
 // K2b. Strides of every (b, h, s) axis are passed, so the head-split views of
 // the attention layers, K1's head-interleaved O and whatever dO autograd hands
-// over are read in place. Three variants:
-// * bf16, head dim 64 (the SD3.5 path), for Hopper (sm_90a): every product
-//   on wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate). A block is two
-//   consumer warpgroups of 64 outer rows each (128 q rows in K2a, 128 keys in
-//   K2b) and a producer (a warp in K2a, a warpgroup in K2b: see
-//   flash_bwd_dkv_wgmma_kernel); the outer rows stay in shared memory, the
-//   inner axis streams in 64-row tiles (K/V in K2a; q/dO plus their lse2 and
-//   Delta in K2b) through a 4-stage TMA ring, each stage with a "full"
+// over are read in place. Two variants:
+// * bf16, head dim 64 (the SD3.5 path) and 128 (the Wan path), for Hopper
+//   (sm_90a): every product on wgmma.mma_async (bf16 in, fp32 accumulate).
+//   A block is two consumer warpgroups of 64 outer rows each (128 q rows in
+//   K2a, 128 keys in K2b) and a producer (a warp in K2a, a warpgroup in K2b:
+//   see flash_bwd_dkv_wgmma_kernel); the outer rows stay in shared memory,
+//   the inner axis streams in 64-row tiles (K/V in K2a; q/dO plus their lse2
+//   and Delta in K2b) through a 4-stage TMA ring, each stage with a "full"
 //   mbarrier (K2a: the TMA bytes; K2b: the producer's threads, once they have
 //   made q~ and written lse2/Delta) and an "empty" one (the 8 consumer
 //   warps). A warpgroup issues S = q~K^T and dP = dO V^T (K2a) or
@@ -48,18 +48,29 @@
 //   from shared memory, turns them into p and ds in registers, packs those to
 //   bf16 A fragments and issues dQ += dS K (K2a) or dV += P^T dO and dK +=
 //   dS^T q~ (K2b) with the streamed tile as a transposed B; the next tile's
-//   scores are issued behind those before the warpgroup waits. Accumulators:
-//   K2a 96 fp32 a thread (S, dP, dQ), K2b 128 (S^T, dP^T, dK, dV). Dynamic
-//   shared memory 99.1 KB, one block an SM. What to get right, named where
-//   it is done:
+//   scores are issued behind those before the warpgroup waits. At head dim
+//   64: m64n64k16 throughout; accumulators K2a 96 fp32 a thread (S, dP,
+//   dQ), K2b 128 (S^T, dP^T, dK, dV); 99.1 KB of dynamic shared memory. At
+//   head dim 128 (flash_bwd_{dq,dkv}_wgmma128_kernel) tiles are 64 x 128
+//   (16 KB), 199.8 KB a block; dQ, dK and dV are m64n128 (64 fp32 a thread
+//   each), and the consumers take each streamed tile in two halves of 32
+//   rows, so the scores are m64n32 and the fragments half as many: K2a 104
+//   a thread, K2b 176 under the 232 of setmaxnreg; p comes from
+//   ex2.approx.ftz (exp2_ftz: only a p below 2^-126 differs, it becomes 0).
+//   One block an SM at both head dims. What to get right, named where it is
+//   done:
 //   - descriptor and swizzle agreement: a 64-column bf16 row is exactly 128
 //     bytes, so the tensor maps use CU_TENSOR_MAP_SWIZZLE_128B and every wgmma
 //     descriptor the 128B mode over 1024-byte aligned tiles (gdesc); a wrong
 //     stride offset or mode gives wrong numbers without a fault, hence the
-//     card tests at contiguous and head-split layouts;
+//     card tests at contiguous and head-split layouts. A 128-wide row is two
+//     such lines: every tile arrives as two 64 x 64 boxes (columns 0 and 64)
+//     into its two 8 KB halves (tma_tile128), K-major products take k-steps
+//     0-3 in the first half and 4-7 in the second (kstep128), and a
+//     transposed B of N = 128 has its halves one leading-byte offset apart;
 //   - transposed B (dS K, P^T dO, dS^T q~): the tile's rows are the
 //     contraction, read MN-major through the transpose immediate, which
-//     wgmma allows for 16-bit types only (wgmma_rs_t);
+//     wgmma allows for 16-bit types only (wgmma_rs_t, wgmma_rs_t_n128);
 //   - q~ rounded once: K2a's consumers scale their resident q rows in shared
 //     memory, K2b's producer each landed q tile (a tile behind the copies
 //     it issues, behind a third barrier per stage, "land"); the generic-proxy
@@ -76,22 +87,12 @@
 //     an A fragment rewritten, and fence_acc so that the compiler moves no
 //     accumulator access across either; no other instruction writes an
 //     accumulator (nothing zeroes one, p and ds go straight into A
-//     fragments), else ptxas serializes the products (its warning C7515).
+//     fragments), else ptxas serializes the products (its warning C7515);
+//   - registers: setmaxnreg moves them only within the block (3 x 128 x 168
+//     at launch for K2b), so 2 x consumer + producer must be 504, or a
+//     consumer's setmaxnreg.inc waits forever.
 //   Pointers and (b, h, s) strides keep 16-byte alignment (TMA's rule too),
 //   else the launch is refused.
-// * bf16, head dim 128 (the Wan path), mma.sync m16n8k16: warps holding
-//   their 16 resident rows as A fragments do not widen to D=128 (those, the
-//   doubled accumulators and the score tiles pass the 255 registers a
-//   thread can have). So the resident tiles
-//   (q~ and dO in K2a, K and V in K2b) stay in shared memory and each k-step
-//   reads its A fragment from there; blocks are 4 warps (64 outer rows);
-//   K2a streams 64-key tiles, K2b 32-row q tiles (its score tiles then take
-//   32 registers, not 64). The streamed tiles come in with cp.async into two
-//   shared-memory stages (tile n+1 in flight while tile n is multiplied, as
-//   in K3); K2b scales each q tile by qmul in place once it has landed, every
-//   thread the vectors it copied itself. Dynamic shared memory: 104.4 KB for
-//   K2a, 69.6 KB for K2b. Same roundings, masks, layouts and alignment rules
-//   as the head-dim-64 variant. No TMA or wgmma here yet: later work.
 // * fp32, head dim 64: 64-row tiles, 256 threads, register-tiled 4x4 fp32
 //   FMAs from shared memory (right and simple).
 // No fused dq/dkv pass: it would need atomics or a B*H*Sq*Sk dS buffer.
@@ -371,34 +372,6 @@ cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 helpers of the tensor-core variants (mma.sync m16n8k16, head dim 128)
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of a row-major [k][n] bf16 tile (row pitch P): rows k0..k0+15,
-// columns n0..n0+7
-template <int P>
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                                  int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const unsigned addr = static_cast<unsigned>(
-      __cvta_generic_to_shared(tile + (k0 + (lane & 15)) * P + n0));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-// ---------------------------------------------------------------------------
 // bf16, head dim 64: wgmma fed by a TMA ring (sm_90a)
 // ---------------------------------------------------------------------------
 constexpr int GR = 64;                  // rows of a tile: wgmma M, the TMA box, the streamed step
@@ -440,10 +413,11 @@ __device__ __forceinline__ void wgmma_x_tile(float (&acc)[32], const uint32_t (&
   for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(acc, a[kk], gdesc(tile, kk * 16 * 128), kk > 0 || !first);
 }
 
-// Rows g and g+8 of the warp's 16 (from row `row0`) of a 64 x 64 accumulator,
-// times `mul`, to bf16 rows of `out` (row stride `ss`); rows at or past S are
-// skipped.
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, int64_t ss, int row0, int S, const float (&acc)[32],
+// Rows g and g+8 of the warp's 16 (from row `row0`) of a 64 x (N / 2)
+// accumulator (64 columns at N = 32, 128 at N = 64), times `mul`, to bf16
+// rows of `out` (row stride `ss`); rows at or past S are skipped.
+template <int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, int64_t ss, int row0, int S, const float (&acc)[N],
                                           float mul) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -451,17 +425,21 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, int64_t ss, int ro
     const int row = row0 + g + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 4; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + j * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
 }
 
-// Shared memory: two resident tiles per consumer warpgroup, GSTAGES stages of
-// two streamed tiles, the stages' lse2/Delta (K2b), the barriers, and 1 KB to
-// align the tiles to the swizzle's 1024-byte period.
-constexpr size_t GSMEM = 1024 + (size_t)GTILE_BYTES * 2 * (GWG + GSTAGES) + GSTAGES * 2 * GR * sizeof(float) +
-                         (3 * GSTAGES + 1) * sizeof(uint64_t);
+// Shared memory of tiles of `tile_bytes` (8 KB at head dim 64, 16 KB at 128):
+// two resident tiles per consumer warpgroup, GSTAGES stages of two streamed
+// tiles, the stages' lse2/Delta (K2b), the barriers, and 1 KB to align the
+// tiles to the swizzle's 1024-byte period.
+constexpr size_t g_smem(uint32_t tile_bytes) {
+  return 1024 + (size_t)tile_bytes * 2 * (GWG + GSTAGES) + GSTAGES * 2 * GR * sizeof(float) +
+         (3 * GSTAGES + 1) * sizeof(uint64_t);
+}
+constexpr size_t GSMEM = g_smem(GTILE_BYTES);
 
 struct GLayout {
   __nv_bfloat16* res;   // [2 * GWG] tiles: (q~ | K) of warpgroup w at w, (dO | V) at GWG + w
@@ -474,11 +452,13 @@ struct GLayout {
   uint64_t* res_full;   // the resident tiles have landed
 };
 
+// The layout of g_smem over tiles of TILE elements.
+template <int TILE>
 __device__ __forceinline__ GLayout g_layout(uint8_t* raw) {
   GLayout L;
   L.res = reinterpret_cast<__nv_bfloat16*>(align1024(raw));
-  L.ring = L.res + 2 * GWG * GTILE;
-  L.lse = reinterpret_cast<float*>(L.ring + 2 * GSTAGES * GTILE);
+  L.ring = L.res + 2 * GWG * TILE;
+  L.lse = reinterpret_cast<float*>(L.ring + 2 * GSTAGES * TILE);
   L.del = L.lse + GSTAGES * GR;
   L.full = reinterpret_cast<uint64_t*>(L.del + GSTAGES * GR);
   L.empty = L.full + GSTAGES;
@@ -495,7 +475,7 @@ __global__ void __launch_bounds__(GNT_DQ, 1)
                               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                               Params p) {
   extern __shared__ uint8_t graw[];
-  const GLayout L = g_layout(graw);
+  const GLayout L = g_layout<GTILE>(graw);
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * GWG * GR;
   const int ntiles = (p.Sk + GR - 1) / GR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -611,7 +591,7 @@ __global__ void __launch_bounds__(GNT_DKV, 1)
                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                                Params p) {
   extern __shared__ uint8_t graw[];
-  const GLayout L = g_layout(graw);
+  const GLayout L = g_layout<GTILE>(graw);
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * GWG * GR;
   const int ntiles = (p.Sq + GR - 1) / GR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -739,32 +719,362 @@ __global__ void __launch_bounds__(GNT_DKV, 1)
   store_acc(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
 }
 
-// One operand's tensor map (hopper.cuh's encode_map): the kernels take bf16
-// 64 x 64 boxes of head dim 64.
-cudaError_t encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
-  return encode_map(map, ptr, g, D, D, GR);
+// ---------------------------------------------------------------------------
+// bf16, head dim 128: the same structure on 64 x 128 tiles (sm_90a)
+// ---------------------------------------------------------------------------
+constexpr int WD = 128;                       // head dim of this variant
+constexpr int WTILE = GR * WD;                // elements of a 64 x 128 tile: 16 KB
+constexpr uint32_t WTILE_BYTES = WTILE * 2;
+constexpr uint32_t WATOM = GR * 128;          // bytes of one 64-column half (one swizzle atom wide) of a tile
+constexpr int WQ = 32;                        // rows of a streamed tile a consumer step takes: half of it
+constexpr size_t WSMEM = g_smem(WTILE_BYTES);  // 199,784 bytes
+// K2b's registers a thread after setmaxnreg: the consumers' dK, dV, S^T, dP^T
+// and p^T / ds^T fragments take 176; 2 x 232 + 40 is what the block launches
+// with (3 x 128 x 168)
+constexpr int WREGS_CONSUMER = 232;
+constexpr int WREGS_PRODUCER = 40;
+static_assert(2 * WREGS_CONSUMER + WREGS_PRODUCER == 3 * 168, "setmaxnreg moves registers within the block");
+
+// Rows `row`..`row`+63 of head (b, h) of a (128, S, H, B) tensor map as one
+// 64 x 128 tile: columns 0-63 into its first 8 KB, 64-127 into its second
+// (a 128-wide bf16 row is two 128-byte swizzle lines). Rows past S arrive as
+// zeros; the barrier counts both boxes' bytes.
+__device__ __forceinline__ void tma_tile128(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                            int h, int b) {
+  tma_load(dst, map, bar, 0, row, h, b);
+  tma_load(dst + GR * 64, map, bar, 64, row, h, b);
 }
 
-// tma: 4 x 12 geometry values, of q, k, v and dO in that order.
-cudaError_t launch_wgmma(const Params& p, bool dkv, const long long* tma, cudaStream_t stream) {
+// Byte offset of k-step kk (16 of the 128 head-dim columns) in a K-major
+// 64 x 128 tile: steps 0-3 in the first half, 4-7 in the second.
+__device__ __forceinline__ uint32_t kstep128(int kk) { return (kk >> 2) * WATOM + (kk & 3) * 32; }
+
+// The descriptor of `tile`, `byte_offset` on, made opaque to the compiler.
+// A descriptor's low bits hold the address / 16, so each k-step's descriptor
+// is this one plus its offset / 16: one add where it is used. Left to
+// itself, the compiler hoists the loop-invariant descriptors of the resident
+// tiles out of the loop, 8 k-steps x 2 registers each; with that pressure
+// ptxas serialized every wgmma (C7512) and spilled.
+__device__ __forceinline__ uint64_t desc_at(const void* tile, uint32_t byte_offset, uint32_t lbo = 1) {
+  uint64_t d = gdesc(tile, byte_offset, lbo);
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// d (64 x 32) = R . C^T over the 128-wide head dim: R a resident K-major
+// 64 x 128 tile, C the 32 rows from row `c_row` (0 or 32) of a streamed one.
+__device__ __forceinline__ void wgmma_rows_cols128(float (&d)[16], const __nv_bfloat16* rows,
+                                                   const __nv_bfloat16* cols, int c_row) {
+  const uint64_t dr = desc_at(rows, 0), dc = desc_at(cols, c_row * 128);
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk)
+    wgmma_ss_n32(d, dr + (kstep128(kk) >> 4), dc + (kstep128(kk) >> 4), kk > 0);
+}
+
+// acc (+)= X . T: X (64 x 32) as bf16 A fragments (as in wgmma_x_tile), T
+// the 32 rows from row `t_row` of a streamed 64 x 128 tile, contracted (read
+// MN-major, N = 128 in two halves WATOM apart). The first use overwrites acc.
+__device__ __forceinline__ void wgmma_x_tile128(float (&acc)[64], const uint32_t (&a)[2][4],
+                                                const __nv_bfloat16* tile, int t_row, bool first) {
+  const uint64_t dt = desc_at(tile, t_row * 128, WATOM >> 4);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) wgmma_rs_t_n128(acc, a[kk], dt + (kk * 16 * 128 >> 4), kk > 0 || !first);
+}
+
+// q~ = q * qmul in fp32, rounded once, in place over the 16-byte vectors
+// i0, i0 + step, ... of a 64 x 128 tile (the swizzle moves whole vectors,
+// so the order does not matter).
+__device__ __forceinline__ void scale_tile128(__nv_bfloat16* tile, int i0, int step, float qmul) {
+#pragma unroll 2
+  for (int i = i0; i < WTILE / 8; i += step) {
+    uint4* v = reinterpret_cast<uint4*>(tile) + i;
+    uint4 u = *v;
+    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(hv[e]);
+      hv[e] = __floats2bfloat162_rn(f.x * qmul, f.y * qmul);
+    }
+    *v = u;
+  }
+}
+
+// K2a at head dim 128: flash_bwd_dq_wgmma_kernel on 64 x 128 tiles, each
+// streamed tile of 64 keys taken in two halves of 32. S and dP are m64n32
+// (16 + 16 fp32 a thread), the dS fragments 8, dQ m64n128 (64): 104 a
+// thread. With whole 64-key steps (S and dP m64n64, 144 with dQ and the
+// fragments) ptxas serialized every wgmma (C7512): a block of 288 threads
+// gets at most 168 registers a thread (a 183-register build was refused at
+// launch for too many resources), and setmaxnreg with a producer warpgroup
+// did not change that. Each loop keeps one copy of its body (unroll 1): an
+// unrolled copy got other registers for the accumulators in flight, and
+// ptxas serialized and spilled.
+__global__ void __launch_bounds__(GNT_DQ, 1)
+    flash_bwd_dq_wgmma128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                                 Params p) {
+  extern __shared__ uint8_t graw[];
+  const GLayout L = g_layout<WTILE>(graw);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * GWG * GR;
+  const int ntiles = (p.Sk + GR - 1) / GR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&L.full[s], 1);
+      mbar_init(&L.empty[s], 4 * GWG);
+    }
+    mbar_init(L.res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * GWG) {  // producer
+    if (lane == 0) {
+      mbar_arrive_tx(L.res_full, 2 * GWG * WTILE_BYTES);
+      for (int w = 0; w < GWG; ++w) {
+        tma_tile128(L.res + w * WTILE, &tq, L.res_full, q0 + w * GR, h, b);
+        tma_tile128(L.res + (GWG + w) * WTILE, &to, L.res_full, q0 + w * GR, h, b);
+      }
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n % GSTAGES;
+        if (n >= GSTAGES) mbar_wait(&L.empty[s], (n / GSTAGES - 1) & 1);
+        mbar_arrive_tx(&L.full[s], 2 * WTILE_BYTES);
+        tma_tile128(L.ring + 2 * s * WTILE, &tk, &L.full[s], n * GR, h, b);
+        tma_tile128(L.ring + (2 * s + 1) * WTILE, &tv, &L.full[s], n * GR, h, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int wr = wg * GR + (warp & 3) * 16;  // the warp's first row in the block
+  __nv_bfloat16* Qw = L.res + wg * WTILE;
+  const __nv_bfloat16* Ow = L.res + (GWG + wg) * WTILE;
+  mbar_wait(L.res_full, 0);
+  // q~ in place: generic-proxy writes that wgmma (the async proxy) reads next
+  scale_tile128(Qw, threadIdx.x & 127, 128, p.qmul);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+  // this thread's rows are wr+g (accumulator slots 4j, 4j+1) and wr+g+8 (4j+2, 4j+3)
+  float lse[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    lse[r] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
+    del[r] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
+  }
+  float acc[64], s[16], dp[16];  // written first by wgmma (see wgmma_x_tile)
+  uint32_t a[2][4];
+
+  mbar_wait(&L.full[0], 0);
+  wgmma_fence();
+  wgmma_rows_cols128(s, Qw, L.ring, 0);
+  wgmma_rows_cols128(dp, Ow, L.ring + WTILE, 0);
+  wgmma_commit();
+#pragma unroll 1
+  for (int n = 0; n < ntiles; ++n) {
+    const __nv_bfloat16* Kt = L.ring + 2 * (n % GSTAGES) * WTILE;
+    const __nv_bfloat16* Vt = Kt + WTILE;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      wgmma_wait_all();  // S and dP of this half, and dQ of the one before
+      fence_acc(s);
+      fence_acc(dp);
+      fence_acc(acc);
+      if (half == 0 && n > 0 && lane == 0) mbar_arrive(&L.empty[(n - 1) % GSTAGES]);
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {  // slots i, i+1: row r, keys col, col + 1
+        const int r = (i >> 1) & 1, col = n * GR + half * WQ + (i >> 2) * 8 + 2 * t;
+        const float p0 = exp2_ftz(fminf(s[i] - (col < p.Sk ? lse[r] : INFINITY), 0.f));  // p = 0 past Sk
+        const float p1 = exp2_ftz(fminf(s[i + 1] - (col + 1 < p.Sk ? lse[r] : INFINITY), 0.f));
+        a[i >> 3][(i >> 1) & 3] = pack_bf16(p0 * (dp[i] - del[r]), p1 * (dp[i + 1] - del[r]));  // ds
+      }
+      wgmma_fence();
+      wgmma_x_tile128(acc, a, Kt, half * WQ, n == 0 && half == 0);  // dQ += dS . K
+      wgmma_commit();
+      // the next half's scores run behind this half's dQ
+      if (half == 0) {
+        wgmma_fence();
+        wgmma_rows_cols128(s, Qw, Kt, WQ);
+        wgmma_rows_cols128(dp, Ow, Vt, WQ);
+        wgmma_commit();
+      } else if (n + 1 < ntiles) {
+        const int s1 = (n + 1) % GSTAGES;
+        mbar_wait(&L.full[s1], ((n + 1) / GSTAGES) & 1);
+        wgmma_fence();
+        wgmma_rows_cols128(s, Qw, L.ring + 2 * s1 * WTILE, 0);
+        wgmma_rows_cols128(dp, Ow, L.ring + (2 * s1 + 1) * WTILE, 0);
+        wgmma_commit();
+      }
+    }
+  }
+  wgmma_wait_all();
+  fence_acc(acc);
+
+  auto* dqb = reinterpret_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_acc(dqb, p.dq_ss, q0 + wr, p.Sq, acc, p.scale);
+}
+
+// K2b at head dim 128: flash_bwd_dkv_wgmma_kernel on 64 x 128 tiles, with
+// each streamed 64-row (q~, dO) tile taken by the consumers in two halves of
+// 32 rows. dK and dV (m64n128) hold 64 + 64 fp32 a thread for the whole
+// loop, so the scores of a half are m64n32, S^T and dP^T 16 + 16, and its
+// p^T / ds^T fragments 8 + 8: 176 a thread with the next half's scores
+// issued behind this half's dK and dV (whole 64-row steps would need 224
+// before addresses). One copy of each loop body, as in K2a.
+__global__ void __launch_bounds__(GNT_DKV, 1)
+    flash_bwd_dkv_wgmma128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                                  Params p) {
+  extern __shared__ uint8_t graw[];
+  const GLayout L = g_layout<WTILE>(graw);
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * GWG * GR;
+  const int ntiles = (p.Sq + GR - 1) / GR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&L.land[s], 1);    // the TMA bytes
+      mbar_init(&L.full[s], 128);  // the producer's threads, once q~, lse2 and Delta are written
+      mbar_init(&L.empty[s], 4 * GWG);
+    }
+    mbar_init(L.res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * GWG) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WREGS_PRODUCER));
+    const int pt = threadIdx.x - 128 * GWG;
+    if (pt == 0) {
+      mbar_arrive_tx(L.res_full, 2 * GWG * WTILE_BYTES);
+      for (int w = 0; w < GWG; ++w) {
+        tma_tile128(L.res + w * WTILE, &tk, L.res_full, k0 + w * GR, h, b);
+        tma_tile128(L.res + (GWG + w) * WTILE, &tv, L.res_full, k0 + w * GR, h, b);
+      }
+    }
+    const int64_t base = row_base(p, b, h);
+    float lse_next = 0.f, del_next = 0.f;  // row pt of tile n, loaded while tile n - 1 is finished
+    for (int n = 0; n <= ntiles; ++n) {
+      const float lse_m = lse_next, del_m = del_next;
+      if (n < ntiles) {  // copy tile n
+        const int s = n % GSTAGES;
+        if (pt == 0) {
+          if (n >= GSTAGES) mbar_wait(&L.empty[s], (n / GSTAGES - 1) & 1);
+          mbar_arrive_tx(&L.land[s], 2 * WTILE_BYTES);
+          tma_tile128(L.ring + 2 * s * WTILE, &tq, &L.land[s], n * GR, h, b);
+          tma_tile128(L.ring + (2 * s + 1) * WTILE, &to, &L.land[s], n * GR, h, b);
+        }
+        const int row = n * GR + pt;  // padded q rows: p = exp2(-inf) = 0
+        if (pt < GR) {
+          lse_next = row < p.Sq ? p.lse2[base + row] : INFINITY;
+          del_next = row < p.Sq ? p.delta[base + row] : 0.f;
+        }
+      }
+      if (n == 0) continue;
+      const int m = n - 1, s = m % GSTAGES;  // finish tile n - 1
+      mbar_wait(&L.land[s], (m / GSTAGES) & 1);
+      scale_tile128(L.ring + 2 * s * WTILE, pt, 128, p.qmul);  // read by wgmma once the stage is full
+      if (pt < GR) {
+        L.lse[s * GR + pt] = lse_m;
+        L.del[s * GR + pt] = del_m;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&L.full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WREGS_CONSUMER));
+  const int wg = warp >> 2, t = lane & 3;
+  const int wr = wg * GR + (warp & 3) * 16;  // the warp's first key in the block
+  const __nv_bfloat16* Kw = L.res + wg * WTILE;
+  const __nv_bfloat16* Vw = L.res + (GWG + wg) * WTILE;
+  float acck[64], accv[64], st[16], dpt[16];  // written first by wgmma (see wgmma_x_tile)
+  uint32_t pa[2][4], sa[2][4];
+  mbar_wait(L.res_full, 0);
+
+  mbar_wait(&L.full[0], 0);
+  wgmma_fence();
+  wgmma_rows_cols128(st, Kw, L.ring, 0);  // transposed scores: rows are keys, columns q rows
+  wgmma_rows_cols128(dpt, Vw, L.ring + WTILE, 0);
+  wgmma_commit();
+#pragma unroll 1
+  for (int n = 0; n < ntiles; ++n) {
+    const int stage = n % GSTAGES;
+    const __nv_bfloat16* Qt = L.ring + 2 * stage * WTILE;
+    const __nv_bfloat16* Ot = Qt + WTILE;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const float* lse = L.lse + stage * GR + half * WQ;
+      const float* del = L.del + stage * GR + half * WQ;
+      wgmma_wait_all();  // S^T and dP^T of this half, and dK, dV of the one before
+      fence_acc(st);
+      fence_acc(dpt);
+      fence_acc(acck);
+      fence_acc(accv);
+      if (half == 0 && n > 0 && lane == 0) mbar_arrive(&L.empty[(n - 1) % GSTAGES]);
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {  // slots i, i+1: one key, q rows c, c + 1 of the half
+        const int c = (i >> 2) * 8 + 2 * t;
+        const float p0 = exp2_ftz(fminf(st[i] - lse[c], 0.f)), p1 = exp2_ftz(fminf(st[i + 1] - lse[c + 1], 0.f));
+        pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);                                               // p^T
+        sa[i >> 3][(i >> 1) & 3] = pack_bf16(p0 * (dpt[i] - del[c]), p1 * (dpt[i + 1] - del[c + 1]));  // ds^T
+      }
+      wgmma_fence();
+      wgmma_x_tile128(accv, pa, Ot, half * WQ, n == 0 && half == 0);  // dV += P^T . dO
+      wgmma_x_tile128(acck, sa, Qt, half * WQ, n == 0 && half == 0);  // dK += dS^T . q~
+      wgmma_commit();
+      // the next half's scores run behind this half's dK, dV
+      if (half == 0) {
+        wgmma_fence();
+        wgmma_rows_cols128(st, Kw, Qt, WQ);
+        wgmma_rows_cols128(dpt, Vw, Ot, WQ);
+        wgmma_commit();
+      } else if (n + 1 < ntiles) {
+        const int s1 = (n + 1) % GSTAGES;
+        mbar_wait(&L.full[s1], ((n + 1) / GSTAGES) & 1);
+        wgmma_fence();
+        wgmma_rows_cols128(st, Kw, L.ring + 2 * s1 * WTILE, 0);
+        wgmma_rows_cols128(dpt, Vw, L.ring + (2 * s1 + 1) * WTILE, 0);
+        wgmma_commit();
+      }
+    }
+  }
+  wgmma_wait_all();
+  fence_acc(acck);
+  fence_acc(accv);
+
+  auto* dkb = reinterpret_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  auto* dvb = reinterpret_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_acc(dkb, p.dk_ss, k0 + wr, p.Sk, acck, kLn2);
+  store_acc(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
+}
+
+// tma: 4 x 12 geometry values, of q, k, v and dO in that order, each a map
+// of 64 x 64 boxes (hopper.cuh's encode_map) of head dim d, 64 or 128.
+cudaError_t launch_wgmma(const Params& p, bool dkv, int d, const long long* tma, cudaStream_t stream) {
   if (tma == nullptr) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
   for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = encode_map(&maps[i], ptrs[i], tma + 12 * i);
+    const cudaError_t err = encode_map(&maps[i], ptrs[i], tma + 12 * i, d, 64, GR);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = dkv ? flash_bwd_dkv_wgmma_kernel : flash_bwd_dq_wgmma_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GSMEM);
+  auto kernel = d == D ? (dkv ? flash_bwd_dkv_wgmma_kernel : flash_bwd_dq_wgmma_kernel)
+                       : (dkv ? flash_bwd_dkv_wgmma128_kernel : flash_bwd_dq_wgmma128_kernel);
+  const size_t smem = d == D ? GSMEM : WSMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(((dkv ? p.Sk : p.Sq) + GWG * GR - 1) / (GWG * GR), p.H, p.B);
-  kernel<<<grid, dkv ? GNT_DKV : GNT_DQ, GSMEM, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  kernel<<<grid, dkv ? GNT_DKV : GNT_DQ, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
-// The tensor-core variants move 16-byte vectors: every pointer and stride
-// they touch must keep 8-element (16-byte) alignment.
-bool mma_aligned(const Params& p, bool dkv) {
+// The wgmma variants read their operands by TMA (16-byte aligned addresses
+// and byte strides) and store bf16 pairs: every pointer and stride they
+// touch must keep 8-element (16-byte) alignment.
+bool aligned16(const Params& p, bool dkv) {
   auto a16 = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
   const int64_t common[] = {p.q_sb, p.q_sh, p.q_ss, p.k_sb, p.k_sh, p.k_ss,
                             p.v_sb, p.v_sh, p.v_ss, p.o_sb, p.o_sh, p.o_ss};
@@ -774,268 +1084,6 @@ bool mma_aligned(const Params& p, bool dkv) {
   if (!dkv) return a16(p.dq) && p.dq_sb % 8 == 0 && p.dq_sh % 8 == 0 && p.dq_ss % 8 == 0;
   return a16(p.dk) && a16(p.dv) && p.dk_sb % 8 == 0 && p.dk_sh % 8 == 0 && p.dk_ss % 8 == 0 &&
          p.dv_sb % 8 == 0 && p.dv_sh % 8 == 0 && p.dv_ss % 8 == 0;
-}
-
-// ---------------------------------------------------------------------------
-// bf16, head dim 128: resident tiles in shared memory, streamed tiles in a
-// two-stage cp.async ring
-// ---------------------------------------------------------------------------
-constexpr int WD = 128;      // head dim of this variant
-constexpr int WP = WD + 8;   // bf16 row pitch (272 B): conflict-free fragment loads and ldmatrix
-constexpr int WNT = 128;     // 4 warps, each owning 16 rows of the outer axis
-constexpr int WR = 64;       // outer rows per block
-constexpr int WK = 64;       // K2a: keys per streamed tile
-constexpr int WQ = 32;       // K2b: q rows per streamed tile
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-// ROWS x 128 of a bf16 (S, 128) head slice -> row-major shared memory (pitch
-// WP) with cp.async, 16 bytes a copy; rows past S are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void async_rows_w(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t row_stride,
-                                             int row0, int S) {
-  constexpr int VPR = WD / 8;  // 16-byte vectors per row
-#pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += WNT) {
-    const int r = idx / VPR, c = (idx % VPR) * 8, row = row0 + r;
-    const bool ok = row < S;
-    cp_async16(dst + r * WP + c, src + (int64_t)(ok ? row : 0) * row_stride + c, ok);
-  }
-}
-
-// Multiplies in place, by `mul` in fp32 with one rounding to bf16, the
-// vectors of a tile that this thread copied with async_rows_w<ROWS> (so its
-// own wait_group is enough before it reads them).
-template <int ROWS>
-__device__ __forceinline__ void scale_rows_w(__nv_bfloat16* tile, float mul) {
-  constexpr int VPR = WD / 8;
-#pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += WNT) {
-    uint4* v = reinterpret_cast<uint4*>(tile + (idx / VPR) * WP + (idx % VPR) * 8);
-    uint4 u = *v;
-    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(hv[e]);
-      hv[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
-    }
-    *v = u;
-  }
-}
-
-// acc[NJ][4] (16 x 8NJ) = R . C^T: R the warp's 16 rows (from row wr) of a
-// [.][128] shared tile, its A fragments read at each k-step; C a row-major
-// [8NJ][128] shared tile read as the col-major B operand.
-template <int NJ>
-__device__ __forceinline__ void mma_abt_w(float (&acc)[NJ][4], const __nv_bfloat16* rows, int wr,
-                                          const __nv_bfloat16* cols) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < WD / 16; ++kk) {
-    const uint32_t a[4] = {ld32(&rows[(wr + g) * WP + kk * 16 + 2 * t]),
-                           ld32(&rows[(wr + g + 8) * WP + kk * 16 + 2 * t]),
-                           ld32(&rows[(wr + g) * WP + kk * 16 + 8 + 2 * t]),
-                           ld32(&rows[(wr + g + 8) * WP + kk * 16 + 8 + 2 * t])};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      mma_16816(acc[j], a, ld32(&cols[(j * 8 + g) * WP + kk * 16 + 2 * t]),
-                ld32(&cols[(j * 8 + g) * WP + kk * 16 + 8 + 2 * t]));
-  }
-}
-
-// acc[16][4] (16 x 128) += X . T: X (16 x 16KS) an fp32 accumulator fragment
-// rounded to bf16 as the A operand, T a row-major [16KS][128] shared tile.
-template <int KS>
-__device__ __forceinline__ void mma_xb_w(float (&acc)[WD / 8][4], const float (&x)[2 * KS][4],
-                                         const __nv_bfloat16* tile) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]), pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < WD / 8; ++j) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans<WP>(b0, b1, tile, kk * 16, j * 8);
-      mma_16816(acc[j], a, b0, b1);
-    }
-  }
-}
-
-// Rows wr+g and wr+g+8 of a (16 x 128) accumulator, times `mul`, to bf16 rows
-// of `out` (row stride `ss`) from row `row0`; rows at or past S are skipped.
-__device__ __forceinline__ void store_rows_w(__nv_bfloat16* out, int64_t ss, int row0, int S,
-                                             const float (&acc)[WD / 8][4], float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < WD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
-  }
-}
-
-__global__ void __launch_bounds__(WNT, 2) flash_bwd_dq_w_kernel(Params p) {
-  // q~ rows and dO rows of this block, then two stages of (K, V) tiles
-  extern __shared__ __align__(16) __nv_bfloat16 wbuf[];
-  __nv_bfloat16* Qs = wbuf;
-  __nv_bfloat16* Os = Qs + WR * WP;
-  __nv_bfloat16* ring = Os + WR * WP;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WR;
-  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
-
-  async_rows_w<WR>(Qs, qb, p.q_ss, q0, p.Sq);
-  async_rows_w<WR>(Os, ob, p.o_ss, q0, p.Sq);
-  async_rows_w<WK>(ring, kb, p.k_ss, 0, p.Sk);
-  async_rows_w<WK>(ring + WK * WP, vb, p.v_ss, 0, p.Sk);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  scale_rows_w<WR>(Qs, p.qmul);  // q~ = q * qmul, rounded once
-
-  // this thread's rows are wr+g (fragment slots 0,1) and wr+g+8 (slots 2,3)
-  float lse[2], del[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    lse[r] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
-    del[r] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
-  }
-  float acc[WD / 8][4];
-#pragma unroll
-  for (int j = 0; j < WD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int n0 = 0, it = 0; n0 < p.Sk; n0 += WK, ++it) {
-    __syncthreads();  // the q~ tile is staged, or the stage refilled next is no longer read
-    if (n0 + WK < p.Sk) {  // prefetch the next key tile into the other stage
-      __nv_bfloat16* next = ring + 2 * ((it + 1) & 1) * WK * WP;
-      async_rows_w<WK>(next, kb, p.k_ss, n0 + WK, p.Sk);
-      async_rows_w<WK>(next + WK * WP, vb, p.v_ss, n0 + WK, p.Sk);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies have landed
-    __syncthreads();
-    const __nv_bfloat16* Kt = ring + 2 * (it & 1) * WK * WP;
-    const __nv_bfloat16* Vt = Kt + WK * WP;
-
-    float s[WK / 8][4], dp[WK / 8][4];
-    mma_abt_w<WK / 8>(s, Qs, wr, Kt);
-    mma_abt_w<WK / 8>(dp, Os, wr, Vt);
-#pragma unroll
-    for (int j = 0; j < WK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pv = n0 + j * 8 + 2 * t + (e & 1) < p.Sk ? exp2f(fminf(s[j][e] - lse[r], 0.f)) : 0.f;
-        s[j][e] = pv * (dp[j][e] - del[r]);  // ds, rounded to bf16 as the A operand
-      }
-    mma_xb_w<WK / 16>(acc, s, Kt);
-  }
-
-  auto* dqb = reinterpret_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows_w(dqb, p.dq_ss, q0 + wr, p.Sq, acc, p.scale);
-}
-
-__global__ void __launch_bounds__(WNT, 2) flash_bwd_dkv_w_kernel(Params p) {
-  // key rows and value rows of this block, then two stages of (q~, dO) tiles
-  extern __shared__ __align__(16) __nv_bfloat16 wbuf[];
-  __nv_bfloat16* Ks = wbuf;
-  __nv_bfloat16* Vs = Ks + WR * WP;
-  __nv_bfloat16* ring = Vs + WR * WP;
-  __shared__ float lse_s[2][WQ], del_s[2][WQ];
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * WR;
-  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const auto* ob = reinterpret_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
-
-  async_rows_w<WR>(Ks, kb, p.k_ss, k0, p.Sk);
-  async_rows_w<WR>(Vs, vb, p.v_ss, k0, p.Sk);
-  async_rows_w<WQ>(ring, qb, p.q_ss, 0, p.Sq);
-  async_rows_w<WQ>(ring + WQ * WP, ob, p.o_ss, 0, p.Sq);
-  asm volatile("cp.async.commit_group;\n" ::);
-  if (threadIdx.x < WQ) {
-    const int row = threadIdx.x;
-    lse_s[0][threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
-    del_s[0][threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
-  }
-
-  float acck[WD / 8][4], accv[WD / 8][4];
-#pragma unroll
-  for (int j = 0; j < WD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
-
-  for (int m0 = 0, it = 0; m0 < p.Sq; m0 += WQ, ++it) {
-    const int stage = it & 1;
-    __syncthreads();  // the stage refilled next (tiles, lse_s, del_s) is no longer read
-    if (m0 + WQ < p.Sq) {  // prefetch the next q tile into the other stage
-      __nv_bfloat16* next = ring + 2 * (stage ^ 1) * WQ * WP;
-      async_rows_w<WQ>(next, qb, p.q_ss, m0 + WQ, p.Sq);
-      async_rows_w<WQ>(next + WQ * WP, ob, p.o_ss, m0 + WQ, p.Sq);
-      if (threadIdx.x < WQ) {
-        const int row = m0 + WQ + threadIdx.x;
-        lse_s[stage ^ 1][threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
-        del_s[stage ^ 1][threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies have landed
-    __nv_bfloat16* Qt = ring + 2 * stage * WQ * WP;
-    const __nv_bfloat16* Ot = Qt + WQ * WP;
-    scale_rows_w<WQ>(Qt, p.qmul);  // q~ = q * qmul, rounded once
-    __syncthreads();
-
-    // transposed scores: rows are this warp's keys, columns the tile's q rows
-    float st[WQ / 8][4], dpt[WQ / 8][4];
-    mma_abt_w<WQ / 8>(st, Ks, wr, Qt);
-    mma_abt_w<WQ / 8>(dpt, Vs, wr, Ot);
-#pragma unroll
-    for (int j = 0; j < WQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const float pv = exp2f(fminf(st[j][e] - lse_s[stage][c], 0.f));
-        st[j][e] = pv;                                  // p^T, rounded to bf16 as the A operand
-        dpt[j][e] = pv * (dpt[j][e] - del_s[stage][c]);  // ds^T, likewise
-      }
-    mma_xb_w<WQ / 16>(accv, st, Ot);
-    mma_xb_w<WQ / 16>(acck, dpt, Qt);
-  }
-
-  auto* dkb = reinterpret_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  auto* dvb = reinterpret_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  store_rows_w(dkb, p.dk_ss, k0 + wr, p.Sk, acck, kLn2);
-  store_rows_w(dvb, p.dv_ss, k0 + wr, p.Sk, accv, 1.f);
-}
-
-cudaError_t launch_w(const Params& p, bool dkv, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)WP * (2 * WR + 4 * (dkv ? WQ : WK));
-  auto kernel = dkv ? flash_bwd_dkv_w_kernel : flash_bwd_dq_w_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(((dkv ? p.Sk : p.Sq) + WR - 1) / WR, p.H, p.B);
-  kernel<<<grid, WNT, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse2,
@@ -1059,10 +1107,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 int launch(const Params& p, bool dkv, int d, int dtype, const long long* tma, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (d == D && dtype == 0) return (int)launch_f32(p, dkv, s);
-  if (dtype != 1 || !mma_aligned(p, dkv)) return (int)cudaErrorInvalidValue;
-  if (d == D) return (int)launch_wgmma(p, dkv, tma, s);
-  if (d == WD) return (int)launch_w(p, dkv, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (d != D && d != WD) || !aligned16(p, dkv)) return (int)cudaErrorInvalidValue;
+  return (int)launch_wgmma(p, dkv, d, tma, s);
 }
 
 }  // namespace
@@ -1073,9 +1119,9 @@ extern "C" {
 // lse) and delta fp32 contiguous (B, H, Sq); d: head dim, 64 (float32 or
 // bfloat16) or 128 (bfloat16); dtype: 0 = float32, 1 = bfloat16 (16-byte
 // aligned pointers and strides); qmul: scale * log2(e) rounded to the input
-// type; tma: for bf16 at head dim 64, the TMA geometry of q, k, v and dout
-// (4 x 12 values, see encode_map), else null. Returns the cudaError_t of the
-// launch (0 on success).
+// type; tma: for bf16 (head dim 64 or 128), the TMA geometry of q, k, v and
+// dout (4 x 12 values of 64 x 64 boxes, see encode_map), else null. Returns
+// the cudaError_t of the launch (0 on success).
 
 // K2a. strides: 15 element strides, (b, h, s) of q, k, v, dout and dq.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse2,
@@ -1100,5 +1146,8 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 const char* flash_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Dynamic shared memory of the bf16 kernels at head dim d (64 or 128), bytes.
+int flash_bwd_smem_bytes(int d) { return (int)(d == WD ? WSMEM : GSMEM); }
 
 }  // extern "C"

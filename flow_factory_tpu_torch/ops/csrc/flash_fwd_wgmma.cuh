@@ -58,16 +58,6 @@
 
 namespace {
 
-// 2^x by the special-function unit alone (ex2.approx.ftz): exp2f's handling
-// of subnormal results costs extra instructions a score, and the forwards
-// ran measurably faster on the card without it. A p below 2^-126 becomes 0,
-// far below what its bf16 rounding for PV and the fp32 row sum can see.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr float kFwdNegInf = -1e30f;
 constexpr float kFwdLn2 = 0.6931471805599453f;
 constexpr int kFwdThreads = 384;  // two consumer warpgroups, then the producer warpgroup

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
 // directory: mbarriers, TMA tile loads from 4-D (D, S, H, B) tensor maps and
 // their host-side encoding, wgmma shared-memory descriptors for TMA's
-// 128-byte swizzle, the m64n64k16 / m64n128k16 bf16 products, and the fences
+// 128-byte swizzle, the m64n{32,64,128}k16 bf16 products, and the fences
 // around them. Included by each source that uses them; every source still
 // builds alone into its own library (cuda_build.py hashes the headers a
 // source includes into its library's key).
@@ -91,6 +91,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define WG_ACC16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_OUT16(d)                                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define WG_ACC32                                                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
   "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -107,6 +111,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "   \
   "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
   "%62, %63}"
+
+// d (64 x 32, fp32) = [d +] A . B^T: A and B K-major tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_ACC16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // d (64 x 64, fp32) = [d +] A . B^T: A and B K-major tiles in shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
@@ -146,6 +159,17 @@ __device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[64], const uint32_t (
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : WG_OUT32_AT(d, 0), WG_OUT32_AT(d, 32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// 2^x by the special-function unit alone (ex2.approx.ftz): exp2f's handling
+// of subnormal results costs extra instructions a score, and the forwards
+// ran measurably faster on the card without it. A p below 2^-126 becomes 0,
+// far below what its bf16 rounding before a product and the fp32 sums can
+// see; every other input gives exp2f's result (the same MUFU.EX2).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

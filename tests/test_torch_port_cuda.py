@@ -278,6 +278,58 @@ def test_flash_backward_d128_is_deterministic_and_rejects_wrong_plain_versions(g
     assert (a[0].float() - no_tail.float()).abs().max().item() > tol
 
 
+# K2 at head dim 128 at the edges of its tiles: 128 outer rows a block (two
+# warpgroups of 64), 64-row streamed tiles, which both kernels take in halves
+# of 32
+_K2_D128_EDGES = (32, 63, 64, 65, 127, 128, 129, 193, 257)
+_K2_D128_LAYOUTS = ("contiguous", "head-split", "wan-self", "wan-cross")
+
+
+def _k2_d128_views(gen, B, H, Sq, Sk, layout):
+    """q, k, v and dO at head dim 128: contiguous (dO too); head-split (every
+    operand a head-split view of a (B, S, H*D) projection); wan-self (q/k
+    contiguous as ``apply_rope`` returns them, v a view); wan-cross (q
+    contiguous, k/v views of the context projections). dO is head-interleaved,
+    as the head merge's backward hands it over, in all but contiguous. O and
+    lse from K3's forward."""
+    D = 128
+    view = lambda S: _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    dense = lambda S: _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    q = view(Sq) if layout == "head-split" else dense(Sq)
+    k = dense(Sk) if layout in ("contiguous", "wan-self") else view(Sk)
+    v = dense(Sk) if layout == "contiguous" else view(Sk)
+    dout = dense(Sq) if layout == "contiguous" else view(Sq)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("Sk", _K2_D128_EDGES)
+@pytest.mark.parametrize("Sq", _K2_D128_EDGES)
+def test_flash_backward_d128_at_the_tile_edges(gen, Sq, Sk):
+    """dq, dk and dv within 2 bf16 ulp of max|ref| of the plain versions at
+    every pair of edge lengths, the layouts taking turns."""
+    layout = _K2_D128_LAYOUTS[(_K2_D128_EDGES.index(Sq) + _K2_D128_EDGES.index(Sk)) % len(_K2_D128_LAYOUTS)]
+    q, k, v, out, lse, dout = _k2_d128_views(gen, 2, 3, Sq, Sk, layout)
+    got = A.flash_backward(q, k, v, out, lse, dout, 128 ** -0.5)
+    ref = A.flash_backward_plain(q, k, v, out, lse, dout, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err, tol = (g.float() - r.float()).abs().max().item(), _k2_tol(r, torch.bfloat16)
+        print(f"K2 D128 {Sq}x{Sk} {layout} {name}: max|d| {err:.3e} tol {tol:.3e}")
+        assert g.shape == r.shape and err <= tol, name
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_batch_slice_gives_the_bits_of_the_whole_batch(gen, D):
+    """Each dq row depends only on its q row and its (b, h)'s keys, each dk/dv
+    row on its key and its (b, h)'s q rows, in a fixed order: the first 8 of
+    16 batch rows alone give the bits of the whole batch's first 8."""
+    q, k, v, out, lse, dout = _k2_inputs(gen, 16, 2, 200, 200, torch.bfloat16, "mixed", D=D)
+    whole = A.flash_backward(q, k, v, out, lse, dout, 0.125)  # the scale of _k2_inputs' forward
+    part = A.flash_backward(*(t[:8] for t in (q, k, v, out, lse, dout)), 0.125)
+    assert all(torch.equal(a, b[:8]) for a, b in zip(part, whole))
+
+
 # ---------------------------------------------------------------------------
 # Autograd through K1, K5 and K6
 # ---------------------------------------------------------------------------

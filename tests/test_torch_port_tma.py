@@ -1,5 +1,6 @@
-"""PyTorch port, the TMA geometry of the head-dim-64 flash backward (K2a/K2b),
-on the CPU: the 4-D tensor maps that ``csrc/flash_bwd.cu`` builds on the host
+"""PyTorch port, the TMA geometry of the flash kernels (K2a/K2b at head dim 64
+and 128, the forwards' boxes), on the CPU: the 4-D tensor maps that
+``csrc/flash_bwd.cu`` and ``csrc/flash_fwd_wgmma.cuh`` build on the host
 take their global dims, byte strides, box and element type from
 :func:`tma_geometry`, so the geometry must describe each view exactly. It is
 checked by rebuilding the view from it with ``torch.as_strided`` over the same
@@ -108,3 +109,42 @@ def test_forward_tma_args_are_three_geometries_of_the_forward_box():
     assert list(A._fwd_tma_args(q64, k64, v64)) == [x for t in (q64, k64, v64) for x in A.tma_geometry(t, (64, 128))]
     with pytest.raises(ValueError):  # fp32 has no TMA path (K1's fp32 variant takes none)
         A._fwd_tma_args(q.float(), k.float(), v.float())
+
+
+#: (q, k, v, dO) layouts of the backward's callers: the joint attention's
+#: concatenation, Wan's self-attention (q/k from RoPE, v a head split, dO
+#: head-interleaved), Wan's cross-attention (k/v head splits of the context),
+#: every operand a view, and views into a fused projection
+_BWD_LAYOUTS = [("contiguous",) * 4, ("contiguous", "contiguous", "head-split", "head-split"),
+                ("contiguous", "head-split", "head-split", "head-split"), ("head-split",) * 4,
+                ("fused-qkv", "fused-qkv", "fused-qkv", "head-split")]
+
+
+@pytest.mark.parametrize("layouts", _BWD_LAYOUTS)
+@pytest.mark.parametrize("D", [64, 128])
+def test_backward_tma_args_are_four_geometries_of_64_by_64_boxes(layouts, D):
+    """K2a/K2b take a map of q, k, v and dO, in that order, each of 64 x 64
+    boxes at both head dims (``csrc/flash_bwd.cu``): at 128 a 64-row tile is
+    two boxes, at columns 0 and 64. Each geometry describes its view exactly
+    (read back with ``torch.as_strided`` over the same storage), with Sq
+    rows for q and dO and Sk for k and v, and its boxes tile the head dim."""
+    Sq, Sk = 77, 130
+    views = [_view(layout, 2, 3, S, D) for layout, S in zip(layouts, (Sq, Sk, Sk, Sq))]
+    args = list(A._tma_args(*views))
+    assert len(args) == 48
+    for i, t in enumerate(views):
+        g = tuple(args[12 * i:12 * i + 12])
+        assert g[:4] == (D, t.shape[2], 3, 2)
+        assert g[7:] == (64, 64, 1, 1, BF16)
+        assert g == A.tma_geometry(t, (64, 64))
+        rebuilt = _rebuilt(t, g)
+        assert torch.equal(rebuilt, t)
+        halves = [rebuilt[..., c:c + g[7]] for c in range(0, D, g[7])]
+        assert len(halves) == D // 64 and torch.equal(torch.cat(halves, dim=-1), t)
+
+
+def test_backward_tma_args_are_none_for_fp32():
+    """The fp32 variant (head dim 64) reads its operands by plain loads: the
+    wrapper passes a null geometry."""
+    q = torch.zeros(1, 2, 64, 64)
+    assert A._tma_args(q, q, q, q) is None
