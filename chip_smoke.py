@@ -11,10 +11,13 @@ printing one line and exiting non-zero on failure:
    spills, the wgmma warnings C7512/C7515, shared memory, setmaxnreg);
 2. kernels: K1 (fused qk-norm flash forward), K2a/K2b (flash backward for dq
    and for dk/dv, head dim 64 and 128), K3 (plain flash forward, head dim 128 and 64; all CUDA
-   C++), K5 (norm-modulate) and K6 (residual-gate-modulate, both Triton)
-   against their plain PyTorch versions at the SD3.5-M and Wan2.1-1.3B
-   shapes, K2 also at the FLUX.1 1024-px geometry, and small ragged shapes,
-   with stated tolerances, negative controls and CUDA-event timings; for
+   C++), K5 (norm-modulate) and K6 (residual-gate-modulate) and their
+   backward kernels (all four Triton) against their plain PyTorch versions
+   at the SD3.5-M and Wan2.1-1.3B shapes, K2 also at the FLUX.1 1024-px
+   geometry, and small ragged shapes, with stated tolerances, negative
+   controls and CUDA-event timings (K5/K6 also their profiler device time,
+   batch slices and the backwards against autograd through the plain
+   forwards); for
    K1, K3 and K2 at head dim 128 also the profiler's device time (K2: with
    ``_bwd_prologue`` and SDPA's whole backward by the same method), for K1
    and K3 the wrapper's host cost a call, the bound with the ex2 term, the
@@ -38,7 +41,8 @@ printing one line and exiting non-zero on failure:
 4. grad: the LoRA gradient of a log-prob loss through the kernels at
    SD3.5-M width and reduced depth (2 blocks, one with dual attention,
    B=16), against the same gradient through the plain attention and plain
-   norms, with a negative control (K1's dq zeroed), and a non-zero gradient
+   norms, with negative controls (K2a's dq zeroed, K5's backward without
+   its dmul term), and a non-zero gradient
    on every LoRA leaf of the attention projections and AdaLN linears;
 5. train: the GRPO training slice at full width through ``load_trainer``
    (LoRA rank 32 on the default targets, fp32 master weights, the rollout
@@ -68,10 +72,12 @@ package is not beside the script.
 ``python3 chip_smoke.py --k2-d128 DIR`` times K2a/K2b at head dim 128 of the
 port in the checkout DIR alone (``k2_d128_only``): run it on this checkout
 and on a ``git archive`` of another commit in one call to compare the two
-by one method on one card.
+by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
+does the same for K5/K6 and their backwards (``norms_only``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -93,7 +99,15 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 #: Guide, arithmetic throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
 PEAK_EX2 = 16 * 132 * 1.98e9
 #: the kernels of the SD3.5 GRPO path (K3 runs on the Wan path only)
-SD35_KERNELS = ("qknorm_flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_mul_add", "residual_gate_modulate")
+SD35_KERNELS = ("qknorm_flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_mul_add", "residual_gate_modulate",
+                "ln_mul_add_backward", "residual_gate_modulate_backward")
+#: K5 and K6 launches of one SD3.5-M training forward, and of its backward:
+#: 62 K5 (24 + 13 dual norm1, 24 norm1_context, norm_out) and 47 K6 (24 x
+#: side, 23 context side); block 0's three K5 norms take only frozen
+#: inputs (the patch and context embeddings, the AdaLN vectors) and so have
+#: no backward node: 59
+SD35_NORMS_A_STEP = {"ln_mul_add": 62, "residual_gate_modulate": 47, "ln_mul_add_backward": 59,
+                     "residual_gate_modulate_backward": 47}
 
 
 def log(msg: str) -> None:
@@ -486,75 +500,355 @@ def phase_kernels(results: dict) -> None:
     phase_kernels_k2(results, randn)
     phase_kernels_k3(results, randn)
 
-    # ---- K5: LayerNorm/RMSNorm + modulate ------------------------------------
-    # Tolerance: both compute fp32 stats (different summation order) and round
-    # once to the output type: one bf16 ulp at the largest output, 1e-5
-    # relative in fp32.
-    for tag, B, S, D, dtype, per_token, fold, rms, timed in (
-            ("image", 16, 1024, 1536, torch.bfloat16, False, False, False, True),
-            ("context", 16, 333, 1536, torch.bfloat16, False, False, False, True),
-            ("ragged-fold", 3, 77, 200, torch.float32, False, True, False, False),
-            ("ragged-rms-token", 3, 77, 200, torch.float32, True, False, True, False),
-            ("ragged-bf16-token", 2, 45, 1536, torch.bfloat16, True, False, False, False)):
-        x = randn(B, S, D, dtype=dtype)
-        mshape = (B, S if per_token else 1, D)
-        mul = (1.0 + 0.1 * randn(*mshape, dtype=torch.float32)).contiguous()
-        add = (0.1 * randn(*mshape, dtype=torch.float32)).contiguous()
-        out = N.ln_mul_add(x, mul, add, 1e-6, dtype, fold=fold, rms=rms)
-        ref = N._native_ln_mul_add(x, mul, add, 1e-6, dtype, fold, rms)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        mag = ref.float().abs().max().item()
-        _check(f"K5 {tag} {tuple(x.shape)} {dtype}", err,
-               bf16_ulp(mag) if dtype == torch.bfloat16 else 1e-5 * max(1.0, mag))
-        if not timed:
-            continue
-        ms = time_ms(lambda: N.ln_mul_add(x, mul, add, 1e-6, dtype, fold=False))
-        plain_ms = time_ms(lambda: N._native_ln_mul_add(x, mul, add, 1e-6, dtype, False))
-        byts = nbytes(x, mul, add, out)
-        bound = max(byts / PEAK_BYTES, 10 * x.numel() / PEAK_FP32_FLOPS) * 1e3
-        _record(results, tag, dict(
-            name="ln_mul_add", route="triton", source="flow_factory_tpu_torch/ops/norms.py",
-            replaces="flow_factory_tpu/ops/norms.py:93", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="bytes", library_ms=None))
-        log(f"[kernels] K5 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
-            f"{bound:.4f} ms ({byts / ms / 1e6:.0f} GB/s)")
+    phase_kernels_norms(results, gen)
+    torch.cuda.empty_cache()
 
-    # ---- K6: residual + gate + modulate --------------------------------------
-    # Tolerance: x_new rounds exactly where eager PyTorch rounds (bf16: 0);
-    # x_mod as K5.
-    for tag, B, S, D, dtype, timed in (
-            ("image", 16, 1024, 1536, torch.bfloat16, True),
-            ("context", 16, 333, 1536, torch.bfloat16, True),
-            ("ragged-fp32", 3, 77, 200, torch.float32, False),
-            ("ragged-bf16", 2, 45, 1536, torch.bfloat16, False)):
-        x, br = randn(B, S, D, dtype=dtype), randn(B, S, D, dtype=dtype)
-        gate = randn(B, D, dtype=torch.float32)
-        mul = (1.0 + 0.1 * randn(B, 1, D, dtype=torch.float32)).contiguous()
-        add = (0.1 * randn(B, 1, D, dtype=torch.float32)).contiguous()
-        xn, xm = N.residual_gate_modulate_rows(x, br, gate, mul, add, 1e-6, dtype)
-        rn, rm = N._native_residual_gate_modulate(x, br, gate, mul, add, 1e-6, dtype)
-        torch.cuda.synchronize()
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the norm-and-modulate forwards and their backward kernels
+# ---------------------------------------------------------------------------
+
+#: K5 shapes: tag, B, S, D, x dtype, out dtype, per-token modulation, fold,
+#: rms, timed. image/context: the SD3.5-M AdaLN norms (a grad step runs 62,
+#: 59 of them with a backward); wan: the Wan2.1-1.3B block norms; wan-norm2:
+#: its affine norm2 (the fold path: F.layer_norm computes the same function);
+#: wan-head: bf16 in, fp32 out; degenerate: constant and near-constant rows.
+NormShape = collections.namedtuple("NormShape", "tag B S D dtype out_dtype per_token fold rms timed")
+K5_SHAPES = tuple(NormShape(*shape) for shape in (
+    ("image", 16, 1024, 1536, "bfloat16", "bfloat16", False, False, False, True),
+    ("context", 16, 333, 1536, "bfloat16", "bfloat16", False, False, False, True),
+    ("wan", 16, 512, 1536, "bfloat16", "bfloat16", False, False, False, True),
+    ("wan-norm2", 16, 512, 1536, "bfloat16", "bfloat16", False, True, False, True),
+    ("wan-head", 16, 512, 1536, "bfloat16", "float32", False, False, False, False),
+    ("ragged-fold", 3, 77, 200, "float32", "float32", False, True, False, False),
+    ("ragged-rms-token", 3, 77, 200, "float32", "float32", True, False, True, False),
+    ("bf16-token", 2, 45, 1536, "bfloat16", "bfloat16", True, False, False, False),
+    ("degenerate", 4, 64, 256, "float32", "float32", False, False, False, False),
+))
+#: K6 shapes: tag, B, S, D, dtype, timed (SD3.5-M: 24 image, 23 context calls a grad step)
+K6_SHAPES = tuple(NormShape(tag, B, S, D, dt, dt, False, False, False, timed) for tag, B, S, D, dt, timed in (
+    ("image", 16, 1024, 1536, "bfloat16", True),
+    ("context", 16, 333, 1536, "bfloat16", True),
+    ("ragged-fp32", 3, 77, 200, "float32", False),
+    ("ragged-bf16", 2, 45, 1536, "bfloat16", False),
+    ("degenerate", 4, 64, 256, "float32", False),
+))
+#: what the grad steps ask of each backward: dx alone from K5 (the AdaLN
+#: vectors, norm2's weight and the head's table are frozen under LoRA), dx
+#: and dbranch from K6; the checks also ask for every gradient
+K5_MAIN_NEEDS, K6_MAIN_NEEDS = (True, False, False), (True, True, False, False, False)
+
+
+def _norm_inputs(gen, B: int, S: int, D: int, dtype, out_dtype, per_token: bool, k6: bool, degenerate: bool):
+    """Fresh inputs of a K5 (``k6`` False) or K6 case on the card: x (and
+    branch, gate), mul, add and the cotangents. ``degenerate``: every fourth
+    row from row 0 constant (0.75: its sums are exact in any order, its fast
+    variance exactly 0), every fourth from row 1 near-constant (2^-6 plus
+    1e-8 noise: the fast variance rounds to about +-3e-11, at or below 0 on
+    many rows, far below eps, so r = rsqrt(eps) to 1.5e-5 whatever the sum
+    order); K6 takes branch 0 on those rows, so x_new is x there."""
+    import torch
+
+    randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=gen, device="cuda").to(dt)
+    x = randn(B, S, D, dt=dtype)
+    if degenerate:
+        x[:, 0::4] = 0.75
+        x[:, 1::4] = 2.0 ** -6 + 1e-8 * randn(B, len(range(1, S, 4)), D)
+    mshape = (B, S if per_token else 1, D)
+    case = dict(x=x, mul=(1.0 + 0.1 * randn(*mshape)).contiguous(), add=(0.1 * randn(*mshape)).contiguous())
+    if k6:
+        branch = randn(B, S, D, dt=dtype)
+        if degenerate:
+            branch[:, 0::4] = 0.0
+            branch[:, 1::4] = 0.0
+        case.update(branch=branch, gate=randn(B, D), g_new=randn(B, S, D, dt=dtype))
+    case["g"] = randn(B, S, D, dt=out_dtype)
+    return case
+
+
+def _norm_calls(N, case: dict, eps: float, out_dtype, fold: bool, rms: bool, k6: bool, needs):
+    """(forward, backward) calls of the kernel wrappers on a case."""
+    c = case
+    if k6:
+        return (lambda: N.residual_gate_modulate_rows(c["x"], c["branch"], c["gate"], c["mul"], c["add"], eps,
+                                                      out_dtype),
+                lambda: N.residual_gate_modulate_backward(c["x"], c["branch"], c["gate"], c["mul"], c["g_new"],
+                                                          c["g"], eps, needs))
+    return (lambda: N.ln_mul_add(c["x"], c["mul"], c["add"], eps, out_dtype, fold=fold, rms=rms),
+            lambda: N.ln_mul_add_backward(c["x"], c["mul"], c["g"], eps, rms, needs))
+
+
+def _bytes_or_ops(byts: int, flops: int):
+    """The least time in ms of a pass that moves ``byts`` and does ``flops``
+    fp32 operations outside the tensor cores, and which of the two sets it."""
+    t_bytes, t_ops = byts / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _norm_device_job(name: str, make_case, which: int, ms: float, bound: float, plain_ms: float,
+                     lib_ms=None) -> None:
+    """The profiler's device time of a K5/K6 forward (``which`` 0) or
+    backward (1) on fresh inputs, at the end of the run."""
+    dev = _device_ms(make_case()[which])
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms (events)"
+    log(f"[kernels] {name}: device {dev:.4f} ms (profiler) | kernel {ms:.4f} ms (events) | bound {bound:.4f} ms "
+        f"(device/bound {dev / bound:.2f}x) | plain {plain_ms:.3f} ms | library {lib}")
+
+
+def _norm_case_calls(N, gen_seed: int, shape: NormShape, k6: bool, needs):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    out_dtype = getattr(torch, shape.out_dtype)
+    case = _norm_inputs(gen, shape.B, shape.S, shape.D, getattr(torch, shape.dtype), out_dtype, shape.per_token, k6,
+                        shape.tag == "degenerate")
+    return _norm_calls(N, case, 1e-6, out_dtype, shape.fold, shape.rms, k6, needs)
+
+
+def _bar(dtype, ref, ulps: float = 1.0, rel: float = 1e-5) -> float:
+    """``ulps`` bf16 ulp of max|ref| for a bf16 tensor, else ``rel`` of it."""
+    import torch
+
+    mag = ref.float().abs().max().item()
+    return ulps * bf16_ulp(mag) if ref.dtype == torch.bfloat16 else rel * max(mag, 1e-30)
+
+
+def _grads_check(name: str, got, ref, names, bars) -> list:
+    """Each gradient of ``got`` against ``ref`` within its bar (None where
+    not asked, in both); returns the errors."""
+    errs = []
+    for what, a, b, bar in zip(names, got, ref, bars):
+        if (a is None) != (b is None):
+            fail(f"{name}: {what} is {'missing' if a is None else 'there but not asked for'}")
+        if a is None:
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{name}: {what} {a.dtype} {tuple(a.shape)}, expected {b.dtype} {tuple(b.shape)}")
+        err = (a.float() - b.float()).abs().max().item()
+        errs.append(err)
+        _check(f"{name} {what}", err, bar if isinstance(bar, float) else bar(b))
+    return errs
+
+
+def _backward_controls(name: str, got, wrong_dx, dmul_index: int, dx_bar) -> None:
+    """The backward checks must reject a backward without the
+    x_hat * mean(g_hat * x_hat) term and one with dmul zeroed."""
+    for what, a, b, bar in (("without the x_hat * mean(g_hat * x_hat) term", got[0], wrong_dx, dx_bar),
+                            ("with dmul zeroed", got[dmul_index], None, None)):
+        b = b if b is not None else a.new_zeros(a.shape)
+        bar = bar(b) if bar is not None else 1e-5 * a.abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        caught = err > bar
+        log(f"[kernels] negative control, {name} vs a backward {what}: max|d| {err:.3e} (bar {bar:.3e}) "
+            f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
+        if not caught:
+            fail(f"the {name} check cannot tell the kernel from a backward {what}")
+
+
+def phase_kernels_norms(results: dict, gen) -> None:
+    """K5 and K6, forward and backward, against their plain versions.
+
+    Forward bars (both compute fp32 stats in another summation order and
+    round once to the output type): one bf16 ulp of max|out|, 1e-5 relative
+    in fp32; K6's x_new rounds where eager PyTorch rounds (bf16: 0). A batch
+    slice gives the bits of the whole batch's rows. Backward bars, against the
+    closed-form plain backward (same formula, the sums in another order, dx
+    rounded once): one bf16 ulp of max|ref| for bf16, 1e-5 of it for fp32
+    (dmul, dadd, dgate sums are fp32; dgate rounded once to x's dtype); the
+    degenerate rows' fp32 dx 1e-4 (their r = rsqrt(eps) moves with the sum
+    order by up to 1.5e-5 of itself, and they hold max|dx|). Against
+    autograd through the plain forward (the eager path: another formula; for
+    K6 it rounds the LN part of the x_new cotangent and their sum to bf16,
+    dbranch from that rounded sum, and dgate's products before their sum,
+    where the kernel rounds each once): 2 bf16 ulp of max|ref| (1 seen on
+    the card, H100 80GB HBM3), 1e-4 of it in fp32 (2.4e-5 seen, on the
+    degenerate rows). Negative controls:
+    a backward without the x_hat * mean(g_hat * x_hat) term, one with dmul
+    zeroed; two launches give the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import norms as N
+
+    eps = 1e-6
+    for shape in K5_SHAPES:
+        tag, B, S, D, dt, odt, per_token, fold, rms, timed = shape
+        name = f"K5 {tag} {(B, S, D)} {dt}->{odt}{' fold' if fold else ''}{' rms' if rms else ''}" \
+               f"{' per-token' if per_token else ''}"
+        dtype, out_dtype = getattr(torch, dt), getattr(torch, odt)
+        rel = 1e-4 if tag == "degenerate" else 1e-5  # fp32 dx, see the docstring
+        case = _norm_inputs(gen, B, S, D, dtype, out_dtype, per_token, False, tag == "degenerate")
+        x, mul, add, g = case["x"], case["mul"], case["add"], case["g"]
+        out = N.ln_mul_add(x, mul, add, eps, out_dtype, fold=fold, rms=rms)
+        ref = N._native_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
+        err = (out.float() - ref.float()).abs().max().item()
+        _check(f"{name} forward", err, _bar(dtype, ref))
+        if tag == "degenerate":
+            x32 = x.float()
+            raw = (x32 * x32).mean(-1) - x32.mean(-1) ** 2
+            log(f"[kernels] {name}: rows whose fast variance the plain version rounds to 0: "
+                f"{int((raw == 0).sum())}, below 0: {int((raw < 0).sum())} of {B * S}")
+        # backward, every gradient asked for and the main path's subset
+        leaves = [t.detach().clone().requires_grad_() for t in (x, mul, add)]
+        eager = torch.autograd.grad(N._native_ln_mul_add(*leaves, eps, out_dtype, fold, rms), leaves, g)
+        for needs in ((True, True, True), K5_MAIN_NEEDS):
+            got = N.ln_mul_add_backward(x, mul, g, eps, rms, needs)
+            plain = N._native_ln_mul_add_backward(x, mul, g, eps, rms, needs)
+            bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(torch.float32, r),
+                    lambda r: _bar(torch.float32, r))
+            _grads_check(f"{name} backward {needs} vs plain", got, plain, ("dx", "dmul", "dadd"), bars)
+        got = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
+        eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
+                      lambda r: _bar(torch.float32, r, rel=1e-4))
+        _grads_check(f"{name} backward vs autograd through the plain forward", got, eager,
+                     ("dx", "dmul", "dadd"), eager_bars)
+        again = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[kernels] {name} backward: two launches give the same bits: {same}")
+        if not same:
+            fail(f"{name}: the backward is not deterministic")
+        if tag == "image":
+            x32 = x.float()
+            r, xhat, raw = N._ln_stats(x32, eps, rms)
+            wrong = N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0)).to(dtype)
+            _backward_controls(name, got, wrong, 1, lambda r: _bar(dtype, r))
+            part = N.ln_mul_add(x[:4], mul[:4], add[:4], eps, out_dtype, fold=fold, rms=rms)
+            same = torch.equal(part, out[:4])
+            log(f"[kernels] {name}: the first 4 batch rows alone give the bits of the whole batch's: {same}")
+            if not same:
+                fail(f"{name}: a batch slice changes the bits")
+        if timed:
+            _norm_timings(results, "ln_mul_add", f"K5 {tag}", shape, False, case, out, err, (x, mul, add, out),
+                          N, eps)
+        del case, x, mul, add, g, out, ref, leaves, eager, got, again
+        torch.cuda.empty_cache()
+
+    for shape in K6_SHAPES:
+        tag, B, S, D, dt, _, _, _, _, timed = shape
+        name = f"K6 {tag} {(B, S, D)} {dt}"
+        dtype = getattr(torch, dt)
+        case = _norm_inputs(gen, B, S, D, dtype, dtype, False, True, tag == "degenerate")
+        x, br, gate, mul, add = (case[k] for k in ("x", "branch", "gate", "mul", "add"))
+        g_new, g = case["g_new"], case["g"]
+        xn, xm = N.residual_gate_modulate_rows(x, br, gate, mul, add, eps, dtype)
+        rn, rm = N._native_residual_gate_modulate(x, br, gate, mul, add, eps, dtype)
         err_n = (xn.float() - rn.float()).abs().max().item()
         err_m = (xm.float() - rm.float()).abs().max().item()
-        mag_n, mag_m = rn.float().abs().max().item(), rm.float().abs().max().item()
-        _check(f"K6 {tag} x_new {tuple(x.shape)} {dtype}", err_n,
-               0.0 if dtype == torch.bfloat16 else 1e-6 * max(1.0, mag_n))
-        _check(f"K6 {tag} x_mod", err_m, bf16_ulp(mag_m) if dtype == torch.bfloat16 else 1e-5 * max(1.0, mag_m))
-        if not timed:
-            continue
-        ms = time_ms(lambda: N.residual_gate_modulate_rows(x, br, gate, mul, add, 1e-6, dtype))
-        plain_ms = time_ms(lambda: N._native_residual_gate_modulate(x, br, gate, mul, add, 1e-6, dtype))
-        byts = nbytes(x, br, gate, mul, add, xn, xm)
-        bound = max(byts / PEAK_BYTES, 12 * x.numel() / PEAK_FP32_FLOPS) * 1e3
-        _record(results, tag, dict(
-            name="residual_gate_modulate", route="triton",
-            source="flow_factory_tpu_torch/ops/norms.py", replaces="flow_factory_tpu/ops/norms.py:300",
-            max_abs_err=max(err_n, err_m), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="bytes", library_ms=None))
-        log(f"[kernels] K6 {tag}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
-            f"{bound:.4f} ms ({byts / ms / 1e6:.0f} GB/s)")
-    torch.cuda.empty_cache()
+        _check(f"{name} forward x_new", err_n, 0.0 if dtype == torch.bfloat16 else 1e-6 * max(
+            1.0, rn.float().abs().max().item()))
+        _check(f"{name} forward x_mod", err_m, _bar(dtype, rm))
+        leaves = [t.detach().clone().requires_grad_() for t in (x, br, gate, mul, add)]
+        eager = torch.autograd.grad(N._native_residual_gate_modulate(*leaves, eps, dtype), leaves, (g_new, g))
+        names = ("dx", "dbranch", "dgate", "dmul", "dadd")
+        for needs in ((True,) * 5, K6_MAIN_NEEDS):
+            got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
+            plain = N._native_residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
+            rel = 1e-4 if tag == "degenerate" else 1e-5  # as K5's
+            bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(dtype, r, rel=rel),
+                    lambda r: _bar(dtype, r.to(dtype)), lambda r: _bar(torch.float32, r),
+                    lambda r: _bar(torch.float32, r))
+            _grads_check(f"{name} backward {needs} vs plain", got, plain, names, bars)
+        got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
+        eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(dtype, r, 2.0, 1e-4),
+                      lambda r: _bar(dtype, r.to(dtype), 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
+                      lambda r: _bar(torch.float32, r, rel=1e-4))
+        _grads_check(f"{name} backward vs autograd through the plain forward", got, eager, names, eager_bars)
+        again = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[kernels] {name} backward: two launches give the same bits: {same}")
+        if not same:
+            fail(f"{name}: the backward is not deterministic")
+        if tag == "image":
+            gate_c = gate[:, None, :].to(dtype)
+            r, xhat, raw = N._ln_stats((x + gate_c * br).float(), eps, False)
+            wrong = (g_new.float() + N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0))).to(dtype)
+            _backward_controls(name, got, wrong, 3, lambda r: _bar(dtype, r))
+            pn, pm = N.residual_gate_modulate_rows(x[:4], br[:4], gate[:4], mul[:4], add[:4], eps, dtype)
+            same = torch.equal(pn, xn[:4]) and torch.equal(pm, xm[:4])
+            log(f"[kernels] {name}: the first 4 batch rows alone give the bits of the whole batch's: {same}")
+            if not same:
+                fail(f"{name}: a batch slice changes the bits")
+        if timed:
+            _norm_timings(results, "residual_gate_modulate", f"K6 {tag}", shape, True, case, xm,
+                          max(err_n, err_m), (x, br, gate, mul, add, xn, xm), N, eps)
+        del case, x, br, gate, mul, add, g_new, g, xn, xm, rn, rm, leaves, eager, got, again
+        torch.cuda.empty_cache()
+
+    tiny = _norm_inputs(gen, 1, 4, 1536, torch.bfloat16, torch.bfloat16, False, True, False)
+    fwd5, bwd5 = _norm_calls(N, tiny, eps, torch.bfloat16, False, False, False, K5_MAIN_NEEDS)
+    fwd6, bwd6 = _norm_calls(N, tiny, eps, torch.bfloat16, False, False, True, K6_MAIN_NEEDS)
+    log(f"[kernels] K5/K6 host cost a call (B1 S4 D1536 bf16, the wrapper and its launches; the backward of a "
+        f"per-sample modulation with dmul/dadd asked for adds the chunk sum's launch): K5 {_host_us(fwd5):.1f} us, "
+        f"K5 backward {_host_us(bwd5):.1f} us, K6 {_host_us(fwd6):.1f} us, K6 backward {_host_us(bwd6):.1f} us")
+
+
+def _norm_timings(results: dict, kernel: str, tag: str, shape: NormShape, k6: bool, case: dict, out, err: float,
+                  fwd_tensors, N, eps: float) -> None:
+    """CUDA-event times, bounds, plain and library times of a K5/K6 forward
+    and backward at a main-path shape, their table entries, and their
+    device-time jobs for the end of the run."""
+    import torch
+    import torch.nn.functional as F
+
+    c = case
+    x, mul, g = c["x"], c["mul"], c["g"]
+    out_dtype, fold, rms = out.dtype, shape.fold, shape.rms
+    needs = K6_MAIN_NEEDS if k6 else K5_MAIN_NEEDS
+    fwd, bwd = _norm_calls(N, case, eps, out_dtype, fold, rms, k6, needs)
+    ms, bwd_ms = time_ms(fwd), time_ms(bwd)
+    grads = bwd()
+    torch.cuda.synchronize()
+    if k6:
+        plain_fwd = lambda: N._native_residual_gate_modulate(x, c["branch"], c["gate"], mul, c["add"], eps, out_dtype)
+        plain_bwd = lambda: N._native_residual_gate_modulate_backward(x, c["branch"], c["gate"], mul, c["g_new"],
+                                                                      g, eps, needs)
+        leaves = [t.detach().clone().requires_grad_(n) for t, n in zip((x, c["branch"], c["gate"], mul, c["add"]),
+                                                                       needs)]
+        outs = N._native_residual_gate_modulate(*leaves, eps, out_dtype)
+        cots = (c["g_new"], g)
+        bwd_bytes = nbytes(x, c["branch"], c["gate"], mul, c["g_new"], g, *(t for t in grads if t is not None))
+    else:
+        plain_fwd = lambda: N._native_ln_mul_add(x, mul, c["add"], eps, out_dtype, fold, rms)
+        plain_bwd = lambda: N._native_ln_mul_add_backward(x, mul, g, eps, rms, needs)
+        leaves = [t.detach().clone().requires_grad_(n) for t, n in zip((x, mul, c["add"]), needs)]
+        outs = N._native_ln_mul_add(*leaves, eps, out_dtype, fold, rms)
+        cots = g
+        bwd_bytes = nbytes(x, mul, g, *(t for t in grads if t is not None))
+    wanted = [t for t in leaves if t.requires_grad]
+    plain_ms, plain_bwd_ms = time_ms(plain_fwd, iters=3), time_ms(plain_bwd, iters=3)
+    eager_ms = time_ms(lambda: torch.autograd.grad(outs, wanted, cots, retain_graph=True), iters=3)
+    lib_ms = lib_bwd_ms = None
+    if fold:  # an affine LayerNorm with a (D,) weight: one PyTorch call computes it
+        D = x.shape[-1]
+        w, b = (torch.randn(D, device="cuda", dtype=x.dtype) for _ in range(2))
+        xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        lib_ms = time_ms(lambda: F.layer_norm(x, (D,), w, b, eps))
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(F.layer_norm(xl, (D,), wl, bl, eps), (xl, wl, bl), g))
+    # fp32 operations an element (two sums, centring, scaling, modulation;
+    # the backward's two more sums and its dx terms; K6 its residual and dbranch)
+    flops = x.numel() * (12 if k6 else 10), x.numel() * (18 if k6 else 14)
+    fwd_bound, fwd_by = _bytes_or_ops(nbytes(*fwd_tensors), flops[0])
+    bwd_bound, bwd_by = _bytes_or_ops(bwd_bytes, flops[1])
+    source, line = "flow_factory_tpu_torch/ops/norms.py", ("300", "358") if k6 else ("93", "158")
+    _record(results, tag.split()[1], dict(
+        name=kernel, route="triton", source=source, replaces=f"flow_factory_tpu/ops/norms.py:{line[0]}",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_ms))
+    bwd_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(grads, plain_bwd()) if a is not None)
+    _record(results, tag.split()[1], dict(
+        name=f"{kernel}_backward", route="triton", source=source,
+        replaces=f"flow_factory_tpu/ops/norms.py:{line[1]}", max_abs_err=bwd_err, ms=bwd_ms,
+        plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by, library_ms=lib_bwd_ms))
+    lib = lambda v: "none" if v is None else f"{v:.4f} ms"
+    log(f"[kernels] {tag} forward: kernel {ms:.4f} ms (events) | plain {plain_ms:.3f} ms | library "
+        f"{lib(lib_ms)} | bound {fwd_bound:.4f} ms ({nbytes(*fwd_tensors) / ms / 1e6:.0f} GB/s)")
+    log(f"[kernels] {tag} backward {needs}: kernel {bwd_ms:.4f} ms (events) | plain {plain_bwd_ms:.3f} ms | "
+        f"autograd through the plain forward (the parent's backward) {eager_ms:.3f} ms | library "
+        f"{lib(lib_bwd_ms)} | bound {bwd_bound:.4f} ms ({bwd_bytes / bwd_ms / 1e6:.0f} GB/s)")
+    make = functools.partial(_norm_case_calls, N, 7, shape, k6, needs)
+    DEVICE_TIME_JOBS.append(functools.partial(_norm_device_job, f"{tag} forward", make, 0, ms, fwd_bound, plain_ms,
+                                              lib_ms))
+    DEVICE_TIME_JOBS.append(functools.partial(_norm_device_job, f"{tag} backward", make, 1, bwd_ms, bwd_bound,
+                                              plain_bwd_ms, lib_bwd_ms))
 
 
 def _k2_check(tag: str, got, ref, dtype) -> None:
@@ -875,6 +1169,134 @@ def k2_d128_only(root: str) -> int:
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     log(f"[k2-d128] card after: {gpu_state()}")
+    return 0
+
+
+def _graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed and timed by CUDA events (no host time between the
+    launches), the median of ``reps`` replays."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def _triton_figures(N) -> str:
+    """Registers and spills of each compiled Triton kernel of ``N``, where
+    this Triton version's kernel cache shows them."""
+    figures = []
+    for name, kernel in sorted(N._triton_kernels().items()):
+        caches = list(getattr(kernel, "cache", {}).values())
+        caches += [entry[0] if isinstance(entry, tuple) else entry
+                   for entry in getattr(kernel, "device_caches", {}).values()]
+        for per_device in caches:
+            for compiled in per_device.values():
+                regs, spills = getattr(compiled, "n_regs", None), getattr(compiled, "n_spills", None)
+                warps = getattr(getattr(compiled, "metadata", None), "num_warps", "?")
+                figures.append(f"{name} ({warps} warps): {regs} registers, {spills} spills")
+    return "; ".join(figures) or "not read"
+
+
+def norms_only(root: str, sweep: bool) -> int:
+    """``python3 chip_smoke.py --norms DIR [--sweep]``: K5 and K6 of the port
+    in the checkout DIR alone, through the public wrappers and autograd (so a
+    commit without the backward kernels times its own backward by the same
+    method), after ``phase_kernels_norms`` and its device times where the
+    port has the backward kernels: at the SD3.5-M image and context shapes and the Wan2.1-1.3B
+    shape (K5, and its fold path), the forward and the backward of the
+    main path's gradients (x for K5, x and branch for K6), each by the
+    profiler's device time and by CUDA-event time of back-to-back calls (the
+    forwards also by CUDA-graph replay). ``--sweep`` also times the kernels of this port over
+    rows a program (the target program count) and warps, by graph replay.
+    Prints no result line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import flow_factory_tpu_torch
+    from flow_factory_tpu_torch.ops import norms as N
+
+    where = os.path.dirname(os.path.dirname(os.path.abspath(flow_factory_tpu_torch.__file__)))
+    if where != os.path.abspath(root):
+        fail(f"--norms {root}: imported the port from {where}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    import triton
+
+    log(f"[norms] port at {root} | card {smi.stdout.strip()} | torch {torch.__version__} triton "
+        f"{triton.__version__} | {gpu_state()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eps = 1e-6
+    if hasattr(N, "ln_mul_add_backward"):  # a port with the backward kernels: their checks and device times
+        phase_kernels_norms({}, gen)
+        phase_device_times()
+    for tag, B, S, D, k6, fold in (("K5 image", 16, 1024, 1536, False, False),
+                                   ("K5 context", 16, 333, 1536, False, False),
+                                   ("K5 wan", 16, 512, 1536, False, False),
+                                   ("K5 wan-norm2 fold", 16, 512, 1536, False, True),
+                                   ("K6 image", 16, 1024, 1536, True, False),
+                                   ("K6 context", 16, 333, 1536, True, False)):
+        c = _norm_inputs(gen, B, S, D, torch.bfloat16, torch.bfloat16, False, k6, False)
+        if k6:
+            fwd = lambda: N.residual_gate_modulate_rows(c["x"], c["branch"], c["gate"], c["mul"], c["add"], eps,
+                                                        torch.bfloat16)
+            leaves = [c["x"].detach().requires_grad_(), c["branch"].detach().requires_grad_()]
+            outs = N.residual_gate_modulate_rows(*leaves, c["gate"], c["mul"], c["add"], eps, torch.bfloat16)
+            cots = (c["g_new"], c["g"])
+        else:
+            fwd = lambda: N.ln_mul_add(c["x"], c["mul"], c["add"], eps, torch.bfloat16, fold=fold)
+            leaves = [c["x"].detach().requires_grad_()]
+            outs = N.ln_mul_add(leaves[0], c["mul"], c["add"], eps, torch.bfloat16, fold=fold)
+            cots = c["g"]
+        bwd = lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        line = []
+        for what, fn in (("forward", fwd), ("backward", bwd)):
+            dev, ev = _device_ms(fn), time_ms(fn)
+            graph = f", graph {_graph_ms(fn):.4f}" if what == "forward" else ""
+            line.append(f"{what} device {dev:.4f} ms, events {ev:.4f}{graph}")
+        log(f"[norms] {tag} ({B}, {S}, {D}) bf16: {' | '.join(line)}")
+        del c, leaves, outs, cots
+        torch.cuda.empty_cache()
+    if hasattr(N, "ln_mul_add_backward"):
+        log(f"[norms] compiled: {_triton_figures(N)}")
+    if sweep:
+        config = dict(N._CONFIG)
+        for lanes in (256, 512):
+            for programs in (132 * 8, 132 * 16, 132 * 32, 132 * 64):
+                N._CONFIG.update({k: (lanes, programs) for k in config})
+                row = []
+                for tag, B, S, k6 in (("K5 image", 16, 1024, False), ("K5 context", 16, 333, False),
+                                      ("K6 image", 16, 1024, True), ("K6 context", 16, 333, True)):
+                    c = _norm_inputs(gen, B, S, 1536, torch.bfloat16, torch.bfloat16, False, k6, False)
+                    fwd, bwd = _norm_calls(N, c, eps, torch.bfloat16, False, False, k6,
+                                           K6_MAIN_NEEDS if k6 else K5_MAIN_NEEDS)
+                    row.append(f"{tag} fwd {_graph_ms(fwd):.4f} bwd {_graph_ms(bwd):.4f}")
+                    del c
+                _, warps, image_rows, _ = N._launch_config("rgm", 16, 1024, 1536)
+                log(f"[norms] sweep {warps} warps a 1536-wide row, {programs} programs "
+                    f"({image_rows} / {N._launch_config('rgm', 16, 333, 1536)[2]} rows): {' | '.join(row)} ms")
+        N._CONFIG.update(config)
+    log(f"[norms] card after: {gpu_state()}")
     return 0
 
 
@@ -1263,6 +1685,9 @@ def _profile(what: str, fn, trace: str) -> dict:
     os.remove(path)
     for name, ms in by_op.most_common(10):
         log(f"[profile]   by op {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% {name}")
+    for name in ("backward _LnMulAddBackward", "backward _ResidualGateModulateBackward"):  # K5/K6's backwards
+        if name in by_op:
+            log(f"[profile]   {name}: {by_op[name]:.3f} ms of device time ({100 * by_op[name] / busy_ms:.1f}%)")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
 
 
@@ -1270,8 +1695,6 @@ def _device_ms_by_op(trace_path: str):
     """Device time of a torch.profiler chrome trace by what launched it: in
     the backward the outermost autograd node (a Function's own backward
     includes the VJPs it runs inside), in the forward the outermost op."""
-    import collections
-
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     ops = sorted((e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"),
@@ -1320,12 +1743,15 @@ def _swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def _lora_grad_check(what: str, model, lora, forward, x, gen):
+def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool = False):
     """LoRA gradients of the summed Flow-SDE log-prob of one transition
-    (drawn once, near the step's mean) through the kernels, against the same
-    gradient through the plain path (attention backend ``native``, the norm
-    wrappers swapped for their plain versions), and a run with K2a's dq
-    zeroed that must miss the bar. ``forward(params)`` is the velocity of
+    (drawn once, near the step's mean) through the kernels (the K5/K6
+    backward kernels included), against the same gradient through the plain
+    path (attention backend ``native``, the norm wrappers swapped for their
+    plain versions under autograd), and a run with K2a's dq zeroed that must
+    miss the bar; with ``k5_control`` also a run whose K5 backward drops its
+    dmul term (the AdaLN scale's gradient, which reaches the LoRA on the
+    AdaLN linears), that must miss it too. ``forward(params)`` is the velocity of
     ``model`` on the LoRA-merged weights ``params`` at latents ``x``. The
     bar: both paths run the same math in bf16 but round in other places
     (the kernels' folded softmax scale and bf16 p, the fp32 norms' summation
@@ -1370,26 +1796,39 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen):
             N, ln_mul_add=lambda x, m, a, eps, dt, fold, rms=False: N._native_ln_mul_add(x, m, a, eps, dt, fold, rms),
             residual_gate_modulate_rows=N._native_residual_gate_modulate))
         plain = lora_grads()
-    with _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q)):
-        no_dq = lora_grads()
-    torch.cuda.synchronize()
+    k5_backward = N.ln_mul_add_backward
+
+    def k5_without_dmul(*args, **kwargs):
+        dx, dmul, dadd = k5_backward(*args, **kwargs)
+        return dx, None if dmul is None else torch.zeros_like(dmul), dadd
+
+    k5_without_dmul.launches = 0  # the kernel counts its launch on what stands in its name
+
+    controls = {"K2a's dq zeroed": lambda: _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q))}
+    if k5_control:
+        controls["K5's backward without its dmul term"] = lambda: _swapped(N, ln_mul_add_backward=k5_without_dmul)
 
     def rel_errors(got):
         return [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() for g, r in zip(got, plain)]
 
-    errs, wrong = rel_errors(kern), rel_errors(no_dq)
+    errs = rel_errors(kern)
     worst = max(range(len(errs)), key=errs.__getitem__)
     bar = 3e-2
     log(f"[grad] {what}: {len(leaves)} LoRA leaves, kernel-path grad in {secs:.2f} s, launches {counts}")
     log(f"[grad] kernel path vs plain path, per-leaf max|d|/max|ref|: worst {errs[worst]:.3e} ({names[worst]}), "
         f"median {statistics.median(errs):.3e} (bar {bar:.1e}) {'ok' if errs[worst] <= bar else 'FAILED'}")
-    caught = max(wrong) > bar
-    log(f"[grad] negative control, K2a's dq zeroed: worst leaf {max(wrong):.3e} (bar {bar:.1e}) "
-        f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
     if errs[worst] > bar:
         fail(f"{what}: LoRA gradients through the kernels disagree with the plain path: {names[worst]} {errs[worst]}")
-    if not caught:
-        fail(f"{what}: the [grad] check cannot tell a backward without dq from the right one")
+    for name, swap in controls.items():
+        with swap():
+            grads = lora_grads()
+        off = rel_errors(grads)
+        caught = max(off) > bar
+        log(f"[grad] negative control, {name}: worst leaf {max(off):.3e} "
+            f"({names[max(range(len(off)), key=off.__getitem__)]}; bar {bar:.1e}) "
+            f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
+        if not caught:
+            fail(f"{what}: the [grad] check cannot tell the right backward from one with {name}")
     return names, kern, plain, counts
 
 
@@ -1427,7 +1866,7 @@ def phase_grad() -> None:
     t = torch.full((B,), 750.0, device=dev)
     names, kern, plain, counts = _lora_grad_check(
         f"SD3.5-M width, depth 2 (dual block 0), B={B}, S=1357", model, lora,
-        lambda params: functional_call(model, params, (x.bfloat16(), t, ctx, pooled)), x, gen)
+        lambda params: functional_call(model, params, (x.bfloat16(), t, ctx, pooled)), x, gen, k5_control=True)
     watched = ("attn.to_q", "attn.to_k", "attn.to_v", "attn.add_q_proj", "attn.add_k_proj", "attn.add_v_proj",
                "attn2.to_q", "attn2.to_k", "attn2.to_v", "norm1.linear", "norm1_context.linear")
     # the last block is context-pre-only: its context queries feed no output,
@@ -1564,8 +2003,10 @@ def phase_train() -> dict:
         f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.1f} M trainable, preprocess "
         f"included) {load_s:.1f} s; remat {trainer.adapter.component_configs['transformer'].remat}; "
         f"gradient_accumulation_steps {ta.gradient_accumulation_steps}")
-    # a backward per attention: 24 joint + 13 dual self-attentions
-    counts = _train_epochs(trainer, "train", lambda steps: {"flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps})
+    # a backward per attention: 24 joint + 13 dual self-attentions; the norms as SD35_NORMS_A_STEP
+    counts = _train_epochs(trainer, "train", lambda steps: {
+        "flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps,
+        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}})
     if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the SD3.5 GRPO epochs: {counts}")
     _profile_grad_step(trainer, "one grad step (forward, backward, AdamW)", "grad_step_trace.json")
@@ -1609,7 +2050,8 @@ def phase_grad_wan() -> None:
     log(f"[grad] Wan: non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves")
     per_forward = 2 * cfg.num_layers
     want = {"flash_fwd": per_forward, "flash_bwd_dq": per_forward, "flash_bwd_dkv": per_forward}
-    if dead or any(counts[k] != n for k, n in want.items()) or counts["ln_mul_add"] <= 0:
+    if dead or any(counts[k] != n for k, n in want.items()) or min(counts["ln_mul_add"],
+                                                                   counts["ln_mul_add_backward"]) <= 0:
         fail(f"Wan [grad]: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
     del model, lora, kern
     torch.cuda.empty_cache()
@@ -1651,11 +2093,15 @@ def phase_wan_train() -> dict:
         f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.2f} M trainable, preprocess "
         f"included) {load_s:.1f} s; remat {tcfg.remat}; gradient_accumulation_steps "
         f"{ta.gradient_accumulation_steps}; EMA {ta.ema_decay} every {ta.ema_update_interval}")
-    # K3 launches of one DiT forward, K2a/K2b of one backward: self + cross per block
+    # K3 launches of one DiT forward, K2a/K2b of one backward: self + cross per
+    # block; K5: 3 a block and the head, each with a backward but block 0's
+    # first norm, whose inputs (the patch embedding, the AdaLN vectors) are frozen
     per_forward = 2 * tcfg.num_layers
+    runs = 2 if tcfg.remat else 1  # remat runs each forward again
     counts = _train_epochs(trainer, "wan-train", lambda steps: {
         "flash_bwd_dq": per_forward * steps, "flash_bwd_dkv": per_forward * steps,
-        "flash_fwd": per_forward * steps * (2 if tcfg.remat else 1)})  # remat runs each forward again
+        "flash_fwd": per_forward * steps * runs, "ln_mul_add": (3 * tcfg.num_layers + 1) * steps * runs,
+        "ln_mul_add_backward": 3 * tcfg.num_layers * steps})
 
     # the evaluation that eval_freq 2 runs before epoch 2: UniPC, 28 steps, EMA weights
     before = ops.launch_counts()
@@ -1688,6 +2134,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--k2-d128":
         return k2_d128_only(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--norms":
+        return norms_only(sys.argv[2], sys.argv[3:] == ["--sweep"])
     try:
         import flow_factory_tpu_torch  # noqa: F401
     except ImportError as e:

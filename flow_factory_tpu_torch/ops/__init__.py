@@ -16,7 +16,9 @@ from .norms import (
     adaln_modulate,
     fused_layernorm,
     ln_mul_add,
+    ln_mul_add_backward,
     residual_gate_modulate,
+    residual_gate_modulate_backward,
     residual_gate_modulate_rows,
     rms_modulate,
 )
@@ -29,6 +31,8 @@ KERNEL_WRAPPERS = {
     "flash_bwd_dkv": flash_bwd_dkv,
     "ln_mul_add": ln_mul_add,
     "residual_gate_modulate": residual_gate_modulate_rows,
+    "ln_mul_add_backward": ln_mul_add_backward,
+    "residual_gate_modulate_backward": residual_gate_modulate_backward,
 }
 
 

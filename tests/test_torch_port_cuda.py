@@ -603,3 +603,184 @@ def test_a_batch_slice_gives_the_bits_of_the_whole_batch(gen, kernel):
     out, lse = run(q, k, v)
     part, part_lse = run(q[:8], k[:8], v[:8])
     assert torch.equal(part, out[:8]) and torch.equal(part_lse, lse[:8])
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 backward kernels, and the forwards' batch slices
+# ---------------------------------------------------------------------------
+
+_DT = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
+
+
+def _norm_case(gen, B, S, D, dtype, out_dtype, per_token=False, k6=False):
+    shape = (B, S if per_token else 1, D)
+    case = dict(x=_randn(gen, B, S, D, dtype=dtype), mul=1.0 + 0.1 * _randn(gen, *shape),
+                add=0.1 * _randn(gen, *shape), g=_randn(gen, B, S, D, dtype=out_dtype))
+    if k6:
+        case.update(branch=_randn(gen, B, S, D, dtype=dtype), gate=_randn(gen, B, D),
+                    g_new=_randn(gen, B, S, D, dtype=dtype))
+    return case
+
+
+def _norm_bar(ref, rel=1e-5):
+    """chip_smoke.py's bars against the plain backward: one bf16 ulp of
+    max|ref| for bf16 (both round an fp32 value once, from sums in another
+    order), else ``rel`` of it (fp16's 2^-11 ulp: 1e-3)."""
+    mag = ref.float().abs().max().item()
+    if ref.dtype == torch.bfloat16:
+        return _bf16_ulp(mag)
+    return (1e-3 if ref.dtype == torch.float16 else rel) * max(mag, 1e-30)
+
+
+def _k5_backward(c, rms, needs):
+    return N.ln_mul_add_backward(c["x"], c["mul"], c["g"], 1e-6, rms, needs)
+
+
+def _k5_plain_backward(c, rms, needs):
+    return N._native_ln_mul_add_backward(c["x"], c["mul"], c["g"], 1e-6, rms, needs)
+
+
+def _k6_backward(c, needs, plain=False):
+    fn = N._native_residual_gate_modulate_backward if plain else N.residual_gate_modulate_backward
+    return fn(c["x"], c["branch"], c["gate"], c["mul"], c["g_new"], c["g"], 1e-6, needs)
+
+
+def _assert_grads_close(got, ref, rounded=()):
+    """Each gradient within its bar of the plain backward's, None where the
+    plain backward has None; ``rounded``: indices of fp32 gradients rounded to
+    another dtype (K6's dgate), held to that dtype's bar."""
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert (a is None) == (b is None), i
+        if a is None:
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        bar = _norm_bar(b.to(rounded[i]) if i in rounded and rounded[i] is not None else b)
+        assert (a.float() - b.float()).abs().max().item() <= bar, i
+
+
+@pytest.mark.parametrize("x_dt,out_dt,D,fold,rms,per_token", [
+    ("bf16", "bf16", 1536, False, False, False),  # the SD3.5-M / Wan AdaLN norms
+    ("bf16", "fp32", 1536, False, False, False),  # the Wan head
+    ("bf16", "bf16", 1536, True, False, False),   # Wan's affine norm2
+    ("fp32", "fp32", 200, True, False, False),    # ragged D, fold
+    ("fp32", "fp32", 200, False, True, True),     # RMS, per-token modulation
+    ("bf16", "bf16", 1536, False, False, True),   # per-token modulation
+    ("fp16", "fp16", 640, False, True, False),
+    ("fp32", "bf16", 96, False, False, False),
+])
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False), (False, True, True),
+                                   (False, True, False)])
+def test_ln_mul_add_backward_matches_plain(gen, x_dt, out_dt, D, fold, rms, per_token, needs):
+    """K5's backward kernel against the closed-form plain backward, for each
+    variant the forward takes and each subset of gradients (fold and no-fold
+    share the backward); one launch counted a call."""
+    c = _norm_case(gen, 3, 77, D, _DT[x_dt], _DT[out_dt], per_token)
+    before = N.ln_mul_add_backward.launches
+    got = _k5_backward(c, rms, needs)
+    assert N.ln_mul_add_backward.launches == before + 1
+    _assert_grads_close(got, _k5_plain_backward(c, rms, needs))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "fp16"])
+@pytest.mark.parametrize("needs", [(True,) * 5, (True, True, False, False, False),
+                                   (False, False, True, True, True), (False, True, False, False, True)])
+def test_residual_gate_modulate_backward_matches_plain(gen, dtype, needs):
+    """K6's backward kernel against the closed-form plain backward: dx,
+    dbranch (x's dtype), dgate (fp32 rounded once to x's dtype), dmul, dadd;
+    one launch counted a call."""
+    c = _norm_case(gen, 3, 77, 1536, _DT[dtype], _DT[dtype], k6=True)
+    before = N.residual_gate_modulate_backward.launches
+    got = _k6_backward(c, needs)
+    assert N.residual_gate_modulate_backward.launches == before + 1
+    _assert_grads_close(got, _k6_backward(c, needs, plain=True), rounded={2: _DT[dtype]})
+
+
+@pytest.mark.parametrize("which", ["K5", "K6"])
+def test_norm_backward_bars_reject_wrong_backwards(gen, which):
+    """Negative controls: a backward without the x_hat * mean(g_hat * x_hat)
+    term, and one with dmul zeroed, miss the bars the kernel meets."""
+    if which == "K5":
+        c = _norm_case(gen, 2, 333, 1536, torch.bfloat16, torch.bfloat16)
+        got = _k5_backward(c, False, (True,) * 3)
+        x32, gm = c["x"].float(), c["g"].float()
+        base, dmul_at = 0.0, 1
+    else:
+        c = _norm_case(gen, 2, 333, 1536, torch.bfloat16, torch.bfloat16, k6=True)
+        got = _k6_backward(c, (True,) * 5)
+        x32 = (c["x"] + c["gate"][:, None, :].to(torch.bfloat16) * c["branch"]).float()
+        gm, base, dmul_at = c["g"].float(), c["g_new"].float(), 3
+    r, xhat, raw = N._ln_stats(x32, 1e-6, False)
+    wrong = (base + N._ln_dx(gm, c["mul"], r, xhat, torch.full_like(raw, -1.0))).to(torch.bfloat16)
+    assert (got[0].float() - wrong.float()).abs().max().item() > _norm_bar(wrong)
+    assert got[dmul_at].abs().max().item() > _norm_bar(got[dmul_at])
+
+
+def test_norm_backwards_are_deterministic(gen):
+    """No float atomics: two launches give the same bits, partial sums and
+    all."""
+    c = _norm_case(gen, 16, 333, 1536, torch.bfloat16, torch.bfloat16, k6=True)
+    for run in (lambda: _k5_backward(c, False, (True,) * 3), lambda: _k6_backward(c, (True,) * 5)):
+        a, b = run(), run()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+_NORM_EDGES = [(1, 1), (1, 2), (3, 31), (3, 32), (3, 33), (16, 63), (16, 64), (16, 65), (16, 333), (2, 1025)]
+
+
+@pytest.mark.parametrize("B,S", _NORM_EDGES)
+def test_norm_kernels_at_the_chunk_edges(gen, B, S):
+    """Row counts at and around the edges of the chunks a program takes
+    (``_launch_config``: one row, a ragged last chunk, one chunk a sample): both
+    forwards and both backwards against their plain versions."""
+    c = _norm_case(gen, B, S, 1536, torch.bfloat16, torch.bfloat16, k6=True)
+    out = N.ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, fold=False)
+    ref = N._native_ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, False)
+    assert (out.float() - ref.float()).abs().max().item() <= _norm_bar(ref)
+    xn, xm = N.residual_gate_modulate_rows(c["x"], c["branch"], c["gate"], c["mul"], c["add"], 1e-6,
+                                           torch.bfloat16)
+    rn, rm = N._native_residual_gate_modulate(c["x"], c["branch"], c["gate"], c["mul"], c["add"], 1e-6,
+                                              torch.bfloat16)
+    assert torch.equal(xn, rn) and (xm.float() - rm.float()).abs().max().item() <= _norm_bar(rm)
+    _assert_grads_close(_k5_backward(c, False, (True,) * 3), _k5_plain_backward(c, False, (True,) * 3))
+    _assert_grads_close(_k6_backward(c, (True,) * 5), _k6_backward(c, (True,) * 5, plain=True),
+                        rounded={2: torch.bfloat16})
+
+
+def test_norm_backward_on_constant_and_near_constant_rows(gen):
+    """fp32 rows at D=256: constant ones (0.75: sums exact in any order, the
+    fast variance exactly 0, x_hat 0) and near-constant ones (2^-6 plus 1e-8
+    noise: the fast variance rounds to about +-3e-11, at or below 0 on many
+    rows, so r = rsqrt(eps) to 1.5e-5 whatever the sum order): finite, and
+    within 1e-4 of the plain backward's max (those rows hold max|dx|)."""
+    c = _norm_case(gen, 4, 64, 256, torch.float32, torch.float32, k6=True)
+    c["x"][:, 0::4] = 0.75
+    c["x"][:, 1::4] = 2.0 ** -6 + 1e-8 * _randn(gen, 4, 16, 256)
+    c["branch"][:, 0::4] = c["branch"][:, 1::4] = 0.0
+    x32 = c["x"].float()
+    raw = (x32 * x32).mean(-1) - x32.mean(-1) ** 2
+    assert (raw[:, 1::4] <= 0).any()
+    for got, ref, rounded in ((_k5_backward(c, False, (True,) * 3), _k5_plain_backward(c, False, (True,) * 3), {}),
+                              (_k6_backward(c, (True,) * 5), _k6_backward(c, (True,) * 5, plain=True), {})):
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("which", ["K5", "K6"])
+def test_norm_forward_batch_slice_gives_the_bits_of_the_whole_batch(gen, which):
+    """A row's reduction order follows from D alone, not from the rows a
+    program takes (which follow from B * S): the first 4 of 16 batch rows
+    alone give the bits of the whole batch's (rollout under CFG against
+    replay and training of a part of the batch)."""
+    c = _norm_case(gen, 16, 333, 1536, torch.bfloat16, torch.bfloat16, k6=True)
+    rows = lambda kernel, B: N._launch_config(kernel, B, 333, 1536)[2]
+    assert rows("ln_mul_add", 16) != rows("ln_mul_add", 4) and rows("rgm", 16) != rows("rgm", 4)
+    if which == "K5":
+        run = lambda n: N.ln_mul_add(c["x"][:n], c["mul"][:n], c["add"][:n], 1e-6, torch.bfloat16, fold=False)
+        assert torch.equal(run(4), run(16)[:4])
+    else:
+        run = lambda n: N.residual_gate_modulate_rows(c["x"][:n], c["branch"][:n], c["gate"][:n], c["mul"][:n],
+                                                      c["add"][:n], 1e-6, torch.bfloat16)
+        (pn, pm), (wn, wm) = run(4), run(16)
+        assert torch.equal(pn, wn[:4]) and torch.equal(pm, wm[:4])

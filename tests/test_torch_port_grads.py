@@ -131,28 +131,219 @@ def _norm_case(which, seed=0):
     return inputs, cots, jplain, tplain
 
 
+_LN_FLAGS = {"ln": (False, False), "ln-fold": (True, False), "rms": (False, True)}
+
+
+def _plain_backward(which, t_in, t_cot, needs=None):
+    """The closed-form plain backward of a ``_norm_case``, every gradient
+    asked for unless ``needs`` says otherwise."""
+    needs = needs or (True,) * len(t_in)
+    if which == "rgm":
+        x, br, gate, mul, add = t_in
+        return tnorms.residual_gate_modulate_backward(x, br, gate, mul, *t_cot, 1e-6, needs)
+    x, mul, add = t_in
+    return tnorms.ln_mul_add_backward(x, mul, t_cot, 1e-6, _LN_FLAGS[which][1], needs)
+
+
+def _wrapper(which, leaves, out_dtype=torch.float32):
+    if which == "rgm":
+        return tnorms.residual_gate_modulate_rows(*leaves, 1e-6, out_dtype)
+    fold, rms = _LN_FLAGS[which]
+    return tnorms.ln_mul_add(*leaves, 1e-6, out_dtype, fold=fold, rms=rms)
+
+
 @pytest.mark.parametrize("which", ["ln", "ln-fold", "rms", "rgm"])
 def test_norm_gradients_match_jax(which):
-    """K5/K6 backward: the VJP of the plain composition (JAX
-    ``_fused_ln_mul_add_bwd`` / ``_rgm_fused_bwd``), both as autograd through
-    the CPU wrapper and as ``_recompute_vjp`` (the CUDA Functions' backward),
-    against jax.vjp of the JAX plain composition: fp32, 1e-6 relative to each
-    gradient's max."""
+    """K5/K6 backward: the closed-form plain backward (what the CUDA kernels
+    are held to, JAX ``_fused_ln_mul_add_bwd`` / ``_rgm_fused_bwd``) and
+    autograd through the CPU wrapper (the same Function, plain halves),
+    against jax.vjp of the JAX plain composition: fp32, 1e-6 relative to
+    each gradient's max."""
     inputs, cots, jplain, tplain = _norm_case(which)
     _, vjp = jax.vjp(jplain, *map(jnp.asarray, inputs))
     theirs = [np.asarray(g) for g in vjp(jax.tree.map(jnp.asarray, cots))]
 
     t_in = [torch.from_numpy(a) for a in inputs]
     t_cot = tuple(map(torch.from_numpy, cots)) if isinstance(cots, tuple) else torch.from_numpy(cots)
-    recomputed = tnorms._recompute_vjp(tplain, t_in, (True,) * len(t_in), t_cot)
+    closed_form = _plain_backward(which, t_in, t_cot)
     leaves = [t.clone().requires_grad_() for t in t_in]
-    if which == "rgm":
-        outs = tnorms.residual_gate_modulate_rows(*leaves, 1e-6, torch.float32)
-        autograd = torch.autograd.grad(outs, leaves, t_cot)
-    else:
-        fold, rms = {"ln": (False, False), "ln-fold": (True, False), "rms": (False, True)}[which]
-        out = tnorms.ln_mul_add(*leaves, 1e-6, torch.float32, fold=fold, rms=rms)
-        autograd = torch.autograd.grad(out, leaves, t_cot)
-    for ours in (recomputed, autograd):
+    autograd = torch.autograd.grad(_wrapper(which, leaves), leaves, t_cot)
+    for ours in (closed_form, autograd):
         for a, b in zip(ours, theirs):
             np.testing.assert_allclose(a.numpy(), b, atol=1e-6 * max(1.0, np.abs(b).max()), rtol=0)
+
+
+@pytest.mark.parametrize("which", ["ln", "rms"])
+def test_norm_gradients_match_jax_with_a_per_token_modulation(which):
+    """A (B, S, D) modulation: dmul and dadd are the un-summed products, one
+    row each; fp32, 1e-6 relative to each gradient's max."""
+    rng = np.random.default_rng(5)
+    B, S, D = 2, 17, 80
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    mul = (1.0 + 0.1 * rng.standard_normal((B, S, D))).astype(np.float32)
+    add = (0.1 * rng.standard_normal((B, S, D))).astype(np.float32)
+    g = rng.standard_normal((B, S, D)).astype(np.float32)
+    rms = which == "rms"
+    _, vjp = jax.vjp(lambda *a: jnorms._native_ln_mul_add(*a, 1e-6, jnp.float32, False, rms),
+                     *map(jnp.asarray, (x, mul, add)))
+    theirs = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    ours = tnorms.ln_mul_add_backward(*map(torch.from_numpy, (x, mul)), torch.from_numpy(g), 1e-6, rms,
+                                      (True,) * 3)
+    for a, b in zip(ours, theirs):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-6 * np.abs(b).max(), rtol=0)
+
+
+def test_norm_gradients_match_jax_for_the_wan_head():
+    """The Wan head: x bf16, output and cotangent fp32. dx is computed in fp32
+    and rounded once to bf16 in both packages, so it differs only where the
+    fp32 stats' summation order moves a value across a rounding boundary: the
+    bar is 1 bf16 ulp of max|dx|. dmul/dadd stay fp32: 1e-6 relative."""
+    rng = np.random.default_rng(6)
+    B, S, D = 2, 33, 96
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    mul = (1.0 + 0.1 * rng.standard_normal((B, 1, D))).astype(np.float32)
+    add = (0.1 * rng.standard_normal((B, 1, D))).astype(np.float32)
+    g = rng.standard_normal((B, S, D)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    _, vjp = jax.vjp(lambda *a: jnorms._native_ln_mul_add(*a, 1e-6, jnp.float32, False),
+                     jnp.asarray(x, jnp.bfloat16), jnp.asarray(mul), jnp.asarray(add))
+    theirs = [np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(g))]
+    closed_form = tnorms.ln_mul_add_backward(xb, torch.from_numpy(mul), torch.from_numpy(g), 1e-6, False,
+                                             (True,) * 3)
+    leaves = [xb.clone().requires_grad_(), torch.from_numpy(mul).requires_grad_(),
+              torch.from_numpy(add).requires_grad_()]
+    autograd = torch.autograd.grad(tnorms.ln_mul_add(*leaves, 1e-6, torch.float32, fold=False), leaves,
+                                   torch.from_numpy(g))
+    for ours in (closed_form, autograd):
+        assert ours[0].dtype == torch.bfloat16 and ours[1].dtype == ours[2].dtype == torch.float32
+        np.testing.assert_allclose(ours[0].float().numpy(), theirs[0], rtol=0,
+                                   atol=_bf16_ulp(np.abs(theirs[0]).max()))
+        for a, b in zip(ours[1:], theirs[1:]):
+            np.testing.assert_allclose(a.numpy(), b, atol=1e-6 * np.abs(b).max(), rtol=0)
+
+
+@pytest.mark.parametrize("which", ["ln", "rms", "rgm"])
+def test_norm_backward_returns_none_where_no_gradient_is_needed(which):
+    """Each subset of ``needs``: None exactly where unset, and every gradient
+    that is set equal to the one computed with all set."""
+    inputs, cots, _, _ = _norm_case(which, seed=3)
+    t_in = [torch.from_numpy(a) for a in inputs]
+    t_cot = tuple(map(torch.from_numpy, cots)) if isinstance(cots, tuple) else torch.from_numpy(cots)
+    full = _plain_backward(which, t_in, t_cot)
+    for mask in range(2 ** len(t_in)):
+        needs = tuple(bool(mask >> i & 1) for i in range(len(t_in)))
+        got = _plain_backward(which, t_in, t_cot, needs)
+        assert len(got) == len(t_in)
+        for need, a, b in zip(needs, got, full):
+            assert (a is None) == (not need)
+            if need:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["ln", "rgm"])
+def test_norm_gradients_match_jax_on_a_constant_row(which):
+    """A constant row (x - mean exactly 0, fast variance exactly 0 in either
+    package): r = rsqrt(eps) and dx = r * (g_hat - mean(g_hat)) where x's
+    gradient is asked; the clamp's tie (PyTorch passes the gradient at 0,
+    JAX halves it) meets a zero x_hat, so both packages agree: fp32, 1e-6
+    relative."""
+    inputs, cots, jplain, _ = _norm_case(which, seed=4)
+    inputs = list(inputs)
+    inputs[0] = inputs[0].copy()
+    inputs[0][0, 5] = 0.75
+    inputs[0][1, 0] = -2.5
+    if which == "rgm":  # branch 0 on those rows: x_new is x there
+        inputs[1] = inputs[1].copy()
+        inputs[1][0, 5] = inputs[1][1, 0] = 0.0
+    _, vjp = jax.vjp(jplain, *map(jnp.asarray, inputs))
+    theirs = [np.asarray(g) for g in vjp(jax.tree.map(jnp.asarray, cots))]
+    t_cot = tuple(map(torch.from_numpy, cots)) if isinstance(cots, tuple) else torch.from_numpy(cots)
+    ours = _plain_backward(which, [torch.from_numpy(a) for a in inputs], t_cot)
+    for a, b in zip(ours, theirs):
+        assert np.isfinite(a.numpy()).all()
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-6 * max(1.0, np.abs(b).max()), rtol=0)
+
+
+def _clamped_rows():
+    """fp32 rows of 64 near-constant values around 3.0 whose fast variance
+    E[x^2] - E[x]^2, as torch computes it on the CPU, rounds to exactly 0 and
+    to below 0 although the values differ: the clamp decides there, and
+    x_hat = (x - mean) * rsqrt(eps) is far from 0."""
+    rng = np.random.default_rng(7)
+    rows = {}
+    while len(rows) < 2:
+        row = (3.0 + 2e-4 * rng.standard_normal(64)).astype(np.float32)
+        t = torch.from_numpy(row)
+        raw = (torch.mean(t * t) - torch.mean(t) * torch.mean(t)).item()
+        if raw == 0.0:
+            rows.setdefault("zero", row)
+        elif raw < 0.0:
+            rows.setdefault("negative", row)
+    return rows
+
+
+def test_norm_plain_backward_follows_the_clamp_on_rows_whose_variance_rounds_away():
+    """Where the fast variance rounds to 0 (the clamp passes the gradient, as
+    torch.clamp does at equality) or below 0 (it stops it), the closed-form
+    plain backward equals autograd through the plain forward: the same torch
+    ops give both the same stats, and the x_hat term (x_hat ~ 1e-1 here)
+    moves dx far beyond the bar where it would be taken wrongly: fp32, 1e-5
+    relative to max|dx| (the two round differently inside the terms)."""
+    rows = _clamped_rows()
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(np.stack([rows["zero"], rows["negative"]])[:, None, :])  # (2, 1, 64)
+    mul = torch.from_numpy((1.0 + 0.1 * rng.standard_normal((2, 1, 64))).astype(np.float32))
+    add = torch.zeros(2, 1, 64)
+    g = torch.from_numpy(rng.standard_normal((2, 1, 64)).astype(np.float32))
+    leaves = [x.clone().requires_grad_(), mul.clone().requires_grad_(), add.clone().requires_grad_()]
+    want = torch.autograd.grad(tnorms._native_ln_mul_add(*leaves, 1e-6, torch.float32, False), leaves, g)
+    got = tnorms.ln_mul_add_backward(x, mul, g, 1e-6, False, (True,) * 3)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    # the x_hat term is what the clamp decides on: dropping it on the row at 0,
+    # or keeping it on the row below 0, misses the bar
+    r, xhat, raw = tnorms._ln_stats(x, 1e-6, False)
+    wrong = tnorms._ln_dx(g, mul, r, xhat, torch.where(raw >= 0, -1.0, 1.0))
+    assert xhat.abs().max().item() > 1e-2
+    for row in range(2):
+        assert (wrong[row] - want[0][row]).abs().max().item() > 1e-3 * want[0][row].abs().max().item()
+
+
+@pytest.mark.parametrize("which", ["adaln", "fold", "rgm"])
+def test_cpu_wrappers_and_backward_functions_give_gradients_in_the_shapes_autograd_expects(which):
+    """The public CPU wrappers run the K5/K6 Functions (a ``_LnMulAddBackward``
+    or ``_ResidualGateModulateBackward`` node) and their gradients come back in
+    each input's shape and dtype (bf16 activations, fp32 modulation, a (D,)
+    affine weight, (B, D) AdaLN chunks); the backward functions themselves
+    return (B, 1, D) modulation gradients."""
+    rng = np.random.default_rng(9)
+    B, S, D = 2, 9, 48
+    t = lambda *shape, dtype=torch.float32: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dtype).requires_grad_()
+    x = t(B, S, D, dtype=torch.bfloat16)
+    if which == "rgm":
+        leaves = [x, t(B, S, D, dtype=torch.bfloat16), t(B, D), t(B, D), t(B, D)]
+        outs = tnorms.residual_gate_modulate(*leaves)
+        assert type(outs[0].grad_fn).__name__ == "_ResidualGateModulateBackward"
+        loss = sum((o.float() * (i + 1)).sum() for i, o in enumerate(outs))
+    else:
+        leaves = [x, t(D), t(D)] if which == "fold" else [x, t(B, D, dtype=torch.bfloat16), t(B, D)]
+        fn = tnorms.fused_layernorm if which == "fold" else tnorms.adaln_modulate
+        out = fn(*leaves, out_dtype=torch.float32)
+        assert type(out.grad_fn).__name__ == "_LnMulAddBackward"
+        loss = (out * torch.linspace(-1, 1, D)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    for leaf, grad in zip(leaves, grads):
+        assert grad.shape == leaf.shape and grad.dtype == leaf.dtype and torch.isfinite(grad.float()).all()
+    xs = x.detach()
+    mul = torch.ones(B, 1, D)
+    if which == "rgm":
+        got = tnorms.residual_gate_modulate_backward(xs, xs, torch.ones(B, D), mul, xs, xs.float(), 1e-6,
+                                                     (True,) * 5)
+        want = [(B, S, D), (B, S, D), (B, D), (B, 1, D), (B, 1, D)]
+    else:
+        got = tnorms.ln_mul_add_backward(xs, mul, xs.float(), 1e-6, False, (True,) * 3)
+        want = [(B, S, D), (B, 1, D), (B, 1, D)]
+    assert [tuple(g.shape) for g in got] == want
