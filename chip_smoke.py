@@ -52,6 +52,16 @@ printing one line and exiting non-zero on failure:
    that epoch 0 moved), the gradient norm is finite and non-zero, the LoRA
    moves, and every kernel launches on the path; then a torch.profiler
    breakdown of one grad step (forward, backward, optimizer);
+5b. resume: the run plumbing on the SD3.5-M GRPO path at full width. The
+   training config of 5 goes to a YAML file for ``python -m
+   flow_factory_tpu_torch.cli`` in a subprocess on the card, which takes
+   SIGTERM once epoch 0's row is in ``metrics.jsonl`` and must write a full
+   state ``preempt/`` checkpoint (recorded epoch 0) and exit 0; then
+   ``load_trainer`` with ``model.resume_path`` on it restores the trainable
+   tree, the EMA and every AdamW tensor bit-equal to the files and runs
+   epoch 1, whose rewards, advantages, losses, ratios (exactly 1.0) and LoRA
+   after the update must equal 5's uninterrupted epoch 1 bit for bit; save
+   and load seconds and bytes;
 6. the Wan counterpart of 4 (``[grad]``): LoRA gradients through K3, K2a/K2b
    at head dim 128 and K5 at Wan2.1-1.3B width, depth 2, B=16, against the
    plain path, with the dq-zeroed negative control;
@@ -179,6 +189,11 @@ def phase_environment():
     log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | nvcc build of {sources} "
         f"{build_s:.2f} s")
+    import importlib.util
+
+    present = {name: importlib.util.find_spec(name) is not None for name in ("yaml", "PIL", "imageio")}
+    log(f"[env] optional packages importable: {present} (the CLI reads its config with PyYAML; "
+        f"media logging needs PIL)")
     _log_ptxas_figures(cuda_build)
     return card
 
@@ -1393,6 +1408,10 @@ def phase_kernels_k3(results: dict, randn) -> None:
 def _config(**overrides):
     from flow_factory_tpu_torch.hparams import Arguments
 
+    return Arguments.from_dict(_config_dict(**overrides))
+
+
+def _config_dict(**overrides) -> dict:
     # the SD3.5-M GRPO workload (tests/fixtures/sd35_grpo.yaml) cut to
     # 2 prompts x group 4 and random weights
     cfg = {
@@ -1410,7 +1429,7 @@ def _config(**overrides):
     }
     for section, values in overrides.items():
         cfg[section] = {**cfg[section], **values}
-    return Arguments.from_dict(cfg)
+    return cfg
 
 
 def phase_slice() -> None:
@@ -1893,14 +1912,14 @@ def _loss_value(info: dict, key: str, stat: str) -> float:
     return info.get(f"{key}_{stat}", info[key])
 
 
-def _train_epochs(trainer, tag: str, want_in_optimize) -> dict:
+def _train_epochs(trainer, tag: str, want_in_optimize, record=None) -> dict:
     """The epochs of ``trainer`` driven phase by phase, each timed: the
     replay ratio exactly 1.0 and clip_frac 0 on every grad step (epoch 1
     rolls out with the LoRA that epoch 0 moved), a finite non-zero grad
     norm, the LoRA B moved after the first update, one optimizer step an
     epoch, and the launches of each optimize phase equal to
-    ``want_in_optimize(grad steps)``; then a profile of one grad step.
-    Returns the launch counts of the epochs."""
+    ``want_in_optimize(grad steps)``. Returns the launch counts of the
+    epochs; ``record`` (a list) gets each epoch's :func:`_epoch_record`."""
     import numpy as np
     import torch
 
@@ -1947,6 +1966,8 @@ def _train_epochs(trainer, tag: str, want_in_optimize) -> dict:
         want = want_in_optimize(steps)
         if any(during[k] != n for k, n in want.items()):
             fail(f"[{tag}] epoch {epoch}: launches in optimize {during}, expected {want}")
+        if record is not None:
+            record.append(_epoch_record(trainer, samples, {**metrics, **info}))
         if epoch == 0:
             moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
             log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
@@ -1959,6 +1980,23 @@ def _train_epochs(trainer, tag: str, want_in_optimize) -> dict:
     if trainer.global_step != ta.max_epochs:
         fail(f"[{tag}] the optimizer did not step once per epoch: global step {trainer.global_step}")
     return counts
+
+
+def _epoch_record(trainer, samples, scalars: dict) -> dict:
+    """What an epoch leaves that a resumed run must reproduce bit for bit:
+    each sample's reward and advantage, the epoch's reward statistics and
+    grad-step metrics, and a digest of every trainable tensor after the
+    update (by its path)."""
+    import hashlib
+
+    leaves = {}
+    for comp, tree in sorted(trainer.adapter.trainable.items()):
+        for path in sorted(tree):
+            for k, t in sorted(tree[path].items()):
+                leaves[f"{comp}/{path}.{k}"] = hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+    return {"rewards": [float(s.extra_kwargs["reward"]) for s in samples],
+            "advantages": [float(s.extra_kwargs["advantage"]) for s in samples],
+            "scalars": {k: float(v) for k, v in scalars.items()}, "leaves": leaves}
 
 
 def _profile_grad_step(trainer, what: str, trace: str) -> None:
@@ -1974,15 +2012,10 @@ def _profile_grad_step(trainer, what: str, trace: str) -> None:
     _profile(what, grad_step, trace)
 
 
-def phase_train() -> dict:
-    """The GRPO training slice at full width through ``load_trainer``, two
-    epochs, each phase timed; then a profile of one grad step."""
-    import torch
-
-    from flow_factory_tpu_torch.trainers import load_trainer
-
+def _train_config_dict() -> dict:
+    """The config of the GRPO training slice (phases 5 and 5b)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = _config(
+    return _config_dict(
         data={"cache_dir": os.path.join(here, "build", "preprocess_cache"), "sampler_type": "group_contiguous"},
         model={"finetune_type": "lora", "lora_rank": 32, "lora_alpha": 64, "target_modules": "default"},
         train={"clip_range": 1e-4, "adv_clip_range": 5.0, "kl_beta": 0.0, "learning_rate": 3e-4,
@@ -1992,6 +2025,18 @@ def phase_train() -> dict:
         log={"logging_backend": "none", "save_freq": 0, "run_name": "chip_smoke_grpo",
              "save_dir": os.path.join(here, "chiprun_out", "train")},
     )
+
+
+def phase_train(record: list) -> dict:
+    """The GRPO training slice at full width through ``load_trainer``, two
+    epochs, each phase timed, each epoch's outcome appended to ``record``;
+    then a profile of one grad step."""
+    import torch
+
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    cfg = Arguments.from_dict(_train_config_dict())
     ta = cfg.training_args
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2006,12 +2051,206 @@ def phase_train() -> dict:
     # a backward per attention: 24 joint + 13 dual self-attentions; the norms as SD35_NORMS_A_STEP
     counts = _train_epochs(trainer, "train", lambda steps: {
         "flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps,
-        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}})
+        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}}, record)
     if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the SD3.5 GRPO epochs: {counts}")
     _profile_grad_step(trainer, "one grad step (forward, backward, AdamW)", "grad_step_trace.json")
     trainer.cleanup()
     return counts
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def _first_difference(got: dict, want: dict):
+    """The first key (in ``want``'s order) whose value differs, else None."""
+    return next((k for k in want if got.get(k) != want[k]), None)
+
+
+def _preempt_through_the_cli(cfg_path: str, save_dir: str, run: str, out_dir: str, card: str) -> str:
+    """``python -m flow_factory_tpu_torch.cli`` on the training config in a
+    subprocess, sent SIGTERM as soon as epoch 0's row is in its
+    ``metrics.jsonl`` (polled every 0.1 s): it must write ``preempt/`` and
+    exit 0. Returns the preempt directory."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    metrics = os.path.join(save_dir, run, "metrics.jsonl")
+    cmd = [sys.executable, "-m", "flow_factory_tpu_torch.cli", cfg_path, "--set", "log.save_freq=0",
+           "--set", f"log.run_name={run}", "--set", f"log.save_dir={save_dir}"]
+    log_path = os.path.join(out_dir, "cli.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            sent = None
+            while proc.poll() is None and time.perf_counter() - t0 < 600:
+                rows = []
+                if os.path.exists(metrics):
+                    with open(metrics) as f:
+                        rows = [json.loads(line) for line in f if line.strip()]
+                if any(r.get("step") == 0 and "media_tag" not in r for r in rows):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter() - t0
+                    break
+                time.sleep(0.1)
+            if sent is None:
+                fail(f"[resume] the CLI run ended (rc {proc.poll()}) or stalled before epoch 0's row was "
+                     f"written; log in {log_path}")
+            try:
+                rc = proc.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                fail("[resume] the CLI run did not exit within 300 s of SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(log_path).read()
+    pdir = os.path.join(save_dir, run, "preempt")
+    saved = re.search(r"Saved checkpoint to \S+ in ([0-9.]+) s", text)
+    log(f"[resume] CLI subprocess (fft-train-torch on the phase-5 config): SIGTERM sent {sent:.1f} s after "
+        f"launch, exit code {rc} after {time.perf_counter() - t0:.1f} s; preempt save "
+        f"{saved.group(1) if saved else 'not logged'} s in the subprocess | {card}")
+    if rc != 0 or not os.path.isdir(pdir):
+        fail(f"[resume] the preempted CLI run exited {rc} with preempt/ {'present' if os.path.isdir(pdir) else 'missing'}; "
+             f"log tail: {text[-2000:]}")
+    return pdir
+
+
+def phase_resume(record: list, card: str) -> None:
+    """The run plumbing on the SD3.5-M GRPO path: a SIGTERM preemption of
+    the CLI in a subprocess, then a resume through ``load_trainer`` whose
+    restored state equals the files bit for bit and whose epoch 1 equals
+    phase 5's uninterrupted epoch 1 bit for bit."""
+    import torch
+    import yaml
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.models.abc import BaseAdapter
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    save_dir = os.path.join(here, "build", "resume")  # ~1 GB of checkpoint: not brought back
+    out_dir = os.path.join(here, "chiprun_out", "resume")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_dict = _train_config_dict()
+    cfg_path = os.path.join(out_dir, "train_config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg_dict, f)
+    pdir = _preempt_through_the_cli(cfg_path, save_dir, "chip_smoke_preempt", out_dir, card)
+
+    lora_file = os.path.join(pdir, "lora_transformer.safetensors")
+    state_file = os.path.join(pdir, "train_state", BaseAdapter.TRAIN_STATE_FILE)
+    have = sorted(os.listdir(pdir))
+    if have != ["adapter_config.json", "lora_transformer.safetensors", "train_state"]:
+        fail(f"[resume] preempt/ holds {have}")
+    t0 = time.perf_counter()
+    state = torch.load(state_file, map_location="cpu", weights_only=True)
+    read_s = time.perf_counter() - t0
+    n_lora = sum(t.numel() for tree in state["trainable"].values() for ab in tree.values() for t in ab.values())
+    log(f"[resume] preempt/: {_dir_bytes(pdir) / 1e6:.1f} MB in all; lora_transformer.safetensors "
+        f"{os.path.getsize(lora_file) / 1e6:.1f} MB ({n_lora / 1e6:.1f} M fp32 LoRA parameters, the EMA's), "
+        f"train_state/ {_dir_bytes(os.path.join(pdir, 'train_state')) / 1e6:.1f} MB (trainable, EMA, AdamW, epoch, "
+        f"step; torch.load {read_s:.2f} s); recorded epoch {state['epoch']}, global step {state['global_step']}")
+    if state["epoch"] != 0 or state["global_step"] != 1:
+        fail(f"[resume] the preempt save records epoch {state['epoch']}, global step {state['global_step']}; "
+             f"expected epoch 0 (SIGTERM after epoch 0) and step 1")
+
+    cfg = Arguments.from_dict({**cfg_dict, "log": {**cfg_dict["log"], "save_dir": save_dir,
+                                                   "run_name": "chip_smoke_resumed"},
+                               "model": {**cfg_dict["model"], "resume_path": pdir}})
+    load = {}
+    original = BaseAdapter.load_checkpoint
+
+    def timed_load(adapter, *args, **kwargs):
+        t = time.perf_counter()
+        original(adapter, *args, **kwargs)
+        load["s"] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with _swapped(BaseAdapter, load_checkpoint=timed_load):
+        trainer = load_trainer(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if "s" not in load:
+        fail("[resume] model.resume_path was not loaded at construction")
+    log(f"[resume] load_trainer with model.resume_path: {build_s:.1f} s (model build and preprocess included), "
+        f"of which load_checkpoint {load['s']:.2f} s | {card}")
+
+    # the restored state against the files, bit for bit
+    def same(live, saved) -> bool:
+        return len(live) == len(saved) and all(torch.equal(a.detach().cpu(), b) for a, b in zip(live, saved))
+
+    leaves = trainer.adapter.trainable_leaves
+    saved = leaves(state["trainable"])
+    opt_live, opt_saved = trainer.optimizer.state_dict()["state"], state["opt_state"]["state"]
+    opt_tensors = [(i, k) for i in sorted(opt_saved) for k in sorted(opt_saved[i])]
+    checks = {
+        f"trainable ({sum(t.numel() for t in saved)} elements)": same(leaves(), saved),
+        f"EMA params ({sum(t.numel() for t in leaves(state['ema']['params']))} elements)":
+            same(leaves(trainer.adapter.ema.params), leaves(state["ema"]["params"])),
+        f"EMA step ({state['ema']['step']})": trainer.adapter.ema.step == state["ema"]["step"],
+        f"AdamW state ({len(opt_tensors)} tensors, "
+        f"{sum(opt_saved[i][k].numel() for i, k in opt_tensors)} elements)":
+            sorted(opt_live) == sorted(opt_saved)
+            and same([opt_live[i][k] for i, k in opt_tensors], [opt_saved[i][k] for i, k in opt_tensors]),
+        f"epoch {trainer.epoch} / global step {trainer.global_step}": (trainer.epoch, trainer.global_step) == (1, 1),
+    }
+    for name, ok in checks.items():
+        log(f"[resume] restored {name} equal to the files: {ok}")
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"[resume] the restored state differs from the files: {bad}")
+    del state
+
+    # epoch 1 through start(), against phase 5's uninterrupted epoch 1
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.start()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    with open(os.path.join(save_dir, "chip_smoke_resumed", "metrics.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "media_tag" not in r]
+    got = _epoch_record(trainer, trainer.reward_buffer.samples, rows[-1] if rows else {})
+    want = record[1]
+    ratio = (_loss_value(got["scalars"], "train/ratio_min", "min"), _loss_value(got["scalars"], "train/ratio_max", "max"))
+    log(f"[resume] resumed epoch 1 through start(): {epoch_s:.1f} s, logged epochs {[r['step'] for r in rows]}, "
+        f"global step {trainer.global_step}, launches {counts}, ratio min {ratio[0]!r} max {ratio[1]!r} | {card}")
+    diffs = []
+    for what in ("rewards", "advantages"):
+        i = _first_difference(dict(enumerate(got[what])), dict(enumerate(want[what])))
+        if i is not None or len(got[what]) != len(want[what]):
+            diffs.append(f"{what} (sample {i})")
+    key = _first_difference(got["scalars"], want["scalars"])
+    if key is not None:
+        diffs.append(f"metric {key}: {got['scalars'].get(key)!r} vs {want['scalars'][key]!r}")
+    leaf = _first_difference(got["leaves"], want["leaves"])
+    if leaf is not None:
+        diffs.append(f"LoRA tensor {leaf} after the update")
+    log(f"[resume] resumed epoch 1 vs the uninterrupted epoch 1 of phase 5: {len(want['rewards'])} rewards and "
+        f"advantages, {len(want['scalars'])} reward and grad-step metrics, {len(want['leaves'])} LoRA tensors "
+        f"after the update: {'all bit-equal' if not diffs else 'DIFFER: ' + '; '.join(diffs)}")
+    if [r["step"] for r in rows] != [1] or trainer.global_step != 2:
+        fail(f"[resume] the resumed run logged epochs {[r['step'] for r in rows]}, global step {trainer.global_step}")
+    if ratio != (1.0, 1.0):
+        fail(f"[resume] replay ratio not exactly 1.0 on every grad step of the resumed epoch: {ratio}")
+    if any(counts[k] <= 0 for k in SD35_KERNELS):
+        fail(f"[resume] a kernel never launched in the resumed epoch: {counts}")
+    if diffs:
+        fail(f"[resume] the resumed epoch differs from the uninterrupted one: {diffs[0]}")
+
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(os.path.join(save_dir, "resave"), model_only=False)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    log(f"[resume] the same full-state save in this process: {save_s:.2f} s for "
+        f"{_dir_bytes(os.path.join(save_dir, 'resave')) / 1e6:.1f} MB | {card}")
+    trainer.cleanup()
+    shutil.rmtree(save_dir, ignore_errors=True)
 
 
 def phase_grad_wan() -> None:
@@ -2141,9 +2380,11 @@ def main() -> int:
     except ImportError as e:
         print(f"the flow_factory_tpu_torch package is not beside this script: {e}", file=sys.stderr)
         return 2
-    # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
+    # the port's entry points set it
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
 
     card = phase_environment()
     results: dict = {}
@@ -2155,9 +2396,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_grad()
-    counts = phase_train()
+    train_record: list = []
+    counts = phase_train(train_record)
     gc.collect()
-    torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the Wan trainer loads
+    torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the CLI's and the resumed trainer load
+    phase_resume(train_record, card)
+    gc.collect()
+    torch.cuda.empty_cache()  # and gone again before the Wan trainer loads
+    log(f"[resume] device memory allocated once the SD3.5 trainers are freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     phase_grad_wan()
     wan_train_counts = phase_wan_train()
     phase_device_times()

@@ -122,3 +122,13 @@ class EMA:
         decay = torch.tensor(self.decay_fn(self.step), dtype=torch.float32)
         keep, take = decay.item(), (1.0 - decay).item()
         self.params = tree_map(lambda e, p: e * keep + p.detach().to(e.dtype) * take, self.params, params)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "params": self.params}
+
+    def load_state_dict(self, state: dict) -> None:
+        """The step and the params of ``state``, each param on the device and
+        in the dtype of the live one it replaces."""
+        self.step = int(state["step"])
+        self.params = tree_map(lambda live, saved: saved.to(device=live.device, dtype=live.dtype),
+                               self.params, state["params"])

@@ -22,7 +22,9 @@ merge code path, so all three see the same bits.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
 import re
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -30,13 +32,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ema import EMA, constant_decay, get_decay_schedule
+from ..ema import EMA, constant_decay, get_decay_schedule, tree_map
+from ..parallel.dist import barrier, get_rank
 from ..samples import BaseSample
 from ..scheduler.flow_match_euler import FlowMatchEulerSDE, sde_step
 from ..scheduler.registry import get_scheduler_class
 from ..scheduler.unipc import compute_unipc_orders, init_unipc_carry, unipc_eval_step
 from ..utils.base import make_generator, resolve_device
-from ..utils.weights import load_component
+from ..utils.safetensors_io import load_file, save_file
+from ..utils.weights import ModuleMap, RawMap, load_component, lora_from_flax
 from .lora import DEFAULT_TARGET_PATTERNS, init_lora, lora_param_count, merge_lora, zero_like_lora
 
 logger = logging.getLogger(__name__)
@@ -79,6 +83,13 @@ class BaseAdapter(ABC):
         self._setup_trainable()
         self.ema: Optional[EMA] = None
         self._ref_store: Optional[EMA] = None
+        #: what a ``train_state`` load read besides the weights: the
+        #: optimizer state, epoch and global step (the trainer takes them),
+        #: and the EMA state until :meth:`init_ema` builds the EMA
+        self._restored_state: Dict[str, Any] = {}
+        self._restored_ema: Optional[dict] = None
+        if self.model_args.resume_path:
+            self.load_checkpoint(self.model_args.resume_path, self.model_args.resume_type)
 
     # ------------------------------------------------------------------
     # Model surface
@@ -95,6 +106,11 @@ class BaseAdapter(ABC):
     def scheduler_defaults(self) -> Dict[str, Any]:
         """Per-model sigma-schedule knobs (shift, dynamic shifting...)."""
         return {}
+
+    def weight_maps(self) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+        """The weight bridge's maps from the JAX package's parameter paths to
+        this adapter's, per component (families override)."""
+        raise NotImplementedError(f"{type(self).__name__} has no weight bridge to the JAX package's names")
 
     def load_scheduler(self) -> FlowMatchEulerSDE:
         """The scheduler class of ``scheduler_type`` or the adapter's
@@ -221,6 +237,9 @@ class BaseAdapter(ABC):
             self.ema = EMA(self.trainable, decay_fn=decay_fn,
                            update_interval=max(1, getattr(ta, "ema_update_interval", 1)))
             logger.info("EMA enabled: decay=%s interval=%s", ta.ema_decay, ta.ema_update_interval)
+            if self._restored_ema is not None:  # a train_state read at construction, before the EMA existed
+                self.ema.load_state_dict(self._restored_ema)
+                self._restored_ema = None
 
     def ema_step(self, step: Optional[int] = None) -> None:
         if self.ema is not None:
@@ -249,6 +268,189 @@ class BaseAdapter(ABC):
         self.init_ema()
         if self.training_args.requires_ref_model:
             self.init_ref_parameters()
+
+    # ------------------------------------------------------------------
+    # Checkpointing (JAX models/abc.py:671-905)
+    # ------------------------------------------------------------------
+    #: size cap of a full-checkpoint shard file
+    MAX_SHARD_BYTES = int(os.environ.get("FFT_MAX_SHARD_BYTES", 4 * 1024**3))
+    #: the one file of ``train_state/``
+    TRAIN_STATE_FILE = "state.pt"
+
+    def save_checkpoint(self, save_dir: str, model_only: bool = True, save_ema: bool = True,
+                        extra_state: Optional[Dict[str, Any]] = None) -> None:
+        """The weights — the EMA's when EMA is on and ``save_ema`` — as LoRA
+        or full files, and unless ``model_only`` the training state with
+        ``extra_state`` (the trainer's optimizer state, epoch, global step)."""
+        os.makedirs(save_dir, exist_ok=True)
+        trainable = self.ema_trainable if (save_ema and self.ema is not None) else self.trainable
+        if self.is_lora:
+            self._save_lora(save_dir, trainable)
+        else:
+            self._save_full(save_dir, trainable)
+        if not model_only:
+            self._save_state(save_dir, extra_state or {})
+
+    @staticmethod
+    def _is_write_process() -> bool:
+        """One process writes checkpoint files (the port runs one)."""
+        return get_rank() == 0
+
+    @staticmethod
+    def _sync_processes(tag: str) -> None:
+        """Wait until the writer has flushed a save (a no-op for one process)."""
+        barrier(tag)
+
+    def _save_lora(self, save_dir: str, trainable: Trainable) -> None:
+        write = self._is_write_process()
+        for comp, tree in trainable.items():
+            if write:
+                save_file({f"{path}.{k}.weight": v for path, ab in tree.items() for k, v in ab.items()},
+                          os.path.join(save_dir, f"lora_{comp}.safetensors"))
+        if write:
+            with open(os.path.join(save_dir, "adapter_config.json"), "w") as f:
+                json.dump({"finetune_type": "lora", "lora_rank": self.model_args.lora_rank,
+                           "lora_alpha": self.model_args.lora_alpha, "components": list(trainable),
+                           "model_type": self.model_args.model_type}, f, indent=2)
+        self._sync_processes(f"save_lora:{save_dir}")
+
+    def _save_full(self, save_dir: str, trainable: Trainable) -> None:
+        """Each component's weights in shards of at most ``MAX_SHARD_BYTES``
+        (greedy, in the tree's order; a larger tensor alone in its shard),
+        indexed by ``model_index.json``."""
+        write = self._is_write_process()
+        index: Dict[str, Any] = {"weight_map": {}, "components": list(trainable)}
+        for comp, tensors in trainable.items():
+            shards: List[Dict[str, torch.Tensor]] = [{}]
+            nbytes = 0
+            for name, t in tensors.items():
+                size = t.numel() * t.element_size()
+                if nbytes and nbytes + size > self.MAX_SHARD_BYTES:
+                    shards.append({})
+                    nbytes = 0
+                shards[-1][name] = t
+                nbytes += size
+            n = len(shards)
+            for i, shard in enumerate(shards, start=1):
+                fname = f"{comp}.safetensors" if n == 1 else f"{comp}-{i:05d}-of-{n:05d}.safetensors"
+                if write:
+                    save_file(shard, os.path.join(save_dir, fname))
+                for name in shard:
+                    index["weight_map"][f"{comp}/{name}"] = fname
+        if write:
+            with open(os.path.join(save_dir, "model_index.json"), "w") as f:
+                json.dump(index, f, indent=2)
+        self._sync_processes(f"save_full:{save_dir}")
+
+    def export_merged(self, save_dir: str, save_ema: bool = True) -> None:
+        """Deployment export: the LoRA merged into the frozen weights, saved in
+        the full layout (loadable by a full finetune's ``resume_type:
+        full``); for full finetuning a plain full save."""
+        os.makedirs(save_dir, exist_ok=True)
+        trainable = self.ema_trainable if (save_ema and self.ema is not None) else self.trainable
+        if self.is_lora:
+            with torch.no_grad():
+                trainable = {comp: {**dict(self.modules[comp].named_parameters()),
+                                    **self.merged_params(comp, trainable)} for comp in trainable}
+        self._save_full(save_dir, trainable)
+        logger.info("Exported merged weights to %s", save_dir)
+
+    def _save_state(self, save_dir: str, extra_state: Dict[str, Any]) -> None:
+        state: Dict[str, Any] = {"trainable": self.trainable}
+        if self.ema is not None:
+            state["ema"] = self.ema.state_dict()
+        state.update(extra_state)
+        path = os.path.join(save_dir, "train_state")
+        os.makedirs(path, exist_ok=True)
+        if self._is_write_process():
+            torch.save(state, os.path.join(path, self.TRAIN_STATE_FILE))
+        self._sync_processes(f"save_state:{save_dir}")
+
+    def load_checkpoint(self, path: str, resume_type: Optional[str] = None) -> None:
+        """Load a checkpoint, its kind found from the directory's contents
+        unless ``resume_type`` names it: ``train_state/`` (weights, EMA,
+        optimizer, epoch) wins over ``adapter_config.json`` (LoRA), which wins
+        over full weights."""
+        if resume_type is None:
+            if os.path.exists(os.path.join(path, "train_state")):
+                resume_type = "state"
+            elif os.path.exists(os.path.join(path, "adapter_config.json")):
+                resume_type = "lora"
+            else:
+                resume_type = "full"
+        if resume_type == "lora":
+            self._load_lora(path)
+        elif resume_type == "full":
+            self._load_full(path)
+        elif resume_type == "state":
+            self._load_state(path)
+        else:
+            raise ValueError(f"Unknown resume_type {resume_type!r}")
+
+    def _lora_tree(self, component: str, tensors: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+        """A LoRA file's tensors as the port's tree: the port's names
+        (``<path>.lora_A.weight``), or the JAX package's (``<flax
+        path>/kernel/a``, ``.../b``) mapped through the weight bridge."""
+        tree: Dict[str, Dict[str, Any]] = {}
+        if tensors and all(k.endswith(("/a", "/b")) for k in tensors):
+            for key, t in tensors.items():
+                path, leaf = key.rsplit("/", 1)
+                tree.setdefault(path, {})[leaf] = t.float().numpy()
+            return lora_from_flax(tree, self.weight_maps()[component][0])
+        for key, t in tensors.items():
+            path, leaf, _ = key.rsplit(".", 2)
+            tree.setdefault(path, {})[leaf] = t
+        return tree
+
+    def _load_lora(self, path: str) -> None:
+        for comp in list(self.trainable):
+            f = os.path.join(path, f"lora_{comp}.safetensors")
+            if not os.path.exists(f):
+                logger.warning("LoRA checkpoint has no file for component %s", comp)
+                continue
+            self.load_lora(comp, self._lora_tree(comp, load_file(f)))
+        logger.info("Loaded LoRA checkpoint from %s", path)
+
+    def _load_full(self, path: str) -> None:
+        index_path = os.path.join(path, "model_index.json")
+        weight_map: Dict[str, str] = {}
+        if os.path.exists(index_path):
+            with open(index_path) as f:
+                weight_map = json.load(f).get("weight_map", {})
+        for comp in list(self.trainable):
+            files = sorted({v for k, v in weight_map.items() if k.startswith(f"{comp}/")}) or [f"{comp}.safetensors"]
+            tensors: Dict[str, torch.Tensor] = {}
+            for fname in files:
+                f = os.path.join(path, fname)
+                if not os.path.exists(f):
+                    logger.warning("Full checkpoint missing %s for component %s", fname, comp)
+                    tensors = {}
+                    break
+                tensors.update(load_file(f))
+            if not tensors:
+                continue
+            live = self.trainable[comp]
+            for name, leaf in live.items():
+                if name not in tensors:
+                    raise KeyError(f"Checkpoint missing tensor {comp}/{name!r}")
+                if tuple(tensors[name].shape) != tuple(leaf.shape):
+                    raise ValueError(f"Shape mismatch for {comp}/{name}: ckpt {tuple(tensors[name].shape)} "
+                                     f"vs model {tuple(leaf.shape)}")
+            self.trainable[comp] = {name: tensors[name].to(device=leaf.device, dtype=leaf.dtype)
+                                    .requires_grad_(leaf.requires_grad) for name, leaf in live.items()}
+        logger.info("Loaded full checkpoint from %s", path)
+
+    def _load_state(self, path: str) -> None:
+        state = torch.load(os.path.join(path, "train_state", self.TRAIN_STATE_FILE), map_location="cpu",
+                           weights_only=True)
+        self.trainable = tree_map(lambda t: t.detach().to(self.device).requires_grad_(), state["trainable"])
+        if "ema" in state:
+            if self.ema is not None:
+                self.ema.load_state_dict(state["ema"])
+            else:
+                self._restored_ema = state["ema"]
+        self._restored_state = {k: v for k, v in state.items() if k not in ("trainable", "ema")}
+        logger.info("Loaded training state from %s", path)
 
     # ------------------------------------------------------------------
     # Mode management

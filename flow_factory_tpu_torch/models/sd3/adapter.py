@@ -28,6 +28,7 @@ from ...samples import T2ISample
 from ...utils.base import make_generator
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
+from ...utils.weights import sd35_component_maps
 from ..abc import BaseAdapter
 from ..layers import build_module
 from ..text_encoders import CLIPTextConfig, CLIPTextEncoder, T5Config, T5Encoder
@@ -114,6 +115,9 @@ class SD35Adapter(BaseAdapter):
             eos_token_id=1, pad_token_id=0)
         self.latent_channels = preset["vae"].latent_channels
         self.vae_downscale = preset["vae"].downscale
+
+    def weight_maps(self):
+        return sd35_component_maps(self.component_configs)
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         return dict(use_dynamic_shifting=True)

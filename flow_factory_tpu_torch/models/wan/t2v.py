@@ -25,6 +25,7 @@ from ...samples import T2VSample
 from ...utils.base import make_generator
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
+from ...utils.weights import wan_t2v_component_maps
 from ..abc import BaseAdapter
 from ..layers import build_module
 from ..text_encoders import T5Config, T5Encoder
@@ -103,6 +104,9 @@ class WanT2VAdapter(BaseAdapter):
         self.latent_channels = vcfg.latent_channels
         self.vae_spatial_down = vcfg.spatial_down
         self.vae_temporal_down = vcfg.temporal_down
+
+    def weight_maps(self):
+        return wan_t2v_component_maps(self.component_configs)
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         # Wan: a static flow shift (no resolution-dependent mu)

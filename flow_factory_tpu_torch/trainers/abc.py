@@ -10,14 +10,22 @@ Port of ``flow_factory_tpu/trainers/abc.py``:
   before the step;
 * every ``eval_freq`` epochs, before the epoch's rollout, :meth:`evaluate`
   rolls out the test split under the EMA weights, each prompt from its own
-  generator, and scores it pointwise;
-* the loop runs on one process; checkpoint saving (``save_freq > 0``) and
-  logging backends other than ``none`` are not ported and raise at
-  construction.
+  generator, scores it pointwise and logs its media;
+* every ``save_freq`` epochs a checkpoint is saved at the head of the epoch,
+  and at the end a ``final`` one; ``model.resume_path`` resumes (the
+  adapter reads the checkpoint, the trainer takes the optimizer state, epoch
+  and global step);
+* SIGTERM sets a flag that :meth:`check_preempt` turns into a full-state save
+  under ``<save_dir>/<run>/preempt`` at the next rollout-batch or
+  micro-batch boundary, and a clean exit;
+* ``log.profile_dir`` profiles epoch 1, ``FFT_MEMORY_PROFILE=1`` snapshots
+  device memory around each phase; the loop runs on one process.
 """
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import time
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Sequence
@@ -28,13 +36,18 @@ import torch
 from ..advantage import AdvantageProcessor
 from ..data import get_dataloader
 from ..logger import load_logger
+from ..logger.formatting import condition_result_table, samples_to_media_payload
 from ..models.abc import BaseAdapter
-from ..parallel.dist import get_num_processes, get_world_size, host_allgather_objects
+from ..parallel.dist import get_num_processes, get_rank, get_world_size, host_allgather_objects
 from ..rewards import MultiRewardLoader, RewardBuffer
 from ..samples import BaseSample
 from ..utils.base import generators_for_prompts
 
 logger = logging.getLogger(__name__)
+
+
+class PreemptionRequested(Exception):
+    """Raised at a safe step boundary after a preemption signal arrived."""
 
 
 def gather_eval_reward_metrics(samples: List[BaseSample]) -> Dict[str, float]:
@@ -92,8 +105,6 @@ class BaseTrainer(ABC):
         self.scheduler = adapter.scheduler
         self.epoch = 0
         self.global_step = 0
-        if self.log_args.save_freq:
-            raise NotImplementedError("checkpoint saving (log.save_freq > 0) is not ported yet; set save_freq: 0")
 
         self.local_replicas = max(1, get_world_size() // get_num_processes())
         #: per-process micro-batch = per-replica batch × local replicas
@@ -102,8 +113,13 @@ class BaseTrainer(ABC):
         self._init_dataloader()
         self._init_optimizer()
         self._init_rewards()
-        self.logger_backend = load_logger(config.log_args, config.log_args.run_name)
+        self.logger_backend = load_logger(config.log_args, config.log_args.run_name, is_main_process=get_rank() == 0)
         self.adapter.post_init()
+        self._restore_state_if_any()
+
+        self._preempt_event = threading.Event()
+        if getattr(self.log_args, "save_on_preempt", True):
+            self._install_preempt_handler()
 
     # ------------------------------------------------------------------
     # Init stages
@@ -192,22 +208,126 @@ class BaseTrainer(ABC):
                 if k not in self._STD_BATCH_KEYS and k not in self._RESERVED_BATCH_KEYS
                 and v is not None and not is_path_field(v)}
 
+    # ------------------------------------------------------------------
+    # Preemption-safe checkpointing: the SIGTERM handler only sets a flag;
+    # the trainers poll ``check_preempt()`` at rollout-batch and micro-batch
+    # boundaries, so the step in flight always completes and the saved state
+    # is a step boundary. The handler holds the flag alone, not the trainer, so
+    # a handler still installed keeps no trainer (and its device memory) alive.
+    # ------------------------------------------------------------------
+    def _install_preempt_handler(self) -> None:
+        import signal
+
+        event = self._preempt_event
+
+        def _handler(signum, frame):
+            event.set()
+            logger.warning("Signal %d received — will checkpoint and exit at the next step boundary", signum)
+
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, _handler)
+        except ValueError:  # not the main thread
+            self._prev_sigterm = None
+
+    def _uninstall_preempt_handler(self) -> None:
+        import signal
+
+        prev = getattr(self, "_prev_sigterm", None)
+        if prev is not None:
+            try:
+                signal.signal(signal.SIGTERM, prev)
+            except ValueError:
+                pass
+            self._prev_sigterm = None
+
+    def request_preempt(self) -> None:
+        """What the SIGTERM handler does, for callers that learn of a
+        preemption another way."""
+        self._preempt_event.set()
+
+    def check_preempt(self) -> None:
+        if self._preempt_event.is_set():
+            raise PreemptionRequested()
+
+    def _preempt_save(self, save_dir: str) -> str:
+        """Full-state save that redoes the interrupted epoch: the recorded
+        epoch is ``self.epoch - 1``, the last one completed, so a resume runs
+        the interrupted epoch again from its start (the samplers and the
+        scheduler are seeded by epoch, and its rollouts are drawn again)."""
+        path = os.path.join(save_dir, "preempt")
+        self.save_checkpoint(path, model_only=False, completed_epoch=self.epoch - 1)
+        logger.warning("Preemption checkpoint written to %s — exiting", path)
+        return path
+
     def start(self) -> None:
         ta = self.training_args
+        save_dir = os.path.join(self.log_args.save_dir, self.log_args.run_name)
         for epoch in range(self.epoch, ta.max_epochs or 1):
             self.epoch = epoch
             t0 = time.time()
             self.scheduler.set_seed(ta.seed + epoch)
-            if self.eval_args.eval_freq and epoch % self.eval_args.eval_freq == 0 and self.test_loader:
-                self.evaluate(epoch)
-            samples, metrics, loss_info = self._run_epoch_phases(epoch)
+
+            if self.log_args.save_freq and epoch > 0 and epoch % self.log_args.save_freq == 0:
+                self.save_checkpoint(os.path.join(save_dir, f"epoch_{epoch}"))
+            try:
+                self.check_preempt()
+                if self.eval_args.eval_freq and epoch % self.eval_args.eval_freq == 0 and self.test_loader:
+                    self.evaluate(epoch)
+                profile_dir = getattr(self.log_args, "profile_dir", None)
+                if profile_dir and epoch == 1:  # the second epoch: the first builds the kernels
+                    from ..utils.memory_tracker import trace
+
+                    with trace(profile_dir, annotate=f"epoch_{epoch}"):
+                        samples, metrics, loss_info = self._run_epoch_phases(epoch)
+                else:
+                    samples, metrics, loss_info = self._run_epoch_phases(epoch)
+            except PreemptionRequested:
+                self._preempt_save(save_dir)
+                self.cleanup()
+                return
             self.adapter.ema_step(epoch)
-            self.logger_backend.log_data({**metrics, **loss_info, "time/epoch_s": time.time() - t0}, epoch)
+
+            if self.logger_backend:
+                self.logger_backend.log_data({**metrics, **loss_info, "time/epoch_s": time.time() - t0}, epoch)
+                n_media = getattr(self.log_args, "log_train_samples", 0)
+                if n_media:
+                    self._log_media("train/samples", samples_to_media_payload(samples, n_media), epoch)
+        if self.log_args.save_freq:
+            self.save_checkpoint(os.path.join(save_dir, "final"))
+        if self.logger_backend:
+            self.logger_backend.finish()
+        self._uninstall_preempt_handler()
+
+    def _log_media(self, tag: str, media: Dict[str, Any], step: int) -> None:
+        if media["images"]:
+            self.logger_backend.log_images(tag, media["images"], media["captions"], step=step)
+        if media["videos"]:
+            self.logger_backend.log_videos(tag, media["videos"], media["captions"], step=step)
 
     def _run_epoch_phases(self, epoch: int):
-        samples = self.sample(epoch)
-        metrics = self.prepare_feedback(samples)
-        loss_info = self.optimize(samples, epoch)
+        """sample → feedback → optimize, with device-memory snapshots around
+        each phase when ``FFT_MEMORY_PROFILE`` or ``log.memory_profile`` is
+        set (``FFT_MEMORY_PROFILE_DIR`` adds the allocator's snapshots)."""
+        mem = None
+        if os.environ.get("FFT_MEMORY_PROFILE") or getattr(self.log_args, "memory_profile", False):
+            if not hasattr(self, "_memory_profiler"):
+                from ..utils.memory_tracker import MemoryProfiler
+
+                self._memory_profiler = MemoryProfiler()
+            mem = self._memory_profiler
+        if mem is None:
+            samples = self.sample(epoch)
+            metrics = self.prepare_feedback(samples)
+            loss_info = self.optimize(samples, epoch)
+            return samples, metrics, loss_info
+        with mem.stage(f"epoch{epoch}/sample"):
+            samples = self.sample(epoch)
+        mem.tensors.track_samples(f"epoch{epoch}/samples", samples)
+        with mem.stage(f"epoch{epoch}/feedback"):
+            metrics = self.prepare_feedback(samples)
+        with mem.stage(f"epoch{epoch}/optimize"):
+            loss_info = self.optimize(samples, epoch)
+        mem.log_report()
         return samples, metrics, loss_info
 
     @abstractmethod
@@ -225,8 +345,9 @@ class BaseTrainer(ABC):
         ``evaluate``, ``trainers/abc.py:380-469``): the eval geometry, no
         log-probs or trajectory, each prompt's x0 from its own generator; the
         loader's tail padding dropped; pointwise scoring; the metrics logged
-        at ``epoch``. Synchronous, batch after batch (no ``PendingRollout``
-        yet); media are not logged (the port's backends take scalars)."""
+        at ``epoch`` with up to 16 samples' media and, for conditioned tasks,
+        their condition images. Synchronous, batch after batch (no
+        ``PendingRollout`` yet)."""
         if self.test_loader is None:
             return {}
         self.adapter.eval()
@@ -254,11 +375,78 @@ class BaseTrainer(ABC):
         self.eval_reward_buffer.add_samples(samples)
         self.eval_reward_buffer.finalize()
         metrics = gather_eval_reward_metrics(samples)
-        self.logger_backend.log_data(metrics, epoch)
+        if self.logger_backend:
+            self.logger_backend.log_data(metrics, epoch)
+            self._log_media("eval/samples", samples_to_media_payload(samples, 16), epoch)
+            cond_imgs, cond_caps = [], []
+            for r in condition_result_table(samples, 16):
+                conds = r["conditions"]
+                if conds is None:
+                    continue
+                for c in conds if isinstance(conds, (list, tuple)) else [conds]:
+                    if isinstance(c, np.ndarray) and c.ndim == 3:
+                        cond_imgs.append(c)
+                        cond_caps.append(f"{r['prompt']} | r={r['reward']}")
+            if cond_imgs:
+                self.logger_backend.log_images("eval/conditions", cond_imgs, cond_caps, step=epoch)
         self.eval_reward_buffer.clear()
         self.adapter.train()
         return metrics
 
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir: str, model_only: Optional[bool] = None,
+                        completed_epoch: Optional[int] = None) -> None:
+        t0 = time.perf_counter()
+        self.adapter.save_checkpoint(
+            save_dir,
+            model_only=self.log_args.save_model_only if model_only is None else model_only,
+            extra_state={"opt_state": self.optimizer.state_dict(),
+                         "epoch": self.epoch if completed_epoch is None else completed_epoch,
+                         "global_step": self.global_step},
+        )
+        logger.info("Saved checkpoint to %s in %.3f s", save_dir, time.perf_counter() - t0)
+
+    def _restore_state_if_any(self) -> None:
+        """The optimizer state, epoch and global step of a ``train_state``
+        the adapter read: the AdamW state by ``load_state_dict`` (which moves
+        it to the parameters' device) when it fits the live optimizer, else a
+        warning and a fresh optimizer; training resumes at the epoch after
+        the recorded one."""
+        state = getattr(self.adapter, "_restored_state", None)
+        if state:
+            if "opt_state" in state:
+                if _optimizer_state_fits(self.optimizer, state["opt_state"]):
+                    self.optimizer.load_state_dict(state["opt_state"])
+                else:
+                    logger.warning("Checkpoint optimizer state does not fit the live optimizer (%d parameters) — "
+                                   "optimizer state NOT restored (weights/epoch still are)",
+                                   sum(len(g["params"]) for g in self.optimizer.param_groups))
+            self.epoch = int(state.get("epoch", 0)) + 1
+            self.global_step = int(state.get("global_step", 0))
+            logger.info("Resumed at epoch %d (global step %d)", self.epoch, self.global_step)
+            self.adapter._restored_state = {}  # the optimizer holds its own copy now
+
     def cleanup(self) -> None:
+        self._uninstall_preempt_handler()
         self.reward_buffer.cleanup()
         self.eval_reward_buffer.cleanup()
+        if self.logger_backend:
+            self.logger_backend.finish()
+
+
+def _optimizer_state_fits(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> bool:
+    """Whether ``saved`` (an optimizer ``state_dict``) has the live
+    optimizer's groups and parameter counts, and every per-parameter state
+    tensor of more than one element the shape of its parameter."""
+    groups = saved.get("param_groups", [])
+    if [len(g["params"]) for g in groups] != [len(g["params"]) for g in optimizer.param_groups]:
+        return False
+    live = [p for g in optimizer.param_groups for p in g["params"]]
+    ids = [i for g in groups for i in g["params"]]
+    for i, p in zip(ids, live):
+        for t in saved.get("state", {}).get(i, {}).values():
+            if torch.is_tensor(t) and t.numel() > 1 and tuple(t.shape) != tuple(p.shape):
+                return False
+    return True

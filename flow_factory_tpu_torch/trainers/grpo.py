@@ -4,7 +4,8 @@ Rollout with per-step log-probs on the SDE-step subset → group-relative
 advantages → PPO-clipped ratio loss replayed per train timestep, the
 gradients summed in fp32 until ``gradient_accumulation_steps`` steps, then
 one optimizer step. The rollout batches run one after another (no pipelined
-``PendingRollout`` yet).
+``PendingRollout`` yet). A preemption request is honoured before each
+rollout batch and each micro-batch.
 
 GRPO-Guard stores the rollout's ``next_latents_mean``, re-weights the ratio
 by ``s = sqrt(−dt)·σ_t`` and replaces the noise term with the mean-drift MSE.
@@ -40,6 +41,7 @@ class GRPOTrainer(BaseTrainer):
         self.train_loader.set_epoch(epoch)
         rank = get_rank()
         for b, batch in enumerate(self.train_loader):
+            self.check_preempt()
             samples = self.adapter.inference(
                 prompt=batch["prompt"],
                 prompt_embeds=batch.get("prompt_embeds"),
@@ -97,6 +99,7 @@ class GRPOTrainer(BaseTrainer):
         B = self.micro_batch_size
         full = lambda value: torch.full((B,), float(value), dtype=torch.float32, device=dev)
         for idxs in self._micro_batches(len(samples), epoch):
+            self.check_preempt()
             mb = [samples[int(i)] for i in idxs]
             s = self._stage(mb)
             lat_map, lp_map = mb[0].latent_index_map, mb[0].log_prob_index_map

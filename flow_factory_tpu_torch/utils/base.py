@@ -62,3 +62,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             f"device {dev} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def use_full_fp32() -> None:
+    """fp32 matmuls and convolutions computed in full fp32, as the JAX
+    reference computes them: cuDNN would otherwise round an fp32
+    convolution's inputs to TF32 (the VAE's fp32 output convolution). The
+    entry points call it; it changes nothing on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

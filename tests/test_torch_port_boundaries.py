@@ -15,8 +15,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port — the training slice's ``trainers``, ``data``,
     ``ema`` and ``train``, and the Wan slice's ``models.wan`` and
-    ``scheduler.unipc`` among them — imported in a fresh interpreter, leaves
-    jax, flax and flow_factory_tpu out of sys.modules."""
+    ``scheduler.unipc`` among them, and the run plumbing's ``cli``, ``logger``
+    and ``utils.safetensors_io`` — imported in a fresh interpreter, leaves
+    jax, flax, flow_factory_tpu and safetensors out of sys.modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import flow_factory_tpu_torch as pkg
@@ -24,9 +25,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "flow_factory_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "flow_factory_tpu", "safetensors"))
         need = {pkg.__name__ + "." + m for m in ("trainers.grpo", "trainers.abc", "data.dataset",
                                                  "data.sampler", "data.loader", "ema.ema", "train",
+                                                 "cli", "logger.logger", "logger.formatting",
+                                                 "utils.safetensors_io", "utils.memory_tracker",
                                                  "models.lora", "models.wan", "models.wan.t2v",
                                                  "models.wan.transformer", "models.wan.video_vae",
                                                  "scheduler.unipc", "scheduler.registry")}
@@ -47,7 +50,8 @@ def test_source_files_never_name_jax():
             if f.endswith(".py"):
                 text = open(os.path.join(dirpath, f)).read()
                 if "import jax" in text or "from jax" in text or "from flow_factory_tpu." in text \
-                        or "import flow_factory_tpu\n" in text or "import flax" in text:
+                        or "import flow_factory_tpu\n" in text or "import flax" in text \
+                        or "import safetensors" in text or "from safetensors" in text:
                     offenders.append(f)
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         smoke = fh.read()

@@ -348,6 +348,7 @@ def test_training_slice_runs_two_epochs_on_the_smoke_config(tmp_path, trainer_ty
     finally:
         trainer.cleanup()
     rows = [json.loads(line) for line in open(tmp_path / "saves" / cfg.log_args.run_name / "metrics.jsonl")]
+    rows = [r for r in rows if "media_tag" not in r]  # each epoch also logs its samples' image grid
     assert [r["step"] for r in rows] == [0, 1]
     ta = cfg.training_args
     for row in rows:
@@ -364,9 +365,12 @@ def test_training_slice_runs_two_epochs_on_the_smoke_config(tmp_path, trainer_ty
 
 
 def test_unported_paths_raise(tmp_path):
-    """Checkpoint saving and other logging backends are not ported: asking
-    for them raises instead of being skipped. Evaluation is ported:
-    ``eval_freq > 0`` builds a trainer with an eval reward buffer."""
+    """What is not ported raises instead of being skipped: trainers other
+    than GRPO/GRPO-Guard. Evaluation, checkpoint saving and the logging
+    backends are ported: ``eval_freq > 0`` builds a trainer with an eval
+    reward buffer, ``save_freq > 0`` and ``logging_backend: tensorboard``
+    build one, and a backend whose package is missing (wandb here) is
+    skipped with a warning, as in the JAX package."""
     from flow_factory_tpu_torch.trainers import load_trainer
     from flow_factory_tpu_torch.trainers.registry import resolve_trainer_class
 
@@ -375,12 +379,17 @@ def test_unported_paths_raise(tmp_path):
     trainer = load_trainer(cfg, device="cpu")
     assert trainer.test_loader is not None and trainer.eval_reward_buffer.samples == []
     trainer.cleanup()
-    for field, value in (("log_args.save_freq", 1), ("log_args.logging_backend", "wandb")):
+    for field, value, backends in (("log_args.save_freq", 1, ["ConsoleLogger", "JSONLLogger"]),
+                                   ("log_args.logging_backend", "tensorboard",
+                                    ["ConsoleLogger", "JSONLLogger", "TensorboardLogger"]),
+                                   ("log_args.logging_backend", "wandb", ["ConsoleLogger", "JSONLLogger"])):
         cfg = _smoke_config(tmp_path)
         section, name = field.split(".")
         setattr(getattr(cfg, section), name, value)
-        with pytest.raises(NotImplementedError):
-            load_trainer(cfg, device="cpu")
+        trainer = load_trainer(cfg, device="cpu")
+        assert [type(b).__name__ for b in trainer.logger_backend.backends] == backends
+        trainer.cleanup()
+        trainer._uninstall_preempt_handler()
     with pytest.raises(NotImplementedError):
         resolve_trainer_class("dpo")
 
@@ -398,4 +407,5 @@ def test_train_entry_point_runs_one_epoch_on_the_cpu(tmp_path):
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     rows = [json.loads(line) for line in open(tmp_path / "saves" / "smoke_grpo" / "metrics.jsonl")]
+    rows = [r for r in rows if "media_tag" not in r]  # the epoch also logs its samples' image grid
     assert len(rows) == 1 and rows[0]["train/ratio_mean"] == 1.0
