@@ -72,9 +72,22 @@ printing one line and exiting non-zero on failure:
    exactly 1.0 on every grad step, K2a/K2b 60 launches a grad step and K3
    60 a training forward, the LoRA moves; then the 28-step UniPC evaluation
    of the 2 test prompts under the EMA weights, and a profile of one grad
-   step.
+   step;
+8. flux-kernels (run right after 2): K3 and K2a/K2b at the FLUX.1 512 px
+   joint attention (B2 and B8, H24 S1536 D128) and K5 with its backward at
+   width 3072 ((2, 1024), (2, 512), (2, 1536) rows), each against its plain
+   version with the controls, bits, times and bounds of 2;
+9. flux-grad: the counterpart of 4 at FLUX.1-dev width, one double and one
+   single block, B=2, 1024 image + 512 text tokens, the dq-zeroed control;
+10. flux-dpo: FLUX.1-dev LoRA DPO at full width through ``load_trainer`` on
+   tests/fixtures/flux1_dpo.yaml for two epochs: K3 and K5 launched as
+   predicted in each rollout and grad step, epoch 0's grad step at the zero
+   LoRA with the implicit margin exactly 0 and the loss exactly
+   -logsigmoid(0), a moved LoRA and another loss in epoch 1, peak memory
+   against its prediction, and a profile of one grad step.
 
-The line before the last holds the kernel table as JSON; the last line is
+The line before the last holds the kernel table as JSON (the FLUX.1 shapes
+nested under their kernels' entries, with their launches in the DPO epochs); the last line is
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
@@ -274,7 +287,8 @@ def _record(results: dict, tag: str, entry: dict) -> None:
     under ``shapes``."""
     first = results.setdefault(entry["name"], {**entry, "shape": tag, "shapes": {}})
     if first is not entry and first["shape"] != tag:
-        first["shapes"][tag] = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+        first["shapes"][tag] = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")}
 
 
 #: the kernel shapes whose device time the profiler takes after the
@@ -660,6 +674,69 @@ def _backward_controls(name: str, got, wrong_dx, dmul_index: int, dx_bar) -> Non
             fail(f"the {name} check cannot tell the kernel from a backward {what}")
 
 
+def _k5_shape_checks(results: dict, gen, shape: NormShape, controls: bool) -> None:
+    """One K5 shape of ``phase_kernels_norms``: the forward and backward
+    against their plain versions and autograd through the plain forward, two
+    backward launches' bits; with ``controls`` the backward's negative
+    controls and a batch slice; timings and table entries if ``shape.timed``."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import norms as N
+
+    eps = 1e-6
+    tag, B, S, D, dt, odt, per_token, fold, rms, timed = shape
+    name = f"K5 {tag} {(B, S, D)} {dt}->{odt}{' fold' if fold else ''}{' rms' if rms else ''}" \
+           f"{' per-token' if per_token else ''}"
+    dtype, out_dtype = getattr(torch, dt), getattr(torch, odt)
+    rel = 1e-4 if tag == "degenerate" else 1e-5  # fp32 dx, see phase_kernels_norms
+    case = _norm_inputs(gen, B, S, D, dtype, out_dtype, per_token, False, tag == "degenerate")
+    x, mul, add, g = case["x"], case["mul"], case["add"], case["g"]
+    out = N.ln_mul_add(x, mul, add, eps, out_dtype, fold=fold, rms=rms)
+    ref = N._native_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
+    err = (out.float() - ref.float()).abs().max().item()
+    _check(f"{name} forward", err, _bar(dtype, ref))
+    if tag == "degenerate":
+        x32 = x.float()
+        raw = (x32 * x32).mean(-1) - x32.mean(-1) ** 2
+        log(f"[kernels] {name}: rows whose fast variance the plain version rounds to 0: "
+            f"{int((raw == 0).sum())}, below 0: {int((raw < 0).sum())} of {B * S}")
+    # backward, every gradient asked for and the main path's subset
+    leaves = [t.detach().clone().requires_grad_() for t in (x, mul, add)]
+    eager = torch.autograd.grad(N._native_ln_mul_add(*leaves, eps, out_dtype, fold, rms), leaves, g)
+    for needs in ((True, True, True), K5_MAIN_NEEDS):
+        got = N.ln_mul_add_backward(x, mul, g, eps, rms, needs)
+        plain = N._native_ln_mul_add_backward(x, mul, g, eps, rms, needs)
+        bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(torch.float32, r),
+                lambda r: _bar(torch.float32, r))
+        _grads_check(f"{name} backward {needs} vs plain", got, plain, ("dx", "dmul", "dadd"), bars)
+    got = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
+    eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
+                  lambda r: _bar(torch.float32, r, rel=1e-4))
+    _grads_check(f"{name} backward vs autograd through the plain forward", got, eager,
+                 ("dx", "dmul", "dadd"), eager_bars)
+    again = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] {name} backward: two launches give the same bits: {same}")
+    if not same:
+        fail(f"{name}: the backward is not deterministic")
+    if controls:
+        x32 = x.float()
+        r, xhat, raw = N._ln_stats(x32, eps, rms)
+        wrong = N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0)).to(dtype)
+        _backward_controls(name, got, wrong, 1, lambda r: _bar(dtype, r))
+        n = min(4, B // 2)
+        part = N.ln_mul_add(x[:n], mul[:n], add[:n], eps, out_dtype, fold=fold, rms=rms)
+        same = torch.equal(part, out[:n])
+        log(f"[kernels] {name}: the first {n} batch rows alone give the bits of the whole batch's: {same}")
+        if not same:
+            fail(f"{name}: a batch slice changes the bits")
+    if timed:
+        _norm_timings(results, "ln_mul_add", f"K5 {tag}", shape, False, case, out, err, (x, mul, add, out),
+                      N, eps)
+    del case, x, mul, add, g, out, ref, leaves, eager, got, again
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_norms(results: dict, gen) -> None:
     """K5 and K6, forward and backward, against their plain versions.
 
@@ -687,56 +764,7 @@ def phase_kernels_norms(results: dict, gen) -> None:
 
     eps = 1e-6
     for shape in K5_SHAPES:
-        tag, B, S, D, dt, odt, per_token, fold, rms, timed = shape
-        name = f"K5 {tag} {(B, S, D)} {dt}->{odt}{' fold' if fold else ''}{' rms' if rms else ''}" \
-               f"{' per-token' if per_token else ''}"
-        dtype, out_dtype = getattr(torch, dt), getattr(torch, odt)
-        rel = 1e-4 if tag == "degenerate" else 1e-5  # fp32 dx, see the docstring
-        case = _norm_inputs(gen, B, S, D, dtype, out_dtype, per_token, False, tag == "degenerate")
-        x, mul, add, g = case["x"], case["mul"], case["add"], case["g"]
-        out = N.ln_mul_add(x, mul, add, eps, out_dtype, fold=fold, rms=rms)
-        ref = N._native_ln_mul_add(x, mul, add, eps, out_dtype, fold, rms)
-        err = (out.float() - ref.float()).abs().max().item()
-        _check(f"{name} forward", err, _bar(dtype, ref))
-        if tag == "degenerate":
-            x32 = x.float()
-            raw = (x32 * x32).mean(-1) - x32.mean(-1) ** 2
-            log(f"[kernels] {name}: rows whose fast variance the plain version rounds to 0: "
-                f"{int((raw == 0).sum())}, below 0: {int((raw < 0).sum())} of {B * S}")
-        # backward, every gradient asked for and the main path's subset
-        leaves = [t.detach().clone().requires_grad_() for t in (x, mul, add)]
-        eager = torch.autograd.grad(N._native_ln_mul_add(*leaves, eps, out_dtype, fold, rms), leaves, g)
-        for needs in ((True, True, True), K5_MAIN_NEEDS):
-            got = N.ln_mul_add_backward(x, mul, g, eps, rms, needs)
-            plain = N._native_ln_mul_add_backward(x, mul, g, eps, rms, needs)
-            bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(torch.float32, r),
-                    lambda r: _bar(torch.float32, r))
-            _grads_check(f"{name} backward {needs} vs plain", got, plain, ("dx", "dmul", "dadd"), bars)
-        got = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
-        eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
-                      lambda r: _bar(torch.float32, r, rel=1e-4))
-        _grads_check(f"{name} backward vs autograd through the plain forward", got, eager,
-                     ("dx", "dmul", "dadd"), eager_bars)
-        again = N.ln_mul_add_backward(x, mul, g, eps, rms, (True, True, True))
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[kernels] {name} backward: two launches give the same bits: {same}")
-        if not same:
-            fail(f"{name}: the backward is not deterministic")
-        if tag == "image":
-            x32 = x.float()
-            r, xhat, raw = N._ln_stats(x32, eps, rms)
-            wrong = N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0)).to(dtype)
-            _backward_controls(name, got, wrong, 1, lambda r: _bar(dtype, r))
-            part = N.ln_mul_add(x[:4], mul[:4], add[:4], eps, out_dtype, fold=fold, rms=rms)
-            same = torch.equal(part, out[:4])
-            log(f"[kernels] {name}: the first 4 batch rows alone give the bits of the whole batch's: {same}")
-            if not same:
-                fail(f"{name}: a batch slice changes the bits")
-        if timed:
-            _norm_timings(results, "ln_mul_add", f"K5 {tag}", shape, False, case, out, err, (x, mul, add, out),
-                          N, eps)
-        del case, x, mul, add, g, out, ref, leaves, eager, got, again
-        torch.cuda.empty_cache()
+        _k5_shape_checks(results, gen, shape, shape.tag == "image")
 
     for shape in K6_SHAPES:
         tag, B, S, D, dt, _, _, _, _, timed = shape
@@ -1035,7 +1063,8 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     over, with O and lse from K3's forward of them: wan-self q/k contiguous
     as ``apply_rope`` returns them, v a head-split view of its projection;
     wan-cross k/v head-split views of the context projections; flux-1024px
-    q/k/v contiguous (the joint sequence, concatenated); ragged-d128 every
+    and flux-512px q/k/v contiguous (the joint sequence, concatenated, q and
+    k as RoPE returns them); ragged-d128 every
     operand a view; dO always head-interleaved, as the head merge's backward
     hands it over."""
     from flow_factory_tpu_torch.ops import attention as A
@@ -1043,8 +1072,8 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag in ("wan-self", "flux-1024px") else view(Sk)
-    v = randn(B, H, Sk, D) if tag == "flux-1024px" else view(Sk)
+    k = randn(B, H, Sk, D) if tag == "wan-self" or tag.startswith("flux") else view(Sk)
+    v = randn(B, H, Sk, D) if tag.startswith("flux") else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
     return q, k, v, dout, out, lse
@@ -1097,6 +1126,45 @@ def _k2_d128_device_job(tag: str, B: int, H: int, Sq: int, Sk: int, randn) -> No
     torch.cuda.empty_cache()
 
 
+def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: int, timed: bool, randn) -> None:
+    """One K2 D=128 shape of ``phase_kernels_k2_wan`` (and of
+    ``phase_flux_kernels``): K2a/K2b against the plain version, the negative
+    controls, two passes' bits; timings, table entries and the device-time
+    job if ``timed``."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    scale = 128 ** -0.5
+    q, k, v, dout, out, lse = _k2_d128_inputs(tag, B, H, Sq, Sk, randn)
+    got = A.flash_backward(q, k, v, out, lse, dout, scale)
+    ref = A.flash_backward_plain(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
+    del ref
+    d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    if tag in ("wan-self", "flux-512px"):
+        zero = torch.zeros_like(delta)
+        _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
+                             (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
+                              *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
+    if tag == "ragged-d128":
+        n = Sk // 64 * 64  # the kernels' last whole key tile
+        _k2_negative_control(f"K2 D128 ragged vs a plain version without the {Sk - n}-key ragged tail", got,
+                             (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
+                              None, None), tols)
+    again = A.flash_backward(q, k, v, out, lse, dout, scale)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] K2 D128 {tag}: two backward passes give the same bits: {same}")
+    if not same:
+        fail("K2 at head dim 128 is not deterministic")
+    if timed:
+        _k2_time_and_record(results, tag, "_d128", q, k, v, dout, d_, lse2, delta, scale, got, errs)
+        DEVICE_TIME_JOBS.append(functools.partial(_k2_d128_device_job, tag, B, H, Sq, Sk, randn))
+    del q, k, v, out, dout, got, again
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_k2_wan(results: dict, randn) -> None:
     """K2a/K2b at head dim 128 on the inputs K3's backward gives them
     (``K2_D128_SHAPES``, ``_k2_d128_inputs``). Bars are ``_k2_check``'s (2
@@ -1104,39 +1172,8 @@ def phase_kernels_k2_wan(results: dict, randn) -> None:
     version without Delta (wan-self), and one without the 13-key ragged tail
     (ragged-d128: Sk 77 = 64 + 13). The timed shapes' device times are taken
     after the end-to-end phases."""
-    import torch
-
-    from flow_factory_tpu_torch.ops import attention as A
-
     for tag, B, H, Sq, Sk, timed in K2_D128_SHAPES:
-        D, scale = 128, 128 ** -0.5
-        q, k, v, dout, out, lse = _k2_d128_inputs(tag, B, H, Sq, Sk, randn)
-        got = A.flash_backward(q, k, v, out, lse, dout, scale)
-        ref = A.flash_backward_plain(q, k, v, out, lse, dout, scale)
-        torch.cuda.synchronize()
-        errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
-        del ref
-        d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
-        if tag == "wan-self":
-            zero = torch.zeros_like(delta)
-            _k2_negative_control("K2 D128 wan-self vs a plain version without Delta", got,
-                                 (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
-                                  *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
-        if tag == "ragged-d128":
-            n = Sk // 64 * 64  # the kernels' last whole key tile
-            _k2_negative_control(f"K2 D128 ragged vs a plain version without the {Sk - n}-key ragged tail", got,
-                                 (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
-                                  None, None), tols)
-        again = A.flash_backward(q, k, v, out, lse, dout, scale)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[kernels] K2 D128 {tag}: two backward passes give the same bits: {same}")
-        if not same:
-            fail("K2 at head dim 128 is not deterministic")
-        if timed:
-            _k2_time_and_record(results, tag, "_d128", q, k, v, dout, d_, lse2, delta, scale, got, errs)
-            DEVICE_TIME_JOBS.append(functools.partial(_k2_d128_device_job, tag, B, H, Sq, Sk, randn))
-        del q, k, v, out, dout, got, again
-        torch.cuda.empty_cache()
+        _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, timed, randn)
 
 
 def k2_d128_only(root: str) -> int:
@@ -1315,6 +1352,56 @@ def norms_only(root: str, sweep: bool) -> int:
     return 0
 
 
+def _k3_shape_checks(results: dict, tag: str, q, k, v, layout: str, device_call) -> None:
+    """One K3 shape of ``phase_kernels_k3`` (and of ``phase_flux_kernels``)
+    on q/k/v in the layout its caller hands over: O and lse against the
+    plain version, the negative controls, two launches' bits, a batch
+    slice's bits, the CUDA-event, plain and SDPA times and the bound, the
+    table entry, and the device-time job (``device_call`` makes fresh
+    inputs of the shape as a call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    B, H, Sq, D = q.shape
+    Sk, scale = k.shape[2], D ** -0.5
+    out, lse = A.flash_attention(q, k, v, scale, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, scale, return_lse=True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = 4 * bf16_ulp(ref.float().abs().max().item()), 1e-2
+    err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
+    _check(f"K3 {tag} O q{tuple(q.shape)} k{tuple(k.shape)} bf16 {layout}", err_o, tol_o)
+    _check(f"K3 {tag} lse", err_lse, tol_lse)
+    _negative_control(f"K3 {tag} vs a plain version without log2(e) in its logits", (out, lse),
+                      A.flash_attention_plain(q, k, v, scale / A._LOG2E, return_lse=True), tol_o, tol_lse)
+    pad = (-Sk) % 64
+    if pad:
+        padded = lambda t: F.pad(t, (0, 0, 0, pad))
+        _negative_control(f"K3 {tag} vs a plain version that takes the {pad} padded keys for real",
+                          (out, lse), A.flash_attention_plain(q, padded(k), padded(v), scale, return_lse=True),
+                          tol_o, tol_lse)
+    again = A.flash_attention(q, k, v, scale)
+    same = torch.equal(out, again)
+    log(f"[kernels] K3 {tag}: two launches give the same bits: {same}")
+    if not same:
+        fail("K3 is not deterministic")
+    _fwd_batch_slice_same(f"K3 {tag}", lambda *t: A.flash_attention(*t, scale, return_lse=True), q, k, v)
+    call = lambda: A.flash_attention(q, k, v, scale)
+    ms, host_us = time_ms(call), _host_us(call, 50)
+    plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, scale), iters=3)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    bound = _fwd_bound(B, H, Sq, Sk, D, nbytes(q, k, v, out, lse))
+    _record(results, tag, dict(
+        name="flash_fwd", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_fwd.cu",
+        replaces="flow_factory_tpu/ops/attention.py:101", max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
+    _fwd_time_line(f"K3 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
+    DEVICE_TIME_JOBS.append(functools.partial(_fwd_device_job, f"K3 {tag}", device_call, ms, lib_ms, bound))
+    del q, k, v, out, ref, again
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_k3(results: dict, randn) -> None:
     """K3 (the plain flash forward) at the Wan2.1-1.3B shapes: self-attention
     over the 512 video tokens of 256 px x 5 frames (q/k/v the head-split
@@ -1331,7 +1418,6 @@ def phase_kernels_k3(results: dict, randn) -> None:
     whose logits carry the scale but not log2(e) (every shape), and one that
     takes the zero-padded key tail for real keys (the ragged shapes)."""
     import torch
-    import torch.nn.functional as F
 
     from flow_factory_tpu_torch.ops import attention as A
 
@@ -1343,44 +1429,10 @@ def phase_kernels_k3(results: dict, randn) -> None:
         heads = lambda S: randn(B, S, H, D).transpose(1, 2)  # view of a (B, S, H*D) projection
         q = randn(B, H, Sq, D) if tag == "wan-cross" else heads(Sq)
         k, v = heads(Sk), heads(Sk)
-        scale = D ** -0.5
-        out, lse = A.flash_attention(q, k, v, scale, return_lse=True)
-        ref, ref_lse = A.flash_attention_plain(q, k, v, scale, return_lse=True)
-        torch.cuda.synchronize()
-        tol_o, tol_lse = 4 * bf16_ulp(ref.float().abs().max().item()), 1e-2
-        err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
         layout = "q contiguous, k/v views" if tag == "wan-cross" else "q/k/v views"
-        _check(f"K3 {tag} O q{tuple(q.shape)} k{tuple(k.shape)} bf16 {layout}", err_o, tol_o)
-        _check(f"K3 {tag} lse", err_lse, tol_lse)
-        _negative_control(f"K3 {tag} vs a plain version without log2(e) in its logits", (out, lse),
-                          A.flash_attention_plain(q, k, v, scale / A._LOG2E, return_lse=True), tol_o, tol_lse)
-        pad = (-Sk) % 64
-        if pad:
-            padded = lambda t: F.pad(t, (0, 0, 0, pad))
-            _negative_control(f"K3 {tag} vs a plain version that takes the {pad} padded keys for real",
-                              (out, lse), A.flash_attention_plain(q, padded(k), padded(v), scale, return_lse=True),
-                              tol_o, tol_lse)
-        again = A.flash_attention(q, k, v, scale)
-        same = torch.equal(out, again)
-        log(f"[kernels] K3 {tag}: two launches give the same bits: {same}")
-        if not same:
-            fail("K3 is not deterministic")
-        _fwd_batch_slice_same(f"K3 {tag}", lambda *t: A.flash_attention(*t, scale, return_lse=True), q, k, v)
-        call = lambda: A.flash_attention(q, k, v, scale)
-        ms, host_us = time_ms(call), _host_us(call, 50)
-        plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, scale), iters=3)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound = _fwd_bound(B, H, Sq, Sk, D, nbytes(q, k, v, out, lse))
-        _record(results, tag, dict(
-            name="flash_fwd", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_fwd.cu",
-            replaces="flow_factory_tpu/ops/attention.py:101", max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
-        _fwd_time_line(f"K3 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
-        DEVICE_TIME_JOBS.append(functools.partial(
-            _fwd_device_job, f"K3 {tag}", functools.partial(_k3_call, B, H, Sq, Sk, D, tag == "wan-cross", scale),
-            ms, lib_ms, bound))
-        del q, k, v, out, ref, again
-        torch.cuda.empty_cache()
+        _k3_shape_checks(results, tag, q, k, v, layout,
+                         functools.partial(_k3_call, B, H, Sq, Sk, D, tag == "wan-cross", D ** -0.5))
+        del q, k, v
     tiny = [randn(1, 1, 64, 128) for _ in range(3)]
     log(f"[kernels] K3 host cost a call (B1 H1 S64 D128, the wrapper and its launch, 3 tensor maps): "
         f"{_host_us(lambda: A.flash_attention(*tiny)):.1f} us")
@@ -2362,6 +2414,250 @@ def phase_wan_train() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# FLUX.1-dev: the kernels at its shapes, its LoRA gradients, and LoRA DPO
+# ---------------------------------------------------------------------------
+
+#: K5 at FLUX.1's width (D = 3072: a 4096 block, 8 warps forward, 16
+#: backward), the 512 px grad step's B = 2 shapes: the image stream (1024
+#: tokens, the double blocks' img norms), the text stream (512, their txt
+#: norms) and the joint stream (1536, the single blocks' norm)
+FLUX_K5_SHAPES = tuple(NormShape(tag, 2, S, 3072, "bfloat16", "bfloat16", False, False, False, True)
+                       for tag, S in (("flux-img", 1024), ("flux-txt", 512), ("flux-joint", 1536)))
+#: kernel launches of one FLUX.1-dev transformer forward (19 double + 38
+#: single blocks): K3 once a block; K5 4 a double block, 1 a single block and
+#: norm_out. A backward launches K2a/K2b once a block and K5's backward for
+#: every K5 but block 0's first two, whose inputs (the embeddings, the
+#: AdaLN vectors) are frozen.
+FLUX_FORWARD = {"flash_fwd": 57, "ln_mul_add": 19 * 4 + 38 + 1}
+#: one DPO grad step at num_train_timesteps 1 with remat: the two reference
+#: forwards (no grad), the two θ forwards, each block recomputed once in the
+#: two backwards (norm_out is outside the blocks, so not recomputed), the two
+#: backwards
+FLUX_DPO_A_STEP = {"flash_fwd": 6 * 57, "flash_bwd_dq": 2 * 57, "flash_bwd_dkv": 2 * 57,
+                   "ln_mul_add": 4 * 115 + 2 * 114, "ln_mul_add_backward": 2 * 113}
+#: peak device memory predicted for the [flux-dpo] phase, GiB (PERF.md §6)
+FLUX_DPO_PEAK_PREDICTED = (62.0, 72.0)
+
+
+def _k3_flux_call(B: int, H: int, S: int, D: int):
+    """K3 on fresh contiguous bf16 inputs of a FLUX.1 joint-attention shape."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    q, k, v = (torch.randn(B, H, S, D, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    return functools.partial(A.flash_attention, q, k, v, D ** -0.5)
+
+
+def phase_flux_kernels(results: dict) -> None:
+    """[flux-kernels]: K3 at the FLUX.1 512 px joint attention (B H24 S1536
+    D128: 512 text + 1024 image tokens, q/k contiguous as RoPE returns them,
+    v the concatenation) at B = 2 (a grad step's forwards) and B = 8 (the
+    rollout), K2a/K2b at B = 2 on K3's O and lse, and K5 with its backward at
+    ``FLUX_K5_SHAPES``, each through the checks of its Wan and SD3.5 shapes
+    (``_k3_shape_checks``, ``_k2_d128_shape_checks`` with the control
+    without Delta, ``_k5_shape_checks`` with the backward controls). The
+    entries join the table under the tags flux-512px-b2, flux-512px-b8,
+    flux-512px, flux-img, flux-txt and flux-joint."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import norms as N
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    H, S, D = 24, 1536, 128
+    log(f"[flux-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    for tag, B in (("flux-512px-b2", 2), ("flux-512px-b8", 8)):
+        q, k, v = (randn(B, H, S, D) for _ in range(3))
+        _k3_shape_checks(results, tag, q, k, v, "q/k/v contiguous", functools.partial(_k3_flux_call, B, H, S, D))
+        del q, k, v
+    _k2_d128_shape_checks(results, "flux-512px", 2, H, S, S, True, randn)
+    for shape in FLUX_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, True)
+    log(f"[flux-kernels] Triton kernels compiled so far (at D 3072: K5 8 warps, its backward 16): "
+        f"{_triton_figures(N)}")
+
+
+def _flux_ids(h: int, w: int, txt_len: int):
+    import torch
+
+    from flow_factory_tpu_torch.models.flux.adapter import Flux1Adapter
+
+    img_ids = torch.from_numpy(Flux1Adapter.latent_image_ids(h, w)).cuda()
+    return img_ids, torch.zeros(txt_len, 3, device="cuda")
+
+
+def phase_flux_grad() -> None:
+    """[flux-grad]: LoRA gradients through the kernels at FLUX.1-dev width,
+    reduced depth: one double and one single block, B = 2, 1024 image + 512
+    T5 tokens (512 px), guidance 3.5, rank-32 LoRA on the FLUX targets of the
+    two blocks (the fused ``linear1``/``linear2`` included), ``lora_B`` drawn
+    non-zero, checked by :func:`_lora_grad_check` (the dq-zeroed control
+    must be rejected); a non-zero gradient on every leaf, and K3, K2a, K2b
+    and K5 (and its backward) launched exactly as the two blocks predict."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.flux.adapter import FLUX_LORA_TARGETS
+    from flow_factory_tpu_torch.models.flux.transformer import FluxConfig, FluxTransformer
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import init_lora
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = dataclasses.replace(FluxConfig.flux1_dev(), num_double_blocks=1, num_single_blocks=1)
+    model = build_module(lambda: FluxTransformer(cfg), dev, torch.bfloat16, gen)
+    lora = init_lora(model, 32, gen, FLUX_LORA_TARGETS)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 2
+    x = randn(B, 1024, cfg.in_channels)  # 32 x 32 packed tokens: 512 px
+    ctx, pooled = randn(B, 512, cfg.context_dim), randn(B, cfg.pooled_dim)
+    t, guidance = torch.full((B,), 750.0, device=dev), torch.full((B,), 3.5, device=dev)
+    img_ids, txt_ids = _flux_ids(64, 64, 512)
+    names, kern, _, counts = _lora_grad_check(
+        f"FLUX.1-dev width, 1 double + 1 single block, B={B}, 1024 image + 512 text tokens", model, lora,
+        lambda params: functional_call(model, params, (x, t, ctx, pooled, img_ids, txt_ids, guidance)), x, gen)
+    dead = [n for n, g in zip(names, kern) if not g.abs().max().item() > 0]
+    log(f"[flux-grad] non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves (the fused linear1/"
+        f"linear2 among them: {sum('linear' in n and 'single' in n for n in names)})")
+    want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2, "ln_mul_add": 6, "ln_mul_add_backward": 4}
+    if dead or any(counts[k] != n for k, n in want.items()):
+        fail(f"[flux-grad]: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
+    del model, lora, kern
+    torch.cuda.empty_cache()
+
+
+def phase_flux_dpo() -> dict:
+    """[flux-dpo]: FLUX.1-dev LoRA DPO at full width through ``load_trainer``
+    on tests/fixtures/flux1_dpo.yaml (19 double + 38 single blocks, random
+    bf16 weights from seed 42, rank-32 LoRA on the JAX FLUX targets, 512 px,
+    10 steps, guidance 3.5, Flow-SDE η 0.8, 2 prompts x group 4, β 2000, one
+    logit-normal timestep, AdamW 3e-4, EMA 0.99 every 4, remat on), two
+    epochs phase by phase: each rollout finite with K3 and K5 launched as
+    ``FLUX_FORWARD`` predicts per step, finite rewards, advantages and 2
+    pairs; epoch 0's grad step at the zero LoRA with the implicit margin
+    exactly 0.0 and the loss exactly −logsigmoid(0) in fp32 (θ is the
+    reference, bit for bit); epoch 1's at the moved LoRA with another loss;
+    a finite non-zero gradient norm, launches as ``FLUX_DPO_A_STEP``, peak
+    memory against the prediction; then a profile of one grad step. Returns
+    the launch counts of the two epochs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", "flux1_dpo.yaml"))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    cfg.log_args.save_dir = os.path.join(here, "chiprun_out", "train")
+    ta = cfg.training_args
+    log(f"[flux-dpo] device memory allocated before the FLUX.1 trainer loads: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ad = trainer.adapter
+    lora = ad.trainable["transformer"]
+    sizes = {comp: sum(p.numel() for p in m.parameters()) for comp, m in ad.modules.items()}
+    log(f"[flux-dpo] load_trainer (FLUX.1-dev, {sizes['transformer'] / 1e9:.3f} B transformer, T5-XXL "
+        f"{sizes['text_encoder_2'] / 1e9:.3f} B, CLIP-L {sizes['text_encoder'] / 1e9:.3f} B, VAE "
+        f"{sizes['vae'] / 1e9:.3f} B; LoRA rank {cfg.model_args.lora_rank} on {len(lora)} weights, "
+        f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.3f} M trainable; preprocess "
+        f"included) {load_s:.1f} s; remat {ad.component_configs['transformer'].remat}; "
+        f"gradient_accumulation_steps {ta.gradient_accumulation_steps}; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log2 = -F.logsigmoid(torch.zeros((), dtype=torch.float32)).item()
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    ops.reset_launch_counts()
+    samples = []
+    for epoch in range(ta.max_epochs):
+        trainer.epoch = epoch
+        trainer.scheduler.set_seed(ta.seed + epoch)
+        secs = {}
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        samples = trainer.sample(epoch)
+        torch.cuda.synchronize()
+        secs["sample"] = time.perf_counter() - t0
+        in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        steps = ta.num_inference_steps * -(-len(samples) // ta.per_device_batch_size)
+        want = {k: n * steps for k, n in FLUX_FORWARD.items()}
+        images = np.stack([s.image for s in samples])
+        finals = np.stack([s.all_latents for s in samples])
+        t0 = time.perf_counter()
+        metrics = trainer.prepare_feedback(samples)
+        secs["feedback"] = time.perf_counter() - t0
+        adv = np.asarray([s.extra_kwargs["advantage"] for s in samples])
+        log(f"[flux-dpo] epoch {epoch} rollout: images {images.shape} in [{images.min():.3f}, {images.max():.3f}], "
+            f"final latents {finals.shape}, reward mean {metrics['reward/mean']:.5f}, advantages "
+            f"{np.round(adv, 4).tolist()}, launches {in_sample} (expected {want})")
+        if not (images.shape == (8, 3, 512, 512) and finals.shape == (8, 1, 1024, 64) and np.isfinite(images).all()
+                and np.isfinite(finals).all() and np.isfinite(adv).all() and np.isfinite(metrics["reward/mean"])):
+            fail(f"[flux-dpo] epoch {epoch}: the rollout or its rewards are not as expected")
+        if any(in_sample[k] != n for k, n in want.items()):
+            fail(f"[flux-dpo] epoch {epoch}: rollout launches {in_sample}, expected {want}")
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+        secs["optimize"] = time.perf_counter() - t0
+        in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ad.ema_step(epoch)
+        grad_steps = ta.get_num_train_timesteps(cfg)
+        want = {k: n * grad_steps for k, n in FLUX_DPO_A_STEP.items()}
+        loss, margin, gnorm = info["train/loss"], info["train/implicit_margin"], info["train/grad_norm"]
+        log(f"[flux-dpo] epoch {epoch}: {info['train/dpo_num_pairs']:.0f} pairs, {grad_steps} grad step(s), loss "
+            f"{loss!r} (-logsigmoid(0) in fp32: {log2!r}), implicit margin {margin!r}, implicit acc "
+            f"{info['train/implicit_acc']}, theta errs w {info['train/theta_w_err']:.6f} l "
+            f"{info['train/theta_l_err']:.6f}, grad_norm {gnorm:.4e}, launches in optimize {in_optimize} "
+            f"(expected {want})")
+        log(f"[flux-dpo] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+            f"{secs['optimize'] / grad_steps:.3f} s per grad step (optimizer step included)")
+        if info["train/dpo_num_pairs"] != 2.0 or not (np.isfinite(gnorm) and gnorm > 0):
+            fail(f"[flux-dpo] epoch {epoch}: pairs {info['train/dpo_num_pairs']}, grad norm {gnorm}")
+        if epoch == 0 and not (margin == 0.0 and loss == log2):
+            fail(f"[flux-dpo] epoch 0 at the zero LoRA: margin {margin!r}, loss {loss!r}, expected 0.0 and {log2!r}")
+        if epoch > 0 and not (np.isfinite(loss) and loss != log2):
+            fail(f"[flux-dpo] epoch {epoch}: the loss {loss!r} did not move off -logsigmoid(0)")
+        if any(in_optimize[k] != n for k, n in want.items()):
+            fail(f"[flux-dpo] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[flux-dpo] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail("[flux-dpo] the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = FLUX_DPO_PEAK_PREDICTED
+    log(f"[flux-dpo] launches over two epochs {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} "
+        f"GiB: {'inside' if lo <= peak <= hi else 'outside'}) | global step {trainer.global_step}")
+    if trainer.global_step != ta.max_epochs:
+        fail(f"[flux-dpo] the optimizer did not step once per epoch: global step {trainer.global_step}")
+    batch = next(trainer.grad_step_batches(samples, ta.max_epochs - 1))
+
+    def grad_step():
+        _, grads = trainer.loss_and_grads(ad.trainable, batch, trainer.reference_trainable())
+        trainer.accumulate_grads(grads)
+        trainer.apply_accumulated()
+
+    _profile("one FLUX.1-dev DPO grad step (2 reference + 2 θ forwards, remat, 2 backwards, AdamW)", grad_step,
+             "flux_dpo_grad_step_trace.json")
+    trainer.cleanup()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2389,6 +2685,7 @@ def main() -> int:
     card = phase_environment()
     results: dict = {}
     phase_kernels(results)
+    phase_flux_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -2407,12 +2704,23 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     phase_grad_wan()
     wan_train_counts = phase_wan_train()
+    gc.collect()
+    torch.cuda.empty_cache()  # the Wan trainer is gone before FLUX.1 loads
+    phase_flux_grad()
+    flux_counts = phase_flux_dpo()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
     counts["flash_fwd"] = wan_counts["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         counts[f"{name}_d128"] = wan_train_counts[name]
+    # the FLUX.1 shapes: their kernels' launches in the two FLUX.1 DPO epochs
+    for name, tags in (("flash_fwd", ("flux-512px-b2", "flux-512px-b8")),
+                       ("flash_bwd_dq_d128", ("flux-512px",)), ("flash_bwd_dkv_d128", ("flux-512px",)),
+                       ("ln_mul_add", ("flux-img", "flux-txt", "flux-joint")),
+                       ("ln_mul_add_backward", ("flux-img", "flux-txt", "flux-joint"))):
+        for tag in tags:
+            results[name]["shapes"][tag]["launches"] = flux_counts[name.replace("_d128", "")]
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -688,6 +688,35 @@ class BaseAdapter(ABC):
             out[int(i)] = res.log_prob
         return out
 
+    @property
+    def decoupled_latent_keys(self) -> Dict[str, str]:
+        """Latent streams the decoupled trainers train on: {batch key:
+        sample key} (JAX ``models/abc.py:356``); one image or video stream
+        here."""
+        return {"latents": "all_latents"}
+
+    def training_velocity(self, trainable: Optional[Trainable], batch: Dict[str, Any],
+                          params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Velocity at arbitrary (latents, timestep), the decoupled trainers'
+        forward (JAX ``models/abc.py:1152``), differentiable in ``trainable``
+        when grad is on. ``params`` are effective weights the caller merged
+        already (:meth:`merged_params`; one merge serves several forwards of
+        a step); ``{}`` runs the frozen weights, which the zero LoRA of the
+        reference policy merges into bit for bit."""
+        embeds = {k: batch[k] for k in self.embed_keys if k in batch}
+        do_cfg = "negative_prompt_embeds" in embeds and bool(batch.get("do_cfg", True))
+        if params is None:
+            params = self.merged_params(self.velocity_component, trainable)
+        return self._velocity(batch["latents"], batch["timestep"], embeds,
+                              float(batch.get("guidance_scale", self.training_args.guidance_scale)),
+                              do_cfg, params)
+
+    def training_velocity_tree(self, trainable: Optional[Trainable], batch: Dict[str, Any],
+                               params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """Velocity for every stream of :attr:`decoupled_latent_keys`, keyed
+        like the batch's streams (JAX ``training_velocity_tree``)."""
+        return {"latents": self.training_velocity(trainable, batch, params)}
+
     def training_forward(
         self,
         trainable: Trainable,

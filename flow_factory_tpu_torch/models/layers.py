@@ -14,6 +14,8 @@ Conventions of the JAX package that are load-bearing here:
 * ``AdaLayerNormContinuous`` is scale-first;
 * ``JointAttention`` puts the context tokens first, with per-position q/k
   scale maps (context rows take the added-norm scale);
+* the FLUX qk-norm is RMS per head (:class:`QKNorm`), outside the flash
+  kernel, since FLUX rotates q and k after it;
 * the Wan/LTX qk-norm is RMS across heads: γ has shape (D,) and the mean
   square spans every head (:func:`_across_heads_rms`);
 * RoPE rotates interleaved pairs with fp32 tables (:func:`apply_rope`).
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention, qknorm_dot_product_attention
+from ..ops.attention import _rms_scale, dot_product_attention, qknorm_dot_product_attention
 from ..ops.norms import adaln_modulate, fused_layernorm
 
 
@@ -347,6 +349,32 @@ class AcrossHeadsQKNorm(ScaleParam):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _across_heads_rms(x, self.weight)
+
+
+class HeadRMSNorm(ScaleParam):
+    """One γ (E,) of the per-head RMS qk-norm (diffusers' ``norm_q``,
+    ``norm_k``, ``norm_added_q``, ``norm_added_k``): fp32 statistics,
+    ``x32 * (rsqrt(mean(x32^2) + eps) * γ)``, cast back to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _rms_scale(x, self.weight, self.eps).to(x.dtype)
+
+
+class QKNorm(nn.Module):
+    """Per-head RMS norm of q and k (JAX ``QKNorm``, ``layers.py:281-303``):
+    two :class:`HeadRMSNorm` scales, ``norm_q`` and ``norm_k``."""
+
+    def __init__(self, head_dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.norm_q = HeadRMSNorm(head_dim, eps)
+        self.norm_k = HeadRMSNorm(head_dim, eps)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.norm_q(q), self.norm_k(k)
 
 
 class JointAttention(nn.Module):

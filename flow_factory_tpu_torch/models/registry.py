@@ -1,5 +1,7 @@
 """Model adapter registry of the port: config ``model_type`` → adapter class,
-imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``."""
+imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
+Model types of the JAX package that are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them."""
 from __future__ import annotations
 
 import importlib
@@ -10,10 +12,18 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "sd3.5": "flow_factory_tpu_torch.models.sd3.adapter:SD35Adapter",
     "wan2-t2v": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
     "wan21": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
+    "flux1": "flow_factory_tpu_torch.models.flux.adapter:Flux1Adapter",
+}
+_NOT_PORTED: Dict[str, str] = {
+    "flux1-kontext": "ROADMAP Queue 1 item 7 (FLUX.1-Kontext)",
+    "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
+    "flux2-klein": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
 }
 
 
 def resolve_adapter_class(model_type: str) -> Type:
+    if model_type in _NOT_PORTED:
+        raise NotImplementedError(f"model_type {model_type!r} is not ported yet: {_NOT_PORTED[model_type]}")
     target = _MODEL_ADAPTER_REGISTRY.get(model_type, model_type)
     if ":" in target:
         module_name, cls_name = target.split(":")

@@ -1,0 +1,171 @@
+"""Shared scaffolding of the decoupled trainers (port of
+``flow_factory_tpu/trainers/decoupled.py``; DPO now, NFT/AWM/CRD/DGPO next).
+
+Decoupled: the training timesteps are drawn fresh by a ``TimeSampler``
+instead of replaying the rollout's SDE steps, and only the final (clean)
+latent of each rollout is kept (``trajectory_indices=[-1]``, no log-probs).
+The rollout batches run one after another (no pipelined ``PendingRollout``
+yet); a preemption request is honoured before each rollout batch and each
+micro-batch.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..parallel.dist import get_rank, reduce_loss_info
+from ..samples import BaseSample, stack_samples
+from ..utils.base import derive_seed, make_generator
+from ..utils.noise_schedule import TimeSampler
+from .abc import BaseTrainer
+
+
+class DecoupledTrainer(BaseTrainer):
+    #: whether rollouts need per-step log-probs (none of the decoupled ones do)
+    rollout_compute_log_prob = False
+
+    # ------------------------------------------------------------------
+    # Rollout: store only the final latent
+    # ------------------------------------------------------------------
+    def sample(self, epoch: int) -> List[BaseSample]:
+        ta = self.training_args
+        self.adapter.rollout()
+        self.reward_buffer.clear()
+        self.train_loader.set_epoch(epoch)
+        rank = get_rank()
+        for b, batch in enumerate(self.train_loader):
+            self.check_preempt()
+            samples = self.adapter.inference(
+                prompt=batch["prompt"],
+                prompt_embeds=batch.get("prompt_embeds"),
+                pooled_prompt_embeds=batch.get("pooled_prompt_embeds"),
+                negative_prompt_embeds=batch.get("negative_prompt_embeds"),
+                negative_pooled_prompt_embeds=batch.get("negative_pooled_prompt_embeds"),
+                compute_log_prob=self.rollout_compute_log_prob,
+                trajectory_indices=[-1],
+                generator=make_generator(self.adapter.device, "rollout", ta.seed, epoch, rank, b),
+                **self.condition_kwargs(batch),
+            )
+            self.reward_buffer.add_samples(samples)
+        self.adapter.train()
+        return self.reward_buffer.samples
+
+    # ------------------------------------------------------------------
+    # Fresh timestep sampling (the TimeSampler dispatch)
+    # ------------------------------------------------------------------
+    def sample_timesteps(self, batch_size: int, seed: int) -> np.ndarray:
+        """(num_train_timesteps, B) scheduler-scale timesteps."""
+        ta = self.training_args
+        strategy = getattr(ta, "time_sampling_strategy", getattr(ta, "weighting_scheme", "logit_normal"))
+        T = ta.get_num_train_timesteps(self.config)
+        if strategy == "logit_normal":
+            return TimeSampler.logit_normal_shifted(
+                batch_size=batch_size, num_timesteps=T, timestep_range=ta.timestep_range,
+                logit_mean=getattr(ta, "logit_mean", 0.0), logit_std=getattr(ta, "logit_std", 1.0),
+                time_shift=getattr(ta, "time_shift", 3.0), stratified=True, seed=seed)
+        if strategy == "uniform":
+            return TimeSampler.uniform(batch_size=batch_size, num_timesteps=T, timestep_range=ta.timestep_range,
+                                       time_shift=getattr(ta, "time_shift", 1.0), seed=seed)
+        if strategy.startswith("discrete"):
+            # discrete draws from the rollout scheduler's grid
+            if self.scheduler.timesteps is None:
+                self.scheduler.set_timesteps(ta.num_inference_steps, seq_len=256)
+            return TimeSampler.discrete(
+                batch_size=batch_size, num_train_timesteps=T, scheduler_timesteps=self.scheduler.timesteps,
+                timestep_range=ta.timestep_range, include_init=strategy != "discrete_wo_init",
+                force_init=strategy == "discrete_with_init", seed=seed)
+        raise ValueError(f"Unknown time sampling strategy {strategy!r}")
+
+    # ------------------------------------------------------------------
+    # Micro-batches
+    # ------------------------------------------------------------------
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.adapter.device)
+
+    def iter_micro_batches(self, samples: List[BaseSample], epoch: int, inner: int
+                           ) -> Iterator[Tuple[List[BaseSample], Dict[str, Any]]]:
+        """Shuffled micro-batches of ``samples`` (the remainder cycle-padded
+        so every sample contributes), each stacked on the host with its clean
+        latents and embeds moved to the device."""
+        B = self.micro_batch_size
+        rng = np.random.default_rng(derive_seed("shuffle", self.training_args.seed, epoch, inner))
+        perm = rng.permutation(len(samples))
+        if len(perm) % B:
+            perm = np.concatenate([perm, perm[: B - len(perm) % B]])
+        for s in range(0, len(perm) - B + 1, B):
+            self.check_preempt()
+            mb = [samples[int(i)] for i in perm[s : s + B]]
+            bn = stack_samples(mb)
+            bn["__staged_clean__"] = self.clean_latent_tree(bn)
+            bn["__staged_embeds__"] = self.batch_embeds(bn)
+            yield mb, bn
+
+    def batch_embeds(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The adapter's embed keys of a stacked batch, fp32 on the device."""
+        if "__staged_embeds__" in batch_np:
+            return batch_np["__staged_embeds__"]
+        return {k: self._to_device(batch_np[k]) for k in self.adapter.embed_keys
+                if batch_np.get(k) is not None}
+
+    def clean_latent_tree(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The final (clean) latents of every stream: {batch key: (B, ...)}."""
+        if "__staged_clean__" in batch_np:
+            return batch_np["__staged_clean__"]
+        return {bk: self._to_device(batch_np[sk][:, -1]) for bk, sk in self.adapter.decoupled_latent_keys.items()
+                if batch_np.get(sk) is not None}
+
+    # ------------------------------------------------------------------
+    # Latent trees: each stream a leaf for the forward; the losses reduce
+    # over their flattened concatenation in sorted-key order
+    # ------------------------------------------------------------------
+    @staticmethod
+    def noised_latents(clean: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x_t = (1−σ)·x1 + σ·ε with σ = t/1000 (linear flow interpolation)."""
+        sigma = (t / 1000.0).reshape(-1, *([1] * (clean.ndim - 1)))
+        return (1.0 - sigma) * clean + sigma * noise
+
+    @staticmethod
+    def tree_normal(generator: torch.Generator, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Independent N(0, 1) fp32 draws per leaf from ``generator``, in
+        sorted-key order (the JAX package folds its key per leaf; the bits
+        differ, so the tests feed both packages the same noise)."""
+        return {k: torch.randn(tree[k].shape, generator=generator, device=tree[k].device, dtype=torch.float32)
+                for k in sorted(tree)}
+
+    @classmethod
+    def tree_noised(cls, clean: Dict[str, torch.Tensor], noise: Dict[str, torch.Tensor],
+                    t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {k: cls.noised_latents(clean[k], noise[k], t) for k in clean}
+
+    @staticmethod
+    def tree_flat(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, Σ leaf sizes): the leaves concatenated in sorted-key order."""
+        ks = sorted(tree)
+        B = tree[ks[0]].shape[0]
+        return torch.cat([tree[k].reshape(B, -1) for k in ks], dim=1)
+
+    @staticmethod
+    def aggregate_infos(infos: List[Dict[str, Any]]) -> Dict[str, float]:
+        """The grad steps' metrics (device scalars, read here once) reduced
+        over the phase."""
+        if not infos:
+            return {}
+        keys = set().union(*infos)
+        return reduce_loss_info({k: [float(i[k]) for i in infos if k in i] for k in keys})
+
+    def ref_params(self, ref_trainable: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+        """Effective weights of the reference policy: ``{}`` (the frozen
+        weights) when ``ref_trainable`` is None, the LoRA case, since the zero
+        LoRA's merge ``(W.float() + 0).to(W.dtype)`` is W bit for bit and
+        needs no second copy of the targeted weights; else the reference
+        tree merged."""
+        if ref_trainable is None:
+            return {}
+        return self.adapter.merged_params(self.adapter.velocity_component, ref_trainable)
+
+    def reference_trainable(self) -> Optional[Dict[str, Any]]:
+        """The reference policy's tree for :meth:`ref_params`: None for LoRA
+        (the zero LoRA), the frozen snapshot for full finetuning."""
+        return None if self.adapter.is_lora else self.adapter.ref_trainable()

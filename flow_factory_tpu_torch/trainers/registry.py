@@ -1,6 +1,7 @@
 """Trainer registry of the port: config ``trainer_type`` → trainer class,
 imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
-Only GRPO and GRPO-Guard are ported so far."""
+GRPO, GRPO-Guard and DPO are ported; the other decoupled trainers raise
+(ROADMAP Queue 1 item 5)."""
 from __future__ import annotations
 
 import importlib
@@ -10,14 +11,15 @@ _TRAINER_REGISTRY = {
     "grpo": "flow_factory_tpu_torch.trainers.grpo:GRPOTrainer",
     "grpo_guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
     "grpo-guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
+    "dpo": "flow_factory_tpu_torch.trainers.dpo:DPOTrainer",
 }
-_NOT_PORTED = ("dpo", "nft", "awm", "dgpo", "crd")
+_NOT_PORTED = ("nft", "awm", "dgpo", "crd")
 
 
 def resolve_trainer_class(trainer_type: str) -> Type:
     key = str(trainer_type).lower()
     if key in _NOT_PORTED:
-        raise NotImplementedError(f"trainer {trainer_type!r} is not ported yet")
+        raise NotImplementedError(f"trainer {trainer_type!r} is not ported yet (ROADMAP Queue 1 item 5)")
     target = _TRAINER_REGISTRY.get(key, trainer_type)
     if ":" in target:
         module_name, cls_name = target.split(":")

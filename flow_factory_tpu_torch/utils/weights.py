@@ -326,6 +326,63 @@ def wan_t2v_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, An
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 
+def flux1_transformer_map(num_double: int, num_single: int) -> Tuple[ModuleMap, RawMap]:
+    """The FLUX.1 transformer (inverse of the JAX ``flux_transformer_key_map``,
+    ``utils/checkpoint.py:315``), diffusers names but for the single blocks'
+    fused ``linear1``/``linear2``, which stay single weights in both packages."""
+    m: ModuleMap = {
+        "x_embedder": "x_embedder",
+        "context_embedder": "context_embedder",
+        "time_embed/linear_1": "time_text_embed.timestep_embedder.linear_1",
+        "time_embed/linear_2": "time_text_embed.timestep_embedder.linear_2",
+        "guidance_embed/linear_1": "time_text_embed.guidance_embedder.linear_1",
+        "guidance_embed/linear_2": "time_text_embed.guidance_embedder.linear_2",
+        "text_embed/linear_1": "time_text_embed.text_embedder.linear_1",
+        "text_embed/linear_2": "time_text_embed.text_embedder.linear_2",
+        "norm_out/linear": "norm_out.linear",
+        "proj_out": "proj_out",
+    }
+    for i in range(num_double):
+        o, b = f"double_{i}", f"transformer_blocks.{i}"
+        m[f"{o}/img_mod"] = f"{b}.norm1.linear"
+        m[f"{o}/txt_mod"] = f"{b}.norm1_context.linear"
+        for src, dst in (("img_q", "to_q"), ("img_k", "to_k"), ("img_v", "to_v"), ("img_attn_out", "to_out.0"),
+                         ("txt_q", "add_q_proj"), ("txt_k", "add_k_proj"), ("txt_v", "add_v_proj"),
+                         ("txt_attn_out", "to_add_out"), ("img_qk_norm/q_norm", "norm_q"),
+                         ("img_qk_norm/k_norm", "norm_k"), ("txt_qk_norm/q_norm", "norm_added_q"),
+                         ("txt_qk_norm/k_norm", "norm_added_k")):
+            m[f"{o}/{src}"] = f"{b}.attn.{dst}"
+        for src, dst in (("img_ff", "ff"), ("txt_ff", "ff_context")):
+            m[f"{o}/{src}/fc1"] = f"{b}.{dst}.net.0.proj"
+            m[f"{o}/{src}/fc2"] = f"{b}.{dst}.net.2"
+    for i in range(num_single):
+        o, b = f"single_{i}", f"single_transformer_blocks.{i}"
+        m[f"{o}/mod"] = f"{b}.norm.linear"
+        m[f"{o}/linear1"] = f"{b}.linear1"
+        m[f"{o}/linear2"] = f"{b}.linear2"
+        m[f"{o}/qk_norm/q_norm"] = f"{b}.attn.norm_q"
+        m[f"{o}/qk_norm/k_norm"] = f"{b}.attn.norm_k"
+    return m, {}
+
+
+def flux1_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every FLUX.1 adapter component, keyed like ``adapter.params``."""
+    t, v = configs["transformer"], configs["vae"]
+    return {
+        "transformer": flux1_transformer_map(t.num_double_blocks, t.num_single_blocks),
+        "text_encoder": clip_text_map(configs["text_encoder"].num_layers),
+        "text_encoder_2": t5_encoder_map(configs["text_encoder_2"].num_layers),
+        "vae": vae_map(v.channel_mults, v.layers_per_block, v.use_mid_attention),
+    }
+
+
+def flux1_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All FLUX.1 components' flax trees → the port's state dicts."""
+    maps = flux1_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
 # ---------------------------------------------------------------------------
 # LoRA trees: flax {path/kernel: {a (in, r), b (r, out)}} ↔ the port's PEFT
 # layout {module path: {lora_A (r, in), lora_B (out, r)}}

@@ -15,9 +15,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port — the training slice's ``trainers``, ``data``,
     ``ema`` and ``train``, and the Wan slice's ``models.wan`` and
-    ``scheduler.unipc`` among them, and the run plumbing's ``cli``, ``logger``
-    and ``utils.safetensors_io`` — imported in a fresh interpreter, leaves
-    jax, flax, flow_factory_tpu and safetensors out of sys.modules."""
+    ``scheduler.unipc`` among them, the run plumbing's ``cli``, ``logger``
+    and ``utils.safetensors_io``, and the FLUX/DPO slice's ``models.flux``,
+    ``trainers.decoupled``, ``trainers.dpo`` and ``utils.noise_schedule`` —
+    imported in a fresh interpreter, leaves jax, flax, flow_factory_tpu and
+    safetensors out of sys.modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import flow_factory_tpu_torch as pkg
@@ -32,7 +34,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                                  "utils.safetensors_io", "utils.memory_tracker",
                                                  "models.lora", "models.wan", "models.wan.t2v",
                                                  "models.wan.transformer", "models.wan.video_vae",
-                                                 "scheduler.unipc", "scheduler.registry")}
+                                                 "scheduler.unipc", "scheduler.registry", "models.flux",
+                                                 "models.flux.adapter", "models.flux.transformer",
+                                                 "trainers.decoupled", "trainers.dpo",
+                                                 "utils.noise_schedule")}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or need - set(names) or len(names) < 30 else 0)
     """)

@@ -784,3 +784,52 @@ def test_norm_forward_batch_slice_gives_the_bits_of_the_whole_batch(gen, which):
                                                       c["add"][:n], 1e-6, torch.bfloat16)
         (pn, pm), (wn, wm) = run(4), run(16)
         assert torch.equal(pn, wn[:4]) and torch.equal(pm, wm[:4])
+
+
+# ---------------------------------------------------------------------------
+# The FLUX.1 shapes: K5 at width 3072, K3/K2 at head dim 128 over 1536 tokens
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1024, 512, 1536])
+def test_ln_mul_add_at_flux_width_matches_plain(gen, S):
+    """K5 at D = 3072 (a 4096 block: 8 warps in the forward, 16 in the
+    backward), the FLUX.1 512 px shapes of a B = 2 grad step: the image
+    (1024), text (512) and joint (1536) streams. The forward within one bf16
+    ulp of max|out| of the plain version, the backward (dx alone, as the grad
+    step asks, and every gradient) within chip_smoke.py's bars."""
+    c = _norm_case(gen, 2, S, 3072, torch.bfloat16, torch.bfloat16)
+    assert N._launch_config("ln_mul_add", 2, S, 3072)[:2] == (4096, 8)
+    assert N._launch_config("ln_mul_add_bwd", 2, S, 3072)[:2] == (4096, 16)
+    out = N.ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, fold=False)
+    ref = N._native_ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, False)
+    assert (out.float() - ref.float()).abs().max().item() <= _norm_bar(ref)
+    for needs in ((True, False, False), (True, True, True)):
+        _assert_grads_close(_k5_backward(c, False, needs), _k5_plain_backward(c, False, needs))
+
+
+@pytest.mark.parametrize("B,layout", [(2, "joint"), (2, "single"), (8, "joint")])
+def test_flash_at_flux_512px_matches_plain(gen, B, layout):
+    """K3 and K2a/K2b at the FLUX.1 512 px attention, B H24 S1536 D128 (512
+    text + 1024 image tokens): q/k contiguous as RoPE returns them, v the
+    concatenated (joint, double blocks) or a head-split view of the single
+    blocks' fused (B, S, 21504) projection (single). O and lse within K3's
+    bars; the backward (B = 2 only, the grad step's) within K2's."""
+    H, S, D = 24, 1536, 128
+    q, k = (_randn(gen, B, H, S, D, dtype=torch.bfloat16) for _ in range(2))
+    if layout == "single":
+        v = _randn(gen, B, S, 3 * H * D + 4 * H * D, dtype=torch.bfloat16)[..., 2 * H * D:3 * H * D]
+        v = v.view(B, S, H, D).transpose(1, 2)
+    else:
+        v = _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, return_lse=True)
+    err_o, err_lse = _k3_errors(out, lse, ref, ref_lse)
+    tol_o, tol_lse = _k3_tols(ref)
+    assert err_o <= tol_o and err_lse <= tol_lse
+    if B != 2:
+        return
+    dout = _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    got = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
+    want = A.flash_backward_plain(q, k, v, out, lse, dout, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - r.float()).abs().max().item() <= _k2_tol(r, torch.bfloat16), name
