@@ -84,11 +84,25 @@ printing one line and exiting non-zero on failure:
    predicted in each rollout and grad step, epoch 0's grad step at the zero
    LoRA with the implicit margin exactly 0 and the loss exactly
    -logsigmoid(0), a moved LoRA and another loss in epoch 1, peak memory
-   against its prediction, and a profile of one grad step.
+   against its prediction, and a profile of one grad step;
+8b. kontext-kernels (run right after 8): K3, K2a/K2b and K5 at the
+   FLUX.1-Kontext 512 px shapes (joint length 2560 = 512 text + 1024 target
+   + 1024 condition tokens; B 8), with the condition tail padded, and a
+   ragged S 2497, through the checks of 8;
+11. kontext-grpo, kontext-nft, kontext-awm: FLUX.1-Kontext-dev LoRA image
+   editing at full width through ``load_trainer`` on
+   tests/fixtures/flux1_kontext_{grpo,nft,awm}.yaml, two epochs each on two
+   records with one 512 px reference each (made from the seed under
+   build/): 1024 condition tokens a row, K3/K5 launched as predicted in each
+   rollout and K3/K2a/K2b/K5 and K5's backward in each grad step; on every
+   grad step GRPO's replay ratio exactly 1.0, NFT's positive and negative
+   losses equal, AWM's ratio exactly 1.0 on every row; a moved LoRA, peak
+   memory against its prediction, and for GRPO a profile of one grad step.
 
-The line before the last holds the kernel table as JSON (the FLUX.1 shapes
-nested under their kernels' entries, with their launches in the DPO epochs); the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last holds the kernel table as JSON (the FLUX.1 and
+FLUX.1-Kontext shapes nested under their kernels' entries, with their
+launches in the DPO epochs and in the three Kontext phases); the last line
+is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
 
@@ -97,6 +111,7 @@ port in the checkout DIR alone (``k2_d128_only``): run it on this checkout
 and on a ``git archive`` of another commit in one call to compare the two
 by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
 does the same for K5/K6 and their backwards (``norms_only``).
+``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone.
 """
 from __future__ import annotations
 
@@ -1062,9 +1077,9 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     """q, k, v and dO of a K2 D=128 shape in the layouts its caller hands
     over, with O and lse from K3's forward of them: wan-self q/k contiguous
     as ``apply_rope`` returns them, v a head-split view of its projection;
-    wan-cross k/v head-split views of the context projections; flux-1024px
-    and flux-512px q/k/v contiguous (the joint sequence, concatenated, q and
-    k as RoPE returns them); ragged-d128 every
+    wan-cross k/v head-split views of the context projections; flux-1024px,
+    flux-512px and the kontext shapes q/k/v contiguous (the joint sequence,
+    concatenated, q and k as RoPE returns them); ragged-d128 every
     operand a view; dO always head-interleaved, as the head merge's backward
     hands it over."""
     from flow_factory_tpu_torch.ops import attention as A
@@ -1072,8 +1087,8 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag == "wan-self" or tag.startswith("flux") else view(Sk)
-    v = randn(B, H, Sk, D) if tag.startswith("flux") else view(Sk)
+    k = randn(B, H, Sk, D) if tag == "wan-self" or tag.startswith(("flux", "kontext")) else view(Sk)
+    v = randn(B, H, Sk, D) if tag.startswith(("flux", "kontext")) else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
     return q, k, v, dout, out, lse
@@ -1143,14 +1158,14 @@ def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: 
     errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
     del ref
     d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
-    if tag in ("wan-self", "flux-512px"):
+    if tag in ("wan-self", "flux-512px", "kontext-2560"):
         zero = torch.zeros_like(delta)
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
                              (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
                               *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
-    if tag == "ragged-d128":
+    if tag in ("ragged-d128", "kontext-ragged"):
         n = Sk // 64 * 64  # the kernels' last whole key tile
-        _k2_negative_control(f"K2 D128 ragged vs a plain version without the {Sk - n}-key ragged tail", got,
+        _k2_negative_control(f"K2 D128 {tag} vs a plain version without the {Sk - n}-key ragged tail", got,
                              (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
                               None, None), tols)
     again = A.flash_backward(q, k, v, out, lse, dout, scale)
@@ -2658,6 +2673,267 @@ def phase_flux_dpo() -> dict:
     return counts
 
 
+#: FLUX.1-Kontext at 512 px: 512 text + 1024 target + 1024 condition tokens
+KONTEXT_S = 2560
+KONTEXT_K5_SHAPES = tuple(NormShape(tag, 8, S, 3072, "bfloat16", "bfloat16", False, False, False, True)
+                          for tag, S in (("kontext-img", 2048), ("kontext-txt", 512), ("kontext-joint", KONTEXT_S)))
+#: the table's Kontext shapes of each kernel (their launches: the three Kontext phases')
+KONTEXT_TAGS = {"flash_fwd": ("kontext-2560-b8", "kontext-padded", "kontext-ragged"),
+                "flash_bwd_dq_d128": ("kontext-2560",), "flash_bwd_dkv_d128": ("kontext-2560",),
+                "ln_mul_add": tuple(shape.tag for shape in KONTEXT_K5_SHAPES),
+                "ln_mul_add_backward": tuple(shape.tag for shape in KONTEXT_K5_SHAPES)}
+#: one grad step with remat: the θ forward, each block recomputed in the
+#: backward (norm_out is outside the blocks), the backward; NFT and AWM add
+#: their share of the no-grad old-policy forwards, one a grad step
+_KONTEXT_GRAD = {"flash_fwd": 2 * 57, "flash_bwd_dq": 57, "flash_bwd_dkv": 57, "ln_mul_add": 115 + 114,
+                 "ln_mul_add_backward": 113}
+KONTEXT_A_STEP = {"grpo": _KONTEXT_GRAD,
+                  **{t: {k: n + FLUX_FORWARD.get(k, 0) for k, n in _KONTEXT_GRAD.items()} for t in ("nft", "awm")}}
+#: peak device memory predicted for each [kontext-*] phase, GiB (PERF.md §6)
+KONTEXT_PEAK_PREDICTED = (59.0, 65.0)
+
+
+def phase_kontext_kernels(results: dict) -> None:
+    """[kontext-kernels]: K3, K2a/K2b and K5 at the FLUX.1-Kontext 512 px
+    shapes, through the checks of their FLUX.1 shapes: K3 at B8 H24 S2560
+    D128 (the rollout's and a grad step's batch of 8; 40 key tiles of 64),
+    the same with the last 512 condition positions all one row in q, k and v
+    (the projections of the zero tokens that pad a record with fewer
+    references; ids −1 change only RoPE, which runs before the kernel), and
+    B2 S2497 (a 496 px reference: 961 condition tokens, a ragged 1-key tail,
+    with the padded-key control); K2a/K2b at B8 S2560 (with the control
+    without Delta) and at the ragged S2497 (with the control without the
+    tail); K5 and its backward at ``KONTEXT_K5_SHAPES``. The entries join the
+    table under the ``KONTEXT_TAGS``."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    H, D = 24, 128
+    log(f"[kontext-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    for tag, B, S in (("kontext-2560-b8", 8, KONTEXT_S), ("kontext-padded", 8, KONTEXT_S),
+                      ("kontext-ragged", 2, KONTEXT_S - 63)):
+        q, k, v = (randn(B, H, S, D) for _ in range(3))
+        if tag == "kontext-padded":
+            for t in (q, k, v):
+                t[:, :, -512:] = t[:, :, -512:-511].clone()
+        _k3_shape_checks(results, tag, q, k, v, "q/k/v contiguous", functools.partial(_k3_flux_call, B, H, S, D))
+        del q, k, v
+    _k2_d128_shape_checks(results, "kontext-2560", 8, H, KONTEXT_S, KONTEXT_S, True, randn)
+    _k2_d128_shape_checks(results, "kontext-ragged", 2, H, KONTEXT_S - 63, KONTEXT_S - 63, False, randn)
+    for shape in KONTEXT_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, True)
+
+
+def _kontext_dataset(root: str) -> str:
+    """An editing dataset under build/: two records, each one instruction
+    and one 512 px reference image made from seed 42 (smooth colour fields,
+    bilinear from 8 x 8 random cells), as PNG files that the loader reads
+    with PIL as the JAX loader does. One reference geometry for every record:
+    with references of different counts or sizes in one micro-batch, F13
+    (ROADMAP Queue 3: every row takes row 0's condition ids) would move the
+    GRPO ratio off 1.0, and the ratio gate is to measure the kernels."""
+    import numpy as np
+    from PIL import Image
+
+    path = os.path.join(root, "build", "kontext_data")
+    os.makedirs(os.path.join(path, "assets"), exist_ok=True)
+    rng = np.random.default_rng(42)
+    prompts = ["turn the scene into a snowy winter evening", "repaint everything in warm autumn colours"]
+    with open(os.path.join(path, "train.jsonl"), "w") as f:
+        for i, prompt in enumerate(prompts):
+            cells = Image.fromarray((rng.random((8, 8, 3)) * 255).astype(np.uint8))
+            cells.resize((512, 512), Image.BILINEAR).save(os.path.join(path, "assets", f"ref_{i}.png"))
+            f.write(json.dumps({"prompt": prompt, "images": [f"assets/ref_{i}.png"]}) + "\n")
+    return path
+
+
+def phase_kontext(trainer_type: str) -> dict:
+    """[kontext-<trainer>]: FLUX.1-Kontext-dev LoRA image editing at full
+    width through ``load_trainer`` on tests/fixtures/flux1_kontext_<trainer>.yaml
+    (19 double + 38 single blocks, random bf16 weights from seed 42, rank-32
+    LoRA on the JAX FLUX targets, 512 px, 10 steps, guidance 3.5, Flow-SDE η
+    0.8, 2 records x group 4 in one rollout batch of 8, AdamW 3e-4, EMA 0.99
+    every 4, remat on; the optimizer once an epoch) on ``_kontext_dataset``,
+    two epochs phase by phase. Each rollout: images (8, 3, 512, 512) finite,
+    1024 condition tokens a row and a joint sequence of 2560, K3 and K5
+    launched as ``FLUX_FORWARD`` predicts per step. Each grad step, recorded
+    as it runs: GRPO's replay ratio min and max exactly 1.0 and clip_frac 0;
+    NFT's positive and negative losses equal (at β 1 both are ‖x0(v)−x1‖²/w
+    when v = v_old); AWM's weighted log-prob equal to the precomputed one bit
+    for bit on every row (ratio exactly 1.0, clip_frac 0). A finite loss, a
+    finite non-zero grad norm, the LoRA moved, launches in optimize as
+    ``KONTEXT_A_STEP``, peak memory against ``KONTEXT_PEAK_PREDICTED``; for
+    GRPO a profile of one grad step. Returns the launch counts of the two
+    epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import awm, load_trainer
+
+    tag = f"kontext-{trainer_type}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", f"flux1_kontext_{trainer_type}.yaml"))
+    cfg.data_args.dataset_dir = _kontext_dataset(here)
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    cfg.log_args.save_dir = os.path.join(here, "build", "train")
+    ta = cfg.training_args
+    log(f"[{tag}] two records, each one 512 px reference: one reference geometry for every record, so that F13 "
+        f"(every row takes row 0's condition ids) cannot move a ratio; device memory allocated before the trainer "
+        f"loads: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ad = trainer.adapter
+    lora = ad.trainable["transformer"]
+    log(f"[{tag}] load_trainer ({type(ad).__name__}, {type(trainer).__name__}; LoRA rank {cfg.model_args.lora_rank} "
+        f"on {len(lora)} weights; the VAE encode of the references and the prompt encode included) {load_s:.1f} s; "
+        f"remat {ad.component_configs['transformer'].remat}; gradient_accumulation_steps "
+        f"{ta.gradient_accumulation_steps}; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    steps, lps = [], []
+    loss_fn, real_wlp = trainer.loss_fn, awm.weighted_log_prob
+
+    def recording_loss_fn(*args, **kwargs):
+        loss, aux = loss_fn(*args, **kwargs)
+        steps.append(dict(aux))
+        return loss, aux
+
+    def recording_wlp(*args):
+        lp = real_wlp(*args)
+        lps.append(lp.detach().clone())
+        return lp
+
+    trainer.loss_fn = recording_loss_fn
+    awm.weighted_log_prob = recording_wlp
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    ops.reset_launch_counts()
+    try:
+        for epoch in range(ta.max_epochs):
+            trainer.epoch = epoch
+            trainer.scheduler.set_seed(ta.seed + epoch)
+            secs = {}
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            samples = trainer.sample(epoch)
+            torch.cuda.synchronize()
+            secs["sample"] = time.perf_counter() - t0
+            in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            rollout_steps = ta.num_inference_steps * -(-len(samples) // ta.per_device_batch_size)
+            want = {k: n * rollout_steps for k, n in FLUX_FORWARD.items()}
+            images = np.stack([s.image for s in samples])
+            cond = np.stack([s.extra_kwargs["cond_latents"] for s in samples])
+            joint = samples[0].all_latents.shape[-2] + cond.shape[1] + samples[0].prompt_embeds.shape[0]
+            t0 = time.perf_counter()
+            metrics = trainer.prepare_feedback(samples)
+            secs["feedback"] = time.perf_counter() - t0
+            log(f"[{tag}] epoch {epoch} rollout: images {images.shape} in [{images.min():.3f}, {images.max():.3f}], "
+                f"condition tokens {cond.shape}, joint length {joint}, reward mean {metrics['reward/mean']:.5f}, "
+                f"launches {in_sample} (expected {want}), {len(samples) / secs['sample']:.3f} samples/s")
+            if not (images.shape == (8, 3, 512, 512) and np.isfinite(images).all() and cond.shape[1] == 1024
+                    and joint == KONTEXT_S and np.isfinite(cond).all() and np.isfinite(metrics["reward/mean"])):
+                fail(f"[{tag}] epoch {epoch}: the rollout is not as expected")
+            if any(in_sample[k] != n for k, n in want.items()):
+                fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
+            before, first, lp0 = ops.launch_counts(), len(steps), len(lps)
+            t0 = time.perf_counter()
+            info = trainer.optimize(samples, epoch)
+            torch.cuda.synchronize()
+            secs["optimize"] = time.perf_counter() - t0
+            in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            ad.ema_step(epoch)
+            epoch_steps = [{k: float(v) for k, v in aux.items()} for aux in steps[first:]]
+            grad_steps = len(epoch_steps)
+            want = {k: n * grad_steps for k, n in KONTEXT_A_STEP[trainer_type].items()}
+            gnorm = info["train/grad_norm"]
+            if trainer_type == "grpo":
+                lo, hi = min(a["train/ratio_min"] for a in epoch_steps), max(a["train/ratio_max"] for a in epoch_steps)
+                held = lo == 1.0 and hi == 1.0 and all(a["train/clip_frac"] == 0.0 for a in epoch_steps)
+                what = f"replay ratio min {lo!r} max {hi!r} over every row of every grad step, clip_frac 0: {held}"
+            elif trainer_type == "nft":
+                held = all(a["train/positive_loss"] == a["train/negative_loss"] for a in epoch_steps)
+                what = (f"positive == negative loss on every grad step: {held} "
+                        f"({[a['train/positive_loss'] for a in epoch_steps]})")
+            else:
+                # the precompute's T log-probs of a micro-batch, then its T grad steps'
+                T = ta.get_num_train_timesteps(cfg)
+                mb = lps[lp0:]
+                ratios = torch.cat([torch.exp(new.double() - old.double()) for i in range(0, len(mb), 2 * T)
+                                    for old, new in zip(mb[i:i + T], mb[i + T:i + 2 * T])])
+                lo, hi = ratios.min().item(), ratios.max().item()
+                held = (lo == 1.0 and hi == 1.0 and len(mb) == 2 * grad_steps
+                        and all(a["train/ratio_mean"] == 1.0 and a["train/clip_frac"] == 0.0 for a in epoch_steps))
+                what = (f"per-row ratio min {lo!r} max {hi!r} over {ratios.numel()} rows of every grad step, "
+                        f"ratio_mean 1.0 and clip_frac 0 on every step: {held}; matching_lp "
+                        f"{[round(a['train/matching_lp'], 6) for a in epoch_steps]}")
+            log(f"[{tag}] epoch {epoch}: {grad_steps} grad steps, {what}; loss {info['train/loss']:.4e}, grad_norm "
+                f"{gnorm:.4e}, launches in optimize {in_optimize} (expected {want}), global step {trainer.global_step}")
+            log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+                f"{secs['optimize'] / grad_steps:.3f} s per grad step (optimizer step included)")
+            if not held:
+                fail(f"[{tag}] epoch {epoch}: the current policy is not the sampling policy bit for bit: {epoch_steps}")
+            if not (np.isfinite(gnorm) and gnorm > 0 and all(np.isfinite(a["train/loss"]) for a in epoch_steps)):
+                fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, losses {epoch_steps}")
+            if any(in_optimize[k] != n for k, n in want.items()):
+                fail(f"[{tag}] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
+            if epoch == 0:
+                moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+                log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
+                if not moved > 0:
+                    fail(f"[{tag}] the LoRA did not move after the optimizer step")
+    finally:
+        awm.weighted_log_prob = real_wlp
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = KONTEXT_PEAK_PREDICTED
+    log(f"[{tag}] launches over two epochs {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} GiB: "
+        f"{'inside' if lo <= peak <= hi else 'outside'}) | global step {trainer.global_step}")
+    if trainer.global_step != ta.max_epochs:
+        fail(f"[{tag}] the optimizer did not step once per epoch: global step {trainer.global_step}")
+    if trainer_type == "grpo":
+        _profile_grad_step(trainer, "one FLUX.1-Kontext GRPO grad step (B 8, 2560 joint tokens, remat, AdamW)",
+                           "kontext_grpo_grad_step_trace.json")
+    trainer.cleanup()
+    return counts
+
+
+def _kontext_phases() -> dict:
+    """The three [kontext-*] phases, each trainer freed before the next
+    loads; the launch counts summed over them."""
+    import torch
+
+    total = collections.Counter()
+    for trainer_type in ("grpo", "nft", "awm"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        total.update(phase_kontext(trainer_type))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def kontext_only() -> int:
+    """``--kontext``: the environment (the kernels' build), the Kontext
+    kernel shapes and the three [kontext-*] phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    results: dict = {}
+    phase_kontext_kernels(results)
+    counts = _kontext_phases()
+    log(f"[kontext] launches over the three phases {counts}; device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2676,6 +2952,8 @@ def main() -> int:
     except ImportError as e:
         print(f"the flow_factory_tpu_torch package is not beside this script: {e}", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--kontext"]:
+        return kontext_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -2686,6 +2964,7 @@ def main() -> int:
     results: dict = {}
     phase_kernels(results)
     phase_flux_kernels(results)
+    phase_kontext_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -2708,6 +2987,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the Wan trainer is gone before FLUX.1 loads
     phase_flux_grad()
     flux_counts = phase_flux_dpo()
+    kontext_counts = _kontext_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -2721,6 +3001,10 @@ def main() -> int:
                        ("ln_mul_add_backward", ("flux-img", "flux-txt", "flux-joint"))):
         for tag in tags:
             results[name]["shapes"][tag]["launches"] = flux_counts[name.replace("_d128", "")]
+    # the FLUX.1-Kontext shapes: their kernels' launches in the three Kontext phases
+    for name, tags in KONTEXT_TAGS.items():
+        for tag in tags:
+            results[name]["shapes"][tag]["launches"] = kontext_counts[name.replace("_d128", "")]
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,7 +8,8 @@ image-token count, base 0.5 and max 1.15 over 256-4096 tokens). Every
 component is random-initialised from the seed directly on the adapter's
 device in the inference dtype; the LoRA is merged once per rollout and the
 transformer runs on the merged weights through ``functional_call``.
-FLUX.1-Kontext, FLUX.2 and Klein are not ported (``models/registry.py``).
+FLUX.1-Kontext builds on this adapter (``kontext.py``); FLUX.2 and Klein
+are not ported (``models/registry.py``).
 """
 from __future__ import annotations
 
@@ -216,6 +217,7 @@ class Flux1Adapter(BaseAdapter):
         trainable=None,
         store_means: bool = False,
         decode: bool = True,
+        extra_embeds: Optional[Dict[str, Any]] = None,
         **_,
     ) -> List[T2ISample]:
         """Full rollout → host-resident samples with packed trajectories
@@ -224,7 +226,9 @@ class Flux1Adapter(BaseAdapter):
         per-prompt eval noise); ``x0`` (B, h, w, c), drawn unpacked as the
         JAX adapter draws it, and per-step packed ``noise`` replace its
         draws when given. The LoRA of ``trainable`` (default: the live tree)
-        is merged once, here."""
+        is merged once, here. ``extra_embeds`` ({key: (B, ...)}) join the
+        embeds every step's velocity reads, and each sample keeps its row of
+        them in ``extra_kwargs`` (Kontext's condition tokens)."""
         ta = self.training_args
         height = height or ta.height
         width = width or ta.width
@@ -242,6 +246,8 @@ class Flux1Adapter(BaseAdapter):
                   "txt_ids": self._on_device(txt_ids)}
         if pooled_prompt_embeds is not None:
             embeds["pooled_prompt_embeds"] = self._on_device(pooled_prompt_embeds)
+        extra_embeds = {k: self._on_device(v) for k, v in (extra_embeds or {}).items()}
+        embeds.update(extra_embeds)
         B = embeds["prompt_embeds"].shape[0]
 
         timesteps = self.scheduler.set_timesteps(T, seq_len=(h // 2) * (w // 2))
@@ -283,6 +289,7 @@ class Flux1Adapter(BaseAdapter):
             }
             if pooled_prompt_embeds is not None:
                 extra["pooled_prompt_embeds"] = host["pooled_prompt_embeds"][i]
+            extra.update({k: host[k][i] for k in extra_embeds})
             if mean_np is not None:
                 extra["next_latents_mean"] = mean_np[:, i]
             samples.append(self.sample_class(

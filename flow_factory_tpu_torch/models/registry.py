@@ -13,11 +13,21 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "wan2-t2v": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
     "wan21": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
     "flux1": "flow_factory_tpu_torch.models.flux.adapter:Flux1Adapter",
+    "flux1-kontext": "flow_factory_tpu_torch.models.flux.kontext:Flux1KontextAdapter",
 }
+_LTX2 = "ROADMAP Queue 1 item 8 (LTX-2 T2AV and I2AV)"
+_WAN = "ROADMAP Queue 1 item 9 (the rest of Wan)"
 _NOT_PORTED: Dict[str, str] = {
-    "flux1-kontext": "ROADMAP Queue 1 item 7 (FLUX.1-Kontext)",
     "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
     "flux2-klein": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
+    "qwen-image": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
+    "qwen-image-edit-plus": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
+    "z-image": "ROADMAP Queue 1 item 10 (Z-Image)",
+    "wan2-i2v": _WAN,
+    "wan22": _WAN,
+    "wan2-v2v": _WAN,
+    "ltx2-t2av": _LTX2,
+    "ltx2-i2av": _LTX2,
 }
 
 

@@ -9,7 +9,7 @@ returns NCHW tensors: images in [-1, 1] and scaled latents.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -224,6 +224,20 @@ class AutoencoderKL(nn.Module):
         """Images (B, C, H, W) in [-1, 1] → (mean, logvar) each (B, Cz, h, w)."""
         mean, logvar = self.encoder(images).chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+               sample: bool = False) -> torch.Tensor:
+        """Images (B, C, H, W) in [-1, 1] → scaled latents (B, Cz, h, w): the
+        posterior mean, or with ``sample`` mean + exp(½·logvar)·ε, ε drawn
+        from ``generator``; then (z − shift)·scale (JAX ``vae.py:154``)."""
+        mean, logvar = self.encode_moments(images)
+        z = mean
+        if sample:
+            if generator is None:
+                raise ValueError("a generator is required when sample=True")
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=torch.float32)
+            z = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+        return (z - self.cfg.shift_factor) * self.cfg.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, Cz, h, w) → images (B, C, H, W) in [-1, 1]."""

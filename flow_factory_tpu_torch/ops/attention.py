@@ -28,9 +28,9 @@ Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
 
 Backends (``model.attn_backend``): :func:`attention_route` is the JAX
 ``dot_product_attention`` rule (``attention.py:955-975``) on the port.
-``auto`` without a mask takes K3 on CUDA and :func:`native_attention` on the
-CPU (the JAX package's ``auto`` off the TPU); ``auto`` with a mask is
-``native`` on every device; ``flash``/``splash`` take K3 (its plain version
+``auto`` without a mask takes K3 on CUDA at head dim 256 or less and
+:func:`native_attention` on the CPU (the JAX package's ``auto`` off the TPU)
+or above head dim 256; ``auto`` with a mask is ``native`` on every device; ``flash``/``splash`` take K3 (its plain version
 on a CPU tensor, what the JAX package's Pallas kernel computes in interpret
 mode off the TPU) and raise on a mask on every device; ``native`` is the
 plain path on any device; ``hybrid`` and ``ring`` are not ported yet and
@@ -588,20 +588,20 @@ def qknorm_dot_product_attention(
     raise ValueError(f"Unknown attention backend {backend!r}")
 
 
-def attention_route(backend: str, masked: bool, device_type: str) -> str:
+def attention_route(backend: str, masked: bool, device_type: str, head_dim: int) -> str:
     """What :func:`dot_product_attention` runs for ``backend``, a mask or
-    none, on a tensor of ``device_type``: ``"native"``
+    none, on a tensor of ``device_type`` with ``head_dim``: ``"native"``
     (:func:`native_attention`) or ``"flash"`` (:func:`flash_attention`: K3 on
     CUDA, its plain version on the CPU), or the error the call raises. The
     JAX rule (``attention.py:955-975``) with CUDA in the TPU's place: ``auto``
-    is ``flash`` on the accelerator without a mask and ``native`` otherwise
-    (on every device with a mask); ``splash`` is ``flash``; ``flash`` with a
-    mask raises on every device, as do ``hybrid`` and ``ring``, which are not
-    ported and raise without one too."""
+    is ``flash`` on the accelerator without a mask at head dim 256 or less
+    and ``native`` otherwise (on every device with a mask); ``splash`` is
+    ``flash``; ``flash`` with a mask raises on every device, as do ``hybrid``
+    and ``ring``, which are not ported and raise without one too."""
     if backend == "native":
         return "native"
     if backend == "auto":
-        return "native" if masked or device_type == "cpu" else "flash"
+        return "native" if masked or device_type == "cpu" or head_dim > 256 else "flash"
     if backend in ("flash", "splash", "hybrid", "ring"):
         name = "flash" if backend == "splash" else backend
         if masked:
@@ -616,7 +616,7 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, bac
     """Attention without a qk-norm (JAX ``dot_product_attention``, :942),
     routed by :func:`attention_route`. On a CUDA tensor K3 takes bf16 at head
     dim 64 or 128 and raises on anything else: there is no silent native."""
-    if attention_route(backend, mask is not None, q.device.type) == "native":
+    if attention_route(backend, mask is not None, q.device.type, q.shape[-1]) == "native":
         return native_attention(q, k, v, scale=scale, mask=mask)
     return flash_attention(q, k, v, scale=scale)
 

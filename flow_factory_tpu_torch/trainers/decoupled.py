@@ -1,12 +1,16 @@
 """Shared scaffolding of the decoupled trainers (port of
-``flow_factory_tpu/trainers/decoupled.py``; DPO now, NFT/AWM/CRD/DGPO next).
+``flow_factory_tpu/trainers/decoupled.py``; DPO, NFT and AWM now, CRD and
+DGPO next).
 
 Decoupled: the training timesteps are drawn fresh by a ``TimeSampler``
 instead of replaying the rollout's SDE steps, and only the final (clean)
 latent of each rollout is kept (``trajectory_indices=[-1]``, no log-probs).
 The rollout batches run one after another (no pipelined ``PendingRollout``
 yet); a preemption request is honoured before each rollout batch and each
-micro-batch.
+micro-batch. A trainer yields the device batch of each grad step from
+``grad_step_batches`` and computes its loss in ``loss_fn``; ``optimize``
+sums the gradients and steps the optimizer every
+``gradient_accumulation_steps`` grad steps.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ class DecoupledTrainer(BaseTrainer):
     # ------------------------------------------------------------------
     # Rollout: store only the final latent
     # ------------------------------------------------------------------
-    def sample(self, epoch: int) -> List[BaseSample]:
+    def sample(self, epoch: int, trainable: Optional[Dict[str, Any]] = None) -> List[BaseSample]:
+        """The epoch's rollouts under ``trainable`` (default: the live tree)."""
         ta = self.training_args
         self.adapter.rollout()
         self.reward_buffer.clear()
@@ -46,11 +51,44 @@ class DecoupledTrainer(BaseTrainer):
                 compute_log_prob=self.rollout_compute_log_prob,
                 trajectory_indices=[-1],
                 generator=make_generator(self.adapter.device, "rollout", ta.seed, epoch, rank, b),
+                trainable=trainable,
                 **self.condition_kwargs(batch),
             )
             self.reward_buffer.add_samples(samples)
         self.adapter.train()
         return self.reward_buffer.samples
+
+    # ------------------------------------------------------------------
+    # Optimization
+    # ------------------------------------------------------------------
+    def grad_step_batches(self, samples: List[BaseSample], epoch: int) -> Iterator[Dict[str, Any]]:
+        """The device batch of every grad step of an epoch, in order."""
+        raise NotImplementedError
+
+    def loss_fn(self, trainable, batch: Dict[str, Any], ref_trainable=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, aux metrics) of one grad step's batch."""
+        raise NotImplementedError
+
+    def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
+        """((loss, aux), gradients in ``trainable_leaves`` order)."""
+        loss, aux = self.loss_fn(trainable, batch, ref_trainable)
+        grads = torch.autograd.grad(loss, self.adapter.trainable_leaves(trainable))
+        return (loss.detach(), aux), list(grads)
+
+    def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]:
+        ta = self.training_args
+        ref_trainable = self.reference_trainable() if ta.requires_ref_model else None
+        infos: List[Dict[str, Any]] = []
+        for batch in self.grad_step_batches(samples, epoch):
+            (_, aux), grads = self.loss_and_grads(self.adapter.trainable, batch, ref_trainable)
+            self.accumulate_grads(grads)
+            infos.append(aux)  # device scalars, read once at the end of the phase
+            if self._accum_count >= ta.gradient_accumulation_steps:
+                infos[-1]["train/grad_norm"] = self.apply_accumulated()
+        if self._accum_count > 0:  # flush a remainder: the optimizer always steps
+            infos[-1]["train/grad_norm"] = self.apply_accumulated()
+        return self.aggregate_infos(infos)
 
     # ------------------------------------------------------------------
     # Fresh timestep sampling (the TimeSampler dispatch)
@@ -169,3 +207,73 @@ class DecoupledTrainer(BaseTrainer):
         """The reference policy's tree for :meth:`ref_params`: None for LoRA
         (the zero LoRA), the frozen snapshot for full finetuning."""
         return None if self.adapter.is_lora else self.adapter.ref_trainable()
+
+
+class OldPolicyTrainer(DecoupledTrainer):
+    """The decoupled trainers that hold the current policy against the
+    sampling policy (NFT, AWM): the rollout under the EMA weights when
+    ``off_policy`` is set (JAX ``nft.py:35-38``, ``awm.py:51-54``); per
+    micro-batch, T fresh timesteps and noise draws and at each the sampling
+    policy's velocity without gradients, reduced by :meth:`old_policy` into
+    the grad step's ``old_key`` entry; then T grad steps."""
+
+    #: the grad-step batch key of the precomputed old-policy quantity
+    old_key: str = ""
+    #: the tag of the timestep and noise seeds (``<tag>_t``, ``<tag>_noise``)
+    tag: str = ""
+
+    def sample(self, epoch: int, trainable: Optional[Dict[str, Any]] = None) -> List[BaseSample]:
+        if getattr(self.training_args, "off_policy", False):
+            trainable = self.sampling_trainable()
+        return super().sample(epoch, trainable=trainable)
+
+    def sampling_trainable(self) -> Dict[str, Any]:
+        """The sampling policy's tree: the EMA weights when ``off_policy``
+        is set (and EMA is on), else the live tree."""
+        if getattr(self.training_args, "off_policy", False):
+            return self.adapter.ema_trainable
+        return self.adapter.trainable
+
+    def old_policy(self, old_v: Dict[str, torch.Tensor], batch: Dict[str, Any]) -> Any:
+        """What a grad step compares with, from the sampling policy's
+        velocity tree at the step's batch."""
+        raise NotImplementedError
+
+    def grad_step_batches(self, samples: List[BaseSample], epoch: int) -> Iterator[Dict[str, Any]]:
+        """Per shuffled micro-batch: the old-policy quantity at each of the
+        T timesteps (one LoRA merge for the T forwards, no gradients), then
+        the batch of each of the T grad steps."""
+        ta, ad, dev = self.training_args, self.adapter, self.adapter.device
+        T = ta.get_num_train_timesteps(self.config)
+        for inner in range(ta.num_inner_epochs):
+            for bi, (mb, bn) in enumerate(self.iter_micro_batches(samples, epoch, inner)):
+                clean = self.clean_latent_tree(bn)
+                base = dict(clean=clean,
+                            advantage=torch.tensor([s.extra_kwargs["advantage"] for s in mb], dtype=torch.float32,
+                                                   device=dev),
+                            guidance_scale=float(mb[0].extra_kwargs.get("guidance_scale", ta.guidance_scale)),
+                            **self.batch_embeds(bn))
+                all_t = self.sample_timesteps(len(mb), derive_seed(f"{self.tag}_t", ta.seed, epoch, inner, bi))
+                steps = []
+                with torch.no_grad():
+                    params = ad.merged_params(ad.velocity_component, self.sampling_trainable())
+                    for t_idx in range(T):
+                        gen = make_generator(dev, f"{self.tag}_noise", ta.seed, epoch, inner, bi, t_idx)
+                        batch = dict(base, noise=self.tree_normal(gen, clean),
+                                     timestep=torch.from_numpy(all_t[t_idx]).to(dev))
+                        old_v = ad.training_velocity_tree(None, self.noised_batch(batch), params=params)
+                        batch[self.old_key] = self.old_policy(old_v, batch)
+                        steps.append(batch)
+                    del params
+                yield from steps
+
+    def noised_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """``batch`` with each stream's x_t at the batch's timestep."""
+        return {**batch, **self.tree_noised(batch["clean"], batch["noise"], batch["timestep"])}
+
+    def frozen_velocity(self, trainable, fwd: Dict[str, Any]) -> torch.Tensor:
+        """The flattened velocity of a policy that takes no gradient:
+        ``trainable`` merged (None: the frozen weights, see :meth:`ref_params`)."""
+        with torch.no_grad():
+            params = self.ref_params(trainable)
+            return self.tree_flat(self.adapter.training_velocity_tree(None, fwd, params=params))

@@ -151,18 +151,7 @@ class DPOTrainer(DecoupledTrainer):
                     )
 
     def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]:
-        ta = self.training_args
-        ref_trainable = self.reference_trainable()
-        infos: List[Dict[str, Any]] = []
-        for batch in self.grad_step_batches(samples, epoch):
-            (_, aux), grads = self.loss_and_grads(self.adapter.trainable, batch, ref_trainable)
-            self.accumulate_grads(grads)
-            infos.append(aux)  # device scalars, read once at the end of the phase
-            if self._accum_count >= ta.gradient_accumulation_steps:
-                infos[-1]["train/grad_norm"] = self.apply_accumulated()
-        if self._accum_count > 0:  # flush a remainder: the optimizer always steps
-            infos[-1]["train/grad_norm"] = self.apply_accumulated()
-        out = self.aggregate_infos(infos)
+        out = super().optimize(samples, epoch)
         out.update(getattr(self, "_pair_metrics", {}))
         return out
 
@@ -208,9 +197,3 @@ class DPOTrainer(DecoupledTrainer):
             "train/implicit_margin": torch.mean(implicit_w - implicit_l),
         }
         return loss, aux
-
-    def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
-        """((loss, aux), gradients in ``trainable_leaves`` order)."""
-        loss, aux = self.loss_fn(trainable, batch, ref_trainable)
-        grads = torch.autograd.grad(loss, self.adapter.trainable_leaves(trainable))
-        return (loss.detach(), aux), list(grads)

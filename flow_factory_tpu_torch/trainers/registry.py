@@ -1,6 +1,6 @@
 """Trainer registry of the port: config ``trainer_type`` → trainer class,
 imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
-GRPO, GRPO-Guard and DPO are ported; the other decoupled trainers raise
+GRPO, GRPO-Guard, DPO, NFT and AWM are ported; DGPO and CRD raise
 (ROADMAP Queue 1 item 5)."""
 from __future__ import annotations
 
@@ -12,8 +12,10 @@ _TRAINER_REGISTRY = {
     "grpo_guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
     "grpo-guard": "flow_factory_tpu_torch.trainers.grpo:GRPOGuardTrainer",
     "dpo": "flow_factory_tpu_torch.trainers.dpo:DPOTrainer",
+    "nft": "flow_factory_tpu_torch.trainers.nft:NFTTrainer",
+    "awm": "flow_factory_tpu_torch.trainers.awm:AWMTrainer",
 }
-_NOT_PORTED = ("nft", "awm", "dgpo", "crd")
+_NOT_PORTED = ("dgpo", "crd")
 
 
 def resolve_trainer_class(trainer_type: str) -> Type:

@@ -33,6 +33,10 @@ def is_pil_image(x: Any) -> bool:
     return Image is not None and isinstance(x, Image.Image)
 
 
+def is_image_single(x: Any) -> bool:
+    return is_pil_image(x) or (isinstance(x, np.ndarray) and x.ndim == 3)
+
+
 # ---------------------------------------------------------------------------
 # Conversions
 # ---------------------------------------------------------------------------
@@ -59,6 +63,19 @@ def _chw_from_any(img: Any) -> np.ndarray:
 def to_image_array(img: Any) -> np.ndarray:
     """Canonical single image (C, H, W) float32 [0, 1]."""
     return _chw_from_any(img)
+
+
+def standardize_image_batch(images: Any, output_type: str = "np") -> np.ndarray:
+    """Anything image-like (one image, a (B, C, H, W) array or a list of
+    images) → a (B, C, H, W) float32 batch in [0, 1] (JAX
+    ``utils/media.py:134``; its ``"pil"`` output has no caller here)."""
+    if output_type != "np":
+        raise ValueError(f"Unknown output_type {output_type!r}")
+    if is_image_single(images):
+        return to_image_array(images)[None]
+    if (isinstance(images, np.ndarray) and images.ndim == 4) or isinstance(images, (list, tuple)):
+        return np.stack([to_image_array(i) for i in images], axis=0)
+    raise ValueError(f"Cannot standardize images of type {type(images)}")
 
 
 def to_video_array(video: Any) -> np.ndarray:

@@ -833,3 +833,57 @@ def test_flash_at_flux_512px_matches_plain(gen, B, layout):
     want = A.flash_backward_plain(q, k, v, out, lse, dout, D ** -0.5)
     for name, g, r in zip(("dq", "dk", "dv"), got, want):
         assert (g.float() - r.float()).abs().max().item() <= _k2_tol(r, torch.bfloat16), name
+
+
+# ---------------------------------------------------------------------------
+# The FLUX.1-Kontext shapes: the joint sequence of 512 text, 1024 target and
+# 1024 condition tokens (2560 = 40 tiles of 64) at 512 px
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [2048, 512, 2560])
+def test_ln_mul_add_at_kontext_widths_matches_plain(gen, S):
+    """K5 at D = 3072 at the FLUX.1-Kontext 512 px shapes of a B = 4 grad
+    step: the image stream (1024 target + 1024 condition tokens), the text
+    (512) and the joint (2560). The forward within one bf16 ulp of max|out|
+    of the plain version, the backward within chip_smoke.py's bars."""
+    c = _norm_case(gen, 4, S, 3072, torch.bfloat16, torch.bfloat16)
+    out = N.ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, fold=False)
+    ref = N._native_ln_mul_add(c["x"], c["mul"], c["add"], 1e-6, torch.bfloat16, False)
+    assert (out.float() - ref.float()).abs().max().item() <= _norm_bar(ref)
+    for needs in ((True, False, False), (True, True, True)):
+        _assert_grads_close(_k5_backward(c, False, needs), _k5_plain_backward(c, False, needs))
+
+
+@pytest.mark.parametrize("B,S,layout", [(4, 2560, "joint"), (4, 2560, "single"), (4, 2560, "padded"),
+                                        (2, 2497, "joint")])
+def test_flash_at_kontext_2560_matches_plain(gen, B, S, layout):
+    """K3 and K2a/K2b at the FLUX.1-Kontext 512 px attention, B H24 S D128:
+    q/k contiguous as RoPE returns them, v concatenated (joint), a head-split
+    view of the single blocks' fused projection (single), or with the last
+    512 condition positions all one row in q, k and v, as the projections of
+    the zero tokens that pad a record with fewer references give (padded);
+    S 2497 is a 496 px reference (961 condition tokens), a ragged 1-key
+    tail. O and lse within K3's bars, the backward within K2's, and the
+    backward's two launches give the same bits."""
+    H, D = 24, 128
+    q, k = (_randn(gen, B, H, S, D, dtype=torch.bfloat16) for _ in range(2))
+    if layout == "single":
+        v = _randn(gen, B, S, 3 * H * D + 4 * H * D, dtype=torch.bfloat16)[..., 2 * H * D:3 * H * D]
+        v = v.view(B, S, H, D).transpose(1, 2)
+    else:
+        v = _randn(gen, B, H, S, D, dtype=torch.bfloat16)
+    if layout == "padded":
+        for t in (q, k, v):
+            t[:, :, -512:] = t[:, :, -512:-511].clone()
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, return_lse=True)
+    err_o, err_lse = _k3_errors(out, lse, ref, ref_lse)
+    tol_o, tol_lse = _k3_tols(ref)
+    assert err_o <= tol_o and err_lse <= tol_lse
+    dout = _randn(gen, B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    got = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
+    want = A.flash_backward_plain(q, k, v, out, lse, dout, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - r.float()).abs().max().item() <= _k2_tol(r, torch.bfloat16), name
+    again = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -415,12 +415,34 @@ def test_flux_replay_ratio_is_exactly_one(both, shared_time_features):
 
 
 def test_unported_flux_family_members_raise():
-    """``flux1`` resolves to the port's adapter; FLUX.1-Kontext, FLUX.2 and
-    Klein raise, naming the ROADMAP item that ports them."""
+    """``flux1`` and ``flux1-kontext`` resolve to the port's adapters;
+    FLUX.2 and Klein raise, naming the ROADMAP item that ports them."""
     from flow_factory_tpu_torch.models.flux.adapter import Flux1Adapter
+    from flow_factory_tpu_torch.models.flux.kontext import Flux1KontextAdapter
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
     assert resolve_adapter_class("flux1") is Flux1Adapter
-    for name, item in (("flux1-kontext", "item 7"), ("flux2", "item 10"), ("flux2-klein", "item 10")):
+    assert resolve_adapter_class("flux1-kontext") is Flux1KontextAdapter
+    for name, item in (("flux2", "item 10"), ("flux2-klein", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             resolve_adapter_class(name)
+
+
+def test_every_jax_model_type_resolves_or_names_its_item():
+    """Every key of the JAX package's adapter registry resolves in the port
+    to the adapter class of the same name, or raises ``NotImplementedError``
+    naming its ROADMAP item (8, 9 or 10); none raises ``KeyError``."""
+    from flow_factory_tpu.models.registry import _MODEL_ADAPTER_REGISTRY as JAX_KEYS
+    from flow_factory_tpu_torch.models.registry import resolve_adapter_class
+
+    items = {"ltx2": "item 8", "wan": "item 9", "flux2": "item 10", "qwen": "item 10", "z-image": "item 10"}
+    ported = []
+    for key, target in JAX_KEYS.items():
+        try:
+            cls = resolve_adapter_class(key)
+        except NotImplementedError as e:
+            assert any(key.startswith(p) and item in str(e) for p, item in items.items()), (key, str(e))
+            continue
+        assert cls.__name__ == target.split(":")[1], key
+        ported.append(key)
+    assert sorted(ported) == ["flux1", "flux1-kontext", "sd3-5", "sd3.5", "wan2-t2v", "wan21"]

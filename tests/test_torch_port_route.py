@@ -18,9 +18,9 @@ from flow_factory_tpu_torch.ops import attention as T
 BACKENDS = ("auto", "flash", "splash", "native", "hybrid", "ring", "bogus")
 
 
-def _inputs():
+def _inputs(head_dim: int = 64):
     rng = np.random.default_rng(0)
-    q, k, v = (rng.standard_normal((1, 2, 16, 64)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((1, 2, 16, head_dim)).astype(np.float32) for _ in range(3))
     mask = rng.random((1, 1, 16, 16)) > 0.3
     mask[..., 0] = True  # every row keeps a key
     return q, k, v, mask
@@ -35,10 +35,10 @@ def _outcome(call):
         return "ValueError"
 
 
-def _jax_route(backend: str, masked: bool, accelerator: bool, monkeypatch) -> str:
+def _jax_route(backend: str, masked: bool, accelerator: bool, monkeypatch, head_dim: int = 64) -> str:
     if accelerator:
         monkeypatch.setattr(J, "_on_tpu", lambda: True)
-    q, k, v, mask = (jnp.asarray(a) for a in _inputs())
+    q, k, v, mask = (jnp.asarray(a) for a in _inputs(head_dim))
     m = mask if masked else None
     out = _outcome(lambda: J.dot_product_attention(q, k, v, mask=m, backend=backend))
     if isinstance(out, str):
@@ -53,14 +53,31 @@ def test_attention_route_follows_the_jax_rule(backend, masked, device, monkeypat
     """auto with a mask is native on every device; flash/splash with a mask
     raise on every device; auto without one takes K3 on CUDA and native on
     the CPU. hybrid and ring are not ported: they raise where JAX runs."""
-    port = _outcome(lambda: T.attention_route(backend, masked, device))
+    port = _outcome(lambda: T.attention_route(backend, masked, device, 64))
     want = _jax_route(backend, masked, device == "cuda", monkeypatch)
     if backend in ("hybrid", "ring") and not masked:
         assert want in ("native", "flash") and port == "NotImplementedError"
         with pytest.raises(NotImplementedError, match="not ported"):
-            T.attention_route(backend, masked, device)
+            T.attention_route(backend, masked, device, 64)
     else:
         assert port == want, (backend, masked, device, port, want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("head_dim", [256, 257, 320])
+def test_auto_route_follows_the_jax_rule_at_large_head_dims(head_dim, masked, device, monkeypatch):
+    """``auto`` takes the head dim into account as JAX does: on the
+    accelerator without a mask it is ``flash`` up to head dim 256 and
+    ``native`` above it (K3 would raise there); with a mask, or on the CPU,
+    it is ``native`` at every head dim. ``dot_product_attention`` passes
+    ``q``'s last dim to the route: above 256 on the CPU it is bit-equal to
+    ``native_attention``."""
+    port = T.attention_route("auto", masked, device, head_dim)
+    assert port == _jax_route("auto", masked, device == "cuda", monkeypatch, head_dim), (head_dim, masked, device)
+    assert port == ("flash" if device == "cuda" and not masked and head_dim <= 256 else "native")
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(head_dim))
+    assert torch.equal(T.dot_product_attention(q, k, v, backend="auto"), T.native_attention(q, k, v))
 
 
 def test_masked_auto_is_native_attention_on_the_cpu():
