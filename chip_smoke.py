@@ -97,12 +97,29 @@ printing one line and exiting non-zero on failure:
    rollout and K3/K2a/K2b/K5 and K5's backward in each grad step; on every
    grad step GRPO's replay ratio exactly 1.0, NFT's positive and negative
    losses equal, AWM's ratio exactly 1.0 on every row; a moved LoRA, peak
-   memory against its prediction, and for GRPO a profile of one grad step.
+   memory against its prediction, and for GRPO a profile of one grad step;
+8c. decoupled-kernels (run right after 8b): every kernel of the DGPO and
+   CRD grad steps at their B 8 shapes (no CFG): K1 and K2a/K2b D=64 at
+   SD3.5-M's joint and self attention, K3 and K2a/K2b D=128 at Wan's self
+   and cross attention, K5 at SD3.5-M's and Wan's norms, K6 at SD3.5-M's,
+   with their backwards, through the checks of 2;
+12. dgpo, crd-wan: SD3.5-M LoRA DGPO (tests/fixtures/sd35_dgpo.yaml) and
+   Wan2.1-T2V-1.3B LoRA CRD (tests/fixtures/wan21_crd.yaml) at full width
+   through ``load_trainer``, two epochs each (one rollout batch and one
+   micro-batch of 8, 4 grad steps and one optimizer step an epoch): the
+   rollout's kernels launched as one CFG forward a step, under the policy
+   the trainer must sample with (DGPO: the live tree, then its ``ema_ref``
+   snapshot; CRD: its ``_crd_sampling`` snapshot); epoch 0's grad steps at
+   θ = the snapshot = the zero LoRA with the invariants exact (DGPO
+   pref_mean 0, group_weight_mean 0.5, kl 0, clip_ratio 0; CRD
+   r_theta_mean 0, old_deviate 0, kl 0); three forwards and one backward a
+   grad step in launches; a moved LoRA, peak memory beside the family's
+   GRPO phase, and a profile of one grad step with its frozen forwards.
 
-The line before the last holds the kernel table as JSON (the FLUX.1 and
-FLUX.1-Kontext shapes nested under their kernels' entries, with their
-launches in the DPO epochs and in the three Kontext phases); the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last holds the kernel table as JSON (the FLUX.1,
+FLUX.1-Kontext and B 8 shapes nested under their kernels' entries, with
+their launches in the DPO epochs, the three Kontext phases and the DGPO or
+CRD epochs); the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
 
@@ -111,7 +128,8 @@ port in the checkout DIR alone (``k2_d128_only``): run it on this checkout
 and on a ``git archive`` of another commit in one call to compare the two
 by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
 does the same for K5/K6 and their backwards (``norms_only``).
-``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone.
+``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone;
+``python3 chip_smoke.py --decoupled`` the build, 8c and 12.
 """
 from __future__ import annotations
 
@@ -199,12 +217,17 @@ def gpu_state() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not read"
 
 
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+
+
 def phase_environment():
     import torch
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    card = card_name()
     from concurrent.futures import ThreadPoolExecutor
 
     from flow_factory_tpu_torch.ops import cuda_build
@@ -456,12 +479,84 @@ def phase_device_times() -> None:
     DEVICE_TIME_JOBS.clear()
 
 
-def phase_kernels(results: dict) -> None:
+#: K1 shapes: tag, B, H, S, D, dtype, strided, timed. joint: SD3.5-M's joint
+#: attention (1024 image + 333 text tokens) at the CFG-doubled B 16 of the
+#: rollout and the GRPO grad step; self: its dual blocks' image
+#: self-attention; the -b8 shapes: both at the B 8 of DGPO's grad-step
+#: forwards (no CFG); ragged: small shapes with a ragged key tail
+K1_SHAPES = (("joint", 16, 24, 1357, 64, "bfloat16", False, True),
+             ("self", 16, 24, 1024, 64, "bfloat16", True, True),
+             ("ragged-fp32", 2, 3, 197, 64, "float32", False, False),
+             ("ragged-bf16", 2, 3, 77, 64, "bfloat16", True, False))
+
+
+def _k1_shape_checks(results: dict, randn, tag: str, B: int, H: int, S: int, D: int, dtype, strided: bool,
+                     timed: bool) -> None:
+    """One K1 shape of ``phase_kernels`` (``K1_SHAPES``): O and lse against
+    the plain version, for the joint shape the negative controls; for timed
+    shapes a batch slice's bits, the CUDA-event, plain and SDPA times, the
+    bound, the table entry and the device-time job."""
     import torch
     import torch.nn.functional as F
 
     from flow_factory_tpu_torch.ops import attention as A
-    from flow_factory_tpu_torch.ops import norms as N
+
+    dtype = getattr(torch, dtype)
+    if strided:
+        q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
+    gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+    gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+    scale = D ** -0.5
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = ((1e-4, 1e-3) if dtype == torch.float32
+                      else (4 * bf16_ulp(ref.float().abs().max().item()), 1e-2))
+    err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
+    layout = "strided" if strided else "contiguous"
+    _check(f"K1 {tag} O {tuple(q.shape)} {dtype} {layout}", err_o, tol_o)
+    _check(f"K1 {tag} lse", err_lse, tol_lse)
+    if tag == "joint":
+        ones = torch.ones_like(gq)
+        _negative_control("K1 joint vs a plain version without the gamma maps", (out, lse),
+                          A.qknorm_attention_plain(q, k, v, ones, ones, scale, 1e-6, return_lse=True),
+                          tol_o, tol_lse)
+        n = S // 64 * 64  # the kernel's last whole key tile
+        _negative_control(f"K1 joint vs a plain version without the {S - n}-key ragged tail", (out, lse),
+                          A.qknorm_attention_plain(q, k[:, :, :n], v[:, :, :n], gq, gk[:n], scale, 1e-6,
+                                                   return_lse=True), tol_o, tol_lse)
+    if not timed:
+        return
+    log(f"[kernels] card before K1 {tag}'s timings (SM clock, max, power, temperature): {gpu_state()}")
+    k1 = lambda *t: A.qknorm_flash_attention(*t, scale, 1e-6, return_lse=True)
+    _fwd_batch_slice_same(f"K1 {tag}", k1, q, k, v, gq, gk)
+    call = lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6)
+    ms, host_us = time_ms(call), _host_us(call, 50)
+    plain_ms = time_ms(lambda: A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6), iters=3)
+    qn = A._rms_scale(q, gq, 1e-6).to(dtype)
+    kn = A._rms_scale(k, gk, 1e-6).to(dtype)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, v, scale=scale))
+    bound = _fwd_bound(B, H, S, S, D, nbytes(q, k, v, gq, gk, out, lse))
+    _record(results, tag, dict(
+        name="qknorm_flash_fwd", route="cuda",
+        source="flow_factory_tpu_torch/ops/csrc/qknorm_flash_fwd.cu",
+        replaces="flow_factory_tpu/ops/attention.py:368",
+        max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        library_ms=lib_ms))
+    _fwd_time_line(f"K1 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
+    DEVICE_TIME_JOBS.append(functools.partial(_fwd_device_job, f"K1 {tag}",
+                                              functools.partial(_k1_call, B, H, S, D, strided, scale), ms,
+                                              lib_ms, bound))
+    del q, k, v, out, ref, qn, kn
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(results: dict) -> None:
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -482,60 +577,8 @@ def phase_kernels(results: dict) -> None:
     # The self case has the head-split strided layout that SelfAttention
     # passes, (B, S, H, D).transpose(1, 2); the joint case is the contiguous
     # output of JointAttention's context/image concatenation.
-    for tag, B, H, S, D, dtype, strided, timed in (
-            ("joint", 16, 24, 1357, 64, torch.bfloat16, False, True),
-            ("self", 16, 24, 1024, 64, torch.bfloat16, True, True),
-            ("ragged-fp32", 2, 3, 197, 64, torch.float32, False, False),
-            ("ragged-bf16", 2, 3, 77, 64, torch.bfloat16, True, False)):
-        if strided:
-            q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
-        else:
-            q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
-        gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
-        gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
-        scale = D ** -0.5
-        out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
-        ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
-        torch.cuda.synchronize()
-        tol_o, tol_lse = ((1e-4, 1e-3) if dtype == torch.float32
-                          else (4 * bf16_ulp(ref.float().abs().max().item()), 1e-2))
-        err_o, err_lse = _k1_errors(out, lse, ref, ref_lse)
-        layout = "strided" if strided else "contiguous"
-        _check(f"K1 {tag} O {tuple(q.shape)} {dtype} {layout}", err_o, tol_o)
-        _check(f"K1 {tag} lse", err_lse, tol_lse)
-        if tag == "joint":
-            ones = torch.ones_like(gq)
-            _negative_control("K1 joint vs a plain version without the gamma maps", (out, lse),
-                              A.qknorm_attention_plain(q, k, v, ones, ones, scale, 1e-6, return_lse=True),
-                              tol_o, tol_lse)
-            n = S // 64 * 64  # the kernel's last whole key tile
-            _negative_control(f"K1 joint vs a plain version without the {S - n}-key ragged tail", (out, lse),
-                              A.qknorm_attention_plain(q, k[:, :, :n], v[:, :, :n], gq, gk[:n], scale, 1e-6,
-                                                       return_lse=True), tol_o, tol_lse)
-        if not timed:
-            continue
-        log(f"[kernels] card before K1 {tag}'s timings (SM clock, max, power, temperature): {gpu_state()}")
-        k1 = lambda *t: A.qknorm_flash_attention(*t, scale, 1e-6, return_lse=True)
-        _fwd_batch_slice_same(f"K1 {tag}", k1, q, k, v, gq, gk)
-        call = lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6)
-        ms, host_us = time_ms(call), _host_us(call, 50)
-        plain_ms = time_ms(lambda: A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6), iters=3)
-        qn = A._rms_scale(q, gq, 1e-6).to(dtype)
-        kn = A._rms_scale(k, gk, 1e-6).to(dtype)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, v, scale=scale))
-        bound = _fwd_bound(B, H, S, S, D, nbytes(q, k, v, gq, gk, out, lse))
-        _record(results, tag, dict(
-            name="qknorm_flash_fwd", route="cuda",
-            source="flow_factory_tpu_torch/ops/csrc/qknorm_flash_fwd.cu",
-            replaces="flow_factory_tpu/ops/attention.py:368",
-            max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=lib_ms))
-        _fwd_time_line(f"K1 {tag}", ms, plain_ms, lib_ms, bound, host_us=host_us)
-        DEVICE_TIME_JOBS.append(functools.partial(_fwd_device_job, f"K1 {tag}",
-                                                  functools.partial(_k1_call, B, H, S, D, strided, scale), ms,
-                                                  lib_ms, bound))
-        del q, k, v, out, ref, qn, kn
-        torch.cuda.empty_cache()
+    for shape in K1_SHAPES:
+        _k1_shape_checks(results, randn, *shape)
     g = torch.ones(64, 64, device=dev)
     tiny = [randn(1, 1, 64, 64) for _ in range(3)]
     log(f"[kernels] K1 host cost a call (B1 H1 S64 bf16, the wrapper, its key pre-pass and wgmma launches, "
@@ -752,6 +795,67 @@ def _k5_shape_checks(results: dict, gen, shape: NormShape, controls: bool) -> No
     torch.cuda.empty_cache()
 
 
+def _k6_shape_checks(results: dict, gen, shape: NormShape, controls: bool) -> None:
+    """One K6 shape of ``phase_kernels_norms``: the forward and backward
+    against their plain versions and autograd through the plain forward, two
+    backward launches' bits; with ``controls`` the backward's negative
+    control and a batch slice; timings and table entries if ``shape.timed``."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import norms as N
+
+    eps = 1e-6
+    tag, B, S, D, dt, _, _, _, _, timed = shape
+    name = f"K6 {tag} {(B, S, D)} {dt}"
+    dtype = getattr(torch, dt)
+    case = _norm_inputs(gen, B, S, D, dtype, dtype, False, True, tag == "degenerate")
+    x, br, gate, mul, add = (case[k] for k in ("x", "branch", "gate", "mul", "add"))
+    g_new, g = case["g_new"], case["g"]
+    xn, xm = N.residual_gate_modulate_rows(x, br, gate, mul, add, eps, dtype)
+    rn, rm = N._native_residual_gate_modulate(x, br, gate, mul, add, eps, dtype)
+    err_n = (xn.float() - rn.float()).abs().max().item()
+    err_m = (xm.float() - rm.float()).abs().max().item()
+    _check(f"{name} forward x_new", err_n, 0.0 if dtype == torch.bfloat16 else 1e-6 * max(
+        1.0, rn.float().abs().max().item()))
+    _check(f"{name} forward x_mod", err_m, _bar(dtype, rm))
+    leaves = [t.detach().clone().requires_grad_() for t in (x, br, gate, mul, add)]
+    eager = torch.autograd.grad(N._native_residual_gate_modulate(*leaves, eps, dtype), leaves, (g_new, g))
+    names = ("dx", "dbranch", "dgate", "dmul", "dadd")
+    for needs in ((True,) * 5, K6_MAIN_NEEDS):
+        got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
+        plain = N._native_residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
+        rel = 1e-4 if tag == "degenerate" else 1e-5  # as K5's
+        bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(dtype, r, rel=rel),
+                lambda r: _bar(dtype, r.to(dtype)), lambda r: _bar(torch.float32, r),
+                lambda r: _bar(torch.float32, r))
+        _grads_check(f"{name} backward {needs} vs plain", got, plain, names, bars)
+    got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
+    eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(dtype, r, 2.0, 1e-4),
+                  lambda r: _bar(dtype, r.to(dtype), 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
+                  lambda r: _bar(torch.float32, r, rel=1e-4))
+    _grads_check(f"{name} backward vs autograd through the plain forward", got, eager, names, eager_bars)
+    again = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] {name} backward: two launches give the same bits: {same}")
+    if not same:
+        fail(f"{name}: the backward is not deterministic")
+    if controls:
+        gate_c = gate[:, None, :].to(dtype)
+        r, xhat, raw = N._ln_stats((x + gate_c * br).float(), eps, False)
+        wrong = (g_new.float() + N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0))).to(dtype)
+        _backward_controls(name, got, wrong, 3, lambda r: _bar(dtype, r))
+        pn, pm = N.residual_gate_modulate_rows(x[:4], br[:4], gate[:4], mul[:4], add[:4], eps, dtype)
+        same = torch.equal(pn, xn[:4]) and torch.equal(pm, xm[:4])
+        log(f"[kernels] {name}: the first 4 batch rows alone give the bits of the whole batch's: {same}")
+        if not same:
+            fail(f"{name}: a batch slice changes the bits")
+    if timed:
+        _norm_timings(results, "residual_gate_modulate", f"K6 {tag}", shape, True, case, xm,
+                      max(err_n, err_m), (x, br, gate, mul, add, xn, xm), N, eps)
+    del case, x, br, gate, mul, add, g_new, g, xn, xm, rn, rm, leaves, eager, got, again
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_norms(results: dict, gen) -> None:
     """K5 and K6, forward and backward, against their plain versions.
 
@@ -773,7 +877,6 @@ def phase_kernels_norms(results: dict, gen) -> None:
     a backward without the x_hat * mean(g_hat * x_hat) term, one with dmul
     zeroed; two launches give the same bits."""
     import torch
-    import torch.nn.functional as F
 
     from flow_factory_tpu_torch.ops import norms as N
 
@@ -782,55 +885,7 @@ def phase_kernels_norms(results: dict, gen) -> None:
         _k5_shape_checks(results, gen, shape, shape.tag == "image")
 
     for shape in K6_SHAPES:
-        tag, B, S, D, dt, _, _, _, _, timed = shape
-        name = f"K6 {tag} {(B, S, D)} {dt}"
-        dtype = getattr(torch, dt)
-        case = _norm_inputs(gen, B, S, D, dtype, dtype, False, True, tag == "degenerate")
-        x, br, gate, mul, add = (case[k] for k in ("x", "branch", "gate", "mul", "add"))
-        g_new, g = case["g_new"], case["g"]
-        xn, xm = N.residual_gate_modulate_rows(x, br, gate, mul, add, eps, dtype)
-        rn, rm = N._native_residual_gate_modulate(x, br, gate, mul, add, eps, dtype)
-        err_n = (xn.float() - rn.float()).abs().max().item()
-        err_m = (xm.float() - rm.float()).abs().max().item()
-        _check(f"{name} forward x_new", err_n, 0.0 if dtype == torch.bfloat16 else 1e-6 * max(
-            1.0, rn.float().abs().max().item()))
-        _check(f"{name} forward x_mod", err_m, _bar(dtype, rm))
-        leaves = [t.detach().clone().requires_grad_() for t in (x, br, gate, mul, add)]
-        eager = torch.autograd.grad(N._native_residual_gate_modulate(*leaves, eps, dtype), leaves, (g_new, g))
-        names = ("dx", "dbranch", "dgate", "dmul", "dadd")
-        for needs in ((True,) * 5, K6_MAIN_NEEDS):
-            got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
-            plain = N._native_residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, needs)
-            rel = 1e-4 if tag == "degenerate" else 1e-5  # as K5's
-            bars = (lambda r: _bar(dtype, r, rel=rel), lambda r: _bar(dtype, r, rel=rel),
-                    lambda r: _bar(dtype, r.to(dtype)), lambda r: _bar(torch.float32, r),
-                    lambda r: _bar(torch.float32, r))
-            _grads_check(f"{name} backward {needs} vs plain", got, plain, names, bars)
-        got = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
-        eager_bars = (lambda r: _bar(dtype, r, 2.0, 1e-4), lambda r: _bar(dtype, r, 2.0, 1e-4),
-                      lambda r: _bar(dtype, r.to(dtype), 2.0, 1e-4), lambda r: _bar(torch.float32, r, rel=1e-4),
-                      lambda r: _bar(torch.float32, r, rel=1e-4))
-        _grads_check(f"{name} backward vs autograd through the plain forward", got, eager, names, eager_bars)
-        again = N.residual_gate_modulate_backward(x, br, gate, mul, g_new, g, eps, (True,) * 5)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[kernels] {name} backward: two launches give the same bits: {same}")
-        if not same:
-            fail(f"{name}: the backward is not deterministic")
-        if tag == "image":
-            gate_c = gate[:, None, :].to(dtype)
-            r, xhat, raw = N._ln_stats((x + gate_c * br).float(), eps, False)
-            wrong = (g_new.float() + N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0))).to(dtype)
-            _backward_controls(name, got, wrong, 3, lambda r: _bar(dtype, r))
-            pn, pm = N.residual_gate_modulate_rows(x[:4], br[:4], gate[:4], mul[:4], add[:4], eps, dtype)
-            same = torch.equal(pn, xn[:4]) and torch.equal(pm, xm[:4])
-            log(f"[kernels] {name}: the first 4 batch rows alone give the bits of the whole batch's: {same}")
-            if not same:
-                fail(f"{name}: a batch slice changes the bits")
-        if timed:
-            _norm_timings(results, "residual_gate_modulate", f"K6 {tag}", shape, True, case, xm,
-                          max(err_n, err_m), (x, br, gate, mul, add, xn, xm), N, eps)
-        del case, x, br, gate, mul, add, g_new, g, xn, xm, rn, rm, leaves, eager, got, again
-        torch.cuda.empty_cache()
+        _k6_shape_checks(results, gen, shape, shape.tag == "image")
 
     tiny = _norm_inputs(gen, 1, 4, 1536, torch.bfloat16, torch.bfloat16, False, True, False)
     fwd5, bwd5 = _norm_calls(N, tiny, eps, torch.bfloat16, False, False, False, K5_MAIN_NEEDS)
@@ -941,6 +996,56 @@ def _k2_negative_control(name: str, got, wrong, tols) -> None:
         fail(f"the K2 check cannot tell the kernels from wrong ones: {name}")
 
 
+def _k2_d64_shape_checks(results: dict, randn, tag: str, B: int, H: int, S: int, D: int, dtype, strided: bool,
+                         timed: bool) -> None:
+    """One K2 D=64 shape of ``phase_kernels_k2`` (the shapes of K1 whose
+    backward it is): K2a/K2b against the plain version; for the joint shape
+    the negative controls and two passes' bits; timings and table entries if
+    ``timed``."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    dtype = getattr(torch, dtype)
+    if strided:
+        q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
+    gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+    gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
+    scale = D ** -0.5
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+    qn = A._rms_scale(q, gq, 1e-6).to(dtype)
+    kn = A._rms_scale(k, gk, 1e-6).to(dtype)
+    dout = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
+    got = A.flash_backward(qn, kn, v, out, lse, dout, scale)
+    ref = A.flash_backward_plain(qn, kn, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    layout = "strided" if strided else "contiguous"
+    errs, tols = _k2_check(f"{tag} {layout}", got, ref, dtype)
+    del ref
+    d_, delta, lse2 = A._bwd_prologue(qn, out, lse, dout)
+    if tag == "joint":
+        zero = torch.zeros_like(delta)
+        _k2_negative_control("K2 joint vs a plain version without Delta", got,
+                             (A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, zero, scale),
+                              *A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, zero, scale)), tols)
+        n = S // 64 * 64  # the last whole key tile of K2a's ring (64 keys)
+        _k2_negative_control(f"K2 joint vs a plain version without the {S - n}-key ragged tail", got,
+                             (A.flash_bwd_dq_plain(qn, kn[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
+                              None, None), tols)
+        again = A.flash_backward(qn, kn, v, out, lse, dout, scale)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[kernels] K2 joint: two backward passes give the same bits: {same}")
+        if not same:
+            fail("K2 is not deterministic")
+        del again
+    if timed:
+        _k2_time_and_record(results, tag, "", qn, kn, v, dout, d_, lse2, delta, scale, got, errs)
+    del q, k, v, out, qn, kn, dout, got
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_k2(results: dict, randn) -> None:
     """K2a (dq) and K2b (dk, dv) on the inputs K1's backward gives them: the
     normalised q and k, v, O and the natural-log lse from K1's forward of the
@@ -949,52 +1054,8 @@ def phase_kernels_k2(results: dict, randn) -> None:
     concatenated contiguous tensor, the self case the head-split strided
     views; the small cases have a ragged tail in fp32 and bf16; then the
     head-dim-128 shapes of the Wan blocks."""
-    import torch
-
-    from flow_factory_tpu_torch.ops import attention as A
-
-    for tag, B, H, S, D, dtype, strided, timed in (
-            ("joint", 16, 24, 1357, 64, torch.bfloat16, False, True),
-            ("self", 16, 24, 1024, 64, torch.bfloat16, True, True),
-            ("ragged-fp32", 2, 3, 197, 64, torch.float32, False, False),
-            ("ragged-bf16", 2, 3, 77, 64, torch.bfloat16, True, False)):
-        if strided:
-            q, k, v = (randn(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
-        else:
-            q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
-        gq = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
-        gk = (1.0 + 0.1 * randn(S, D, dtype=torch.float32)).contiguous()
-        scale = D ** -0.5
-        out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
-        qn = A._rms_scale(q, gq, 1e-6).to(dtype)
-        kn = A._rms_scale(k, gk, 1e-6).to(dtype)
-        dout = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
-        got = A.flash_backward(qn, kn, v, out, lse, dout, scale)
-        ref = A.flash_backward_plain(qn, kn, v, out, lse, dout, scale)
-        torch.cuda.synchronize()
-        layout = "strided" if strided else "contiguous"
-        errs, tols = _k2_check(f"{tag} {layout}", got, ref, dtype)
-        del ref
-        d_, delta, lse2 = A._bwd_prologue(qn, out, lse, dout)
-        if tag == "joint":
-            zero = torch.zeros_like(delta)
-            _k2_negative_control("K2 joint vs a plain version without Delta", got,
-                                 (A.flash_bwd_dq_plain(qn, kn, v, d_, lse2, zero, scale),
-                                  *A.flash_bwd_dkv_plain(qn, kn, v, d_, lse2, zero, scale)), tols)
-            n = S // 64 * 64  # the last whole key tile of K2a's ring (64 keys)
-            _k2_negative_control(f"K2 joint vs a plain version without the {S - n}-key ragged tail", got,
-                                 (A.flash_bwd_dq_plain(qn, kn[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
-                                  None, None), tols)
-            again = A.flash_backward(qn, kn, v, out, lse, dout, scale)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            log(f"[kernels] K2 joint: two backward passes give the same bits: {same}")
-            if not same:
-                fail("K2 is not deterministic")
-            del again
-        if timed:
-            _k2_time_and_record(results, tag, "", qn, kn, v, dout, d_, lse2, delta, scale, got, errs)
-        del q, k, v, out, qn, kn, dout, got
-        torch.cuda.empty_cache()
+    for shape in K1_SHAPES:
+        _k2_d64_shape_checks(results, randn, *shape)
 
     _k2_host_cost(randn)
     phase_kernels_k2_wan(results, randn)
@@ -1087,7 +1148,7 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag == "wan-self" or tag.startswith(("flux", "kontext")) else view(Sk)
+    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext")) else view(Sk)
     v = randn(B, H, Sk, D) if tag.startswith(("flux", "kontext")) else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
@@ -2934,6 +2995,319 @@ def kontext_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# DGPO on SD3.5-M and CRD on Wan2.1-1.3B: the kernels at their grad steps'
+# B 8, and two epochs of each trainer
+# ---------------------------------------------------------------------------
+
+#: the B 8 shapes of the DGPO (SD3.5-M) and CRD (Wan2.1-1.3B) grad steps,
+#: whose forwards and backward run without CFG: K1 and K2 D=64 at SD3.5-M's
+#: joint and self attention; K3 and K2 D=128 at Wan's self and cross
+#: attention; K5 at SD3.5-M's image and context norms and Wan's block norms
+#: (norm2 the fold path), K6 at SD3.5-M's
+DECOUPLED_K1_SHAPES = (("joint-b8", 8, 24, 1357, 64, "bfloat16", False, True),
+                       ("self-b8", 8, 24, 1024, 64, "bfloat16", True, True))
+DECOUPLED_WAN_ATTENTION = (("wan-self-b8", 8, 12, 512, 512), ("wan-cross-b8", 8, 12, 512, 512))
+DECOUPLED_K5_SHAPES = tuple(NormShape(tag, 8, S, 1536, "bfloat16", "bfloat16", False, fold, False, True)
+                            for tag, S, fold in (("image-b8", 1024, False), ("context-b8", 333, False),
+                                                 ("wan-b8", 512, False), ("wan-norm2-b8", 512, True)))
+DECOUPLED_K6_SHAPES = tuple(NormShape(tag, 8, S, 1536, "bfloat16", "bfloat16", False, False, False, True)
+                            for tag, S in (("image-b8", 1024), ("context-b8", 333)))
+#: the table's B 8 shapes of each kernel and the phase whose launches they take
+DECOUPLED_TAGS = {
+    "dgpo": {"qknorm_flash_fwd": ("joint-b8", "self-b8"), "flash_bwd_dq": ("joint-b8", "self-b8"),
+             "flash_bwd_dkv": ("joint-b8", "self-b8"), "ln_mul_add": ("image-b8", "context-b8"),
+             "ln_mul_add_backward": ("image-b8", "context-b8"),
+             "residual_gate_modulate": ("image-b8", "context-b8"),
+             "residual_gate_modulate_backward": ("image-b8", "context-b8")},
+    "crd": {"flash_fwd": ("wan-self-b8", "wan-cross-b8"), "flash_bwd_dq_d128": ("wan-self-b8", "wan-cross-b8"),
+            "flash_bwd_dkv_d128": ("wan-self-b8", "wan-cross-b8"), "ln_mul_add": ("wan-b8", "wan-norm2-b8"),
+            "ln_mul_add_backward": ("wan-b8", "wan-norm2-b8")},
+}
+#: kernel launches of one SD3.5-M transformer forward and backward (24
+#: joint + 13 dual self-attentions; the norms as ``SD35_NORMS_A_STEP``), and
+#: of one Wan2.1-1.3B forward and backward (self + cross a block; 3 K5 a
+#: block and the head, each with a backward but block 0's first)
+SD35_FORWARD = {"qknorm_flash_fwd": 37, "ln_mul_add": 62, "residual_gate_modulate": 47}
+SD35_BACKWARD = {"flash_bwd_dq": 37, "flash_bwd_dkv": 37, "ln_mul_add_backward": 59,
+                 "residual_gate_modulate_backward": 47}
+WAN_FORWARD = {"flash_fwd": 60, "ln_mul_add": 91}
+WAN_BACKWARD = {"flash_bwd_dq": 60, "flash_bwd_dkv": 60, "ln_mul_add_backward": 90}
+#: the two phases: fixture, the GRPO phase of the same family and the peak
+#: memory it showed (GiB, on an H100 80GB HBM3 at 700 W; PERF.md), the exact
+#: invariants of epoch 0's grad steps, each epoch's rollout policy
+DECOUPLED_PHASES = {
+    "dgpo": dict(tag="dgpo", fixture="sd35_dgpo", forward=SD35_FORWARD, backward=SD35_BACKWARD,
+                 grpo_peak=("[train]", 48.91),
+                 invariants={"train/pref_mean": 0.0, "train/group_weight_mean": 0.5, "train/kl": 0.0,
+                             "train/clip_ratio": 0.0},
+                 rollouts=[("live", None), ("ema_ref", False)]),
+    "crd": dict(tag="crd-wan", fixture="wan21_crd", forward=WAN_FORWARD, backward=WAN_BACKWARD,
+                grpo_peak=("[wan-train]", 41.25),
+                invariants={"train/r_theta_mean": 0.0, "train/old_deviate": 0.0, "train/kl": 0.0},
+                rollouts=[("_crd_sampling", True), ("_crd_sampling", True)]),
+}
+
+
+def phase_decoupled_kernels(results: dict) -> None:
+    """[decoupled-kernels]: every kernel of the DGPO and CRD grad steps at
+    their B 8 shapes, through the checks of its B 16 shapes: K1 and K2a/K2b
+    D=64 (``_k1_shape_checks``, ``_k2_d64_shape_checks``), K3 and K2a/K2b
+    D=128 (``_k3_shape_checks``, ``_k2_d128_shape_checks``: self q/k
+    contiguous as RoPE returns them, v a view; cross q contiguous, k/v
+    views), K5 and K6 with their backwards. The entries join the table under
+    ``DECOUPLED_TAGS``."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    log(f"[decoupled-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    for shape in DECOUPLED_K1_SHAPES:
+        _k1_shape_checks(results, randn, *shape)
+        _k2_d64_shape_checks(results, randn, *shape)
+    for tag, B, H, Sq, Sk in DECOUPLED_WAN_ATTENTION:
+        cross = tag.startswith("wan-cross")
+        heads = lambda S: randn(B, S, H, 128).transpose(1, 2)  # view of a (B, S, H*D) projection
+        q, k, v = (randn(B, H, Sq, 128), heads(Sk), heads(Sk)) if cross else \
+            (randn(B, H, Sq, 128), randn(B, H, Sk, 128), heads(Sk))
+        _k3_shape_checks(results, tag, q, k, v, "q contiguous, k/v views" if cross else "q/k contiguous, v a view",
+                         functools.partial(_k3_call, B, H, Sq, Sk, 128, True, 128 ** -0.5))
+        del q, k, v
+        _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, True, randn)
+    for shape in DECOUPLED_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, False)
+    for shape in DECOUPLED_K6_SHAPES:
+        _k6_shape_checks(results, gen, shape, False)
+
+
+def _policy_recorder(ad, snapshot: str, rollouts: list):
+    """``ad.inference`` wrapped to append, per call, the policy it samples
+    under: ("live", None) for the live tree, (``snapshot``, whether it equals
+    the live tree bit for bit) for that named snapshot, ("other", None) else."""
+    import torch
+
+    inference = ad.inference
+
+    def recording(*args, **kwargs):
+        tr = kwargs.get("trainable")
+        if tr is None or tr is ad.trainable:
+            rollouts.append(("live", None))
+        elif ad.has_named_parameters(snapshot) and tr is ad.get_named_parameters(snapshot):
+            rollouts.append((snapshot, all(torch.equal(a, b) for a, b in
+                                           zip(ad.trainable_leaves(tr), ad.trainable_leaves()))))
+        else:
+            rollouts.append(("other", None))
+        return inference(*args, **kwargs)
+
+    return recording
+
+
+def _profile_decoupled_grad_step(trainer, what: str, trace: str) -> None:
+    """One grad step with its share of the frozen forwards, on the first
+    batch of the last epoch: DGPO's ``ema_ref`` and reference velocities at
+    its timestep, CRD's old policy's (its reference runs in the loss, for the
+    KL), each snapshot merged once before, as a micro-batch's T grad steps
+    share the merge; then the θ forward, the backward and AdamW."""
+    import torch
+
+    from flow_factory_tpu_torch.trainers.decoupled import uncfg
+
+    ad = trainer.adapter
+    batch = next(trainer.grad_step_batches(trainer.reward_buffer.samples, trainer.training_args.max_epochs - 1))
+    base = {k: v for k, v in batch.items() if k not in ("old_v", "ref_v")}
+    dgpo = hasattr(trainer, "with_frozen_velocities")
+    with torch.no_grad():
+        old = (ad.merged_params(ad.velocity_component, ad.get_named_parameters(trainer.EMA_REF)) if dgpo
+               else trainer.old_policy_params())
+
+    @torch.no_grad()
+    def frozen():
+        if dgpo:
+            return trainer.with_frozen_velocities(base, old)
+        return {**base, "old_v": ad.training_velocity_tree(None, uncfg(trainer.noised_batch(base)), params=old)}
+
+    ref = trainer.reference_trainable()
+
+    def grad_step():
+        _, grads = trainer.loss_and_grads(ad.trainable, frozen(), ref)
+        trainer.accumulate_grads(grads)
+        trainer.apply_accumulated()
+
+    return _profile(what, grad_step, trace)
+
+
+def phase_decoupled(trainer_type: str) -> dict:
+    """[dgpo] / [crd-wan]: SD3.5-M LoRA DGPO on tests/fixtures/sd35_dgpo.yaml
+    and Wan2.1-T2V-1.3B LoRA CRD on tests/fixtures/wan21_crd.yaml at full
+    width through ``load_trainer`` (random bf16 weights from seed 42, rank-32
+    LoRA, 2 prompts x group 4 in one rollout batch and one micro-batch of 8,
+    4 train timesteps, the optimizer once an epoch after its 4 grad steps),
+    two epochs phase by phase. Each rollout: finite images (8, 3, 512, 512)
+    or videos (8, 5, 3, 256, 256), the forward's kernels launched 10 times
+    (CFG: one B 16 forward a step), under the policy ``DECOUPLED_PHASES``
+    names (DGPO: the live tree, then ``ema_ref``; CRD: ``_crd_sampling``,
+    equal to θ by then). Each grad step, recorded as it runs: epoch 0's at θ
+    = the snapshot = the zero LoRA = the reference, so the invariants hold
+    exactly (DGPO pref_mean 0, group_weight_mean 0.5, kl 0, clip_ratio 0;
+    CRD r_theta_mean 0, old_deviate 0, kl 0); every metric finite; launches
+    in optimize three forwards (the snapshot's, the reference's, θ's) and a
+    backward a grad step. A moved LoRA, the peak memory beside the GRPO
+    phase's of the family, seconds a rollout and a grad step, and a profile
+    of one grad step (idle share). Returns the launch counts of the two
+    epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    spec = DECOUPLED_PHASES[trainer_type]
+    tag = spec["tag"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", f"{spec['fixture']}.yaml"))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    cfg.log_args.save_dir = os.path.join(here, "build", "train")
+    ta = cfg.training_args
+    log(f"[{tag}] device memory allocated before the trainer loads: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ad = trainer.adapter
+    lora = ad.trainable["transformer"]
+    if ad.component_configs["transformer"].remat:
+        fail(f"[{tag}] the launch counts below assume no remat")
+    snapshot = spec["rollouts"][1][0]
+    log(f"[{tag}] load_trainer ({type(ad).__name__}, {type(trainer).__name__}; LoRA rank {cfg.model_args.lora_rank} "
+        f"on {len(lora)} weights, {sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.2f} M "
+        f"trainable; preprocess included) {load_s:.1f} s; gradient_accumulation_steps "
+        f"{ta.gradient_accumulation_steps}; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    steps, rollouts, seconds = [], [], collections.defaultdict(list)
+    loss_fn = trainer.loss_fn
+
+    def recording_loss_fn(*args, **kwargs):
+        loss, aux = loss_fn(*args, **kwargs)
+        steps.append(dict(aux))
+        return loss, aux
+
+    trainer.loss_fn = recording_loss_fn
+    ad.inference = _policy_recorder(ad, snapshot, rollouts)
+    per_step = {k: 3 * spec["forward"].get(k, 0) + spec["backward"].get(k, 0)
+                for k in {**spec["forward"], **spec["backward"]}}
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    ops.reset_launch_counts()
+    for epoch in range(ta.max_epochs):
+        trainer.epoch = epoch
+        trainer.scheduler.set_seed(ta.seed + epoch)
+        secs = {}
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        samples = trainer.sample(epoch)
+        torch.cuda.synchronize()
+        secs["sample"] = time.perf_counter() - t0
+        in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        want = {k: n * ta.num_inference_steps for k, n in spec["forward"].items()}
+        media = np.stack([s.video if trainer_type == "crd" else s.image for s in samples])
+        t0 = time.perf_counter()
+        metrics = trainer.prepare_feedback(samples)
+        secs["feedback"] = time.perf_counter() - t0
+        log(f"[{tag}] epoch {epoch} rollout under {rollouts[-1]}: {media.shape} in [{media.min():.3f}, "
+            f"{media.max():.3f}], reward mean {metrics['reward/mean']:.5f}, launches {in_sample} (expected {want}), "
+            f"{len(samples) / secs['sample']:.3f} samples/s")
+        shape = (8, 5, 3, 256, 256) if trainer_type == "crd" else (8, 3, 512, 512)
+        if media.shape != shape or not np.isfinite(media).all() or not np.isfinite(metrics["reward/mean"]):
+            fail(f"[{tag}] epoch {epoch}: the rollout is not as expected")
+        if any(in_sample[k] != n for k, n in want.items()):
+            fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
+        if rollouts[-1] != spec["rollouts"][epoch]:
+            fail(f"[{tag}] epoch {epoch}: the rollout ran under {rollouts[-1]}, expected {spec['rollouts'][epoch]}")
+        before, first = ops.launch_counts(), len(steps)
+        t0 = time.perf_counter()
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+        secs["optimize"] = time.perf_counter() - t0
+        in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ad.ema_step(epoch)
+        epoch_steps = [{k: float(v) for k, v in aux.items()} for aux in steps[first:]]
+        grad_steps = len(epoch_steps)
+        want = {k: n * grad_steps for k, n in per_step.items()}
+        gnorm = info["train/grad_norm"]
+        shown = {k: [round(a[k], 6) for a in epoch_steps] for k in spec["invariants"]}
+        log(f"[{tag}] epoch {epoch}: {grad_steps} grad steps, {shown}; loss {info['train/loss']:.4e}, grad_norm "
+            f"{gnorm:.4e}, launches in optimize {in_optimize} (expected {want}), global step {trainer.global_step}")
+        log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+            f"{secs['optimize'] / grad_steps:.3f} s per grad step (its frozen forwards and the optimizer step "
+            f"included)")
+        seconds["rollout"].append(round(secs["sample"], 3))
+        seconds["grad step"].append(round(secs["optimize"] / grad_steps, 3))
+        if epoch == 0:
+            first_step = {k: epoch_steps[0][k] for k in spec["invariants"]}
+            log(f"[{tag}] epoch 0's first grad step at θ = the snapshot = the zero LoRA: {first_step} (expected "
+                f"exactly {spec['invariants']})")
+            if first_step != spec["invariants"]:
+                fail(f"[{tag}] epoch 0's first grad step: {first_step}, expected exactly {spec['invariants']}")
+        if not (grad_steps == ta.get_num_train_timesteps(cfg) and np.isfinite(gnorm) and gnorm > 0
+                and all(np.isfinite(v) for a in epoch_steps for v in a.values())):
+            fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, grad steps {epoch_steps}")
+        if any(in_optimize[k] != n for k, n in want.items()):
+            fail(f"[{tag}] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail(f"[{tag}] the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    name, grpo_peak = spec["grpo_peak"]
+    log(f"[{tag}] launches over two epochs {counts} | a grad step {per_step} | peak memory {peak:.2f} GiB (the "
+        f"family's GRPO phase {name}: {grpo_peak} GiB) | global step {trainer.global_step}")
+    if trainer.global_step != ta.max_epochs:
+        fail(f"[{tag}] the optimizer did not step once per epoch: global step {trainer.global_step}")
+    prof = _profile_decoupled_grad_step(trainer, f"one {tag} grad step with its frozen forwards (B 8, AdamW)",
+                                        f"{tag.replace('-', '_')}_grad_step_trace.json")
+    log(f"[{tag}] summary on {card_name()}: seconds a rollout {seconds['rollout']}, a grad step "
+        f"{seconds['grad step']} (epochs 0, 1) | peak memory {peak:.2f} GiB | idle share of a profiled grad step "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f} | kernel launches of that grad step (all kernels) "
+        f"{prof['launches']} | launches of the port's kernels a grad step {per_step}, over two epochs {counts}")
+    trainer.cleanup()
+    return counts
+
+
+def _decoupled_phases() -> dict:
+    """[dgpo] then [crd-wan], each trainer freed before the next loads:
+    {trainer type: launch counts}."""
+    import torch
+
+    out = {}
+    for trainer_type in DECOUPLED_PHASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[trainer_type] = phase_decoupled(trainer_type)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoupled_only() -> int:
+    """``--decoupled``: the environment (the kernels' build), the B 8 kernel
+    shapes and the [dgpo] and [crd-wan] phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_decoupled_kernels({})
+    counts = _decoupled_phases()
+    log(f"[decoupled] launches {counts}; device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2954,6 +3328,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--kontext"]:
         return kontext_only()
+    if sys.argv[1:] == ["--decoupled"]:
+        return decoupled_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -2965,6 +3341,7 @@ def main() -> int:
     phase_kernels(results)
     phase_flux_kernels(results)
     phase_kontext_kernels(results)
+    phase_decoupled_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -2988,6 +3365,7 @@ def main() -> int:
     phase_flux_grad()
     flux_counts = phase_flux_dpo()
     kontext_counts = _kontext_phases()
+    decoupled_counts = _decoupled_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -3005,6 +3383,11 @@ def main() -> int:
     for name, tags in KONTEXT_TAGS.items():
         for tag in tags:
             results[name]["shapes"][tag]["launches"] = kontext_counts[name.replace("_d128", "")]
+    # the B 8 shapes: their kernels' launches in the DGPO and the CRD epochs
+    for trainer_type, tags_of in DECOUPLED_TAGS.items():
+        for name, tags in tags_of.items():
+            for tag in tags:
+                results[name]["shapes"][tag]["launches"] = decoupled_counts[trainer_type][name.replace("_d128", "")]
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,8 @@ Port of ``flow_factory_tpu/ema/ema.py``: the EMA is another tree of fp32
 tensors (for LoRA, a copy of the small LoRA tree), updated as
 ``e·decay + p·(1 − decay)`` every ``update_interval`` steps; with
 ``update_interval=0`` it never updates and serves as a frozen snapshot (the
-reference policy of full finetuning).
+reference policy of full finetuning, and the adapter's named parameter
+snapshots, which :meth:`EMA.blend` and :meth:`EMA.copy_from` move by hand).
 """
 from __future__ import annotations
 
@@ -118,10 +119,21 @@ class EMA:
         self.step = self.step + 1 if step is None else step
         if self.update_interval <= 0 or self.step % self.update_interval != 0:
             return
-        # fp32 decay and 1 − decay, as the JAX update computes them
-        decay = torch.tensor(self.decay_fn(self.step), dtype=torch.float32)
-        keep, take = decay.item(), (1.0 - decay).item()
+        self.blend(params, self.decay_fn(self.step))
+
+    @torch.no_grad()
+    def blend(self, params: Any, decay: float) -> None:
+        """``e·decay + p·(1 − decay)`` in the store's dtype, with decay and
+        1 − decay rounded to fp32 as the JAX update computes them (not
+        ``lerp``, which rounds otherwise); new tensors, so a tree taken
+        before the blend keeps its values."""
+        d = torch.tensor(decay, dtype=torch.float32)
+        keep, take = d.item(), (1.0 - d).item()
         self.params = tree_map(lambda e, p: e * keep + p.detach().to(e.dtype) * take, self.params, params)
+
+    def copy_from(self, params: Any) -> None:
+        """A hard reset to a detached fp32 copy of ``params``."""
+        self.params = tree_map(lambda x: x.detach().float().clone(), params)
 
     def state_dict(self) -> dict:
         return {"step": self.step, "params": self.params}

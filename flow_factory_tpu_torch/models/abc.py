@@ -83,6 +83,9 @@ class BaseAdapter(ABC):
         self._setup_trainable()
         self.ema: Optional[EMA] = None
         self._ref_store: Optional[EMA] = None
+        #: the named parameter snapshots (DGPO's ``ema_ref``, CRD's old and
+        #: sampling policies); no checkpoint holds them
+        self._named_stores: Dict[str, EMA] = {}
         #: what a ``train_state`` load read besides the weights: the
         #: optimizer state, epoch and global step (the trainer takes them),
         #: and the EMA state until :meth:`init_ema` builds the EMA
@@ -262,6 +265,37 @@ class BaseAdapter(ABC):
         if self._ref_store is None:
             raise RuntimeError("init_ref_parameters() was not called for full finetuning")
         return self._ref_store.params
+
+    # ------------------------------------------------------------------
+    # Named parameter snapshots (DGPO, CRD; JAX models/abc.py:636-669): a
+    # detached fp32 copy of the trainable tree each, moved only by hand. No
+    # checkpoint holds them: a resumed run rebuilds them from the restored
+    # tree when the trainer registers them, as the JAX package does.
+    # ------------------------------------------------------------------
+    def add_named_parameters(self, name: str, decay: float = 0.0, update_interval: int = 0) -> None:
+        self._named_stores[name] = EMA(self.trainable, decay_fn=constant_decay(decay),
+                                       update_interval=update_interval)
+
+    def get_named_parameters(self, name: str) -> Trainable:
+        return self._named_stores[name].params
+
+    def update_named_parameters(self, name: str, blend: Optional[float] = None, step: Optional[int] = None) -> None:
+        """Blend the snapshot toward the live tree, s ← s·b + θ·(1−b); without
+        ``blend`` an EMA update at ``step`` with the store's own decay."""
+        store = self._named_stores[name]
+        if blend is None:
+            store.update(self.trainable, step=step)
+        else:
+            store.blend(self.trainable, blend)
+
+    def set_named_parameters(self, name: str) -> None:
+        self._named_stores[name].copy_from(self.trainable)
+
+    def remove_named_parameters(self, name: str) -> None:
+        self._named_stores.pop(name, None)
+
+    def has_named_parameters(self, name: str) -> bool:
+        return name in self._named_stores
 
     def post_init(self) -> None:
         """EMA and reference init once the trainer is wired."""

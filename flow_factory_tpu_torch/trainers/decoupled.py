@@ -1,6 +1,5 @@
 """Shared scaffolding of the decoupled trainers (port of
-``flow_factory_tpu/trainers/decoupled.py``; DPO, NFT and AWM now, CRD and
-DGPO next).
+``flow_factory_tpu/trainers/decoupled.py``; DPO, NFT, AWM, CRD and DGPO).
 
 Decoupled: the training timesteps are drawn fresh by a ``TimeSampler``
 instead of replaying the rollout's SDE steps, and only the final (clean)
@@ -10,7 +9,8 @@ yet); a preemption request is honoured before each rollout batch and each
 micro-batch. A trainer yields the device batch of each grad step from
 ``grad_step_batches`` and computes its loss in ``loss_fn``; ``optimize``
 sums the gradients and steps the optimizer every
-``gradient_accumulation_steps`` grad steps.
+``gradient_accumulation_steps`` grad steps, calling
+``after_optimizer_step`` after each step.
 """
 from __future__ import annotations
 
@@ -24,6 +24,11 @@ from ..samples import BaseSample, stack_samples
 from ..utils.base import derive_seed, make_generator
 from ..utils.noise_schedule import TimeSampler
 from .abc import BaseTrainer
+
+
+def uncfg(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``batch`` without its negative embeds: the velocity runs without CFG."""
+    return {k: v for k, v in batch.items() if not k.startswith("negative_")}
 
 
 class DecoupledTrainer(BaseTrainer):
@@ -86,9 +91,15 @@ class DecoupledTrainer(BaseTrainer):
             infos.append(aux)  # device scalars, read once at the end of the phase
             if self._accum_count >= ta.gradient_accumulation_steps:
                 infos[-1]["train/grad_norm"] = self.apply_accumulated()
+                self.after_optimizer_step()
         if self._accum_count > 0:  # flush a remainder: the optimizer always steps
             infos[-1]["train/grad_norm"] = self.apply_accumulated()
+            self.after_optimizer_step()
         return self.aggregate_infos(infos)
+
+    def after_optimizer_step(self) -> None:
+        """What a trainer does after each optimizer step (DGPO blends its
+        ``ema_ref`` snapshot)."""
 
     # ------------------------------------------------------------------
     # Fresh timestep sampling (the TimeSampler dispatch)
@@ -134,11 +145,15 @@ class DecoupledTrainer(BaseTrainer):
             perm = np.concatenate([perm, perm[: B - len(perm) % B]])
         for s in range(0, len(perm) - B + 1, B):
             self.check_preempt()
-            mb = [samples[int(i)] for i in perm[s : s + B]]
-            bn = stack_samples(mb)
-            bn["__staged_clean__"] = self.clean_latent_tree(bn)
-            bn["__staged_embeds__"] = self.batch_embeds(bn)
-            yield mb, bn
+            yield self.stage_micro_batch([samples[int(i)] for i in perm[s : s + B]])
+
+    def stage_micro_batch(self, mb: List[BaseSample]) -> Tuple[List[BaseSample], Dict[str, Any]]:
+        """``mb`` stacked on the host, its clean latents and embeds moved to
+        the device."""
+        bn = stack_samples(mb)
+        bn["__staged_clean__"] = self.clean_latent_tree(bn)
+        bn["__staged_embeds__"] = self.batch_embeds(bn)
+        return mb, bn
 
     def batch_embeds(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The adapter's embed keys of a stacked batch, fp32 on the device."""
@@ -208,19 +223,33 @@ class DecoupledTrainer(BaseTrainer):
         (the zero LoRA), the frozen snapshot for full finetuning."""
         return None if self.adapter.is_lora else self.adapter.ref_trainable()
 
+    def noised_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """``batch`` with each stream's x_t at the batch's timestep."""
+        return {**batch, **self.tree_noised(batch["clean"], batch["noise"], batch["timestep"])}
+
+    def frozen_velocity(self, trainable, fwd: Dict[str, Any]) -> torch.Tensor:
+        """The flattened velocity of a policy that takes no gradient:
+        ``trainable`` merged (None: the frozen weights, see :meth:`ref_params`)."""
+        with torch.no_grad():
+            params = self.ref_params(trainable)
+            return self.tree_flat(self.adapter.training_velocity_tree(None, fwd, params=params))
+
 
 class OldPolicyTrainer(DecoupledTrainer):
-    """The decoupled trainers that hold the current policy against the
-    sampling policy (NFT, AWM): the rollout under the EMA weights when
-    ``off_policy`` is set (JAX ``nft.py:35-38``, ``awm.py:51-54``); per
-    micro-batch, T fresh timesteps and noise draws and at each the sampling
-    policy's velocity without gradients, reduced by :meth:`old_policy` into
-    the grad step's ``old_key`` entry; then T grad steps."""
+    """The decoupled trainers that hold the current policy against an old
+    policy (NFT, AWM: the sampling policy; CRD: its ``_crd_old`` snapshot):
+    the rollout under the EMA weights when ``off_policy`` is set (JAX
+    ``nft.py:35-38``, ``awm.py:51-54``); per micro-batch, T fresh timesteps
+    and noise draws and at each the old policy's velocity without gradients,
+    reduced by :meth:`old_policy` into the grad step's ``old_key`` entry;
+    then T grad steps."""
 
     #: the grad-step batch key of the precomputed old-policy quantity
     old_key: str = ""
     #: the tag of the timestep and noise seeds (``<tag>_t``, ``<tag>_noise``)
     tag: str = ""
+    #: whether the old policy's forward runs with CFG over the negative embeds
+    old_policy_cfg: bool = True
 
     def sample(self, epoch: int, trainable: Optional[Dict[str, Any]] = None) -> List[BaseSample]:
         if getattr(self.training_args, "off_policy", False):
@@ -234,19 +263,31 @@ class OldPolicyTrainer(DecoupledTrainer):
             return self.adapter.ema_trainable
         return self.adapter.trainable
 
+    def old_policy_params(self) -> Dict[str, torch.Tensor]:
+        """Effective weights of the old policy (called without gradients):
+        the sampling policy's tree merged."""
+        return self.adapter.merged_params(self.adapter.velocity_component, self.sampling_trainable())
+
     def old_policy(self, old_v: Dict[str, torch.Tensor], batch: Dict[str, Any]) -> Any:
-        """What a grad step compares with, from the sampling policy's
-        velocity tree at the step's batch."""
+        """What a grad step compares with, from the old policy's velocity
+        tree at the step's batch."""
         raise NotImplementedError
 
+    def micro_batches(self, samples: List[BaseSample], epoch: int, inner: int
+                      ) -> Iterator[Tuple[int, List[BaseSample], Dict[str, Any]]]:
+        """(seed index, samples, staged batch) of each micro-batch: the
+        shuffled ones of :meth:`iter_micro_batches`, numbered in order."""
+        for bi, (mb, bn) in enumerate(self.iter_micro_batches(samples, epoch, inner)):
+            yield bi, mb, bn
+
     def grad_step_batches(self, samples: List[BaseSample], epoch: int) -> Iterator[Dict[str, Any]]:
-        """Per shuffled micro-batch: the old-policy quantity at each of the
-        T timesteps (one LoRA merge for the T forwards, no gradients), then
-        the batch of each of the T grad steps."""
+        """Per micro-batch: the old-policy quantity at each of the T
+        timesteps (one LoRA merge for the T forwards, no gradients), then the
+        batch of each of the T grad steps."""
         ta, ad, dev = self.training_args, self.adapter, self.adapter.device
         T = ta.get_num_train_timesteps(self.config)
         for inner in range(ta.num_inner_epochs):
-            for bi, (mb, bn) in enumerate(self.iter_micro_batches(samples, epoch, inner)):
+            for bi, mb, bn in self.micro_batches(samples, epoch, inner):
                 clean = self.clean_latent_tree(bn)
                 base = dict(clean=clean,
                             advantage=torch.tensor([s.extra_kwargs["advantage"] for s in mb], dtype=torch.float32,
@@ -256,24 +297,15 @@ class OldPolicyTrainer(DecoupledTrainer):
                 all_t = self.sample_timesteps(len(mb), derive_seed(f"{self.tag}_t", ta.seed, epoch, inner, bi))
                 steps = []
                 with torch.no_grad():
-                    params = ad.merged_params(ad.velocity_component, self.sampling_trainable())
+                    params = self.old_policy_params()
                     for t_idx in range(T):
                         gen = make_generator(dev, f"{self.tag}_noise", ta.seed, epoch, inner, bi, t_idx)
                         batch = dict(base, noise=self.tree_normal(gen, clean),
                                      timestep=torch.from_numpy(all_t[t_idx]).to(dev))
-                        old_v = ad.training_velocity_tree(None, self.noised_batch(batch), params=params)
+                        fwd = self.noised_batch(batch)
+                        old_v = ad.training_velocity_tree(None, fwd if self.old_policy_cfg else uncfg(fwd),
+                                                          params=params)
                         batch[self.old_key] = self.old_policy(old_v, batch)
                         steps.append(batch)
                     del params
                 yield from steps
-
-    def noised_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """``batch`` with each stream's x_t at the batch's timestep."""
-        return {**batch, **self.tree_noised(batch["clean"], batch["noise"], batch["timestep"])}
-
-    def frozen_velocity(self, trainable, fwd: Dict[str, Any]) -> torch.Tensor:
-        """The flattened velocity of a policy that takes no gradient:
-        ``trainable`` merged (None: the frozen weights, see :meth:`ref_params`)."""
-        with torch.no_grad():
-            params = self.ref_params(trainable)
-            return self.tree_flat(self.adapter.training_velocity_tree(None, fwd, params=params))

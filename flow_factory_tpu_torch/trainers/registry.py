@@ -1,7 +1,7 @@
 """Trainer registry of the port: config ``trainer_type`` → trainer class,
 imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
-GRPO, GRPO-Guard, DPO, NFT and AWM are ported; DGPO and CRD raise
-(ROADMAP Queue 1 item 5)."""
+Every trainer of the JAX package is ported: GRPO, GRPO-Guard, DPO, NFT, AWM,
+DGPO and CRD."""
 from __future__ import annotations
 
 import importlib
@@ -14,15 +14,13 @@ _TRAINER_REGISTRY = {
     "dpo": "flow_factory_tpu_torch.trainers.dpo:DPOTrainer",
     "nft": "flow_factory_tpu_torch.trainers.nft:NFTTrainer",
     "awm": "flow_factory_tpu_torch.trainers.awm:AWMTrainer",
+    "dgpo": "flow_factory_tpu_torch.trainers.dgpo:DGPOTrainer",
+    "crd": "flow_factory_tpu_torch.trainers.crd:CRDTrainer",
 }
-_NOT_PORTED = ("dgpo", "crd")
 
 
 def resolve_trainer_class(trainer_type: str) -> Type:
-    key = str(trainer_type).lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(f"trainer {trainer_type!r} is not ported yet (ROADMAP Queue 1 item 5)")
-    target = _TRAINER_REGISTRY.get(key, trainer_type)
+    target = _TRAINER_REGISTRY.get(str(trainer_type).lower(), trainer_type)
     if ":" in target:
         module_name, cls_name = target.split(":")
     elif "." in target:

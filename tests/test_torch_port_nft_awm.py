@@ -307,15 +307,16 @@ def test_nft_and_awm_run_two_epochs_with_the_sampling_policy_bit_for_bit(tmp_pat
 
 def test_trainer_registry_resolves_nft_and_awm():
     """``nft`` and ``awm`` resolve to the port's trainers, on the shared
-    old-policy base; ``dgpo`` and ``crd`` raise ``NotImplementedError``
-    naming ROADMAP Queue 1 item 5."""
+    old-policy base, as does ``crd``; ``dgpo`` resolves to its trainer on the
+    decoupled base."""
     from flow_factory_tpu_torch.trainers.awm import AWMTrainer
-    from flow_factory_tpu_torch.trainers.decoupled import OldPolicyTrainer
+    from flow_factory_tpu_torch.trainers.crd import CRDTrainer
+    from flow_factory_tpu_torch.trainers.decoupled import DecoupledTrainer, OldPolicyTrainer
+    from flow_factory_tpu_torch.trainers.dgpo import DGPOTrainer
     from flow_factory_tpu_torch.trainers.nft import NFTTrainer
     from flow_factory_tpu_torch.trainers.registry import resolve_trainer_class
 
     assert resolve_trainer_class("nft") is NFTTrainer and resolve_trainer_class("AWM") is AWMTrainer
     assert issubclass(NFTTrainer, OldPolicyTrainer) and issubclass(AWMTrainer, OldPolicyTrainer)
-    for name in ("dgpo", "crd"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            resolve_trainer_class(name)
+    assert resolve_trainer_class("crd") is CRDTrainer and issubclass(CRDTrainer, OldPolicyTrainer)
+    assert resolve_trainer_class("DGPO") is DGPOTrainer and issubclass(DGPOTrainer, DecoupledTrainer)

@@ -365,8 +365,9 @@ def test_training_slice_runs_two_epochs_on_the_smoke_config(tmp_path, trainer_ty
 
 
 def test_unported_paths_raise(tmp_path):
-    """What is not ported raises instead of being skipped: the trainers
-    other than GRPO/GRPO-Guard, DPO, NFT and AWM (DGPO here). Evaluation, checkpoint saving
+    """What the port does not know raises instead of being skipped: an
+    unknown trainer type (every trainer type of the JAX package resolves,
+    DGPO among them). Evaluation, checkpoint saving
     and the logging backends are ported: ``eval_freq > 0`` builds a trainer
     with an eval reward buffer, ``save_freq > 0`` and ``logging_backend:
     tensorboard`` build one, and a backend whose package is missing (wandb here) is
@@ -390,8 +391,9 @@ def test_unported_paths_raise(tmp_path):
         assert [type(b).__name__ for b in trainer.logger_backend.backends] == backends
         trainer.cleanup()
         trainer._uninstall_preempt_handler()
-    with pytest.raises(NotImplementedError):
-        resolve_trainer_class("dgpo")
+    assert resolve_trainer_class("dgpo").__name__ == "DGPOTrainer"
+    with pytest.raises(KeyError):
+        resolve_trainer_class("no-such-trainer")
 
 
 def test_train_entry_point_runs_one_epoch_on_the_cpu(tmp_path):
