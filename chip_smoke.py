@@ -115,11 +115,37 @@ printing one line and exiting non-zero on failure:
    r_theta_mean 0, old_deviate 0, kl 0); three forwards and one backward a
    grad step in launches; a moved LoRA, peak memory beside the family's
    GRPO phase, and a profile of one grad step with its frozen forwards.
+8d. ltx2-kernels (run right after 8c): K3 and K2a/K2b at head dim 128 and
+   K5-RMS with its backward at every LTX-2 shape of a block (B 16 H 16:
+   video self 128/128, audio self 9/9, video and audio to the 512 text
+   tokens, a2v 128/9, v2a 9/128; the block norms bf16 -> bf16, the heads
+   bf16 -> fp32, the I2AV video stream's per-token modulation), through the
+   checks of 2 (a K2 control without the last of 9 keys, a K5 control
+   without the RMS term of dx), then timed at 512 px x 97 frames (3328
+   video, 94 audio tokens);
+13. ltx2-grad, ltx2, ltx2-train: the LoRA gradient of both streams'
+   log-probs through the kernels at LTX-2 width, depth 2, B 16 (the
+   dq-zeroed and the K5-without-its-RMS-term controls); then LTX-2 T2AV GRPO
+   at full width through ``load_trainer`` on
+   tests/fixtures/ltx2_t2av_grpo.yaml (28 blocks, Gemma3-12B, the LTX
+   video VAE and the audio VAE with its vocoder; 256 px x 9 frames, 10
+   steps, CFG 3; 2 prompts x group 4), two epochs: videos (8, 9, 3, 256,
+   256) and waveforms finite, K3/K5 launched as predicted a rollout and a
+   grad step, a no-grad replay of every stored step with ratio exactly 1.0,
+   the audio latents staged into every grad step, ratio exactly 1.0 on every
+   grad step, a moved LoRA, peak memory against the prediction, a profiled
+   grad step;
+14. ltx2-i2av: LTX-2 I2AV GRPO at full width on
+   tests/fixtures/ltx2_i2av_grpo.yaml, one epoch on two records of
+   dataset/sharegpt4o_image_mini resized to 256 px: the planted first-frame
+   tokens bit-equal in every stored latent and out of the log-prob, K5 on
+   the per-token modulation, ratio exactly 1.0 on every grad step.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
-FLUX.1-Kontext and B 8 shapes nested under their kernels' entries, with
-their launches in the DPO epochs, the three Kontext phases and the DGPO or
-CRD epochs); the last line is ``{"ok": true, "device": {...}}``.
+FLUX.1-Kontext, B 8 and LTX-2 shapes nested under their kernels' entries,
+with their launches in the DPO epochs, the three Kontext phases, the DGPO or
+CRD epochs and the LTX-2 T2AV epochs); the last line is ``{"ok": true,
+"device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
 
@@ -129,7 +155,8 @@ and on a ``git archive`` of another commit in one call to compare the two
 by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
 does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone;
-``python3 chip_smoke.py --decoupled`` the build, 8c and 12.
+``python3 chip_smoke.py --decoupled`` the build, 8c and 12;
+``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14.
 """
 from __future__ import annotations
 
@@ -780,7 +807,10 @@ def _k5_shape_checks(results: dict, gen, shape: NormShape, controls: bool) -> No
     if controls:
         x32 = x.float()
         r, xhat, raw = N._ln_stats(x32, eps, rms)
-        wrong = N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0)).to(dtype)
+        # LayerNorm: the x_hat term dropped as on clamped rows; RMS: its only
+        # projection term, -x_hat * mean(g_hat * x_hat), dropped
+        wrong = (r * g.float() * mul if rms else N._ln_dx(g.float(), mul, r, xhat, torch.full_like(raw, -1.0)))
+        wrong = wrong.to(dtype)
         _backward_controls(name, got, wrong, 1, lambda r: _bar(dtype, r))
         n = min(4, B // 2)
         part = N.ln_mul_add(x[:n], mul[:n], add[:n], eps, out_dtype, fold=fold, rms=rms)
@@ -937,6 +967,11 @@ def _norm_timings(results: dict, kernel: str, tag: str, shape: NormShape, k6: bo
         xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
         lib_ms = time_ms(lambda: F.layer_norm(x, (D,), w, b, eps))
         lib_bwd_ms = time_ms(lambda: torch.autograd.grad(F.layer_norm(xl, (D,), wl, bl, eps), (xl, wl, bl), g))
+    elif rms:  # a yardstick, not the same function: F.rms_norm alone, without the modulation
+        D = x.shape[-1]
+        xl = x.detach().clone().requires_grad_()
+        lib_ms = time_ms(lambda: F.rms_norm(x, (D,), None, eps))
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(F.rms_norm(xl, (D,), None, eps), (xl,), g.to(x.dtype)))
     # fp32 operations an element (two sums, centring, scaling, modulation;
     # the backward's two more sums and its dx terms; K6 its residual and dbranch)
     flops = x.numel() * (12 if k6 else 10), x.numel() * (18 if k6 else 14)
@@ -1140,7 +1175,9 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     as ``apply_rope`` returns them, v a head-split view of its projection;
     wan-cross k/v head-split views of the context projections; flux-1024px,
     flux-512px and the kontext shapes q/k/v contiguous (the joint sequence,
-    concatenated, q and k as RoPE returns them); ragged-d128 every
+    concatenated, q and k as RoPE returns them); the ltx2 shapes q/k
+    contiguous (the across-heads qk-norm and RoPE return them so), v a
+    head-split view; ragged-d128 every
     operand a view; dO always head-interleaved, as the head merge's backward
     hands it over."""
     from flow_factory_tpu_torch.ops import attention as A
@@ -1148,7 +1185,7 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext")) else view(Sk)
+    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext", "ltx2")) else view(Sk)
     v = randn(B, H, Sk, D) if tag.startswith(("flux", "kontext")) else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
@@ -1224,8 +1261,10 @@ def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: 
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
                              (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
                               *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
-    if tag in ("ragged-d128", "kontext-ragged"):
-        n = Sk // 64 * 64  # the kernels' last whole key tile
+    if tag in ("ragged-d128", "kontext-ragged") or (tag.startswith("ltx2") and Sk % 64):
+        # the kernels' last whole key tile; under one tile (LTX-2's 9 audio
+        # keys) a plain version without the last key
+        n = Sk // 64 * 64 if Sk > 64 else Sk - 1
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without the {Sk - n}-key ragged tail", got,
                              (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
                               None, None), tols)
@@ -1890,7 +1929,8 @@ def _swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool = False):
+def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool = False,
+                     k5_rms_control: bool = False):
     """LoRA gradients of the summed Flow-SDE log-prob of one transition
     (drawn once, near the step's mean) through the kernels (the K5/K6
     backward kernels included), against the same gradient through the plain
@@ -1899,7 +1939,10 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool =
     miss the bar; with ``k5_control`` also a run whose K5 backward drops its
     dmul term (the AdaLN scale's gradient, which reaches the LoRA on the
     AdaLN linears), that must miss it too. ``forward(params)`` is the velocity of
-    ``model`` on the LoRA-merged weights ``params`` at latents ``x``. The
+    ``model`` on the LoRA-merged weights ``params`` at latents ``x``; a
+    tuple of velocities at a tuple of latents (LTX-2's video and audio)
+    sums the streams' log-probs. With ``k5_rms_control`` also a run whose
+    K5 backward drops the RMS term of dx (−x̂·mean(ĝ·x̂)) must miss the bar. The
     bar: both paths run the same math in bf16 but round in other places
     (the kernels' folded softmax scale and bf16 p, the fp32 norms' summation
     order), which the backward carries into every LoRA leaf: worst leaf
@@ -1916,18 +1959,21 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool =
 
     names = [f"{path}.{k}" for path in sorted(lora) for k in ("lora_A", "lora_B")]
     leaves = [lora[path][k] for path in sorted(lora) for k in ("lora_A", "lora_B")]
-    full = lambda value: torch.full((x.shape[0],), value, device=x.device)
+    xs = x if isinstance(x, tuple) else (x,)
+    full = lambda value: torch.full((xs[0].shape[0],), value, device=xs[0].device)
     sigma, sigma_next = full(0.75), full(0.65)
     step = dict(dynamics_type="Flow-SDE", noise_level=full(0.8), sigma_max=full(0.95), storage_dtype=torch.float16)
     drawn = []
 
     def lora_grads():
-        v = forward(merge_lora(model, lora, 2.0)).float()
+        vs = forward(merge_lora(model, lora, 2.0))
+        vs = [v.float() for v in (vs if isinstance(vs, tuple) else (vs,))]
         if not drawn:
-            drawn.append(sde_step(v.detach(), x, sigma, sigma_next, generator=gen, compute_log_prob=False,
-                                  **step).next_latents)
-        out = sde_step(v, x, sigma, sigma_next, next_latents=drawn[0], **step)
-        return torch.autograd.grad(out.log_prob.sum(), leaves)
+            drawn.extend(sde_step(v.detach(), xi, sigma, sigma_next, generator=gen, compute_log_prob=False,
+                                  **step).next_latents for v, xi in zip(vs, xs))
+        loss = sum(sde_step(v, xi, sigma, sigma_next, next_latents=d, **step).log_prob.sum()
+                   for v, xi, d in zip(vs, xs, drawn))
+        return torch.autograd.grad(loss, leaves)
 
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -1951,9 +1997,22 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool =
 
     k5_without_dmul.launches = 0  # the kernel counts its launch on what stands in its name
 
+    def k5_without_rms_term(x, mul, g, eps, rms, needs):
+        dx, dmul, dadd = k5_backward(x, mul, g, eps, rms, needs)
+        if rms and dx is not None:  # r * g_hat alone: the -x_hat * mean(g_hat * x_hat) term dropped
+            x32 = x.float()
+            r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+            dx = (r * g.float() * mul).to(x.dtype)
+        return dx, dmul, dadd
+
+    k5_without_rms_term.launches = 0
+
     controls = {"K2a's dq zeroed": lambda: _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q))}
     if k5_control:
         controls["K5's backward without its dmul term"] = lambda: _swapped(N, ln_mul_add_backward=k5_without_dmul)
+    if k5_rms_control:
+        controls["K5's backward without the RMS term of dx"] = lambda: _swapped(
+            N, ln_mul_add_backward=k5_without_rms_term)
 
     def rel_errors(got):
         return [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() for g, r in zip(got, plain)]
@@ -3308,6 +3367,457 @@ def decoupled_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# LTX-2 joint audio-video: kernels at its shapes, the LoRA gradient, T2AV and
+# I2AV GRPO at full width
+# ---------------------------------------------------------------------------
+
+#: the attentions of one LTX-2 block (tag, Sq, Sk) at 256 px x 9 frames (Lv
+#: 2 x 8 x 8 = 128 video tokens, La 9 audio tokens, 512 text tokens), and at
+#: 512 px x 97 frames (Lv 13 x 16 x 16 = 3328, La 94), the latter timed only
+LTX2_LV, LTX2_LA, LTX2_LC, LTX2_LONG_LV, LTX2_LONG_LA = 128, 9, 512, 3328, 94
+LTX2_ATTENTION = (("ltx2-video-self", 128, 128), ("ltx2-audio-self", 9, 9), ("ltx2-video-text", 128, 512),
+                  ("ltx2-audio-text", 9, 512), ("ltx2-a2v", 128, 9), ("ltx2-v2a", 9, 128))
+LTX2_LONG_ATTENTION = (("ltx2-97f-video-self", 3328, 3328), ("ltx2-97f-audio-self", 94, 94),
+                       ("ltx2-97f-video-text", 3328, 512), ("ltx2-97f-audio-text", 94, 512),
+                       ("ltx2-97f-a2v", 3328, 94), ("ltx2-97f-v2a", 94, 3328))
+#: K5-RMS at width 2048: the block norms (bf16 -> bf16), the two heads (bf16
+#: -> fp32), the I2AV video stream's per-token modulation (blocks and head)
+LTX2_K5_SHAPES = tuple(NormShape(*shape) for shape in (
+    ("ltx2-video", 16, 128, 2048, "bfloat16", "bfloat16", False, False, True, True),
+    ("ltx2-audio", 16, 9, 2048, "bfloat16", "bfloat16", False, False, True, True),
+    ("ltx2-video-head", 16, 128, 2048, "bfloat16", "float32", False, False, True, True),
+    ("ltx2-audio-head", 16, 9, 2048, "bfloat16", "float32", False, False, True, True),
+    ("ltx2-i2av-token", 16, 128, 2048, "bfloat16", "bfloat16", True, False, True, True),
+    ("ltx2-i2av-token-head", 16, 128, 2048, "bfloat16", "float32", True, False, True, True),
+    ("ltx2-97f-video", 16, 3328, 2048, "bfloat16", "bfloat16", False, False, True, True),
+    ("ltx2-97f-audio", 16, 94, 2048, "bfloat16", "bfloat16", False, False, True, True),
+))
+
+
+def _k3_ltx2_call(B: int, H: int, Sq: int, Sk: int):
+    """K3 on fresh bf16 inputs in LTX-2's layout: q/k contiguous, v a view."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    q, k = (torch.randn(B, H, S, 128, device="cuda", dtype=torch.bfloat16) for S in (Sq, Sk))
+    v = torch.randn(B, Sk, H, 128, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+    return functools.partial(A.flash_attention, q, k, v, 128 ** -0.5)
+
+
+def phase_ltx2_kernels(results: dict) -> None:
+    """[ltx2-kernels]: K3 and K2a/K2b at head dim 128 and K5-RMS with its
+    backward at every LTX-2 shape of one block (B 16: 8 samples under CFG;
+    16 heads), through the checks, controls, bits and times of
+    ``_k3_shape_checks``, ``_k2_d128_shape_checks`` and ``_k5_shape_checks``
+    (the K3 control that takes the zero-padded keys for real, the K2 control
+    without the last key of a key run under one tile, the K5 control without
+    the RMS term of dx); then the same kernels at one longer clip, 512 px x
+    97 frames, timed. The entries join the table under their tags."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    log(f"[ltx2-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    B, H = 16, 16
+    for tag, Sq, Sk in LTX2_ATTENTION + LTX2_LONG_ATTENTION:
+        q, k = randn(B, H, Sq, 128), randn(B, H, Sk, 128)
+        v = randn(B, Sk, H, 128).transpose(1, 2)  # a head-split view of the value projection
+        _k3_shape_checks(results, tag, q, k, v, "q/k contiguous, v a view",
+                         functools.partial(_k3_ltx2_call, B, H, Sq, Sk))
+        del q, k, v
+        _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, True, randn)
+    for shape in LTX2_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, shape.tag in ("ltx2-audio", "ltx2-video-head", "ltx2-i2av-token"))
+
+
+def _ltx2_launches(num_layers: int):
+    """Kernel launches of one LTX-2 forward, and of the backward of a loss
+    on one stream or on both. Forward: 6 K3 a block; 4 K5-RMS a block and
+    the two heads. Backward of both streams: K2a/K2b for every K3, K5's
+    backward for every K5 but block 0's two self-attention norms (their
+    input is ``proj_in``'s and ``audio_proj_in``'s frozen output). Backward
+    of the video log-prob alone: besides, the last block's
+    video_to_audio_attn, its audio FFN norm and the audio head feed only the
+    audio velocity, so autograd runs no backward for them."""
+    forward = {"flash_fwd": 6 * num_layers, "ln_mul_add": 4 * num_layers + 2}
+    both = {"flash_bwd_dq": 6 * num_layers, "flash_bwd_dkv": 6 * num_layers, "ln_mul_add_backward": 4 * num_layers}
+    video = {"flash_bwd_dq": 6 * num_layers - 1, "flash_bwd_dkv": 6 * num_layers - 1,
+             "ln_mul_add_backward": 4 * num_layers - 2}
+    return forward, both, video
+
+
+#: peak device memory predicted for the LTX-2 GRPO phases (GiB; PERF.md §6)
+LTX2_PEAK_PREDICTED = (44.0, 56.0)
+#: the LTX-2 kernel tags of the table and the phases whose launches they take
+LTX2_TAGS = {
+    "flash_fwd": tuple(t for t, _, _ in LTX2_ATTENTION + LTX2_LONG_ATTENTION),
+    "flash_bwd_dq_d128": tuple(t for t, _, _ in LTX2_ATTENTION + LTX2_LONG_ATTENTION),
+    "flash_bwd_dkv_d128": tuple(t for t, _, _ in LTX2_ATTENTION + LTX2_LONG_ATTENTION),
+    "ln_mul_add": tuple(s.tag for s in LTX2_K5_SHAPES),
+    "ln_mul_add_backward": tuple(s.tag for s in LTX2_K5_SHAPES),
+}
+
+
+def phase_ltx2_grad() -> None:
+    """[ltx2-grad]: LoRA gradients through K3, K2a/K2b and K5-RMS at LTX-2
+    width, reduced depth: two dual-stream blocks, B 16 (the CFG batch), 128
+    video + 9 audio + 512 text tokens, rank-32 LoRA on the 56 targets of the
+    two blocks, ``lora_B`` drawn non-zero. The loss is the summed Flow-SDE
+    log-prob of a transition of each stream (the video's and the audio's:
+    so the last block's audio side has a path to it), checked by
+    :func:`_lora_grad_check` against the plain path, with the dq-zeroed
+    control and a K5 backward without the RMS term of dx (−x̂·mean(ĝ·x̂)),
+    both of which must miss the bar; a non-zero gradient on every leaf; and
+    the launches of one forward and backward of both streams."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import init_lora
+    from flow_factory_tpu_torch.models.ltx2.t2av import LTX2_LORA_TARGETS, LTX2T2AVAdapter
+    from flow_factory_tpu_torch.models.ltx2.transformer import LTX2Config, LTX2Transformer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cfg = dataclasses.replace(LTX2Config.ltx2(), num_layers=2)
+    model = build_module(lambda: LTX2Transformer(cfg), dev, torch.bfloat16, gen)
+    lora = init_lora(model, 32, gen, LTX2_LORA_TARGETS)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = (randn(B, LTX2_LV, cfg.video_channels), randn(B, LTX2_LA, cfg.audio_channels))
+    ctx = randn(B, LTX2_LC, cfg.context_dim)
+    t = torch.full((B,), 750.0, device=dev)
+    vid_ids = torch.as_tensor(LTX2T2AVAdapter._video_ids(2, 8, 8), device=dev)
+    aud_ids = torch.as_tensor(LTX2T2AVAdapter._audio_ids(LTX2_LA, 2), device=dev)
+    names, kern, _, counts = _lora_grad_check(
+        f"LTX-2 width, depth 2, B={B}, {LTX2_LV} video + {LTX2_LA} audio + {LTX2_LC} text tokens", model, lora,
+        lambda params: functional_call(model, params, (x[0].bfloat16(), x[1].bfloat16(), t, ctx, vid_ids, aud_ids)),
+        x, gen, k5_rms_control=True)
+    dead = [n for n, g in zip(names, kern) if not g.abs().max().item() > 0]
+    log(f"[ltx2-grad] non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves (six attentions and "
+        f"two FFNs a block)")
+    forward, backward, _ = _ltx2_launches(cfg.num_layers)
+    want = {**forward, **backward}
+    log(f"[ltx2-grad] launches of one forward and backward: {counts} (expected {want})")
+    if dead or len(names) != 2 * 28 * cfg.num_layers or any(counts[k] != n for k, n in want.items()):
+        fail(f"[ltx2-grad]: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
+    del model, lora, kern
+    torch.cuda.empty_cache()
+
+
+def _ltx2_load(fixture: str, tag: str, **data):
+    import torch
+
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", fixture))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    for k, v in data.items():
+        setattr(cfg.data_args, k, v)
+    cfg.log_args.save_dir = os.path.join(here, "chiprun_out", "train")
+    log(f"[{tag}] device memory allocated before the LTX-2 trainer loads: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ad = trainer.adapter
+    lora = ad.trainable["transformer"]
+    sizes = {comp: sum(p.numel() for p in m.parameters()) / 1e9 for comp, m in ad.modules.items()}
+    log(f"[{tag}] load_trainer ({cfg.model_args.model_type}, parameters in B {json.dumps(sizes)}; LoRA rank "
+        f"{cfg.model_args.lora_rank} on {len(lora)} weights, "
+        f"{sum(v.numel() for ab in lora.values() for v in ab.values()) / 1e6:.3f} M trainable; preprocess "
+        f"included) {load_s:.1f} s; remat {ad.component_configs['transformer'].remat}; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, trainer
+
+
+def _ltx2_epoch(trainer, tag: str, epoch: int, want_rollout: dict, want_step: dict, check_rollout) -> dict:
+    """One GRPO epoch phase by phase: the rollout (launches as predicted,
+    ``check_rollout(samples)``), the feedback, the optimize phase with a spy
+    on ``training_forward`` (every grad step's batch holds the audio
+    latents of its slot), the ratio exactly 1.0 and clip_frac 0 on every
+    grad step, the launches as predicted a grad step; the seconds of each."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    ad, ta = trainer.adapter, trainer.training_args
+    trainer.epoch = epoch
+    trainer.scheduler.set_seed(ta.seed + epoch)
+    secs = {}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    samples = trainer.sample(epoch)
+    torch.cuda.synchronize()
+    secs["rollout"] = time.perf_counter() - t0
+    in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    batches = -(-len(samples) // ta.per_device_batch_size)
+    want = {k: n * ta.num_inference_steps * batches for k, n in want_rollout.items()}
+    videos = np.stack([s.video for s in samples])
+    waves = np.stack([s.audio for s in samples])
+    log(f"[{tag}] epoch {epoch} rollout: videos {videos.shape} in [{videos.min():.3f}, {videos.max():.3f}], "
+        f"waveforms {waves.shape} in [{waves.min():.3f}, {waves.max():.3f}], video latents "
+        f"{samples[0].all_latents.shape}, audio latents {samples[0].extra_kwargs['audio_all_latents'].shape}, "
+        f"launches {in_sample} (expected {want}), {secs['rollout']:.2f} s")
+    if not (np.isfinite(videos).all() and np.isfinite(waves).all() and videos.shape[2:] == (3, ta.height, ta.width)
+            and waves.shape[:2] == (len(samples), 1)):
+        fail(f"[{tag}] epoch {epoch}: the rollout's videos or waveforms are not as expected")
+    if any(in_sample[k] != n for k, n in want.items()):
+        fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
+    check_rollout(samples)
+    t0 = time.perf_counter()
+    metrics = trainer.prepare_feedback(samples)
+    secs["feedback"] = time.perf_counter() - t0
+    staged = []
+    real = ad.training_forward
+
+    def spy(trainable, batch, **kw):
+        a = batch.get("audio_latents")
+        staged.append(None if a is None else tuple(a.shape))
+        return real(trainable, batch, **kw)
+
+    ad.training_forward = spy
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+    finally:
+        del ad.training_forward
+    secs["optimize"] = time.perf_counter() - t0
+    in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    ad.ema_step(epoch)
+    steps = len(staged)
+    want = {k: n * steps for k, n in want_step.items()}
+    ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
+    clip_hi, gnorm = _loss_value(info, "train/clip_frac", "max"), info["train/grad_norm"]
+    audio = samples[0].extra_kwargs["audio_all_latents"].shape[1:]
+    log(f"[{tag}] epoch {epoch}: reward mean {metrics['reward/mean']:.5f}, {steps} grad steps, the audio latents "
+        f"staged into each: {staged}, ratio min {ratio_lo!r} max {ratio_hi!r} on every grad step, clip_frac max "
+        f"{clip_hi}, loss {info['train/loss']:.4e}, grad_norm {gnorm:.4e}, launches in optimize {in_optimize} "
+        f"(expected {want}), global step {trainer.global_step}")
+    log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+        f"{secs['optimize'] / max(steps, 1):.3f} s per grad step (optimizer step included)")
+    if not steps or any(s != (ta.per_device_batch_size, *audio) for s in staged):
+        fail(f"[{tag}] epoch {epoch}: the audio latents did not reach every training forward: {staged}")
+    if not (ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
+        fail(f"[{tag}] epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
+    if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
+        fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
+    if any(in_optimize[k] != n for k, n in want.items()):
+        fail(f"[{tag}] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
+    return dict(samples=samples, secs=secs, steps=steps)
+
+
+def phase_ltx2() -> dict:
+    """[ltx2] and [ltx2-train]: LTX-2 T2AV GRPO at full width through
+    ``load_trainer`` on tests/fixtures/ltx2_t2av_grpo.yaml (28 blocks, width
+    2048; Gemma3-12B at 512 tokens; random bf16 weights from seed 42; LoRA
+    rank 32 on the 784 default targets; 256 px x 9 frames: 128 video and 9
+    audio tokens; 10 steps, CFG 3, Flow-SDE η 0.8 on the video stream, the
+    audio ODE on its own grid; 2 prompts x group 4 in one batch), two epochs
+    phase by phase: K3 and K5 launched as predicted in each rollout, finite
+    videos and waveforms, in epoch 0 a no-grad replay of every stored
+    transition with ratio exactly 1.0; per epoch 2 grad steps with the audio
+    latents staged into each, ratio exactly 1.0, the launches predicted a
+    grad step, a moved LoRA; peak memory against the prediction; a profile
+    of one grad step. Returns the launch counts of the two epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    cfg, trainer = _ltx2_load("ltx2_t2av_grpo.yaml", "ltx2")
+    ad, ta = trainer.adapter, cfg.training_args
+    forward, _, video = _ltx2_launches(ad.component_configs["transformer"].num_layers)
+    lora = ad.trainable["transformer"]
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+
+    def replay_ratio(samples):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        new = ad.replay_log_probs(samples)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        old = np.stack([s.log_probs for s in samples], axis=1)  # (stored slots, B)
+        lp_map = samples[0].log_prob_index_map
+        ratios = {i: np.exp(lp.cpu().numpy().astype(np.float64) - old[lp_map[i]]) for i, lp in new.items()}
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ok = all(np.all(r == 1.0) for r in ratios.values())
+        log(f"[ltx2] no-grad replay of the stored steps {sorted(new)} with the stored audio latents: ratio exactly "
+            f"1.0 on {sum(np.all(r == 1.0) for r in ratios.values())}/{len(ratios)} steps, launches {launched}, "
+            f"{secs:.2f} s")
+        if not ok:
+            fail(f"[ltx2] replay ratio not exactly 1.0: {ratios}")
+
+    ops.reset_launch_counts()
+    runs = []
+    for epoch in range(ta.max_epochs):
+        runs.append(_ltx2_epoch(trainer, "ltx2-train" if epoch else "ltx2", epoch, forward, {**forward, **video},
+                                replay_ratio if epoch == 0 else (lambda samples: None)))
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[ltx2-train] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail("[ltx2-train] the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = LTX2_PEAK_PREDICTED
+    log(f"[ltx2-train] launches over two epochs {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} "
+        f"GiB: {'inside' if lo <= peak <= hi else 'outside'}) | seconds a rollout "
+        f"{[round(r['secs']['rollout'], 2) for r in runs]}, a grad step "
+        f"{[round(r['secs']['optimize'] / r['steps'], 3) for r in runs]} | global step {trainer.global_step}")
+    if trainer.global_step != ta.max_epochs:
+        fail(f"[ltx2-train] the optimizer did not step once per epoch: global step {trainer.global_step}")
+    _profile_grad_step(trainer, "one LTX-2 T2AV grad step (LoRA merge, forward, backward, AdamW)",
+                       "ltx2_grad_step_trace.json")
+    trainer.cleanup()
+    return counts
+
+
+def _ltx2_i2av_dataset(root: str) -> str:
+    """The first two records of dataset/sharegpt4o_image_mini under build/,
+    their 64 px images resized (bilinear) to the 256 px geometry."""
+    from PIL import Image
+
+    src = os.path.join(root, "dataset", "sharegpt4o_image_mini")
+    path = os.path.join(root, "build", "ltx2_i2av_data")
+    os.makedirs(os.path.join(path, "assets"), exist_ok=True)
+    with open(os.path.join(src, "train.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()][:2]
+    with open(os.path.join(path, "train.jsonl"), "w") as f:
+        for rec in records:
+            Image.open(os.path.join(src, rec["image"])).convert("RGB").resize((256, 256), Image.BILINEAR).save(
+                os.path.join(path, rec["image"]))
+            f.write(json.dumps(rec) + "\n")
+    return path
+
+
+def phase_ltx2_i2av() -> dict:
+    """[ltx2-i2av]: LTX-2 I2AV GRPO at full width through ``load_trainer`` on
+    tests/fixtures/ltx2_i2av_grpo.yaml (the geometry of [ltx2] on two
+    records of dataset/sharegpt4o_image_mini at 256 px, group 4, one epoch):
+    the 64 planted first-frame tokens equal bit for bit in every stored
+    latent of every sample; the log-prob over the generated tokens only (a
+    stored SDE step's log-prob equals ``sde_step``'s with the token mask and
+    not without it, on the replayed velocity); K5 takes the per-token
+    modulation (57 per-token calls a forward: the video stream's two norms a
+    block and the video head); ratio exactly 1.0 on every grad step."""
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.ops import norms as N
+    from flow_factory_tpu_torch.scheduler.flow_match_euler import sde_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg, trainer = _ltx2_load("ltx2_i2av_grpo.yaml", "ltx2-i2av", dataset_dir=_ltx2_i2av_dataset(here))
+    ad = trainer.adapter
+    L = ad.component_configs["transformer"].num_layers
+    forward, _, video = _ltx2_launches(L)
+    per_token = []
+    real_k5 = N.ln_mul_add
+
+    def k5_spy(x, mul, add, *args, **kwargs):
+        per_token.append(mul.shape[1] != 1)
+        return real_k5(x, mul, add, *args, **kwargs)
+
+    k5_spy.launches = 0  # the kernel counts its launch on what stands in its name
+
+    def check_rollout(samples):
+        import numpy as np
+
+        hw = int(samples[0].extra_kwargs["cond_mask"].sum())  # the first latent frame's tokens
+        # every stored latent holds the planted tokens as the storage dtype rounds them
+        st = lambda a: torch.from_numpy(a).to(ad.storage_dtype).float().numpy()
+        bad = [i for i, s in enumerate(samples) for slot in range(s.all_latents.shape[0])
+               if not np.array_equal(s.all_latents[slot, :hw], st(s.extra_kwargs["cond_tokens"][:hw]))]
+        s0 = samples
+        first = s0[0]
+        step = int(np.asarray(trainer.scheduler.train_timesteps)[0])  # an SDE step with a stored log-prob
+        li, lni = int(first.latent_index_map[step]), int(first.latent_index_map[step + 1])
+        dev = ad.device
+        stack = lambda key: torch.from_numpy(np.stack([getattr(s, key) for s in s0])).to(dev)
+        embeds = {k: stack(k) for k in ad.embed_keys}
+        lat = torch.from_numpy(np.stack([s.all_latents for s in s0])).to(dev)
+        embeds["audio_latents"] = torch.from_numpy(
+            np.stack([s.extra_kwargs["audio_all_latents"] for s in s0])[:, li]).to(dev)
+        full = lambda v: torch.full((len(s0),), float(v), device=dev)
+        sig = first.extra_kwargs["sigmas"]
+        N.ln_mul_add = k5_spy
+        try:
+            with torch.no_grad():
+                v = ad._velocity(lat[:, li].contiguous(), full(first.timesteps[step]), embeds,
+                                 float(first.extra_kwargs["guidance_scale"]), True, ad.merged_params("transformer"))
+        finally:
+            N.ln_mul_add = real_k5
+        step_kw = dict(noise_level=full(first.extra_kwargs["noise_levels"][step]), next_latents=lat[:, lni],
+                       storage_dtype=ad.storage_dtype, sigma_max=full(sig[1]))
+        masked = sde_step(v, lat[:, li], full(sig[step]), full(sig[step + 1]), token_mask=ad.token_mask(embeds),
+                          **step_kw).log_prob.cpu().numpy()
+        whole = sde_step(v, lat[:, li], full(sig[step]), full(sig[step + 1]), **step_kw).log_prob.cpu().numpy()
+        stored = np.asarray([s.log_probs[s.log_prob_index_map[step]] for s in s0])
+        n_tok = sum(per_token)
+        log(f"[ltx2-i2av] planted first-frame tokens ({hw} of {first.all_latents.shape[1]}) equal bit for bit in "
+            f"every stored latent of every sample: {not bad}; step {step}: stored log-prob equals the masked "
+            f"sde_step's {np.array_equal(masked, stored)}, the unmasked one's {np.array_equal(whole, stored)}; "
+            f"K5 calls with a per-token modulation in one forward: {n_tok} of {len(per_token)}")
+        if bad or not np.array_equal(masked, stored) or np.array_equal(whole, stored):
+            fail(f"[ltx2-i2av] planted tokens moved in {bad} or the log-prob counts them")
+        if n_tok != 2 * L + 1:
+            fail(f"[ltx2-i2av] K5 took the per-token modulation {n_tok} times, expected {2 * L + 1}")
+
+    ops.reset_launch_counts()
+    run = _ltx2_epoch(trainer, "ltx2-i2av", 0, forward, {**forward, **video}, check_rollout)
+    counts = ops.launch_counts()
+    log(f"[ltx2-i2av] launches {counts} | peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+        f"seconds {json.dumps({k: round(v, 3) for k, v in run['secs'].items()})}")
+    trainer.cleanup()
+    return counts
+
+
+def _ltx2_phases() -> dict:
+    """[ltx2-grad], [ltx2]/[ltx2-train] and [ltx2-i2av], each trainer freed
+    before the next loads; returns the launch counts of the T2AV epochs."""
+    import torch
+
+    phase_ltx2_grad()
+    counts = phase_ltx2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ltx2_i2av()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ltx2_only() -> int:
+    """``python3 chip_smoke.py --ltx2``: the build, [ltx2-kernels] and the
+    LTX-2 phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_ltx2_kernels({})
+    counts = _ltx2_phases()
+    log(f"[ltx2] launches {counts}; device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3330,6 +3840,8 @@ def main() -> int:
         return kontext_only()
     if sys.argv[1:] == ["--decoupled"]:
         return decoupled_only()
+    if sys.argv[1:] == ["--ltx2"]:
+        return ltx2_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -3342,6 +3854,7 @@ def main() -> int:
     phase_flux_kernels(results)
     phase_kontext_kernels(results)
     phase_decoupled_kernels(results)
+    phase_ltx2_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -3366,6 +3879,7 @@ def main() -> int:
     flux_counts = phase_flux_dpo()
     kontext_counts = _kontext_phases()
     decoupled_counts = _decoupled_phases()
+    ltx2_counts = _ltx2_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -3388,6 +3902,14 @@ def main() -> int:
         for name, tags in tags_of.items():
             for tag in tags:
                 results[name]["shapes"][tag]["launches"] = decoupled_counts[trainer_type][name.replace("_d128", "")]
+    # the LTX-2 shapes: their kernels' launches in the two LTX-2 T2AV GRPO epochs
+    for name, tags in LTX2_TAGS.items():
+        for tag in tags:
+            results[name]["shapes"][tag]["launches"] = ltx2_counts[name.replace("_d128", "")]
+    # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
+    for name, entry in results.items():
+        for shape in entry["shapes"].values():
+            shape.setdefault("launches", counts[name])
     kernels = [{**entry, "launches": counts[name]} for name, entry in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -116,6 +116,9 @@ def get_dataloader(
     cache_dir = os.path.expanduser(da.cache_dir)
     world, rank, procs = get_world_size(), get_rank(), get_num_processes()
     model_id = config.model_args.model_name_or_path or config.model_args.model_type
+    variant = getattr(config.model_args, "variant", None)
+    if variant:  # a preset of one path (``tiny``, ``ltx2``) encodes prompts its own way
+        model_id = f"{model_id}@{variant}"
 
     train_path = _resolve_split_path(da.dataset_dir, "train")
     if train_path is None:

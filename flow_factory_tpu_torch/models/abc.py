@@ -64,6 +64,11 @@ class BaseAdapter(ABC):
     embed_keys: Tuple[str, ...] = ("prompt_embeds", "negative_prompt_embeds")
     #: scheduler registry key used when the config names none (Wan: 'unipc')
     default_scheduler: str = "flow_match_euler"
+    #: further latent streams a stored transition replays with, {batch key:
+    #: sample key}, indexed by the stored-latent slot of the transition
+    #: (LTX-2's audio latents beside its video latents); the velocity reads
+    #: them among its embeds, the trainers stage them per grad step
+    trajectory_batch_keys: Dict[str, str] = {}
 
     def __init__(self, config, device=None):
         self.config = config
@@ -105,6 +110,11 @@ class BaseAdapter(ABC):
     def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
         """Velocity prediction (fp32) for latents (B, ...) at timesteps t (B,),
         on the effective weights ``params`` (:meth:`merged_params`) when given."""
+
+    def token_mask(self, embeds: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """The :func:`sde_step` token mask of a batch (1 = generated, 0 =
+        conditioned and frozen); None when every token steps."""
+        return None
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         """Per-model sigma-schedule knobs (shift, dynamic shifting...)."""
@@ -666,7 +676,9 @@ class BaseAdapter(ABC):
         compute_log_prob: bool,
         dynamics_type: str,
     ):
-        """Single-step replay (or sample) forward — the rollout's math path."""
+        """Single-step replay (or sample) forward — the rollout's math path.
+        ``embeds`` carries the transition's :attr:`trajectory_batch_keys`
+        streams too."""
         v = self._velocity(latents, timestep, embeds, guidance_scale, do_cfg, params)
         return sde_step(
             v, latents, sigma, sigma_next,
@@ -677,6 +689,7 @@ class BaseAdapter(ABC):
             compute_log_prob=compute_log_prob,
             storage_dtype=self.storage_dtype,
             sigma_max=sigma_max,
+            token_mask=self.token_mask(embeds),
         )
 
     def replay_log_probs(self, samples: List[BaseSample], steps: Optional[Sequence[int]] = None
@@ -702,6 +715,8 @@ class BaseAdapter(ABC):
         sigmas = first.extra_kwargs["sigmas"]
         noise_levels = first.extra_kwargs["noise_levels"]
         latents = torch.from_numpy(np.stack([s.all_latents for s in samples])).to(dev)
+        streams = {bk: torch.from_numpy(np.stack([s.extra_kwargs[sk] for s in samples])).to(dev)
+                   for bk, sk in self.trajectory_batch_keys.items()}
         B = len(samples)
         full = lambda value: torch.full((B,), float(value), dtype=torch.float32, device=dev)
         with torch.no_grad():
@@ -713,7 +728,8 @@ class BaseAdapter(ABC):
             res = self._forward_impl(
                 latents[:, lat_map[i]].contiguous(), latents[:, lat_map[i + 1]].contiguous(),
                 full(first.timesteps[i]),
-                full(sigmas[i]), full(sigmas[i + 1]), full(noise_levels[i]), embeds,
+                full(sigmas[i]), full(sigmas[i + 1]), full(noise_levels[i]),
+                {**embeds, **{bk: t[:, lat_map[i]].contiguous() for bk, t in streams.items()}},
                 float(first.extra_kwargs["guidance_scale"]),
                 full(sigmas[1] if len(sigmas) > 1 else 0.999), params=params,
                 do_cfg=do_cfg, compute_log_prob=True,
@@ -765,8 +781,9 @@ class BaseAdapter(ABC):
         and :func:`sde_step` run exactly as in the rollout. ``batch`` holds
         device tensors (``latents``, ``next_latents``, ``timestep``, ``sigma``,
         ``sigma_next``, ``noise_level``, ``sigma_max``: (B,) fp32, embeds) and
-        the float ``guidance_scale``."""
-        embeds = {k: batch[k] for k in self.embed_keys if k in batch}
+        the float ``guidance_scale``, and the transition's
+        :attr:`trajectory_batch_keys` streams, which the velocity reads."""
+        embeds = {k: batch[k] for k in (*self.embed_keys, *self.trajectory_batch_keys) if k in batch}
         do_cfg = "negative_prompt_embeds" in embeds and bool(batch.get("do_cfg", True))
         params = self.merged_params(self.velocity_component, trainable)
         v = self._velocity(batch["latents"], batch["timestep"], embeds,
@@ -781,6 +798,7 @@ class BaseAdapter(ABC):
             compute_log_prob=compute_log_prob,
             storage_dtype=self.storage_dtype,
             sigma_max=batch.get("sigma_max", 0.999),
+            token_mask=self.token_mask(embeds),
         )
 
 

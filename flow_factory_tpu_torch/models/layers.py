@@ -120,7 +120,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

@@ -14,8 +14,9 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "wan21": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
     "flux1": "flow_factory_tpu_torch.models.flux.adapter:Flux1Adapter",
     "flux1-kontext": "flow_factory_tpu_torch.models.flux.kontext:Flux1KontextAdapter",
+    "ltx2-t2av": "flow_factory_tpu_torch.models.ltx2.t2av:LTX2T2AVAdapter",
+    "ltx2-i2av": "flow_factory_tpu_torch.models.ltx2.i2av:LTX2I2AVAdapter",
 }
-_LTX2 = "ROADMAP Queue 1 item 8 (LTX-2 T2AV and I2AV)"
 _WAN = "ROADMAP Queue 1 item 9 (the rest of Wan)"
 _NOT_PORTED: Dict[str, str] = {
     "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
@@ -26,8 +27,6 @@ _NOT_PORTED: Dict[str, str] = {
     "wan2-i2v": _WAN,
     "wan22": _WAN,
     "wan2-v2v": _WAN,
-    "ltx2-t2av": _LTX2,
-    "ltx2-i2av": _LTX2,
 }
 
 

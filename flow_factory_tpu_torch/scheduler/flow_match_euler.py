@@ -227,6 +227,17 @@ def sde_step(
     )
 
 
+def convert_velocity_to_x0(v: torch.Tensor, latents: torch.Tensor, sigma: Scalar) -> torch.Tensor:
+    """x0 = x − σ·v in fp32 (the flow-matching data prediction; LTX-2 mixes
+    its guidance terms in x0 space)."""
+    return latents.float() - _bcast(sigma, latents) * v.float()
+
+
+def convert_x0_to_velocity(x0: torch.Tensor, latents: torch.Tensor, sigma: Scalar) -> torch.Tensor:
+    """v = (x − x0) / σ, σ clamped at 1e-6: the inverse of :func:`convert_velocity_to_x0`."""
+    return (latents.float() - x0.float()) / torch.clamp(_bcast(sigma, latents), min=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # Host-side schedule wrapper
 # ---------------------------------------------------------------------------

@@ -86,6 +86,8 @@ class GRPOTrainer(BaseTrainer):
                     if batch_np.get(k) is not None},
             means=(to_dev(batch_np["next_latents_mean"])
                    if self.use_guard and "next_latents_mean" in batch_np else None),
+            traj={bk: to_dev(batch_np[sk]) for bk, sk in self.adapter.trajectory_batch_keys.items()
+                  if batch_np.get(sk) is not None},
         )
 
     def grad_step_batches(self, samples: List[BaseSample], epoch: int) -> Iterator[Dict[str, Any]]:
@@ -127,6 +129,8 @@ class GRPOTrainer(BaseTrainer):
                 )
                 if s["means"] is not None:
                     batch["rollout_mean"] = s["means"][:, lni].contiguous()
+                for bk, arr in s["traj"].items():  # e.g. LTX-2's audio latents of the same slot
+                    batch[bk] = arr[:, li].contiguous()
                 yield batch
 
     def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]:
@@ -198,10 +202,14 @@ class GRPOTrainer(BaseTrainer):
         return loss, aux
 
     def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
-        """((loss, aux), gradients in ``trainable_leaves`` order)."""
+        """((loss, aux), gradients in ``trainable_leaves`` order). A leaf the
+        loss does not reach gets zeros, as under ``jax.grad``: LTX-2's last
+        block updates the audio stream after the video stream's last read of
+        it, so its audio-side LoRA has no path to the video log-prob."""
         loss, aux = self.loss_fn(trainable, batch, ref_trainable)
-        grads = torch.autograd.grad(loss, self.adapter.trainable_leaves(trainable))
-        return (loss.detach(), aux), list(grads)
+        leaves = self.adapter.trainable_leaves(trainable)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (loss.detach(), aux), [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
 
 class GRPOGuardTrainer(GRPOTrainer):

@@ -8,7 +8,8 @@ names are diffusers' / transformers' names. Layouts:
 * Dense kernels (in, out) → Linear weights (out, in); the attention head
   projections (``HeadProj`` (D_in, H*E), ``MergeProj`` (H*E, D_out)) are Dense
   kernels of the same layout;
-* Conv kernels HWIO → OIHW, and 3-D (kt, kh, kw, I, O) → (O, I, kt, kh, kw);
+* Conv kernels (k, I, O) → (O, I, k), HWIO → OIHW, and 3-D (kt, kh, kw, I,
+  O) → (O, I, kt, kh, kw);
 * norm ``scale`` → ``weight``; the Wan VAE's ``gamma`` keeps its name and
   (C,) shape; embeddings keep their (rows, dim) layout;
 * the SD3 position grid (1, G, G, D) → diffusers' (1, G*G, D) buffer;
@@ -46,6 +47,8 @@ def _convert_leaf(leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if leaf == "kernel":
         if arr.ndim == 2:
             return "weight", arr.T
+        if arr.ndim == 3:  # 1-D conv (k, I, O) → (O, I, k); ConvTranspose alike (no flip)
+            return "weight", np.transpose(arr, (2, 1, 0))
         if arr.ndim == 4:
             return "weight", np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 5:
@@ -380,6 +383,184 @@ def flux1_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     """All FLUX.1 components' flax trees → the port's state dicts."""
     maps = flux1_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
+def ltx2_transformer_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
+    """The LTX-2 AV DiT (inverse of the JAX ``ltx2_transformer_key_map``,
+    ``utils/checkpoint.py:504``, plus the two connector projections)."""
+    m: ModuleMap = {
+        "video_embedder": "proj_in",
+        "audio_embedder": "audio_proj_in",
+        "time_embed/linear_1": "time_embed.emb.timestep_embedder.linear_1",
+        "time_embed/linear_2": "time_embed.emb.timestep_embedder.linear_2",
+        "time_proj": "time_embed.linear",
+        "audio_time_embed/linear_1": "audio_time_embed.emb.timestep_embedder.linear_1",
+        "audio_time_embed/linear_2": "audio_time_embed.emb.timestep_embedder.linear_2",
+        "audio_time_proj": "audio_time_embed.linear",
+        "video_connector": "video_connector",
+        "audio_connector": "audio_connector",
+        "video_head": "proj_out",
+        "audio_head": "audio_proj_out",
+    }
+    raw: RawMap = {"head_table": ("scale_shift_table", lambda a: a),
+                   "audio_head_table": ("audio_scale_shift_table", lambda a: a)}
+    for i in range(num_layers):
+        o, b = f"block_{i}", f"transformer_blocks.{i}"
+        raw[f"{o}/scale_shift_table"] = (f"{b}.scale_shift_table", lambda a: a)
+        raw[f"{o}/audio_scale_shift_table"] = (f"{b}.audio_scale_shift_table", lambda a: a)
+        for src, attn in (("sa", "attn1"), ("a_sa", "audio_attn1")):
+            for name in ("q", "k", "v"):
+                m[f"{o}/{src}_{name}"] = f"{b}.{attn}.to_{name}"
+            m[f"{o}/{src}_out"] = f"{b}.{attn}.to_out.0"
+            m[f"{o}/{src}_qk_norm/q_norm"] = f"{b}.{attn}.norm_q"
+            m[f"{o}/{src}_qk_norm/k_norm"] = f"{b}.{attn}.norm_k"
+        for src, attn in (("ca", "attn2"), ("a_ca", "audio_attn2"), ("a2v", "audio_to_video_attn"),
+                          ("v2a", "video_to_audio_attn")):
+            for name in ("q", "k", "v"):
+                m[f"{o}/{src}/{name}"] = f"{b}.{attn}.to_{name}"
+            m[f"{o}/{src}/out"] = f"{b}.{attn}.to_out.0"
+            m[f"{o}/{src}/qk_norm/q_norm"] = f"{b}.{attn}.norm_q"
+            m[f"{o}/{src}/qk_norm/k_norm"] = f"{b}.{attn}.norm_k"
+        for src, ff in (("", "ff"), ("a_", "audio_ff")):
+            m[f"{o}/{src}ffn1"] = f"{b}.{ff}.net.0.proj"
+            m[f"{o}/{src}ffn2"] = f"{b}.{ff}.net.2"
+    return m, raw
+
+
+def lm_decoder_map(num_layers: int, gemma: bool = False) -> Tuple[ModuleMap, RawMap]:
+    """A decoder-only LM, both ``arch``es (inverse of the JAX
+    ``lm_decoder_key_map``, ``utils/checkpoint.py:1371``): Gemma3's
+    ``post_attn_ln`` is ``post_attention_layernorm`` and its ``ln2`` the
+    ``pre_feedforward_layernorm``; llama's ``ln2`` is
+    ``post_attention_layernorm``."""
+    m: ModuleMap = {"token_embedding": "model.embed_tokens", "final_ln": "model.norm"}
+    for i in range(num_layers):
+        o, b = f"layer_{i}", f"model.layers.{i}"
+        m[f"{o}/ln1"] = f"{b}.input_layernorm"
+        for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "o_proj")):
+            m[f"{o}/{src}"] = f"{b}.self_attn.{dst}"
+        for name in ("gate", "up", "down"):
+            m[f"{o}/{name}"] = f"{b}.mlp.{name}_proj"
+        if gemma:
+            m[f"{o}/post_attn_ln"] = f"{b}.post_attention_layernorm"
+            m[f"{o}/ln2"] = f"{b}.pre_feedforward_layernorm"
+            m[f"{o}/post_ff_ln"] = f"{b}.post_feedforward_layernorm"
+            m[f"{o}/q_norm"] = f"{b}.self_attn.q_norm"
+            m[f"{o}/k_norm"] = f"{b}.self_attn.k_norm"
+        else:
+            m[f"{o}/ln2"] = f"{b}.post_attention_layernorm"
+    return m, {}
+
+
+def ltx_video_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
+    """The LTX video VAE (inverse of the JAX ``ltx_video_vae_key_map``,
+    ``utils/checkpoint.py:979``): flax ``.../conv`` scopes are the causal
+    convs' ``conv`` Conv3d modules; tables and the multiplier copy raw."""
+    m: ModuleMap = {}
+    raw: RawMap = {}
+    same = lambda a: a
+
+    def causal(src: str, dst: str) -> None:
+        m[f"{src}/conv"] = f"{dst}.conv"
+
+    def resnet(src: str, dst: str, shortcut: bool, cond: bool = False, noise: bool = False) -> None:
+        causal(f"{src}/conv1", f"{dst}.conv1")
+        causal(f"{src}/conv2", f"{dst}.conv2")
+        if shortcut:
+            causal(f"{src}/conv_shortcut", f"{dst}.conv_shortcut")
+        if cond:
+            raw[f"{src}/scale_shift_table"] = (f"{dst}.scale_shift_table", same)
+        if noise:
+            for k in ("per_channel_scale1", "per_channel_scale2"):
+                raw[f"{src}/{k}"] = (f"{dst}.{k}", same)
+
+    def time_embedder(src: str, dst: str) -> None:
+        m[f"{src}/linear_1"] = f"{dst}.linear_1"
+        m[f"{src}/linear_2"] = f"{dst}.linear_2"
+
+    blocks = cfg.block_out_channels
+    causal("encoder/conv_in", "encoder.conv_in")
+    causal("encoder/conv_out", "encoder.conv_out")
+    for i in range(len(blocks)):
+        out_ch = blocks[i + 1] if i + 1 < len(blocks) else blocks[i]
+        src, dst = f"encoder/down_blocks_{i}", f"encoder.down_blocks.{i}"
+        for j in range(cfg.layers_per_block[i]):
+            resnet(f"{src}/resnets_{j}", f"{dst}.resnets.{j}", False)
+        if cfg.spatio_temporal_scaling[i]:
+            causal(f"{src}/downsampler", f"{dst}.downsamplers.0")
+        if out_ch != blocks[i]:
+            resnet(f"{src}/conv_out", f"{dst}.conv_out", True)
+    for j in range(cfg.layers_per_block[-1]):
+        resnet(f"encoder/mid_block/resnets_{j}", f"encoder.mid_block.resnets.{j}", False)
+
+    dblocks, cond = cfg.decoder_block_out_channels, cfg.timestep_conditioning
+    causal("decoder/conv_in", "decoder.conv_in")
+    causal("decoder/conv_out", "decoder.conv_out")
+    for j in range(cfg.decoder_layers_per_block[0]):
+        resnet(f"decoder/mid_block/resnets_{j}", f"decoder.mid_block.resnets.{j}", False, cond)
+    if cond:
+        time_embedder("decoder/mid_block/time_embedder", "decoder.mid_block.time_embedder")
+        time_embedder("decoder/time_embedder", "decoder.time_embedder")
+        raw["decoder/scale_shift_table"] = ("decoder.scale_shift_table", same)
+        raw["decoder/timestep_scale_multiplier"] = ("decoder.timestep_scale_multiplier", same)
+    width = dblocks[0]
+    for i in range(len(dblocks)):
+        out_ch = dblocks[i + 1] if i + 1 < len(dblocks) else dblocks[i]
+        src, dst = f"decoder/up_blocks_{i}", f"decoder.up_blocks.{i}"
+        scale = cfg.decoder_spatio_temporal_scaling[i]
+        if width != (out_ch * cfg.upsample_factor[i] if scale else out_ch):
+            resnet(f"{src}/conv_in", f"{dst}.conv_in", True)
+        if scale:
+            causal(f"{src}/upsampler/conv", f"{dst}.upsamplers.0.conv")
+        if cond:
+            time_embedder(f"{src}/time_embedder", f"{dst}.time_embedder")
+        n = (cfg.decoder_layers_per_block[i + 1] if i + 1 < len(cfg.decoder_layers_per_block)
+             else cfg.decoder_layers_per_block[-1])
+        for j in range(n):
+            resnet(f"{src}/resnets_{j}", f"{dst}.resnets.{j}", False, cond, cfg.decoder_inject_noise[i])
+        width = out_ch
+    return m, raw
+
+
+def ltx2_audio_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
+    """The LTX-2 audio VAE and HiFi-GAN vocoder (the JAX ``AudioVAE`` tree;
+    the vocoder's names are the public generator's, ``resblocks.{stage·K +
+    kernel}``)."""
+    from ..models.ltx2.audio import vocoder_upsample_rates
+
+    n = {1: 0, 2: 1, 4: 2}[cfg.temporal_down]
+    m: ModuleMap = {f"{side}/{c}": f"{side}.{c}" for side in ("encoder", "decoder") for c in ("conv_in", "conv_out")}
+    for i in range(n):
+        m[f"encoder/down_{i}"] = f"encoder.down.{i}"
+        m[f"decoder/up_{i}"] = f"decoder.up.{i}"
+    m["vocoder/conv_pre"] = "vocoder.conv_pre"
+    m["vocoder/conv_post"] = "vocoder.conv_post"
+    nk = len(cfg.resblock_kernels)
+    for i in range(len(vocoder_upsample_rates(cfg.hop))):
+        m[f"vocoder/ups_{i}"] = f"vocoder.ups.{i}"
+        for r in range(nk):
+            for j in range(len(cfg.resblock_dilations)):
+                for c in ("convs1", "convs2"):
+                    m[f"vocoder/resblocks_{i}_{r}/{c}_{j}"] = f"vocoder.resblocks.{i * nk + r}.{c}.{j}"
+    return m, {}
+
+
+def ltx2_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every LTX-2 adapter component, keyed like ``adapter.params``."""
+    lm = configs["text_encoder"]
+    return {
+        "transformer": ltx2_transformer_map(configs["transformer"].num_layers),
+        "text_encoder": lm_decoder_map(lm.num_layers, gemma=lm.arch == "gemma3"),
+        "vae": ltx_video_vae_map(configs["vae"]),
+        "audio_vae": ltx2_audio_vae_map(configs["audio_vae"]),
+    }
+
+
+def ltx2_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All LTX-2 components' flax trees → the port's state dicts."""
+    maps = ltx2_component_maps(configs)
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 

@@ -431,11 +431,11 @@ def test_unported_flux_family_members_raise():
 def test_every_jax_model_type_resolves_or_names_its_item():
     """Every key of the JAX package's adapter registry resolves in the port
     to the adapter class of the same name, or raises ``NotImplementedError``
-    naming its ROADMAP item (8, 9 or 10); none raises ``KeyError``."""
+    naming its ROADMAP item (9 or 10); none raises ``KeyError``."""
     from flow_factory_tpu.models.registry import _MODEL_ADAPTER_REGISTRY as JAX_KEYS
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
-    items = {"ltx2": "item 8", "wan": "item 9", "flux2": "item 10", "qwen": "item 10", "z-image": "item 10"}
+    items = {"wan": "item 9", "flux2": "item 10", "qwen": "item 10", "z-image": "item 10"}
     ported = []
     for key, target in JAX_KEYS.items():
         try:
@@ -445,4 +445,5 @@ def test_every_jax_model_type_resolves_or_names_its_item():
             continue
         assert cls.__name__ == target.split(":")[1], key
         ported.append(key)
-    assert sorted(ported) == ["flux1", "flux1-kontext", "sd3-5", "sd3.5", "wan2-t2v", "wan21"]
+    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "sd3-5", "sd3.5", "wan2-t2v",
+                              "wan21"]
