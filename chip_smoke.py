@@ -140,11 +140,30 @@ printing one line and exiting non-zero on failure:
    dataset/sharegpt4o_image_mini resized to 256 px: the planted first-frame
    tokens bit-equal in every stored latent and out of the log-prob, K5 on
    the per-token modulation, ratio exactly 1.0 on every grad step.
+8e. wan22-kernels (run right after 8d): K3 and K2a/K2b at head dim 128 at
+   the Wan2.2-A14B's attentions (B 16 H 40, 512 tokens, self and to the 512
+   UMT5 tokens) and TI2V-5B's (H 24, 320 tokens), K5 and its backward at
+   width 5120 and with the per-token modulation at width 3072, through the
+   checks of 2;
+15. wan22-grad, wan22-ti2v, wan22-moe, wan-v2v: the LoRA gradients at the
+   A14B width, depth 2, at per-sample and per-frame timesteps; Wan2.2-TI2V-5B
+   at full size on tests/fixtures/wan22_ti2v_grpo.yaml (256 px x 17 frames):
+   a T2V serving rollout and its replay, then two I2V GRPO epochs with
+   frame 0 the encoded image at every transformer call and at the decode;
+   the A14B MoE at full width, 8 layers an expert, on
+   tests/fixtures/wan22_a14b_grpo.yaml: two T2V GRPO epochs with each
+   step's expert as JAX's rule gives it and the routed expert's LoRA alone
+   with a gradient on each grad step, then one epoch of channel-concat I2V;
+   channel-concat V2V on Wan2.1-1.3B (tests/fixtures/wan21_v2v_grpo.yaml):
+   a rollout on condition clips given as arrays, its replay and an
+   optimize phase. Each: launches as predicted, ratio exactly 1.0, peak
+   memory, seconds, a profiled grad step.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
-FLUX.1-Kontext, B 8 and LTX-2 shapes nested under their kernels' entries,
-with their launches in the DPO epochs, the three Kontext phases, the DGPO or
-CRD epochs and the LTX-2 T2AV epochs); the last line is ``{"ok": true,
+FLUX.1-Kontext, B 8, LTX-2 and Wan2.2 shapes nested under their kernels'
+entries, with their launches in the DPO epochs, the three Kontext phases,
+the DGPO or CRD epochs, the LTX-2 T2AV epochs and the TI2V-5B I2V or A14B
+T2V epochs); the last line is ``{"ok": true,
 "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
@@ -156,7 +175,8 @@ by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
 does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone;
 ``python3 chip_smoke.py --decoupled`` the build, 8c and 12;
-``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14.
+``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14;
+``python3 chip_smoke.py --wan22`` the build, 8e and 15.
 """
 from __future__ import annotations
 
@@ -1175,8 +1195,8 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     as ``apply_rope`` returns them, v a head-split view of its projection;
     wan-cross k/v head-split views of the context projections; flux-1024px,
     flux-512px and the kontext shapes q/k/v contiguous (the joint sequence,
-    concatenated, q and k as RoPE returns them); the ltx2 shapes q/k
-    contiguous (the across-heads qk-norm and RoPE return them so), v a
+    concatenated, q and k as RoPE returns them); the ltx2 and wan22 shapes
+    q/k contiguous (the across-heads qk-norm and RoPE return them so), v a
     head-split view; ragged-d128 every
     operand a view; dO always head-interleaved, as the head merge's backward
     hands it over."""
@@ -1185,7 +1205,7 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext", "ltx2")) else view(Sk)
+    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext", "ltx2", "wan22")) else view(Sk)
     v = randn(B, H, Sk, D) if tag.startswith(("flux", "kontext")) else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
@@ -1256,7 +1276,7 @@ def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: 
     errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
     del ref
     d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
-    if tag in ("wan-self", "flux-512px", "kontext-2560"):
+    if tag in ("wan-self", "flux-512px", "kontext-2560") or (tag.startswith("wan22") and tag.endswith("-self")):
         zero = torch.zeros_like(delta)
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
                              (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
@@ -2186,9 +2206,9 @@ def _epoch_record(trainer, samples, scalars: dict) -> dict:
             "scalars": {k: float(v) for k, v in scalars.items()}, "leaves": leaves}
 
 
-def _profile_grad_step(trainer, what: str, trace: str) -> None:
-    """One grad step (forward, backward, accumulation, AdamW) on the first
-    batch of the last epoch's rollout, profiled."""
+def _one_grad_step(trainer):
+    """A closure of one grad step (forward, backward, accumulation, AdamW)
+    on the first batch of the last epoch's rollout."""
     batch = next(trainer.grad_step_batches(trainer.reward_buffer.samples, trainer.training_args.max_epochs - 1))
 
     def grad_step():
@@ -2196,7 +2216,53 @@ def _profile_grad_step(trainer, what: str, trace: str) -> None:
         trainer.accumulate_grads(grads)
         trainer.apply_accumulated()
 
-    _profile(what, grad_step, trace)
+    return grad_step
+
+
+def _profile_grad_step(trainer, what: str, trace: str) -> None:
+    """One grad step (:func:`_one_grad_step`), profiled."""
+    _profile(what, _one_grad_step(trainer), trace)
+
+
+def _peak_breakdown(tag: str, fn, top: int = 10) -> None:
+    """Run ``fn`` with the allocator's history on and log what was live at
+    its peak: the bytes allocated before it, then the blocks it allocated
+    and had not freed, grouped by the innermost frame of the port that
+    allocated them (autograd's backward allocates with no Python frame)."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        events = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    cur, top_bytes, at = 0, 0, -1
+    for i, e in enumerate(events):
+        cur += e["size"] if e["action"] == "alloc" else -e["size"] if e["action"] == "free_completed" else 0
+        if cur > top_bytes:
+            top_bytes, at = cur, i
+    live: dict = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    groups: dict = collections.Counter()
+    for e in live.values():
+        site = next((f"{os.path.relpath(f['filename'], here)}:{f['line']} {f['name']}" for f in e.get("frames", [])
+                     if "flow_factory_tpu_torch" in f["filename"]), "no port frame (autograd's backward)")
+        groups[site] += e["size"]
+    gib = lambda n: round(n / 2**30, 3)
+    log(f"[{tag}] memory at one grad step's peak: {gib(base)} GiB allocated before it + {gib(top_bytes)} GiB it "
+        f"allocated = {gib(base + top_bytes)} GiB (allocator peak {gib(torch.cuda.max_memory_allocated())}); "
+        f"its live blocks by site, GiB: {json.dumps({k: gib(v) for k, v in groups.most_common(top)})}; "
+        f"{len(events)} allocator events")
 
 
 def _train_config_dict() -> dict:
@@ -3395,8 +3461,9 @@ LTX2_K5_SHAPES = tuple(NormShape(*shape) for shape in (
 ))
 
 
-def _k3_ltx2_call(B: int, H: int, Sq: int, Sk: int):
-    """K3 on fresh bf16 inputs in LTX-2's layout: q/k contiguous, v a view."""
+def _k3_qk_contiguous_call(B: int, H: int, Sq: int, Sk: int):
+    """K3 on fresh bf16 inputs in LTX-2's and Wan2.2's layout: q/k
+    contiguous, v a view."""
     import torch
 
     from flow_factory_tpu_torch.ops import attention as A
@@ -3427,7 +3494,7 @@ def phase_ltx2_kernels(results: dict) -> None:
         q, k = randn(B, H, Sq, 128), randn(B, H, Sk, 128)
         v = randn(B, Sk, H, 128).transpose(1, 2)  # a head-split view of the value projection
         _k3_shape_checks(results, tag, q, k, v, "q/k contiguous, v a view",
-                         functools.partial(_k3_ltx2_call, B, H, Sq, Sk))
+                         functools.partial(_k3_qk_contiguous_call, B, H, Sq, Sk))
         del q, k, v
         _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, True, randn)
     for shape in LTX2_K5_SHAPES:
@@ -3543,83 +3610,25 @@ def _ltx2_load(fixture: str, tag: str, **data):
     return cfg, trainer
 
 
-def _ltx2_epoch(trainer, tag: str, epoch: int, want_rollout: dict, want_step: dict, check_rollout) -> dict:
-    """One GRPO epoch phase by phase: the rollout (launches as predicted,
-    ``check_rollout(samples)``), the feedback, the optimize phase with a spy
-    on ``training_forward`` (every grad step's batch holds the audio
-    latents of its slot), the ratio exactly 1.0 and clip_frac 0 on every
-    grad step, the launches as predicted a grad step; the seconds of each."""
+def _ltx2_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, check_rollout) -> dict:
+    """:func:`_grpo_epoch` on LTX-2: besides, finite waveforms (B, 1, n)
+    from every rollout, and the audio latents of its slot staged into every
+    grad step."""
     import numpy as np
-    import torch
 
-    from flow_factory_tpu_torch import ops
+    def check(samples):
+        waves = np.stack([s.audio for s in samples])
+        log(f"[{tag}] epoch {epoch} waveforms {waves.shape} in [{waves.min():.3f}, {waves.max():.3f}], audio "
+            f"latents {samples[0].extra_kwargs['audio_all_latents'].shape}")
+        if not (np.isfinite(waves).all() and waves.shape[:2] == (len(samples), 1)):
+            fail(f"[{tag}] epoch {epoch}: the rollout's waveforms are not as expected")
+        check_rollout(samples)
 
-    ad, ta = trainer.adapter, trainer.training_args
-    trainer.epoch = epoch
-    trainer.scheduler.set_seed(ta.seed + epoch)
-    secs = {}
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    samples = trainer.sample(epoch)
-    torch.cuda.synchronize()
-    secs["rollout"] = time.perf_counter() - t0
-    in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    batches = -(-len(samples) // ta.per_device_batch_size)
-    want = {k: n * ta.num_inference_steps * batches for k, n in want_rollout.items()}
-    videos = np.stack([s.video for s in samples])
-    waves = np.stack([s.audio for s in samples])
-    log(f"[{tag}] epoch {epoch} rollout: videos {videos.shape} in [{videos.min():.3f}, {videos.max():.3f}], "
-        f"waveforms {waves.shape} in [{waves.min():.3f}, {waves.max():.3f}], video latents "
-        f"{samples[0].all_latents.shape}, audio latents {samples[0].extra_kwargs['audio_all_latents'].shape}, "
-        f"launches {in_sample} (expected {want}), {secs['rollout']:.2f} s")
-    if not (np.isfinite(videos).all() and np.isfinite(waves).all() and videos.shape[2:] == (3, ta.height, ta.width)
-            and waves.shape[:2] == (len(samples), 1)):
-        fail(f"[{tag}] epoch {epoch}: the rollout's videos or waveforms are not as expected")
-    if any(in_sample[k] != n for k, n in want.items()):
-        fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
-    check_rollout(samples)
-    t0 = time.perf_counter()
-    metrics = trainer.prepare_feedback(samples)
-    secs["feedback"] = time.perf_counter() - t0
-    staged = []
-    real = ad.training_forward
-
-    def spy(trainable, batch, **kw):
-        a = batch.get("audio_latents")
-        staged.append(None if a is None else tuple(a.shape))
-        return real(trainable, batch, **kw)
-
-    ad.training_forward = spy
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    try:
-        info = trainer.optimize(samples, epoch)
-        torch.cuda.synchronize()
-    finally:
-        del ad.training_forward
-    secs["optimize"] = time.perf_counter() - t0
-    in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    ad.ema_step(epoch)
-    steps = len(staged)
-    want = {k: n * steps for k, n in want_step.items()}
-    ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
-    clip_hi, gnorm = _loss_value(info, "train/clip_frac", "max"), info["train/grad_norm"]
-    audio = samples[0].extra_kwargs["audio_all_latents"].shape[1:]
-    log(f"[{tag}] epoch {epoch}: reward mean {metrics['reward/mean']:.5f}, {steps} grad steps, the audio latents "
-        f"staged into each: {staged}, ratio min {ratio_lo!r} max {ratio_hi!r} on every grad step, clip_frac max "
-        f"{clip_hi}, loss {info['train/loss']:.4e}, grad_norm {gnorm:.4e}, launches in optimize {in_optimize} "
-        f"(expected {want}), global step {trainer.global_step}")
-    log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
-        f"{secs['optimize'] / max(steps, 1):.3f} s per grad step (optimizer step included)")
-    if not steps or any(s != (ta.per_device_batch_size, *audio) for s in staged):
-        fail(f"[{tag}] epoch {epoch}: the audio latents did not reach every training forward: {staged}")
-    if not (ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
-        fail(f"[{tag}] epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
-    if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
-        fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
-    if any(in_optimize[k] != n for k, n in want.items()):
-        fail(f"[{tag}] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
-    return dict(samples=samples, secs=secs, steps=steps)
+    run = _grpo_epoch(trainer, tag, epoch, forward, backward, check, staged_keys=("audio_latents",))
+    audio = (trainer.training_args.per_device_batch_size, *run["samples"][0].extra_kwargs["audio_all_latents"].shape[1:])
+    if any(staged.get("audio_latents") != audio for _, _, staged in run["steps"]):
+        fail(f"[{tag}] epoch {epoch}: the audio latents did not reach every training forward: {run['steps']}")
+    return run
 
 
 def phase_ltx2() -> dict:
@@ -3666,7 +3675,7 @@ def phase_ltx2() -> dict:
     ops.reset_launch_counts()
     runs = []
     for epoch in range(ta.max_epochs):
-        runs.append(_ltx2_epoch(trainer, "ltx2-train" if epoch else "ltx2", epoch, forward, {**forward, **video},
+        runs.append(_ltx2_epoch(trainer, "ltx2-train" if epoch else "ltx2", epoch, forward, video,
                                 replay_ratio if epoch == 0 else (lambda samples: None)))
         if epoch == 0:
             moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
@@ -3679,7 +3688,7 @@ def phase_ltx2() -> dict:
     log(f"[ltx2-train] launches over two epochs {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} "
         f"GiB: {'inside' if lo <= peak <= hi else 'outside'}) | seconds a rollout "
         f"{[round(r['secs']['rollout'], 2) for r in runs]}, a grad step "
-        f"{[round(r['secs']['optimize'] / r['steps'], 3) for r in runs]} | global step {trainer.global_step}")
+        f"{[round(r['secs']['optimize'] / len(r['steps']), 3) for r in runs]} | global step {trainer.global_step}")
     if trainer.global_step != ta.max_epochs:
         fail(f"[ltx2-train] the optimizer did not step once per epoch: global step {trainer.global_step}")
     _profile_grad_step(trainer, "one LTX-2 T2AV grad step (LoRA merge, forward, backward, AdamW)",
@@ -3780,7 +3789,7 @@ def phase_ltx2_i2av() -> dict:
             fail(f"[ltx2-i2av] K5 took the per-token modulation {n_tok} times, expected {2 * L + 1}")
 
     ops.reset_launch_counts()
-    run = _ltx2_epoch(trainer, "ltx2-i2av", 0, forward, {**forward, **video}, check_rollout)
+    run = _ltx2_epoch(trainer, "ltx2-i2av", 0, forward, video, check_rollout)
     counts = ops.launch_counts()
     log(f"[ltx2-i2av] launches {counts} | peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         f"seconds {json.dumps({k: round(v, 3) for k, v in run['secs'].items()})}")
@@ -3818,6 +3827,695 @@ def ltx2_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The rest of Wan: Wan2.2-TI2V-5B at full size, the Wan2.2-A14B two-expert
+# MoE at full width, channel-concat I2V and V2V
+# ---------------------------------------------------------------------------
+
+#: the attentions of the Wan2.2 models at B 16 (8 samples under CFG), head
+#: dim 128 (tag, heads, Sq, Sk): the A14B (40 heads) at 256 px x 5 frames
+#: (2 x 16 x 16 = 512 tokens) and TI2V-5B (24 heads) at 256 px x 17 frames
+#: (5 x 8 x 8 = 320 tokens, not a multiple of K3's 128-row q tile), each
+#: self and to the 512 UMT5 tokens
+WAN22_ATTENTION = (("wan22-a14b-self", 40, 512, 512), ("wan22-a14b-cross", 40, 512, 512),
+                   ("wan22-ti2v-self", 24, 320, 320), ("wan22-ti2v-cross", 24, 320, 512))
+#: K5 at the A14B width (D 5120: an 8192 block, 37.5% of its lanes masked)
+#: on its block norms, norm2 (fold) and head (bf16 -> fp32), and K5's
+#: LayerNorm with TI2V's per-token modulation at width 3072 (the blocks at B
+#: 16 and B 8, the head), with its per-sample norm2
+WAN22_K5_SHAPES = tuple(NormShape(*shape) for shape in (
+    ("wan22-a14b", 16, 512, 5120, "bfloat16", "bfloat16", False, False, False, True),
+    ("wan22-a14b-norm2", 16, 512, 5120, "bfloat16", "bfloat16", False, True, False, True),
+    ("wan22-a14b-head", 16, 512, 5120, "bfloat16", "float32", False, False, False, False),
+    ("wan22-ti2v-token", 16, 320, 3072, "bfloat16", "bfloat16", True, False, False, True),
+    ("wan22-ti2v-token-b8", 8, 320, 3072, "bfloat16", "bfloat16", True, False, False, True),
+    ("wan22-ti2v-token-head", 16, 320, 3072, "bfloat16", "float32", True, False, False, True),
+    ("wan22-ti2v-norm2", 16, 320, 3072, "bfloat16", "bfloat16", False, True, False, True),
+))
+#: the Wan2.2 kernel tags of the table and the phase whose launches they take
+WAN22_TAGS = {
+    "wan22-moe": {"flash_fwd": ("wan22-a14b-self", "wan22-a14b-cross"),
+                  "flash_bwd_dq_d128": ("wan22-a14b-self", "wan22-a14b-cross"),
+                  "flash_bwd_dkv_d128": ("wan22-a14b-self", "wan22-a14b-cross"),
+                  "ln_mul_add": ("wan22-a14b", "wan22-a14b-norm2"),
+                  "ln_mul_add_backward": ("wan22-a14b", "wan22-a14b-norm2")},
+    "wan22-ti2v": {"flash_fwd": ("wan22-ti2v-self", "wan22-ti2v-cross"),
+                   "flash_bwd_dq_d128": ("wan22-ti2v-self", "wan22-ti2v-cross"),
+                   "flash_bwd_dkv_d128": ("wan22-ti2v-self", "wan22-ti2v-cross"),
+                   "ln_mul_add": ("wan22-ti2v-token", "wan22-ti2v-token-b8", "wan22-ti2v-token-head",
+                                  "wan22-ti2v-norm2"),
+                   "ln_mul_add_backward": ("wan22-ti2v-token", "wan22-ti2v-token-b8", "wan22-ti2v-token-head",
+                                           "wan22-ti2v-norm2")},
+}
+#: peak device memory predicted for the Wan2.2 and V2V trainers (GiB; PERF.md §6)
+WAN22_PEAK_PREDICTED = {"wan22-ti2v": (35.0, 50.0), "wan22-moe": (30.0, 45.0), "wan-v2v": (35.0, 45.0)}
+
+
+def phase_wan22_kernels(results: dict) -> None:
+    """[wan22-kernels]: K3 and K2a/K2b at head dim 128 at the A14B's and
+    TI2V-5B's attentions (``WAN22_ATTENTION``), and K5 with its backward at
+    width 5120 and with the per-token modulation at width 3072
+    (``WAN22_K5_SHAPES``), through the checks, controls, bits and times of
+    ``_k3_shape_checks`` (the control without log2(e)),
+    ``_k2_d128_shape_checks`` (the control without Delta on the self shapes)
+    and ``_k5_shape_checks`` (the backward's controls on the A14B block norm
+    and the per-token block norm). The entries join the table under their
+    tags."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    log(f"[wan22-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    t0 = time.perf_counter()
+    B = 16
+    for tag, H, Sq, Sk in WAN22_ATTENTION:
+        q, k = randn(B, H, Sq, 128), randn(B, H, Sk, 128)
+        v = randn(B, Sk, H, 128).transpose(1, 2)  # a head-split view of the value projection
+        _k3_shape_checks(results, tag, q, k, v, "q/k contiguous, v a view",
+                         functools.partial(_k3_qk_contiguous_call, B, H, Sq, Sk))
+        del q, k, v
+        _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, True, randn)
+    for shape in WAN22_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, shape.tag in ("wan22-a14b", "wan22-ti2v-token"))
+    log(f"[wan22-kernels] every shape within its tolerance, the controls rejected: "
+        f"{len(WAN22_ATTENTION)} attentions, {len(WAN22_K5_SHAPES)} K5 shapes, {time.perf_counter() - t0:.1f} s")
+
+
+def _wan_launches(num_layers: int):
+    """Kernel launches of one Wan DiT forward and of its backward: 2 K3 a
+    block (self, cross) and 3 K5 a block (two AdaLN norms, norm2) plus the
+    head; K2a/K2b for every K3, K5's backward for every K5 but block 0's
+    first norm (its inputs, the patch embedding and the AdaLN vectors, are
+    frozen)."""
+    forward = {"flash_fwd": 2 * num_layers, "ln_mul_add": 3 * num_layers + 1}
+    backward = {"flash_bwd_dq": 2 * num_layers, "flash_bwd_dkv": 2 * num_layers,
+                "ln_mul_add_backward": 3 * num_layers}
+    return forward, backward
+
+
+def phase_wan22_grad() -> None:
+    """[wan22-grad]: LoRA gradients through K3, K2a/K2b and K5 at the A14B
+    width (5120, 40 heads of 128, FFN 13824), depth 2, B 16, 512 video + 512
+    context tokens, rank-32 LoRA on the 20 Wan targets of the two blocks,
+    ``lora_B`` drawn non-zero. The loss sums the Flow-SDE log-probs of two
+    transitions: one at a per-sample t and one at per-frame t with frame 0
+    at 0 (TI2V's form: every AdaLN modulation per token). Checked by
+    :func:`_lora_grad_check` against the plain path with the dq-zeroed
+    control; a non-zero gradient on every leaf; the launches of two forwards
+    and their backward."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import init_lora
+    from flow_factory_tpu_torch.models.wan.t2v import WAN_LORA_TARGETS
+    from flow_factory_tpu_torch.models.wan.transformer import WanConfig, WanTransformer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = dataclasses.replace(WanConfig.wan21_14b(), num_layers=2)
+    model = build_module(lambda: WanTransformer(cfg), dev, torch.bfloat16, gen)
+    lora = init_lora(model, 32, gen, WAN_LORA_TARGETS)
+    for ab in lora.values():  # b != 0, else the gradient of a is zero
+        ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = (randn(B, 2, 32, 32, cfg.in_channels), randn(B, 2, 32, 32, cfg.in_channels))  # 2 frames of 16 x 16 tokens
+    ctx = randn(B, 512, cfg.context_dim)
+    t = torch.full((B,), 750.0, device=dev)
+    t_frames = torch.tensor([0.0, 750.0], device=dev).expand(B, 2).contiguous()
+    names, kern, _, counts = _lora_grad_check(
+        f"Wan2.2-A14B width, depth 2, B={B}, 512 video + 512 context tokens, per-sample and per-frame t", model,
+        lora, lambda params: (functional_call(model, params, (x[0], t, ctx)),
+                              functional_call(model, params, (x[1], t_frames, ctx))), x, gen)
+    dead = [n for n, g in zip(names, kern) if not g.abs().max().item() > 0]
+    forward, backward = _wan_launches(cfg.num_layers)
+    want = {k: 2 * n for k, n in {**forward, **backward}.items()}
+    log(f"[wan22-grad] non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves; launches of two "
+        f"forwards and their backward {counts} (expected {want})")
+    if dead or len(names) != 2 * 10 * cfg.num_layers or any(counts[k] != n for k, n in want.items()):
+        fail(f"[wan22-grad]: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
+    del model, lora, kern
+    torch.cuda.empty_cache()
+
+
+def _wan22_image_dataset(root: str, name: str, size: int) -> str:
+    """The first two records of dataset/sharegpt4o_image_mini under build/,
+    their 64 px images resized (bilinear) to ``size`` px."""
+    from PIL import Image
+
+    src = os.path.join(root, "dataset", "sharegpt4o_image_mini")
+    path = os.path.join(root, "build", name)
+    os.makedirs(os.path.join(path, "assets"), exist_ok=True)
+    with open(os.path.join(src, "train.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()][:2]
+    with open(os.path.join(path, "train.jsonl"), "w") as f:
+        for rec in records:
+            Image.open(os.path.join(src, rec["image"])).convert("RGB").resize((size, size), Image.BILINEAR).save(
+                os.path.join(path, rec["image"]))
+            f.write(json.dumps(rec) + "\n")
+    return path
+
+
+def _wan22_config(fixture: str, model_type=None, **data):
+    from flow_factory_tpu_torch.hparams import Arguments
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", fixture))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    for k, v in data.items():
+        setattr(cfg.data_args, k, v)
+    if model_type:
+        cfg.model_args.model_type = model_type
+    cfg.log_args.save_dir = os.path.join(here, "chiprun_out", "train")
+    return cfg
+
+
+def _wan22_sizes(tag: str, ad, load_s: float) -> None:
+    import torch
+
+    tcfg = ad.component_configs["transformer"]
+    lora = ad.trainable
+    sizes = {comp: round(sum(p.numel() for p in m.parameters()) / 1e9, 3) for comp, m in ad.modules.items()}
+    log(f"[{tag}] loaded {ad.model_args.model_type} (variant {ad.model_args.variant}): width {tcfg.hidden_dim}, "
+        f"{tcfg.num_heads} heads, {tcfg.num_layers} layers, in_channels {tcfg.in_channels}; parameters in B "
+        f"{json.dumps(sizes)}; LoRA rank {ad.model_args.lora_rank} on "
+        f"{json.dumps({c: len(t) for c, t in lora.items()})} weights, "
+        f"{sum(v.numel() for t in lora.values() for ab in t.values() for v in ab.values()) / 1e6:.3f} M trainable "
+        f"(preprocess included) {load_s:.1f} s; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def _wan22_load_trainer(tag: str, cfg):
+    import torch
+
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    log(f"[{tag}] allocated before the trainer loads {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    _wan22_sizes(tag, trainer.adapter, time.perf_counter() - t0)
+    return trainer
+
+
+def _replay_check(tag: str, ad, samples, want: dict) -> dict:
+    """A no-grad replay of every stored step: ratio exactly 1.0 on each,
+    the launches ``want`` (per replayed step) and the seconds."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    new = ad.replay_log_probs(samples)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    old = np.stack([s.log_probs for s in samples], axis=1)
+    lp_map = samples[0].log_prob_index_map
+    ones = sum(bool(np.all(np.exp(lp.cpu().numpy().astype(np.float64) - old[lp_map[i]]) == 1.0))
+               for i, lp in new.items())
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    expected = {k: n * len(new) for k, n in want.items()}
+    log(f"[{tag}] no-grad replay of the stored steps {sorted(new)}: ratio exactly 1.0 on {ones}/{len(new)}, "
+        f"launches {launched} (expected {expected}), {secs:.2f} s")
+    if ones != len(new) or not new:
+        fail(f"[{tag}] replay ratio not exactly 1.0 on every stored step")
+    if any(launched[k] != n for k, n in expected.items()):
+        fail(f"[{tag}] replay launches {launched}, expected {expected}")
+    return launched
+
+
+def _route_recorder(ad, routes: list):
+    """Record each rollout step's expert (True: the high-noise one) as the
+    adapter picks it; returns the undo."""
+    real = ad.step_params
+
+    def spy(params, t_host):
+        out = real(params, t_host)
+        if ad.mode == "rollout":
+            routes.append((None if t_host is None else float(t_host), getattr(out, "high", None)))
+        return out
+
+    ad.step_params = spy
+    return lambda: delattr(ad, "step_params")
+
+
+def _grad_recorder(trainer, steps: list, staged_keys=()):
+    """Record each grad step's host timestep, each trainable component's
+    largest |LoRA gradient| as a device scalar (one fused norm, no host
+    sync inside the timed steps; :func:`_live_components` reads them after),
+    and the shapes of the batch's ``staged_keys``; returns the undo."""
+    import torch
+
+    real = trainer.loss_and_grads
+
+    def spy(trainable, batch, ref_trainable=None):
+        out = real(trainable, batch, ref_trainable)
+        it, peaks = iter(out[1]), {}
+        for comp in sorted(trainable):
+            leaves = [next(it).detach() for ab in trainable[comp].values() for _ in ab]
+            peaks[comp] = torch.stack(torch._foreach_norm(leaves, math.inf)).amax()
+        staged = {k: tuple(batch[k].shape) for k in staged_keys if batch.get(k) is not None}
+        steps.append((float(batch["timestep_host"]), peaks, staged))
+        return out
+
+    trainer.loss_and_grads = spy
+    return lambda: delattr(trainer, "loss_and_grads")
+
+
+def _live_components(steps: list) -> None:
+    """Replace each recorded step's device maxima by the sorted components
+    whose LoRA got a non-zero gradient (one host read of each)."""
+    for i, (t, peaks, staged) in enumerate(steps):
+        steps[i] = (t, [c for c, v in sorted(peaks.items()) if v.item() > 0], staged)
+
+
+def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, check_rollout=None,
+                staged_keys=(), sample=None) -> dict:
+    """One GRPO epoch phase by phase: the rollout (``trainer.sample``, or
+    ``sample(epoch)`` where the caller draws it; finite videos, ``forward``
+    launches a step, ``check_rollout(samples)``), the feedback, the optimize
+    phase with each grad step recorded by :func:`_grad_recorder`, the ratio
+    exactly 1.0 and clip_frac 0 on every grad step, ``forward`` and
+    ``backward`` launches a grad step; the seconds of each."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    ta = trainer.training_args
+    trainer.epoch = epoch
+    trainer.scheduler.set_seed(ta.seed + epoch)
+    secs = {}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    samples = (sample or trainer.sample)(epoch)
+    torch.cuda.synchronize()
+    secs["rollout"] = time.perf_counter() - t0
+    in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    batches = -(-len(samples) // ta.per_device_batch_size)
+    want = {k: n * ta.num_inference_steps * batches for k, n in forward.items()}
+    videos = np.stack([s.video for s in samples])
+    log(f"[{tag}] epoch {epoch} rollout: videos {videos.shape} in [{videos.min():.3f}, {videos.max():.3f}], "
+        f"latents {samples[0].all_latents.shape}, launches {in_sample} (expected {want}), {secs['rollout']:.2f} s")
+    if not (np.isfinite(videos).all() and videos.shape[2:] == (3, ta.height, ta.width)):
+        fail(f"[{tag}] epoch {epoch}: the rollout's videos are not as expected: {videos.shape}")
+    if any(in_sample[k] != n for k, n in want.items()):
+        fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
+    if check_rollout is not None:
+        check_rollout(samples)
+    t0 = time.perf_counter()
+    metrics = trainer.prepare_feedback(samples)
+    secs["feedback"] = time.perf_counter() - t0
+    steps: list = []
+    undo = _grad_recorder(trainer, steps, staged_keys)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        info = trainer.optimize(samples, epoch)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    secs["optimize"] = time.perf_counter() - t0
+    _live_components(steps)
+    in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    ad = trainer.adapter
+    ad.ema_step(epoch)
+    want = {k: n * len(steps) for k, n in {**forward, **backward}.items()}
+    ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
+    clip_hi, gnorm = _loss_value(info, "train/clip_frac", "max"), info["train/grad_norm"]
+    log(f"[{tag}] epoch {epoch}: reward mean {metrics['reward/mean']:.5f}, {len(steps)} grad steps (host t, "
+        f"components with a non-zero LoRA gradient, staged shapes): {steps}, ratio min {ratio_lo!r} max "
+        f"{ratio_hi!r} on every grad step, clip_frac max {clip_hi}, loss {info['train/loss']:.4e}, grad_norm "
+        f"{gnorm:.4e}, launches in optimize {in_optimize} (expected {want}), global step {trainer.global_step}")
+    log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
+        f"{secs['optimize'] / max(len(steps), 1):.3f} s per grad step (optimizer step included)")
+    if not (steps and ratio_lo == 1.0 and ratio_hi == 1.0 and clip_hi == 0.0):
+        fail(f"[{tag}] epoch {epoch}: replay ratio not exactly 1.0 on every grad step: {info}")
+    if not (np.isfinite(gnorm) and gnorm > 0 and np.isfinite(info["train/loss"])):
+        fail(f"[{tag}] epoch {epoch}: grad norm {gnorm}, loss {info['train/loss']}")
+    if any(in_optimize[k] != n for k, n in want.items()):
+        fail(f"[{tag}] epoch {epoch}: launches in optimize {in_optimize}, expected {want}")
+    return dict(samples=samples, secs=secs, steps=steps)
+
+
+def _wan22_finish(trainer, tag: str, runs: list, counts: dict, what: str) -> None:
+    """Peak memory against the prediction, seconds a rollout and a grad
+    step, a profiled grad step with its idle share; the trainer freed."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = WAN22_PEAK_PREDICTED[tag]
+    log(f"[{tag}] launches {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} GiB: "
+        f"{'inside' if lo <= peak <= hi else 'outside'}) | seconds a rollout "
+        f"{[round(r['secs']['rollout'], 2) for r in runs]}, a grad step "
+        f"{[round(r['secs']['optimize'] / max(len(r['steps']), 1), 3) for r in runs]} | global step "
+        f"{trainer.global_step}")
+    _peak_breakdown(tag, _one_grad_step(trainer))
+    _profile_grad_step(trainer, what, f"{tag}_grad_step_trace.json")
+    trainer.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ti2v_frame0_spies(ad, record: dict):
+    """Hooks that take, at every transformer call of a rollout (not of a
+    grad step), frame 0 of the latents it sees (the composite), and at the
+    decode frame 0 of the latents it decodes; returns the undo."""
+    vae = ad.modules["vae"]
+
+    def velocity(module, args):
+        if ad.mode == "rollout":
+            record["velocity"].append(args[0][:, 0].detach().clone())
+
+    hook = ad.modules["transformer"].register_forward_pre_hook(velocity)
+    real_decode = vae.decode
+
+    def decode(latents, *args, **kwargs):
+        record["decode"].append(latents[:, 0].detach().clone())
+        return real_decode(latents, *args, **kwargs)
+
+    vae.decode = decode
+
+    def undo():
+        hook.remove()
+        del vae.decode
+
+    return undo
+
+
+def phase_wan22_ti2v() -> dict:
+    """[wan22-ti2v]: Wan2.2-TI2V-5B at full size (30 layers, width 3072, 24
+    heads of 128, FFN 14336, 48 latent channels; the Wan 2.2 VAE; UMT5-XXL)
+    on tests/fixtures/wan22_ti2v_grpo.yaml (256 px x 17 frames: 320 tokens;
+    10 steps, CFG 5, Flow-SDE eta 0.8; random bf16 weights from seed 42).
+    First the T2V mode (``wan2-t2v``): a serving rollout of 2 prompts x 4
+    and the no-grad replay of its 10 stored steps, ratio exactly 1.0, 600 K3
+    / 910 K5 each. Then the I2V mode (``expand_timesteps``) under GRPO for
+    two epochs on two dataset/sharegpt4o_image_mini records at 256 px: the
+    transformer sees frame 0 as the encoded image, bit for bit, at every
+    step of every rollout (the SDE step evolves the raw latents, frame 0
+    included, as in the JAX package) and the decode composites it back; 61
+    of a forward's 91 K5 calls per token; ratio exactly 1.0 on every grad
+    step; launches as predicted; a moved LoRA; peak memory, seconds, a
+    profiled grad step. Returns the launch counts of the I2V epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models import load_adapter
+    from flow_factory_tpu_torch.ops import norms as N
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = _wan22_image_dataset(here, "wan22_image_data_256", 256)
+
+    # the T2V mode: serving rollout and replay
+    cfg = _wan22_config("wan22_ti2v_grpo.yaml", "wan2-t2v", dataset_dir=data_dir)
+    ta = cfg.training_args
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ad = load_adapter(cfg)  # cuda
+    torch.cuda.synchronize()
+    _wan22_sizes("wan22-ti2v", ad, time.perf_counter() - t0)
+    L = ad.component_configs["transformer"].num_layers
+    forward, backward = _wan_launches(L)
+    with open(os.path.join(data_dir, "train.jsonl")) as f:
+        prompts = [json.loads(line)["prompt"] for line in f][:2]
+    batch = [p for p in prompts for _ in range(ta.group_size)]
+    ops.reset_launch_counts()
+    ad.rollout()
+    t0 = time.perf_counter()
+    samples = ad.inference(prompt=batch, compute_log_prob=True, trajectory_indices="all", seed=ta.seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    videos = np.stack([s.video for s in samples])
+    want = {k: n * ta.num_inference_steps for k, n in forward.items()}
+    log(f"[wan22-ti2v] T2V serving rollout of {len(batch)}: videos {videos.shape} in [{videos.min():.3f}, "
+        f"{videos.max():.3f}], latents {samples[0].all_latents.shape}, launches {counts} (expected {want}), "
+        f"{secs:.2f} s with the decode ({len(batch) / secs:.3f} samples/s)")
+    if not (np.isfinite(videos).all() and videos.shape == (len(batch), ta.num_frames, 3, ta.height, ta.width)):
+        fail(f"[wan22-ti2v] the T2V rollout's videos are not as expected: {videos.shape}")
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"[wan22-ti2v] T2V rollout launches {counts}, expected {want}")
+    _replay_check("wan22-ti2v", ad, samples, forward)
+    log(f"[wan22-ti2v] T2V peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ad, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the I2V mode under GRPO
+    trainer = _wan22_load_trainer("wan22-ti2v", _wan22_config("wan22_ti2v_grpo.yaml", dataset_dir=data_dir))
+    ad = trainer.adapter
+    lora = ad.trainable["transformer"]
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    per_token = []
+    real_k5 = N.ln_mul_add
+
+    def k5_spy(x, mul, add, *args, **kwargs):
+        per_token.append(mul.shape[1] != 1)
+        return real_k5(x, mul, add, *args, **kwargs)
+
+    k5_spy.launches = 0  # the kernel counts its launch on what stands in its name
+
+    def check_rollout(samples):
+        cond = torch.from_numpy(np.stack([s.extra_kwargs["cond_latents"] for s in samples])[:, 0]).to(ad.device)
+        seen_frames = record["velocity"]
+        cfg_cond = torch.cat([cond, cond]).to(seen_frames[0].dtype)  # the CFG batch, cast as the DiT casts it
+        composite = all(torch.equal(f, cfg_cond) for f in seen_frames)
+        decoded = all(torch.equal(f, cond) for f in record["decode"])
+        raw = np.stack([s.all_latents[-1][0] for s in samples])
+        moved = not np.array_equal(raw, cond.cpu().numpy())
+        log(f"[wan22-ti2v] frame 0 of the latents the transformer saw equals the encoded image bit for bit at "
+            f"{sum(torch.equal(f, cfg_cond) for f in seen_frames)}/{len(seen_frames)} calls; frame 0 of the "
+            f"decoded latents equals it: {decoded} ({len(record['decode'])} decode); the raw stored frame 0 "
+            f"evolves with the SDE step as in JAX: {moved}")
+        if not (composite and decoded and len(seen_frames) == trainer.training_args.num_inference_steps
+                and record["decode"]):
+            fail("[wan22-ti2v] frame 0 is not the encoded image at every step or at the decode")
+        record["velocity"].clear()
+        record["decode"].clear()
+
+    record = {"velocity": [], "decode": []}
+    undo = _ti2v_frame0_spies(ad, record)
+    ops.reset_launch_counts()
+    runs = []
+    try:
+        for epoch in range(trainer.training_args.max_epochs):
+            runs.append(_grpo_epoch(trainer, "wan22-ti2v", epoch, forward, backward, check_rollout,
+                                    staged_keys=("cond_latents",)))
+    finally:
+        undo()
+    counts = ops.launch_counts()
+    moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+    batch = next(trainer.grad_step_batches(runs[-1]["samples"], trainer.training_args.max_epochs - 1))
+    N.ln_mul_add = k5_spy
+    try:
+        with torch.no_grad():
+            trainer.adapter.training_forward(ad.trainable, batch)
+    finally:
+        N.ln_mul_add = real_k5
+    log(f"[wan22-ti2v] LoRA B moved by max|change| {moved:.3e}; K5 calls with a per-token modulation in one "
+        f"training forward: {sum(per_token)} of {len(per_token)} (expected {2 * L + 1} of {3 * L + 1})")
+    if not moved > 0:
+        fail("[wan22-ti2v] the LoRA did not move")
+    if sum(per_token) != 2 * L + 1 or len(per_token) != 3 * L + 1:
+        fail(f"[wan22-ti2v] K5 took the per-token modulation {sum(per_token)} of {len(per_token)} times")
+    _wan22_finish(trainer, "wan22-ti2v", runs, counts,
+                  "one Wan2.2-TI2V-5B I2V grad step (LoRA merge, forward, backward, AdamW)")
+    return counts
+
+
+def phase_wan22_moe() -> dict:
+    """[wan22-moe]: the Wan2.2-A14B two-expert MoE at full width, 8 layers
+    an expert, on tests/fixtures/wan22_a14b_grpo.yaml (256 px x 5 frames:
+    512 tokens; 10 steps, CFG 5 on the high-noise expert and
+    ``guidance_scale_2`` 3 on the low-noise one; random bf16 weights). T2V
+    GRPO for two epochs: each rollout step's expert as JAX's fp32 rule
+    t >= 875 gives it (steps 0-3, 875.0 included, on ``transformer_2``),
+    the kernels launched as one 8-layer forward a step; on every grad step
+    the routed expert's LoRA gets a gradient and the other's exact zeros;
+    an expert's LoRA B moves exactly when a trained step routed to it;
+    ratio exactly 1.0. Returns the launch counts of the two epochs;
+    :func:`_wan22_moe_concat_i2v` runs the experts' channel-concat I2V
+    after it (``wan2-i2v``: in_channels 16 + 17 = 33) on two dataset
+    records at 256 px, with the ``cond_latents`` staged into every grad
+    step."""
+    import numpy as np
+
+    from flow_factory_tpu_torch import ops
+
+    trainer = _wan22_load_trainer("wan22-moe", _wan22_config("wan22_a14b_grpo.yaml"))
+    ad = trainer.adapter
+    L = ad.component_configs["transformer"].num_layers
+    forward, backward = _wan_launches(L)
+    if sorted(ad.trainable) != ["transformer", "transformer_2"] or L != 8:
+        fail(f"[wan22-moe] expected two trained experts of 8 layers: {sorted(ad.trainable)}, {L}")
+    b0 = {c: {p: ab["lora_B"].detach().clone() for p, ab in t.items()} for c, t in ad.trainable.items()}
+    routes: list = []
+
+    def check_rollout(samples):
+        ts = samples[0].timesteps
+        want = [bool(np.float32(t) >= np.float32(ad.boundary_ratio * 1000.0)) for t in ts]
+        got = [high for _, high in routes]
+        log(f"[wan22-moe] rollout steps' experts (t, high-noise): "
+            f"{[(round(t, 3), h) for t, h in routes]}; JAX's rule gives {want}")
+        if got != want * (len(got) // len(want)) or not got:
+            fail(f"[wan22-moe] the rollout's experts {got} differ from the rule's {want}")
+        routes.clear()
+
+    undo = _route_recorder(ad, routes)
+    ops.reset_launch_counts()
+    runs = []
+    try:
+        for epoch in range(trainer.training_args.max_epochs):
+            runs.append(_grpo_epoch(trainer, "wan22-moe", epoch, forward, backward, check_rollout))
+    finally:
+        undo()
+    counts = ops.launch_counts()
+    trained = set()
+    for run in runs:
+        for t, live, _ in run["steps"]:
+            want = ["transformer_2" if ad.routes_high(t) else "transformer"]
+            if live != want:
+                fail(f"[wan22-moe] the grad step at t {t} gave non-zero LoRA gradients to {live}, expected {want}")
+            trained.update(want)
+    moved = {c: max((ad.trainable[c][p]["lora_B"] - b).abs().max().item() for p, b in tree.items())
+             for c, tree in b0.items()}
+    log(f"[wan22-moe] experts with a trained step {sorted(trained)}; LoRA B max|change| {moved}")
+    if any((moved[c] > 0) != (c in trained) for c in moved):
+        fail(f"[wan22-moe] an expert's LoRA moved without a trained step or stayed without one: {moved}")
+    _wan22_finish(trainer, "wan22-moe", runs, counts,
+                  "one Wan2.2-A14B (8 layers an expert) grad step (LoRA merge of the routed expert, forward, "
+                  "backward, AdamW)")
+    return counts
+
+
+def _wan22_moe_concat_i2v() -> None:
+    """[wan22-moe]'s one epoch of channel-concat I2V on the A14B experts."""
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = _wan22_image_dataset(here, "wan22_image_data_256", 256)
+    cfg = _wan22_config("wan22_a14b_grpo.yaml", "wan2-i2v", dataset_dir=data_dir)
+    cfg.training_args.max_epochs = 1
+    trainer = _wan22_load_trainer("wan22-moe", cfg)
+    if trainer.adapter.component_configs["transformer"].in_channels != 33:
+        fail("[wan22-moe] the concat I2V transformer is not 33 channels wide")
+    forward, backward = _wan_launches(trainer.adapter.component_configs["transformer"].num_layers)
+    ops.reset_launch_counts()
+    run = _grpo_epoch(trainer, "wan22-moe", 0, forward, backward, staged_keys=("cond_latents",))
+    if not all("cond_latents" in staged for _, _, staged in run["steps"]):
+        fail("[wan22-moe] the concat I2V grad steps did not stage cond_latents")
+    log(f"[wan22-moe] concat I2V epoch: launches {ops.launch_counts()} | peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in run['secs'].items()})}")
+    trainer.cleanup()
+
+
+def phase_wan_v2v() -> dict:
+    """[wan-v2v]: channel-concat V2V on Wan2.1-T2V-1.3B at full width
+    (tests/fixtures/wan21_v2v_grpo.yaml: 256 px x 5 frames, 10 steps, CFG 5;
+    the patch embedding 33 channels wide). One GRPO epoch by
+    :func:`_grpo_epoch` whose rollout of 2 prompts x 4 takes two 5-frame
+    condition clips given as arrays (made from the seed): 600 K3 / 910 K5;
+    each sample keeps its clip; the no-grad replay of every stored step with
+    ratio exactly 1.0; then the feedback and the optimize phase (2 grad
+    steps, one optimizer step), the ``cond_latents`` staged into each, ratio
+    exactly 1.0, a moved LoRA, peak memory, a profiled grad step. Returns
+    the launch counts of the epoch."""
+    import numpy as np
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.utils.base import make_generator
+    from flow_factory_tpu_torch.utils.trajectory import compute_trajectory_indices
+
+    trainer = _wan22_load_trainer("wan-v2v", _wan22_config("wan21_v2v_grpo.yaml"))
+    ad, ta = trainer.adapter, trainer.training_args
+    L = ad.component_configs["transformer"].num_layers
+    forward, backward = _wan_launches(L)
+    lora = ad.trainable["transformer"]
+    b0 = {path: ab["lora_B"].detach().clone() for path, ab in lora.items()}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "dataset", "vid_prompt", "train.txt")) as f:
+        prompts = [line.strip() for line in f if line.strip()][:2]
+    rng = np.random.default_rng(ta.seed)
+    clips = [rng.uniform(0.0, 1.0, (ta.num_frames, 3, ta.height, ta.width)).astype(np.float32) for _ in prompts]
+    batch = [p for p in prompts for _ in range(ta.group_size)]
+    videos_in = [c for c in clips for _ in range(ta.group_size)]
+
+    def sample(epoch):
+        """The trainer's rollout, with the clips as arrays (no video decoder here)."""
+        ad.rollout()
+        trainer.reward_buffer.clear()
+        samples = ad.inference(prompt=batch, condition_video=videos_in, compute_log_prob=True,
+                               trajectory_indices=compute_trajectory_indices(trainer.scheduler.train_timesteps,
+                                                                             ta.num_inference_steps),
+                               generator=make_generator(ad.device, "rollout", ta.seed, epoch, 0, 0))
+        trainer.reward_buffer.add_samples(samples)
+        ad.train()
+        return samples
+
+    def check_rollout(samples):
+        kept = all(np.array_equal(s.condition_video, v) for s, v in zip(samples, videos_in))
+        log(f"[wan-v2v] rollout on two 5-frame condition clips: cond_latents "
+            f"{samples[0].extra_kwargs['cond_latents'].shape}, each sample keeps its clip: {kept}")
+        if not (kept and ad.component_configs["transformer"].in_channels == 33):
+            fail("[wan-v2v] the rollout's clips or width are not as expected")
+        _replay_check("wan-v2v", ad, samples, forward)
+
+    ops.reset_launch_counts()
+    run = _grpo_epoch(trainer, "wan-v2v", 0, forward, backward, check_rollout, ("cond_latents",), sample)
+    counts = ops.launch_counts()
+    moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+    log(f"[wan-v2v] LoRA B max|change| {moved:.3e}")
+    if not (all("cond_latents" in st for _, _, st in run["steps"]) and moved > 0):
+        fail(f"[wan-v2v] the grad steps: {run['steps']}, LoRA moved {moved}")
+    _wan22_finish(trainer, "wan-v2v", [run], counts,
+                  "one Wan2.1-1.3B V2V grad step (LoRA merge, forward, backward, AdamW)")
+    return counts
+
+
+def _wan22_phases() -> dict:
+    """[wan22-grad], [wan22-ti2v], [wan22-moe] and [wan-v2v], each trainer
+    freed before the next loads; returns the launch counts of the TI2V and
+    MoE epochs by tag."""
+    import torch
+
+    phase_wan22_grad()
+    counts = {"wan22-ti2v": phase_wan22_ti2v(), "wan22-moe": phase_wan22_moe()}
+    for phase in (_wan22_moe_concat_i2v, phase_wan_v2v):  # each trainer freed before the next loads
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def wan22_only() -> int:
+    """``python3 chip_smoke.py --wan22``: the build, [wan22-kernels] and the
+    Wan2.2 and V2V phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_wan22_kernels({})
+    counts = _wan22_phases()
+    log(f"[wan22] launches {counts}; device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3842,6 +4540,8 @@ def main() -> int:
         return decoupled_only()
     if sys.argv[1:] == ["--ltx2"]:
         return ltx2_only()
+    if sys.argv[1:] == ["--wan22"]:
+        return wan22_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -3855,6 +4555,7 @@ def main() -> int:
     phase_kontext_kernels(results)
     phase_decoupled_kernels(results)
     phase_ltx2_kernels(results)
+    phase_wan22_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -3880,6 +4581,7 @@ def main() -> int:
     kontext_counts = _kontext_phases()
     decoupled_counts = _decoupled_phases()
     ltx2_counts = _ltx2_phases()
+    wan22_counts = _wan22_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -3906,6 +4608,11 @@ def main() -> int:
     for name, tags in LTX2_TAGS.items():
         for tag in tags:
             results[name]["shapes"][tag]["launches"] = ltx2_counts[name.replace("_d128", "")]
+    # the Wan2.2 shapes: their kernels' launches in the TI2V-5B I2V and A14B T2V GRPO epochs
+    for phase, tags_of in WAN22_TAGS.items():
+        for name, tags in tags_of.items():
+            for tag in tags:
+                results[name]["shapes"][tag]["launches"] = wan22_counts[phase][name.replace("_d128", "")]
     # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
     for name, entry in results.items():
         for shape in entry["shapes"].values():

@@ -56,8 +56,9 @@ def load_raw_records(path: str, cutoff: Optional[int] = None) -> List[Dict[str, 
 
 
 def _load_media_fields(rec: Dict[str, Any], base_dir: str) -> Dict[str, Any]:
-    """Resolve image path fields to canonical (C, H, W) arrays."""
-    from ..utils.media import to_image_array
+    """Resolve image path fields to canonical (C, H, W) arrays and a
+    ``video`` path to ``condition_video`` (T, C, H, W)."""
+    from ..utils.media import to_image_array, to_video_array
 
     out = dict(rec)
     for key in ("image", "images", "condition_image", "condition_images"):
@@ -69,8 +70,13 @@ def _load_media_fields(rec: Dict[str, Any], base_dir: str) -> Dict[str, Any]:
                              else to_image_array(p) for p in paths]
             if key != "images":
                 out.pop(key, None)
-    if "video" in rec:
-        raise NotImplementedError("video condition fields are not ported yet (video families)")
+    if "video" in rec and isinstance(rec["video"], str):
+        try:  # imageio is optional: a clip that cannot be read is warned about and left out, as in JAX
+            import imageio.v3 as iio
+
+            out["condition_video"] = to_video_array(iio.imread(os.path.join(base_dir, rec["video"])))
+        except Exception as e:
+            logger.warning("Failed to load video %s: %s", rec["video"], e)
     return out
 
 

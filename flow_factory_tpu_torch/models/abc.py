@@ -18,7 +18,9 @@ paths that run the SAME math:
 The velocity runs on the effective weights of :meth:`merged_params` through
 ``torch.func.functional_call``: the rollout and the no-grad replay merge the
 LoRA once per call, the training forward once per step with gradients; one
-merge code path, so all three see the same bits.
+merge code path, so all three see the same bits. A model that routes each
+step to one of several trained components (Wan2.2's two experts) picks them
+in :meth:`step_params` from the step's timestep as the host knows it.
 """
 from __future__ import annotations
 
@@ -47,6 +49,11 @@ logger = logging.getLogger(__name__)
 
 #: {component: {name: tensor}} — LoRA ``{path: {lora_A, lora_B}}`` or full weights
 Trainable = Dict[str, Dict[str, Any]]
+#: effective weights a velocity runs on (:meth:`BaseAdapter.merged_params`):
+#: {name: tensor} for ``functional_call``, ``{}`` the frozen weights; a model
+#: that routes each step to one of several components gives its own type
+#: (Wan2.2's ``WanExperts``), which :meth:`BaseAdapter.step_params` routes
+Params = Any
 
 
 class BaseAdapter(ABC):
@@ -228,7 +235,19 @@ class BaseAdapter(ABC):
         return [v for comp in sorted(trainable) for name in sorted(trainable[comp])
                 for v in _leaves(trainable[comp][name])]
 
-    def merged_params(self, component: str, trainable: Optional[Trainable] = None) -> Dict[str, torch.Tensor]:
+    def merged_params(self, component: str, trainable: Optional[Trainable] = None) -> Params:
+        """Effective weights the velocity of ``component`` runs on (families
+        with several trained components per velocity override: Wan2.2's MoE
+        gives both experts); by default :meth:`merge_component`."""
+        return self.merge_component(component, trainable)
+
+    def step_params(self, params, t_host: Optional[float]):
+        """The effective weights of one step at the host timestep ``t_host``
+        (None where the caller has no single one): ``params`` by default;
+        Wan2.2's MoE picks its expert here, with no device read."""
+        return params
+
+    def merge_component(self, component: str, trainable: Optional[Trainable] = None) -> Dict[str, torch.Tensor]:
         """Effective weights of ``component`` for ``functional_call`` (empty when
         it is not trained): LoRA merged into the frozen weights, or the full
         trainable weights. Differentiable in ``trainable`` when grad is on."""
@@ -395,7 +414,7 @@ class BaseAdapter(ABC):
         if self.is_lora:
             with torch.no_grad():
                 trainable = {comp: {**dict(self.modules[comp].named_parameters()),
-                                    **self.merged_params(comp, trainable)} for comp in trainable}
+                                    **self.merge_component(comp, trainable)} for comp in trainable}
         self._save_full(save_dir, trainable)
         logger.info("Exported merged weights to %s", save_dir)
 
@@ -562,7 +581,7 @@ class BaseAdapter(ABC):
         logprob_store_slot: np.ndarray,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
-        params: Optional[Dict[str, torch.Tensor]] = None,
+        params: Optional[Params] = None,
         *,
         do_cfg: bool,
         compute_log_prob: bool,
@@ -588,7 +607,7 @@ class BaseAdapter(ABC):
         x = x0
         for i in range(len(timesteps)):
             t = torch.full((B,), float(timesteps[i]), dtype=torch.float32, device=x.device)
-            v = self._velocity(x, t, embeds, guidance_scale, do_cfg, params)
+            v = self._velocity(x, t, embeds, guidance_scale, do_cfg, self.step_params(params, timesteps[i]))
             out = sde_step(
                 v, x, float(sigmas[i]), float(sigmas[i + 1]),
                 dynamics_type=dynamics_type,
@@ -628,7 +647,7 @@ class BaseAdapter(ABC):
         logprob_store_slot: np.ndarray,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
-        params: Optional[Dict[str, torch.Tensor]] = None,
+        params: Optional[Params] = None,
         *,
         do_cfg: bool,
         compute_log_prob: bool,
@@ -651,7 +670,7 @@ class BaseAdapter(ABC):
         carry = init_unipc_carry(x0)
         for i in range(len(timesteps)):
             t = torch.full((B,), float(timesteps[i]), dtype=torch.float32, device=x0.device)
-            v = self._velocity(carry.x, t, embeds, guidance_scale, do_cfg, params)
+            v = self._velocity(carry.x, t, embeds, guidance_scale, do_cfg, self.step_params(params, timesteps[i]))
             carry, x_next = unipc_eval_step(carry, v, float(sigmas[i]), float(sigmas[i + 1]),
                                             int(pred_orders[i]), int(corr_orders[i]))
             lat_buf[int(latent_store_slot[i + 1])] = x_next.to(st)
@@ -670,7 +689,7 @@ class BaseAdapter(ABC):
         guidance_scale: float,
         sigma_max,
         generator: Optional[torch.Generator] = None,
-        params: Optional[Dict[str, torch.Tensor]] = None,
+        params: Optional[Params] = None,
         *,
         do_cfg: bool,
         compute_log_prob: bool,
@@ -731,7 +750,7 @@ class BaseAdapter(ABC):
                 full(sigmas[i]), full(sigmas[i + 1]), full(noise_levels[i]),
                 {**embeds, **{bk: t[:, lat_map[i]].contiguous() for bk, t in streams.items()}},
                 float(first.extra_kwargs["guidance_scale"]),
-                full(sigmas[1] if len(sigmas) > 1 else 0.999), params=params,
+                full(sigmas[1] if len(sigmas) > 1 else 0.999), params=self.step_params(params, first.timesteps[i]),
                 do_cfg=do_cfg, compute_log_prob=True,
                 dynamics_type=self.scheduler.dynamics_type,
             )
@@ -746,23 +765,24 @@ class BaseAdapter(ABC):
         return {"latents": "all_latents"}
 
     def training_velocity(self, trainable: Optional[Trainable], batch: Dict[str, Any],
-                          params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                          params: Optional[Params] = None) -> torch.Tensor:
         """Velocity at arbitrary (latents, timestep), the decoupled trainers'
         forward (JAX ``models/abc.py:1152``), differentiable in ``trainable``
         when grad is on. ``params`` are effective weights the caller merged
         already (:meth:`merged_params`; one merge serves several forwards of
-        a step); ``{}`` runs the frozen weights, which the zero LoRA of the
-        reference policy merges into bit for bit."""
+        a step); the merge of the empty tree runs the frozen weights, which
+        the zero LoRA of the reference policy merges into bit for bit. ``batch["timestep_host"]``,
+        where the caller has one, is the step's timestep as a host float."""
         embeds = {k: batch[k] for k in self.embed_keys if k in batch}
         do_cfg = "negative_prompt_embeds" in embeds and bool(batch.get("do_cfg", True))
         if params is None:
             params = self.merged_params(self.velocity_component, trainable)
         return self._velocity(batch["latents"], batch["timestep"], embeds,
                               float(batch.get("guidance_scale", self.training_args.guidance_scale)),
-                              do_cfg, params)
+                              do_cfg, self.step_params(params, batch.get("timestep_host")))
 
     def training_velocity_tree(self, trainable: Optional[Trainable], batch: Dict[str, Any],
-                               params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                               params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
         """Velocity for every stream of :attr:`decoupled_latent_keys`, keyed
         like the batch's streams (JAX ``training_velocity_tree``)."""
         return {"latents": self.training_velocity(trainable, batch, params)}
@@ -781,14 +801,15 @@ class BaseAdapter(ABC):
         and :func:`sde_step` run exactly as in the rollout. ``batch`` holds
         device tensors (``latents``, ``next_latents``, ``timestep``, ``sigma``,
         ``sigma_next``, ``noise_level``, ``sigma_max``: (B,) fp32, embeds) and
-        the float ``guidance_scale``, and the transition's
+        the float ``guidance_scale``, the step's host timestep
+        ``timestep_host`` where the trainer has it, and the transition's
         :attr:`trajectory_batch_keys` streams, which the velocity reads."""
         embeds = {k: batch[k] for k in (*self.embed_keys, *self.trajectory_batch_keys) if k in batch}
         do_cfg = "negative_prompt_embeds" in embeds and bool(batch.get("do_cfg", True))
         params = self.merged_params(self.velocity_component, trainable)
         v = self._velocity(batch["latents"], batch["timestep"], embeds,
                            float(batch.get("guidance_scale", self.training_args.guidance_scale)),
-                           do_cfg, params)
+                           do_cfg, self.step_params(params, batch.get("timestep_host")))
         return sde_step(
             v, batch["latents"], batch["sigma"], batch["sigma_next"],
             dynamics_type=dynamics_type or self.scheduler.dynamics_type,

@@ -12,21 +12,20 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "sd3.5": "flow_factory_tpu_torch.models.sd3.adapter:SD35Adapter",
     "wan2-t2v": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
     "wan21": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
+    "wan22": "flow_factory_tpu_torch.models.wan.t2v:WanT2VAdapter",
+    "wan2-i2v": "flow_factory_tpu_torch.models.wan.i2v:WanI2VAdapter",
+    "wan2-v2v": "flow_factory_tpu_torch.models.wan.v2v:WanV2VAdapter",
     "flux1": "flow_factory_tpu_torch.models.flux.adapter:Flux1Adapter",
     "flux1-kontext": "flow_factory_tpu_torch.models.flux.kontext:Flux1KontextAdapter",
     "ltx2-t2av": "flow_factory_tpu_torch.models.ltx2.t2av:LTX2T2AVAdapter",
     "ltx2-i2av": "flow_factory_tpu_torch.models.ltx2.i2av:LTX2I2AVAdapter",
 }
-_WAN = "ROADMAP Queue 1 item 9 (the rest of Wan)"
 _NOT_PORTED: Dict[str, str] = {
     "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
     "flux2-klein": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
     "qwen-image": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
     "qwen-image-edit-plus": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
     "z-image": "ROADMAP Queue 1 item 10 (Z-Image)",
-    "wan2-i2v": _WAN,
-    "wan22": _WAN,
-    "wan2-v2v": _WAN,
 }
 
 

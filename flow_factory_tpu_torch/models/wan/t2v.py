@@ -1,4 +1,4 @@
-"""Wan 2.1 text→video adapter (port of ``flow_factory_tpu/models/wan/t2v.py``).
+"""Wan 2.x text→video adapter (port of ``flow_factory_tpu/models/wan/t2v.py``).
 
 5-D latents (B, T, H, W, C), UMT5 text conditioning (the 512 padded token
 embeddings as they come out of the encoder, with no attention mask, as the
@@ -8,14 +8,23 @@ FlowMatch-Euler SDE ones, an eval rollout runs the UniPC predictor-corrector
 (``rollout_compute``). Every component is random-initialised from the seed
 directly on the adapter's device in the inference dtype; the LoRA is merged
 once per rollout and the transformer runs on the merged weights through
-``functional_call``. Not ported, and raising if asked for: the Wan2.2 MoE
-(``transformer_2``, ``boundary_ratio``, ``guidance_scale_2``), the Wan2.2
-presets, the I2V image stream and the chunked decode.
+``functional_call``.
+
+Wan2.2-A14B's temporal MoE (``boundary_ratio``): two experts of one
+geometry, ``transformer`` for the low-noise steps and ``transformer_2`` for
+t ≥ boundary_ratio · 1000 (compared in fp32, as JAX's ``lax.cond`` does),
+each with its own LoRA, and ``guidance_scale_2`` the low-noise expert's CFG
+scale. The step's expert is chosen on the host from the timestep the
+rollout, the replay and the trainer already hold (:meth:`step_params`), and
+an expert's LoRA is merged the first time a call routes to it, so a grad
+step merges (and differentiates) the routed expert only: the other one's
+LoRA gets zero gradients, as under ``lax.cond``. Long clips decode in
+chunks (``VideoVAE.decode_chunked``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,25 +50,63 @@ WAN_LORA_TARGETS = (
 
 
 def _preset(name: str, attn_backend: str, dtype: str) -> Dict[str, Any]:
+    """The JAX package's presets (``wan/t2v.py:38-84``)."""
+    umt5 = dict(t5=T5Config.umt5_xxl(dtype=dtype), t5_max_length=512)
     if name == "tiny":
         return dict(
             transformer=WanConfig.tiny(attn_backend=attn_backend, dtype=dtype, context_dim=32),
             vae=VideoVAEConfig.tiny(latent_channels=16, dtype=dtype),
             t5=T5Config.tiny(hidden_dim=32, num_heads=2, head_dim=8, dtype=dtype),
             t5_max_length=16,
+            boundary_ratio=None,
         )
     if name in ("1.3b", "wan2.1-1.3b", "t2v-1.3b", "14b", "wan2.1-14b"):
         big = name.startswith("14") or name == "wan2.1-14b"
-        return dict(
-            transformer=(WanConfig.wan21_14b if big else WanConfig.wan21_1_3b)(
-                attn_backend=attn_backend, dtype=dtype),
-            vae=VideoVAEConfig.wan(dtype=dtype),
-            t5=T5Config.umt5_xxl(dtype=dtype),
-            t5_max_length=512,
-        )
-    if name in ("wan2.2-a14b", "a14b", "wan2.2-ti2v-5b", "ti2v-5b", "5b"):
-        raise NotImplementedError(f"the Wan2.2 preset {name!r} is not ported yet")
+        return dict(transformer=(WanConfig.wan21_14b if big else WanConfig.wan21_1_3b)(
+            attn_backend=attn_backend, dtype=dtype), vae=VideoVAEConfig.wan(dtype=dtype), boundary_ratio=None, **umt5)
+    if name in ("wan2.2-a14b", "a14b"):
+        return dict(transformer=WanConfig.wan21_14b(attn_backend=attn_backend, dtype=dtype),
+                    vae=VideoVAEConfig.wan(dtype=dtype), boundary_ratio=0.875, **umt5)  # high-noise expert above t 875
+    if name in ("wan2.2-ti2v-5b", "ti2v-5b", "5b"):
+        # a dense 5B DiT over the 48-channel 16x16x4 VAE; its TI2V
+        # conditioning (expand_timesteps) lives in the I2V adapter
+        return dict(transformer=WanConfig(in_channels=48, out_channels=48, hidden_dim=3072, ffn_dim=14336,
+                                          num_heads=24, num_layers=30, axes_dim=(44, 42, 42),
+                                          attn_backend=attn_backend, dtype=dtype),
+                    vae=VideoVAEConfig.wan22_5b(dtype=dtype), boundary_ratio=None, **umt5)
     raise ValueError(f"Unknown Wan preset {name!r}")
+
+
+def _overridden(cfg, overrides):
+    """A config with a YAML override dict applied (lists become tuples)."""
+    if not overrides:
+        return cfg
+    return dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v for k, v in dict(overrides).items()})
+
+
+class Routed(NamedTuple):
+    """One step's expert: its module name, its effective weights, and
+    whether it is the high-noise expert (CFG at ``guidance_scale``)."""
+
+    component: str
+    params: Dict[str, torch.Tensor]
+    high: bool
+
+
+class WanExperts:
+    """The MoE's one kind of effective weights, for the trained, the frozen
+    and the reference policies alike: each expert's merge of ``trainable``
+    (``{}``: no LoRA, the frozen experts) made the first time a step routes
+    to it, then kept for the rest of the call (a rollout merges each expert
+    at most once). :meth:`WanT2VAdapter.step_params` routes it."""
+
+    def __init__(self, adapter: "WanT2VAdapter", trainable):
+        self._adapter, self._trainable, self._merged = adapter, trainable, {}
+
+    def __getitem__(self, component: str) -> Dict[str, torch.Tensor]:
+        if component not in self._merged:
+            self._merged[component] = self._adapter.merge_component(component, self._trainable)
+        return self._merged[component]
 
 
 class WanT2VAdapter(BaseAdapter):
@@ -73,24 +120,31 @@ class WanT2VAdapter(BaseAdapter):
     # ------------------------------------------------------------------
     def load_models(self) -> None:
         ma = self.model_args
-        if getattr(ma, "boundary_ratio", None) or getattr(self.training_args, "guidance_scale_2", None):
-            raise NotImplementedError("the Wan2.2 MoE (boundary_ratio, guidance_scale_2) is not ported yet")
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "1.3b")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
+        # explicit config knobs win (JAX wan/t2v.py:161-174): e.g. Wan 2.2's
+        # `vae_overrides`, or a depth cut at full width, `transformer_overrides:
+        # {num_layers: 8}`
+        preset["vae"] = _overridden(preset["vae"], getattr(ma, "vae_overrides", None))
+        tcfg = _overridden(preset["transformer"], getattr(ma, "transformer_overrides", None))
         if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
-            preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
+            tcfg = dataclasses.replace(tcfg, remat=True)
+        tcfg = self.transformer_config(tcfg, preset["vae"])
         self.t5_max_length = preset["t5_max_length"]
+        self.boundary_ratio = getattr(ma, "boundary_ratio", None) or preset["boundary_ratio"]
         self.component_configs = {
-            "transformer": preset["transformer"],
+            "transformer": tcfg,
             "vae": preset["vae"],
             "text_encoder": preset["t5"],
         }
         factories = {
-            "transformer": lambda: WanTransformer(preset["transformer"]),
+            "transformer": lambda: WanTransformer(tcfg),
             "vae": lambda: VideoVAE(preset["vae"]),
             "text_encoder": lambda: T5Encoder(preset["t5"]),
         }
+        if self.boundary_ratio is not None:  # the high-noise expert, initialised from its own generator
+            factories["transformer_2"] = lambda: WanTransformer(tcfg)
         wanted = getattr(ma, "load_components", None)
         seed = self.training_args.seed
         self.modules = {
@@ -105,8 +159,42 @@ class WanT2VAdapter(BaseAdapter):
         self.vae_spatial_down = vcfg.spatial_down
         self.vae_temporal_down = vcfg.temporal_down
 
+    def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig) -> WanConfig:
+        """The DiT's config from the preset's (the conditioned adapters widen it)."""
+        return cfg
+
+    @property
+    def is_moe(self) -> bool:
+        return self.boundary_ratio is not None and "transformer_2" in self.modules
+
+    @property
+    def trainable_components(self) -> Tuple[str, ...]:
+        # the MoE trains both experts (JAX wan/t2v.py:233-240)
+        comps = super().trainable_components
+        return ("transformer", "transformer_2") if self.is_moe and comps == ("transformer",) else comps
+
     def weight_maps(self):
         return wan_t2v_component_maps(self.component_configs)
+
+    def merged_params(self, component: str, trainable=None):
+        """The MoE gives both experts (JAX ``merged_params``, ``wan/t2v.py:328-335``),
+        merged lazily, ``trainable={}`` the frozen ones; otherwise the
+        component's merge."""
+        if component == "transformer" and self.is_moe:
+            return WanExperts(self, self.trainable if trainable is None else trainable)
+        return super().merged_params(component, trainable)
+
+    def routes_high(self, t: float) -> bool:
+        """Whether timestep ``t`` goes to the high-noise expert: t ≥
+        boundary_ratio · 1000, both in fp32."""
+        return bool(np.float32(t) >= np.float32(self.boundary_ratio * 1000.0))
+
+    def step_params(self, params, t_host):
+        if isinstance(params, WanExperts) and t_host is not None:
+            high = self.routes_high(t_host)
+            comp = "transformer_2" if high else "transformer"
+            return Routed(comp, params[comp], high)
+        return params
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         # Wan: a static flow shift (no resolution-dependent mu)
@@ -142,13 +230,30 @@ class WanT2VAdapter(BaseAdapter):
     # Velocity
     # ------------------------------------------------------------------
     def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
-        model = self.modules["transformer"]
+        """``params``: the dense transformer's effective weights, or on the
+        MoE a :class:`Routed` expert, or its :class:`WanExperts` where the
+        caller had no host timestep: then row 0's t (with per-frame t, its
+        largest) is read from the device, as JAX routes."""
+        if isinstance(params, WanExperts):
+            t0 = t[0] if t.ndim == 1 else t[0].max()
+            params = self.step_params(params, float(t0))
+        if isinstance(params, Routed):
+            comp, params, high = params
+        elif self.is_moe:
+            raise TypeError("the MoE's velocity takes its experts (merged_params) or one routed expert "
+                            f"(step_params), not {type(params).__name__}")
+        else:
+            comp, high = "transformer", True
+        model = self.modules[comp]
         dt = self.component_configs["transformer"].compute_dtype
         run = lambda *args: functional_call(model, params, args) if params else model(*args)
         if do_cfg:
             ctx = torch.cat([embeds["negative_prompt_embeds"], embeds["prompt_embeds"]]).to(dt)
             v = run(torch.cat([latents, latents]).to(dt), torch.cat([t, t]), ctx).float()
             v_uncond, v_cond = v.chunk(2)
+            g2 = getattr(self.training_args, "guidance_scale_2", None)
+            if self.is_moe and g2 is not None and not high:  # the low-noise expert's own CFG scale
+                guidance_scale = float(g2)
             return v_uncond + guidance_scale * (v_cond - v_uncond)
         return run(latents.to(dt), t, embeds["prompt_embeds"].to(dt)).float()
 
@@ -181,6 +286,7 @@ class WanT2VAdapter(BaseAdapter):
         trainable=None,
         store_means: bool = False,
         decode: bool = True,
+        extra_embeds: Optional[Dict[str, Any]] = None,
         **_,
     ) -> List[T2VSample]:
         """Full rollout → host-resident samples with trajectories, log-probs
@@ -188,7 +294,10 @@ class WanT2VAdapter(BaseAdapter):
         (default: seeded from ``seed``; one per row for per-prompt eval
         noise, :meth:`initial_latents`); ``x0`` and per-step ``noise``
         replace its draws when given. In eval mode the scheduler's UniPC
-        predictor-corrector runs and the log-probs are zeros."""
+        predictor-corrector runs and the log-probs are zeros.
+        ``extra_embeds`` ({key: (B, ...)}) join the embeds every step's
+        velocity reads, and each sample keeps its row of them in
+        ``extra_kwargs`` (the I2V/V2V ``cond_latents``)."""
         ta = self.training_args
         height = height or ta.height
         width = width or ta.width
@@ -205,6 +314,8 @@ class WanT2VAdapter(BaseAdapter):
         embeds = {"prompt_embeds": self._on_device(prompt_embeds)}
         if do_cfg:
             embeds["negative_prompt_embeds"] = self._on_device(negative_prompt_embeds)
+        extra_embeds = {k: self._on_device(v) for k, v in (extra_embeds or {}).items()}
+        embeds.update(extra_embeds)
         B = embeds["prompt_embeds"].shape[0]
 
         shape = self.latent_shape(height, width, num_frames)
@@ -241,6 +352,7 @@ class WanT2VAdapter(BaseAdapter):
                 "noise_levels": np.asarray(noise_levels, np.float32),
                 "guidance_scale": g,
                 "num_frames": num_frames,
+                **{k: host[k][i] for k in extra_embeds},
             }
             if mean_np is not None:
                 extra["next_latents_mean"] = mean_np[:, i]
@@ -266,10 +378,15 @@ class WanT2VAdapter(BaseAdapter):
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, num_frames: Optional[int] = None, fetch: bool = True):
         """(B, Tl, h, w, c) latents → (B, T, C, H, W) videos in [0, 1]; host
-        numpy when ``fetch``, else the device tensor."""
-        if getattr(self.model_args, "vae_decode_chunk", 0) or latents.shape[1] > 16:
-            raise NotImplementedError("the chunked video decode (clips past 16 latent frames) is not ported yet")
-        video = self.modules["vae"].decode(latents.float(), num_frames)  # (B, C, T, H, W)
+        numpy when ``fetch``, else the device tensor. ``model.vae_decode_chunk``
+        latent frames at a time (8 past 16 latent frames), with 8 of left
+        context: the same frames, less activation memory."""
+        chunk = int(getattr(self.model_args, "vae_decode_chunk", 0) or 0)
+        if not chunk and latents.shape[1] > 16:
+            chunk = 8
+        vae = self.modules["vae"]
+        latents = self._on_device(latents)
+        video = vae.decode_chunked(latents, chunk, 8, num_frames) if chunk else vae.decode(latents, num_frames)
         video = torch.clamp(video.float() / 2.0 + 0.5, 0.0, 1.0).permute(0, 2, 1, 3, 4)
         return video.cpu().numpy() if fetch else video
 

@@ -17,8 +17,10 @@ things follow the JAX package exactly: the modulation table and
 multiply; the context is cast to the compute dtype before the text
 embedder. ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``; the JAX package's ``nn.remat(WanBlock)``,
-``wan/transformer.py:242``). Per-token timesteps (Wan2.2 TI2V) and the
-I2V image stream are not ported and raise.
+``wan/transformer.py:242``). Per-frame timesteps (Wan2.2 TI2V, a (B, gt)
+``timestep``) give per-token AdaLN modulations, frame-major like the tokens,
+which K5 takes as (B, L, D) shift and scale. The Wan2.1 I2V CLIP image
+stream is not ported and raises.
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ class WanConfig:
     context_dim: int = 4096  # UMT5
     freq_dim: int = 256
     axes_dim: Tuple[int, ...] = (44, 42, 42)  # rope dims for (t, h, w); sums to head_dim
+    rope_theta: float = 10000.0
+    qk_norm: bool = True
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
     remat: bool = False  # gradient checkpointing (recompute each block in the backward)
@@ -99,15 +103,17 @@ class WanAttention(nn.Module):
         self.to_q = HeadProj(D, H, E, dt)
         self.to_k = HeadProj(D, H, E, dt)
         self.to_v = HeadProj(D, H, E, dt)
-        self.norm_q = AcrossHeadsQKNorm(D)
-        self.norm_k = AcrossHeadsQKNorm(D)
+        if cfg.qk_norm:
+            self.norm_q = AcrossHeadsQKNorm(D)
+            self.norm_k = AcrossHeadsQKNorm(D)
         self.to_out = nn.ModuleList([MergeProj(D, D, compute_dtype=dt)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         kv = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(kv), self.to_v(kv)
-        q, k = self.norm_q(q), self.norm_k(k)
+        if hasattr(self, "norm_q"):
+            q, k = self.norm_q(q), self.norm_k(k)
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         return self.to_out[0](dot_product_attention(q, k, v, backend=self.attn_backend))
@@ -128,15 +134,21 @@ class WanBlock(nn.Module):
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, x, context, temb6, cos, sin):
-        """x (B, L, D); context (B, Lc, D); temb6 (B, 6, D) fp32."""
+        """x (B, L, D); context (B, Lc, D); temb6 (B, 6, D) fp32, or (B, L, 6,
+        D) with per-frame timesteps: then every shift, scale and gate is per
+        token."""
         dt = self.compute_dtype
-        mods = self.scale_shift_table.float() + temb6.float()
-        shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = mods.unbind(1)
+        table = self.scale_shift_table.float()
+        if temb6.ndim == 4:
+            mods, tok = table[:, None] + temb6.float(), (lambda m: m)
+        else:
+            mods, tok = table + temb6.float(), (lambda m: m[:, None])
+        shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = mods.unbind(-2)
         h = adaln_modulate(x, shift_sa, scale_sa, out_dtype=dt)
-        x = x + gate_sa[:, None].to(x.dtype) * self.attn1(h, rope=(cos, sin))
+        x = x + tok(gate_sa).to(x.dtype) * self.attn1(h, rope=(cos, sin))
         x = x + self.attn2(self.norm2(x), context.to(dt))
         h = adaln_modulate(x, shift_ff, scale_ff, out_dtype=dt)
-        return x + gate_ff[:, None].to(x.dtype) * self.ffn(h)
+        return x + tok(gate_ff).to(x.dtype) * self.ffn(h)
 
 
 class WanTimeTextEmbedding(nn.Module):
@@ -154,12 +166,14 @@ class WanTimeTextEmbedding(nn.Module):
 
 class WanTransformer(nn.Module):
     """Video DiT. Input (B, T, H, W, C) channel-last; timestep (B,) in the
-    scheduler's [0, 1000] scale; context (B, Lc, context_dim)."""
+    scheduler's [0, 1000] scale, or (B, T / pt) per latent frame; context
+    (B, Lc, context_dim)."""
 
     def __init__(self, cfg: WanConfig):
         super().__init__()
         if cfg.image_context_tokens:
-            raise NotImplementedError("the Wan2.1 I2V image stream is not ported yet")
+            raise NotImplementedError("the Wan2.1 I2V CLIP image stream is not ported yet: ROADMAP Queue 1 item 16 "
+                                      "(after Queue 2 item 1's head dim 80)")
         self.cfg = cfg
         D, dt = cfg.hidden_dim, cfg.compute_dtype
         self.patch_embedding = nn.Conv3d(cfg.in_channels, D, cfg.patch_size, stride=cfg.patch_size)
@@ -176,8 +190,6 @@ class WanTransformer(nn.Module):
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.compute_dtype
-        if timestep.ndim != 1:
-            raise NotImplementedError("per-frame timesteps (Wan2.2 TI2V) are not ported yet")
         B, T, H, W, C = latents.shape
         pt, ph, pw = cfg.patch_size
         gt, gh, gw = T // pt, H // ph, W // pw
@@ -189,8 +201,14 @@ class WanTransformer(nn.Module):
         x = F.linear(x.reshape(B, gt * gh * gw, pt * ph * pw * C), weight, self.patch_embedding.bias.to(dt))
 
         ce = self.condition_embedder
-        temb = ce.time_embedder(timestep)
-        temb6 = ce.time_proj(F.silu(temb)).reshape(B, 6, D)
+        per_frame = timestep.ndim == 2
+        temb = ce.time_embedder(timestep.reshape(-1))
+        temb6 = ce.time_proj(F.silu(temb))
+        if per_frame:  # (B, gt) → per-token modulations, tokens frame-major
+            temb = temb.reshape(B, gt, D)
+            temb6 = temb6.reshape(B, gt, 6, D).repeat_interleave(gh * gw, dim=1)
+        else:
+            temb6 = temb6.reshape(B, 6, D)
         context = ce.text_embedder["linear_2"](
             F.gelu(ce.text_embedder["linear_1"](encoder_hidden_states.to(dt)), approximate="tanh"))
 
@@ -198,15 +216,20 @@ class WanTransformer(nn.Module):
         ids = torch.stack([torch.arange(gt, device=dev).repeat_interleave(gh * gw),
                            torch.arange(gh, device=dev).repeat_interleave(gw).repeat(gt),
                            torch.arange(gw, device=dev).repeat(gt * gh)], dim=-1)
-        cos, sin = rope_frequencies(ids, cfg.axes_dim)
+        cos, sin = rope_frequencies(ids, cfg.axes_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = (checkpointed(block, x, context, temb6, cos, sin) if remat
                  else block(x, context, temb6, cos, sin))
 
         # head: (1, 2, D) table + the raw time embedding, shift first
-        head_mod = self.scale_shift_table.float() + temb[:, None, :].float()
-        x = adaln_modulate(x, head_mod[:, 0], head_mod[:, 1], out_dtype=torch.float32)
+        if per_frame:
+            head_mod = self.scale_shift_table.float()[:, None] + temb.float().repeat_interleave(gh * gw, dim=1)[:, :, None]
+            shift, scale = head_mod[:, :, 0], head_mod[:, :, 1]  # (B, L, D)
+        else:
+            head_mod = self.scale_shift_table.float() + temb[:, None, :].float()
+            shift, scale = head_mod[:, 0], head_mod[:, 1]
+        x = adaln_modulate(x, shift, scale, out_dtype=torch.float32)
         x = self.proj_out(x)
         x = x.reshape(B, gt, gh, gw, pt, ph, pw, cfg.out_channels).permute(0, 1, 4, 2, 5, 3, 6, 7)
         return x.reshape(B, T, H, W, cfg.out_channels)

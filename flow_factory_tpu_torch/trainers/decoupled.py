@@ -76,10 +76,13 @@ class DecoupledTrainer(BaseTrainer):
         raise NotImplementedError
 
     def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
-        """((loss, aux), gradients in ``trainable_leaves`` order)."""
+        """((loss, aux), gradients in ``trainable_leaves`` order); a leaf the
+        loss does not reach (the expert a Wan2.2 step did not route to) gets
+        zeros, as under ``jax.grad``."""
         loss, aux = self.loss_fn(trainable, batch, ref_trainable)
-        grads = torch.autograd.grad(loss, self.adapter.trainable_leaves(trainable))
-        return (loss.detach(), aux), list(grads)
+        leaves = self.adapter.trainable_leaves(trainable)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (loss.detach(), aux), [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
     def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]:
         ta = self.training_args
@@ -208,15 +211,16 @@ class DecoupledTrainer(BaseTrainer):
         keys = set().union(*infos)
         return reduce_loss_info({k: [float(i[k]) for i in infos if k in i] for k in keys})
 
-    def ref_params(self, ref_trainable: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
-        """Effective weights of the reference policy: ``{}`` (the frozen
-        weights) when ``ref_trainable`` is None, the LoRA case, since the zero
-        LoRA's merge ``(W.float() + 0).to(W.dtype)`` is W bit for bit and
-        needs no second copy of the targeted weights; else the reference
-        tree merged."""
-        if ref_trainable is None:
-            return {}
-        return self.adapter.merged_params(self.adapter.velocity_component, ref_trainable)
+    def ref_params(self, ref_trainable: Optional[Dict[str, Any]]):
+        """Effective weights of the reference policy (:meth:`merged_params`):
+        the merge of the empty tree, i.e. the frozen weights, when
+        ``ref_trainable`` is None, the LoRA case, since the zero LoRA's merge
+        ``(W.float() + 0).to(W.dtype)`` is W bit for bit and needs no second
+        copy of the targeted weights (on Wan2.2's MoE both frozen experts,
+        routed per step as the trained ones are); else the reference tree
+        merged."""
+        ad = self.adapter
+        return ad.merged_params(ad.velocity_component, {} if ref_trainable is None else ref_trainable)
 
     def reference_trainable(self) -> Optional[Dict[str, Any]]:
         """The reference policy's tree for :meth:`ref_params`: None for LoRA

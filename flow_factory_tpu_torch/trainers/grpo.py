@@ -122,6 +122,7 @@ class GRPOTrainer(BaseTrainer):
                     old_log_prob=s["old_lps"][:, lpi],
                     advantage=s["adv"],
                     timestep=full(timesteps[t_idx]),
+                    timestep_host=float(timesteps[t_idx]),  # for a model that routes on it (Wan2.2's MoE)
                     sigma=full(sigmas[t_idx]),
                     sigma_next=full(sigmas[t_idx + 1]),
                     noise_level=full(noise_levels[t_idx]),

@@ -37,6 +37,15 @@ def is_image_single(x: Any) -> bool:
     return is_pil_image(x) or (isinstance(x, np.ndarray) and x.ndim == 3)
 
 
+def is_video_single(x: Any) -> bool:
+    """One video: a 4-D array, or a non-empty list of PIL frames."""
+    if isinstance(x, np.ndarray) and x.ndim == 4:
+        return True
+    if isinstance(x, (list, tuple)) and len(x) > 0:
+        return all(is_pil_image(f) for f in x)
+    return False
+
+
 # ---------------------------------------------------------------------------
 # Conversions
 # ---------------------------------------------------------------------------
@@ -91,6 +100,19 @@ def to_video_array(video: Any) -> np.ndarray:
     if isinstance(video, (list, tuple)):
         return np.stack([_chw_from_any(f) for f in video], axis=0)
     raise ValueError(f"Cannot canonicalize video of type {type(video)}")
+
+
+def standardize_video_batch(videos: Any, output_type: str = "np") -> np.ndarray:
+    """Anything video-like (one video, a (B, T, ...) array or a list of
+    videos) → a (B, T, C, H, W) float32 batch in [0, 1] (JAX
+    ``utils/media.py:158``; its ``"pil"`` output has no caller here)."""
+    if output_type != "np":
+        raise ValueError(f"Unknown output_type {output_type!r}")
+    if is_video_single(videos) and not (isinstance(videos, (list, tuple)) and is_video_single(videos[0])):
+        return to_video_array(videos)[None]
+    if (isinstance(videos, np.ndarray) and videos.ndim == 5) or isinstance(videos, (list, tuple)):
+        return np.stack([to_video_array(v) for v in videos], axis=0)
+    raise ValueError(f"Cannot standardize videos of type {type(videos)}")
 
 
 def to_audio_array(audio: Any) -> np.ndarray:

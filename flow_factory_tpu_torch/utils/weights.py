@@ -251,7 +251,7 @@ def wan_transformer_map(num_layers: int, patch_size=(1, 2, 2)) -> Tuple[ModuleMa
 
 
 def wan_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
-    """The Wan 2.1 video VAE (inverse of the JAX ``wan_vae_key_map``,
+    """The Wan 2.1 and 2.2 video VAE (inverse of the JAX ``wan_vae_key_map``,
     ``utils/checkpoint.py:1176``): flax ``.../conv`` scopes of the causal
     convs are the port's Conv3d modules themselves."""
     m: ModuleMap = {}
@@ -286,6 +286,23 @@ def wan_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
 
     n_spatial = len(cfg.channel_mults) - 1
     t_flags = cfg.temporal_down_flags()
+    if cfg.resample_residual:  # Wan 2.2: one residual stage a multiplier, the shortcuts parameter-free
+        for side, mults, flags, extra, prev in (
+                ("encoder", tuple(cfg.channel_mults), t_flags, 0, cfg.base_channels),
+                ("decoder", tuple(reversed(cfg.channel_mults)), tuple(reversed(t_flags)), 1,
+                 cfg.base_channels * cfg.channel_mults[-1])):
+            blocks, resampler = ("down_blocks", "downsampler") if side == "encoder" else ("up_blocks", "upsampler")
+            for i, mult in enumerate(mults):
+                ch = cfg.base_channels * mult
+                src, dst = f"{side}/{blocks}_{i}", f"{side}.{blocks}.{i}"
+                for j in range(cfg.layers_per_block + extra):
+                    resblock(f"{src}/resnets_{j}", f"{dst}.resnets.{j}", j == 0 and prev != ch)
+                prev = ch
+                if i < n_spatial:
+                    resample(f"{src}/{resampler}", f"{dst}.{resampler}", flags[i])
+                    if side == "decoder":
+                        prev = ch // 2
+        return m, {}
     for side, mults, flags, extra, scale, prev in (
             ("encoder", tuple(cfg.channel_mults), t_flags, 0, 1.0, cfg.base_channels),
             ("decoder", tuple(reversed(cfg.channel_mults)), tuple(reversed(t_flags)), 1,
@@ -312,10 +329,15 @@ def wan_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
 
 
 def wan_t2v_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
-    """Module maps for every Wan T2V adapter component, keyed like ``adapter.params``."""
+    """Module maps for every Wan adapter component, keyed like ``adapter.params``:
+    the Wan2.2 MoE's ``transformer_2`` takes the same map as ``transformer``,
+    and a widened patch embedding (I2V/V2V's 33 input channels, TI2V's 48)
+    goes through the same reshape."""
     t = configs["transformer"]
+    dit = wan_transformer_map(t.num_layers, t.patch_size)
     return {
-        "transformer": wan_transformer_map(t.num_layers, t.patch_size),
+        "transformer": dit,
+        "transformer_2": dit,
         "text_encoder": t5_encoder_map(configs["text_encoder"].num_layers,
                                        configs["text_encoder"].per_layer_rel_bias),
         "vae": wan_vae_map(configs["vae"]),

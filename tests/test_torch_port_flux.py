@@ -445,5 +445,5 @@ def test_every_jax_model_type_resolves_or_names_its_item():
             continue
         assert cls.__name__ == target.split(":")[1], key
         ported.append(key)
-    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "sd3-5", "sd3.5", "wan2-t2v",
-                              "wan21"]
+    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "sd3-5", "sd3.5", "wan2-i2v",
+                              "wan2-t2v", "wan2-v2v", "wan21", "wan22"]

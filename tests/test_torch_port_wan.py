@@ -252,22 +252,25 @@ def test_video_vae_encode_and_decode_match_jax_through_bridge(mults, temporal_do
 
 
 def test_not_ported_wan_options_raise():
+    """What of Wan is still not ported raises naming its ROADMAP item: the
+    Wan2.1-I2V CLIP image stream, in the DiT and as the I2V adapter's
+    ``use_image_encoder``. The Wan2.2 presets, its VAE, per-frame
+    timesteps and the MoE build (``tests/test_torch_port_wan22.py`` holds
+    them to JAX)."""
     from flow_factory_tpu_torch.models.wan.t2v import _preset
     from flow_factory_tpu_torch.models.wan.transformer import WanConfig, WanTransformer
     from flow_factory_tpu_torch.models.wan.video_vae import VideoVAE, VideoVAEConfig
 
-    with pytest.raises(NotImplementedError):
-        _preset("wan2.2-a14b", "auto", "bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 16"):
         WanTransformer(WanConfig.tiny(image_context_tokens=4))
-    with pytest.raises(NotImplementedError):
-        VideoVAE(VideoVAEConfig.tiny(spatial_patch=2))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        _tiny_wan_port(model={"model_type": "wan2-i2v", "use_image_encoder": True})
+    assert _preset("wan2.2-a14b", "auto", "bfloat16")["boundary_ratio"] == 0.875
+    VideoVAE(VideoVAEConfig.tiny(spatial_patch=2))
     tm = build_module(lambda: WanTransformer(WanConfig.tiny(dtype="float32")), torch.device("cpu"),
                       torch.float32, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 2, 4, 4, 16), torch.zeros(1, 2), torch.zeros(1, 3, 48))
-    with pytest.raises(NotImplementedError):
-        _tiny_wan_port(model={"boundary_ratio": 0.875})
+    assert tm(torch.zeros(1, 2, 4, 4, 16), torch.zeros(1, 2), torch.zeros(1, 3, 48)).shape == (1, 2, 4, 4, 16)
+    assert _tiny_wan_port(model={"boundary_ratio": 0.875}).trainable_components == ("transformer", "transformer_2")
 
 
 # ---------------------------------------------------------------------------
