@@ -158,13 +158,29 @@ printing one line and exiting non-zero on failure:
    a rollout on condition clips given as arrays, its replay and an
    optimize phase. Each: launches as predicted, ratio exactly 1.0, peak
    memory, seconds, a profiled grad step.
+8f. qwen-kernels (run right after 8e): K3 at B 16 x 1536 tokens (Z-Image
+   and Qwen-Image at 512 px) and B 8 x 3151 (Edit-Plus, ragged), K2a/K2b at
+   B 16 x 1536 and B 4 x 3151, K5 and its backward at width 3072 (the
+   AdaLN norms of both, Z-Image's final layer to fp32), through the checks
+   of 2;
+16. qwen-grad, z-image, qwen-image, qwen-edit: the LoRA gradients of both
+   transformers at width 3072, depth 2; Z-Image at full size on
+   tests/fixtures/z_image_grpo.yaml (two GRPO epochs, then the Turbo
+   serving rollout and its replay); Qwen-Image at full width, 24 double
+   blocks (tests/fixtures/qwen_image_cut) on
+   tests/fixtures/qwen_image_grpo.yaml (a serving rollout and its replay,
+   two epochs); Qwen-Image-Edit-Plus with the full vision tower on
+   tests/fixtures/qwen_image_edit_plus_grpo.yaml (the vision scatter, one
+   epoch at the joint length 3151). Each: launches as predicted, ratio
+   exactly 1.0, the negatives on every sample, peak memory, seconds, a
+   profiled grad step.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
-FLUX.1-Kontext, B 8, LTX-2 and Wan2.2 shapes nested under their kernels'
-entries, with their launches in the DPO epochs, the three Kontext phases,
-the DGPO or CRD epochs, the LTX-2 T2AV epochs and the TI2V-5B I2V or A14B
-T2V epochs); the last line is ``{"ok": true,
-"device": {...}}``.
+FLUX.1-Kontext, B 8, LTX-2, Wan2.2 and Qwen/Z-Image shapes nested under
+their kernels' entries, with their launches in the DPO epochs, the three
+Kontext phases, the DGPO or CRD epochs, the LTX-2 T2AV epochs, the TI2V-5B
+I2V or A14B T2V epochs and the Qwen/Z-Image epochs); the last line is
+``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
 
@@ -176,7 +192,9 @@ does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone;
 ``python3 chip_smoke.py --decoupled`` the build, 8c and 12;
 ``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14;
-``python3 chip_smoke.py --wan22`` the build, 8e and 15.
+``python3 chip_smoke.py --wan22`` the build, 8e and 15;
+``python3 chip_smoke.py --qwen`` and/or ``--z-image`` the build, 8f and
+16 (Qwen-Image and Edit-Plus, and/or Z-Image).
 """
 from __future__ import annotations
 
@@ -992,6 +1010,8 @@ def _norm_timings(results: dict, kernel: str, tag: str, shape: NormShape, k6: bo
         xl = x.detach().clone().requires_grad_()
         lib_ms = time_ms(lambda: F.rms_norm(x, (D,), None, eps))
         lib_bwd_ms = time_ms(lambda: torch.autograd.grad(F.rms_norm(xl, (D,), None, eps), (xl,), g.to(x.dtype)))
+    # the modulated LayerNorm has no one-call equivalent: F.layer_norm alone, logged as a yardstick only
+    yard_ms = None if fold or rms else time_ms(lambda: F.layer_norm(x, (x.shape[-1],), None, None, eps))
     # fp32 operations an element (two sums, centring, scaling, modulation;
     # the backward's two more sums and its dx terms; K6 its residual and dbranch)
     flops = x.numel() * (12 if k6 else 10), x.numel() * (18 if k6 else 14)
@@ -1007,8 +1027,9 @@ def _norm_timings(results: dict, kernel: str, tag: str, shape: NormShape, k6: bo
         replaces=f"flow_factory_tpu/ops/norms.py:{line[1]}", max_abs_err=bwd_err, ms=bwd_ms,
         plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by, library_ms=lib_bwd_ms))
     lib = lambda v: "none" if v is None else f"{v:.4f} ms"
+    yard = "" if yard_ms is None else f" (F.layer_norm alone, a yardstick without the modulation: {yard_ms:.4f} ms)"
     log(f"[kernels] {tag} forward: kernel {ms:.4f} ms (events) | plain {plain_ms:.3f} ms | library "
-        f"{lib(lib_ms)} | bound {fwd_bound:.4f} ms ({nbytes(*fwd_tensors) / ms / 1e6:.0f} GB/s)")
+        f"{lib(lib_ms)}{yard} | bound {fwd_bound:.4f} ms ({nbytes(*fwd_tensors) / ms / 1e6:.0f} GB/s)")
     log(f"[kernels] {tag} backward {needs}: kernel {bwd_ms:.4f} ms (events) | plain {plain_bwd_ms:.3f} ms | "
         f"autograd through the plain forward (the parent's backward) {eager_ms:.3f} ms | library "
         f"{lib(lib_bwd_ms)} | bound {bwd_bound:.4f} ms ({bwd_bytes / bwd_ms / 1e6:.0f} GB/s)")
@@ -1276,12 +1297,13 @@ def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: 
     errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
     del ref
     d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
-    if tag in ("wan-self", "flux-512px", "kontext-2560") or (tag.startswith("wan22") and tag.endswith("-self")):
+    if tag in ("wan-self", "flux-512px", "kontext-2560", "qwen-1536") or (
+            tag.startswith("wan22") and tag.endswith("-self")):
         zero = torch.zeros_like(delta)
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
                              (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
                               *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
-    if tag in ("ragged-d128", "kontext-ragged") or (tag.startswith("ltx2") and Sk % 64):
+    if tag in ("ragged-d128", "kontext-ragged", "qwen-edit-3151") or (tag.startswith("ltx2") and Sk % 64):
         # the kernels' last whole key tile; under one tile (LTX-2's 9 audio
         # keys) a plain version without the last key
         n = Sk // 64 * 64 if Sk > 64 else Sk - 1
@@ -4001,8 +4023,9 @@ def _wan22_sizes(tag: str, ad, load_s: float) -> None:
     tcfg = ad.component_configs["transformer"]
     lora = ad.trainable
     sizes = {comp: round(sum(p.numel() for p in m.parameters()) / 1e9, 3) for comp, m in ad.modules.items()}
+    layers = getattr(tcfg, "num_layers", None) or getattr(tcfg, "num_double_blocks", None)
     log(f"[{tag}] loaded {ad.model_args.model_type} (variant {ad.model_args.variant}): width {tcfg.hidden_dim}, "
-        f"{tcfg.num_heads} heads, {tcfg.num_layers} layers, in_channels {tcfg.in_channels}; parameters in B "
+        f"{tcfg.num_heads} heads, {layers} layers, in_channels {tcfg.in_channels}; parameters in B "
         f"{json.dumps(sizes)}; LoRA rank {ad.model_args.lora_rank} on "
         f"{json.dumps({c: len(t) for c, t in lora.items()})} weights, "
         f"{sum(v.numel() for t in lora.values() for ab in t.values() for v in ab.values()) / 1e6:.3f} M trainable "
@@ -4097,13 +4120,15 @@ def _live_components(steps: list) -> None:
 
 
 def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, check_rollout=None,
-                staged_keys=(), sample=None) -> dict:
+                staged_keys=(), sample=None, grad_step=None) -> dict:
     """One GRPO epoch phase by phase: the rollout (``trainer.sample``, or
-    ``sample(epoch)`` where the caller draws it; finite videos, ``forward``
-    launches a step, ``check_rollout(samples)``), the feedback, the optimize
-    phase with each grad step recorded by :func:`_grad_recorder`, the ratio
-    exactly 1.0 and clip_frac 0 on every grad step, ``forward`` and
-    ``backward`` launches a grad step; the seconds of each."""
+    ``sample(epoch)`` where the caller draws it; finite videos or images,
+    ``forward`` launches a step, ``check_rollout(samples)``), the feedback,
+    the optimize phase with each grad step recorded by
+    :func:`_grad_recorder`, the ratio exactly 1.0 and clip_frac 0 on every
+    grad step, ``forward`` and ``backward`` launches a grad step (or
+    ``grad_step``'s: a rematted forward's blocks run twice); the seconds of
+    each."""
     import numpy as np
     import torch
 
@@ -4121,11 +4146,12 @@ def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, ch
     in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
     batches = -(-len(samples) // ta.per_device_batch_size)
     want = {k: n * ta.num_inference_steps * batches for k, n in forward.items()}
-    videos = np.stack([s.video for s in samples])
-    log(f"[{tag}] epoch {epoch} rollout: videos {videos.shape} in [{videos.min():.3f}, {videos.max():.3f}], "
+    media = np.stack([s.video if s.video is not None else s.image for s in samples])
+    kind = "videos" if samples[0].video is not None else "images"
+    log(f"[{tag}] epoch {epoch} rollout: {kind} {media.shape} in [{media.min():.3f}, {media.max():.3f}], "
         f"latents {samples[0].all_latents.shape}, launches {in_sample} (expected {want}), {secs['rollout']:.2f} s")
-    if not (np.isfinite(videos).all() and videos.shape[2:] == (3, ta.height, ta.width)):
-        fail(f"[{tag}] epoch {epoch}: the rollout's videos are not as expected: {videos.shape}")
+    if not (np.isfinite(media).all() and media.shape[-3:] == (3, ta.height, ta.width)):
+        fail(f"[{tag}] epoch {epoch}: the rollout's {kind} are not as expected: {media.shape}")
     if any(in_sample[k] != n for k, n in want.items()):
         fail(f"[{tag}] epoch {epoch}: rollout launches {in_sample}, expected {want}")
     if check_rollout is not None:
@@ -4147,7 +4173,7 @@ def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, ch
     in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
     ad = trainer.adapter
     ad.ema_step(epoch)
-    want = {k: n * len(steps) for k, n in {**forward, **backward}.items()}
+    want = {k: n * len(steps) for k, n in (grad_step or {**forward, **backward}).items()}
     ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
     clip_hi, gnorm = _loss_value(info, "train/clip_frac", "max"), info["train/grad_norm"]
     log(f"[{tag}] epoch {epoch}: reward mean {metrics['reward/mean']:.5f}, {len(steps)} grad steps (host t, "
@@ -4165,20 +4191,26 @@ def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, ch
     return dict(samples=samples, secs=secs, steps=steps)
 
 
-def _wan22_finish(trainer, tag: str, runs: list, counts: dict, what: str) -> None:
-    """Peak memory against the prediction, seconds a rollout and a grad
-    step, a profiled grad step with its idle share; the trainer freed."""
+def _wan22_finish(trainer, tag: str, runs: list, counts: dict, what: str, predicted=None, then=None) -> None:
+    """Peak memory against the prediction (``WAN22_PEAK_PREDICTED`` unless
+    ``predicted``), seconds a rollout and a grad step, what was live at one
+    grad step's peak (not under remat: the allocator history's Python
+    stacks break the recompute's unpack hook with a ``SystemError``), a
+    profiled grad step with its idle share, ``then()``; the trainer freed."""
     import torch
 
     peak = torch.cuda.max_memory_allocated() / 2**30
-    lo, hi = WAN22_PEAK_PREDICTED[tag]
+    lo, hi = (predicted or WAN22_PEAK_PREDICTED)[tag]
     log(f"[{tag}] launches {counts} | peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} GiB: "
         f"{'inside' if lo <= peak <= hi else 'outside'}) | seconds a rollout "
         f"{[round(r['secs']['rollout'], 2) for r in runs]}, a grad step "
         f"{[round(r['secs']['optimize'] / max(len(r['steps']), 1), 3) for r in runs]} | global step "
         f"{trainer.global_step}")
-    _peak_breakdown(tag, _one_grad_step(trainer))
+    if not trainer.adapter.component_configs["transformer"].remat:
+        _peak_breakdown(tag, _one_grad_step(trainer))
     _profile_grad_step(trainer, what, f"{tag}_grad_step_trace.json")
+    if then is not None:
+        then()
     trainer.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4516,6 +4548,451 @@ def wan22_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The Qwen-conditioned image families: Z-Image at full size, Qwen-Image and
+# Qwen-Image-Edit-Plus at full width and 24 double blocks, under GRPO
+# ---------------------------------------------------------------------------
+
+#: joint lengths at 512 px: 512 text + 1024 image tokens (Z-Image and
+#: Qwen-Image); Edit-Plus's 1103 text positions (512 + room for three
+#: references of 197) + 1024 target + 1024 condition tokens
+QWEN_S, QWEN_EDIT_S = 1536, 3151
+#: K3 at the B 16 CFG batch of both 1536 shapes, and at Edit-Plus's 3151
+#: (not a multiple of the 64-key tile) at B 8: the plain version's fp32
+#: logits at B 16 would take 15 GB a matrix
+QWEN_ATTENTION = (("qwen-1536-b16", 16, QWEN_S), ("qwen-edit-3151-b8", 8, QWEN_EDIT_S))
+#: K2 at the grad steps' B 16 x 1536 (the control without Delta) and at
+#: 3151 at B 4 (the control without the ragged 15-key tail)
+QWEN_K2 = (("qwen-1536", 16, QWEN_S), ("qwen-edit-3151", 4, QWEN_EDIT_S))
+#: K5's LayerNorm form at width 3072: Qwen-Image's four AdaLN norms a block
+#: (image and text rows) and Edit-Plus's (2048 target + condition rows,
+#: 1103 text rows), all bf16 -> bf16; Z-Image's one call, the final layer
+#: over the whole joint row to fp32
+QWEN_K5_SHAPES = tuple(NormShape(*shape) for shape in (
+    ("qwen-img", 16, 1024, 3072, "bfloat16", "bfloat16", False, False, False, True),
+    ("qwen-txt", 16, 512, 3072, "bfloat16", "bfloat16", False, False, False, True),
+    ("qwen-edit-img", 16, 2048, 3072, "bfloat16", "bfloat16", False, False, False, True),
+    ("qwen-edit-txt", 16, 1103, 3072, "bfloat16", "bfloat16", False, False, False, True),
+    ("z-image-final", 16, QWEN_S, 3072, "bfloat16", "float32", False, False, False, True),
+))
+#: the table's shapes of each kernel and the phases whose launches they take
+QWEN_TAGS = {
+    "flash_fwd": {"qwen-1536-b16": ("z-image", "qwen-image"), "qwen-edit-3151-b8": ("qwen-edit",)},
+    **{name: {"qwen-1536": ("z-image", "qwen-image"), "qwen-edit-3151": ("qwen-edit",)}
+       for name in ("flash_bwd_dq_d128", "flash_bwd_dkv_d128")},
+    **{name: {"qwen-img": ("qwen-image",), "qwen-txt": ("qwen-image",), "qwen-edit-img": ("qwen-edit",),
+              "qwen-edit-txt": ("qwen-edit",), "z-image-final": ("z-image",)}
+       for name in ("ln_mul_add", "ln_mul_add_backward")},
+}
+#: peak device memory predicted for each phase, GiB (PERF.md §6)
+QWEN_PEAK_PREDICTED = {"z-image": (38.0, 50.0), "qwen-image": (45.0, 58.0), "qwen-edit": (55.0, 70.0)}
+#: the kernels no model of these phases runs (K1, K6): zero launches expected
+_NOT_ON_PATH = {"qknorm_flash_fwd": 0, "residual_gate_modulate": 0}
+
+
+def _qwen_launches(depth: int):
+    """Launches of one forward of Qwen-Image's transformer (double blocks
+    only) and of one rematted grad step: a K3 and four K5 a block, norm_out;
+    the blocks recomputed in the backward (norm_out is outside them); K2a/K2b
+    for every K3; K5's backward for every K5 but three: block 0's two first
+    norms, whose inputs (the embedded latents and context, the AdaLN
+    vectors) are frozen, and the last block's text FFN norm, whose output no
+    later block reads (off the loss's path)."""
+    forward = {"flash_fwd": depth, "ln_mul_add": 4 * depth + 1, **_NOT_ON_PATH}
+    step = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth, "ln_mul_add": 8 * depth + 1,
+            "ln_mul_add_backward": 4 * depth - 2, **_NOT_ON_PATH}
+    return forward, step
+
+
+def _z_image_launches(layers: int):
+    """Launches of one Z-Image forward (a K3 a block; its block norms are
+    plain RMSNorms, so one K5: the final layer) and of one rematted grad
+    step."""
+    forward = {"flash_fwd": layers, "ln_mul_add": 1, **_NOT_ON_PATH}
+    step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers, "ln_mul_add": 1,
+            "ln_mul_add_backward": 1, **_NOT_ON_PATH}
+    return forward, step
+
+
+def phase_qwen_kernels(results: dict) -> None:
+    """[qwen-kernels]: K3 at ``QWEN_ATTENTION``, K2a/K2b at ``QWEN_K2`` and
+    K5 with its backward at ``QWEN_K5_SHAPES``, through the checks,
+    controls, bits and times of ``_k3_shape_checks`` (the control without
+    log2(e); at 3151 the padded-key control), ``_k2_d128_shape_checks`` and
+    ``_k5_shape_checks`` (the backward's controls, among them K5's backward
+    without its dmul term, on the Qwen-Image image norm and Z-Image's fp32
+    final layer). The entries join the table under their tags."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    H, D = 24, 128
+    log(f"[qwen-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    t0 = time.perf_counter()
+    for tag, B, S in QWEN_ATTENTION:
+        q, k, v = (randn(B, H, S, D) for _ in range(3))
+        _k3_shape_checks(results, tag, q, k, v, "q/k/v contiguous", functools.partial(_k3_flux_call, B, H, S, D))
+        del q, k, v
+    for tag, B, S in QWEN_K2:
+        _k2_d128_shape_checks(results, tag, B, H, S, S, True, randn)
+    for shape in QWEN_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, shape.tag in ("qwen-img", "z-image-final"))
+    log(f"[qwen-kernels] every shape within its tolerance, the controls rejected: {len(QWEN_ATTENTION)} K3, "
+        f"{len(QWEN_K2)} K2, {len(QWEN_K5_SHAPES)} K5 shapes, {time.perf_counter() - t0:.1f} s")
+
+
+def phase_qwen_grad() -> None:
+    """[qwen-grad]: LoRA gradients through K3, K2a/K2b and K5 at width 3072,
+    depth 2, B 2, 1024 image + 512 text tokens: Qwen-Image's transformer (two
+    double blocks, ``txt_norm``, context 3584) and Z-Image's (two blocks,
+    context 2560), rank-32 LoRA on each family's targets with ``lora_B``
+    drawn non-zero; checked by :func:`_lora_grad_check` against the plain
+    path with the dq-zeroed control; every LoRA leaf live but those off the
+    loss's path (Qwen-Image's last block's text-stream outputs and the text
+    queries that only they read: ``add_q_proj``, ``to_add_out`` and
+    ``ff_context``, which no later block reads; zero gradients in both
+    packages' grad steps); the launches of one forward and its backward as
+    predicted."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.flux.adapter import FLUX_LORA_TARGETS
+    from flow_factory_tpu_torch.models.flux.transformer import FluxTransformer
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.lora import init_lora
+    from flow_factory_tpu_torch.models.qwen_image import adapter as qwen
+    from flow_factory_tpu_torch.models.z_image import adapter as zimage
+    from flow_factory_tpu_torch.models.z_image.transformer import ZImageTransformer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 2
+    img_ids, txt_ids = _flux_ids(64, 64, 512)
+    t = torch.full((B,), 750.0, device=dev)
+    cases = (
+        ("Qwen-Image", dataclasses.replace(qwen._preset("qwen-image", "auto", "bfloat16")["transformer"],
+                                           num_double_blocks=2), FluxTransformer, FLUX_LORA_TARGETS,
+         lambda x, ctx: (x, t, ctx, None, img_ids, txt_ids, None), 12, _qwen_launches(2)),  # 4 off the path
+        ("Z-Image", dataclasses.replace(zimage._preset("z-image", "auto", "bfloat16")["transformer"], num_layers=2),
+         ZImageTransformer, zimage.Z_IMAGE_LORA_TARGETS, lambda x, ctx: (x, t, ctx, img_ids, txt_ids), 7,
+         _z_image_launches(2)),
+    )
+    for what, cfg, cls, targets, args, per_block, (forward, step) in cases:
+        model = build_module(lambda: cls(cfg), dev, torch.bfloat16, gen)
+        lora = init_lora(model, 32, gen, targets)
+        for ab in lora.values():  # b != 0, else the gradient of a is zero
+            ab["lora_B"].data.normal_(0.0, 1e-2, generator=gen)
+        last = f"transformer_blocks.{getattr(cfg, 'num_double_blocks', 0) - 1}."
+        off_path = sorted(p for p in lora if p.startswith(last) and (".to_add_out" in p or ".ff_context." in p
+                                                                     or ".add_q_proj" in p))
+        lora = {p: ab for p, ab in lora.items() if p not in off_path}
+        x, ctx = randn(B, 1024, cfg.in_channels), randn(B, 512, cfg.context_dim)
+        names, kern, _, counts = _lora_grad_check(
+            f"{what} width {cfg.hidden_dim}, depth 2, B={B}, 1024 image + 512 text tokens", model, lora,
+            lambda params: functional_call(model, params, args(x, ctx)), x, gen)
+        dead = [n for n, g in zip(names, kern) if not g.abs().max().item() > 0]
+        want = {**forward, "flash_bwd_dq": forward["flash_fwd"], "flash_bwd_dkv": forward["flash_fwd"],
+                "ln_mul_add_backward": step["ln_mul_add_backward"]}
+        log(f"[qwen-grad] {what}: non-zero gradient on {len(names) - len(dead)}/{len(names)} LoRA leaves; off the "
+            f"loss's path and left out: {off_path}; launches of one forward and its backward {counts} (expected "
+            f"{want})")
+        if dead or len(names) != 2 * (2 * per_block - len(off_path)) or any(counts[k] != n for k, n in want.items()):
+            fail(f"[qwen-grad] {what}: LoRA leaves without gradient {dead}, or launches {counts} differ from {want}")
+        del model, lora, kern
+        torch.cuda.empty_cache()
+
+
+def _qwen_config(fixture: str, **data):
+    """A fixture's config for the card, its relative model directory (the
+    depth cut) made absolute."""
+    cfg = _wan22_config(fixture, **data)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = cfg.model_args.model_name_or_path
+    if path and not os.path.isabs(path):
+        cfg.model_args.model_name_or_path = os.path.join(here, path)
+    return cfg
+
+
+def _prompts(data_dir: str, n: int = 2) -> list:
+    with open(os.path.join(data_dir, "train.txt")) as f:
+        return [line.strip() for line in f if line.strip()][:n]
+
+
+def _negatives_kept(tag: str, samples, shape) -> None:
+    import numpy as np
+
+    got = {tuple(np.shape(s.negative_prompt_embeds)) if s.negative_prompt_embeds is not None else None
+           for s in samples}
+    log(f"[{tag}] each sample keeps its negative embeddings for the replay: shapes {sorted(map(str, got))}")
+    if got != {shape}:
+        fail(f"[{tag}] the samples' negative embeddings are {got}, expected {shape}")
+
+
+def _lora_moved(tag: str, lora, b0) -> None:
+    moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+    log(f"[{tag}] LoRA B max|change| {moved:.3e}")
+    if not moved > 0:
+        fail(f"[{tag}] the LoRA did not move")
+
+
+def phase_z_image() -> dict:
+    """[z-image]: Z-Image at full size on tests/fixtures/z_image_grpo.yaml (38
+    layers, width 3072, the Qwen3-sized LM; 512 px: a joint length of 1536;
+    10 steps, CFG 4 with the negatives "", B 16 a forward; remat): two GRPO
+    epochs by :func:`_grpo_epoch` (38 K3 and 1 K5 a rollout step; 76 K3, 38
+    K2a, 38 K2b, 1 K5 and its backward a grad step; ratio exactly 1.0 on
+    every grad step; each sample keeps its negatives), a moved LoRA, peak
+    memory, a profiled grad step; then a serving rollout at the Turbo
+    geometry (6 steps, guidance 0, no negatives: B 8, no CFG) and its
+    replay, ratio exactly 1.0. Returns the launch counts of the epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trainer = _wan22_load_trainer("z-image", _qwen_config("z_image_grpo.yaml"))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, lm = ad.component_configs["transformer"], ad.component_configs["text_encoder"]
+    if (tcfg.num_layers, tcfg.hidden_dim, lm.num_layers, lm.hidden_dim, tcfg.remat) != (38, 3072, 36, 2560, True):
+        fail(f"[z-image] not the full-size preset under remat: {tcfg}, {lm}")
+    forward, step = _z_image_launches(tcfg.num_layers)
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+    ops.reset_launch_counts()
+    runs = [_grpo_epoch(trainer, "z-image", epoch, forward, {},
+                        lambda samples: _negatives_kept("z-image", samples, (512, lm.hidden_dim)), grad_step=step)
+            for epoch in range(ta.max_epochs)]
+    counts = ops.launch_counts()
+    _lora_moved("z-image", lora, b0)
+
+    def turbo():
+        """The Turbo geometry's serving rollout of 2 prompts x 4 and its replay."""
+        batch = [p for p in _prompts(os.path.join(here, "dataset", "pickscore")) for _ in range(ta.group_size)]
+        before = ops.launch_counts()
+        ad.rollout()
+        t0 = time.perf_counter()
+        samples = ad.inference(prompt=batch, num_inference_steps=6, guidance_scale=0.0, compute_log_prob=True,
+                               trajectory_indices="all", seed=ta.seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        want = {k: 6 * n for k, n in forward.items()}
+        images = np.stack([s.image for s in samples])
+        log(f"[z-image] Turbo serving rollout (6 steps, guidance 0, no negatives, B {len(batch)}): images "
+            f"{images.shape} in [{images.min():.3f}, {images.max():.3f}], launches {launched} (expected {want}), "
+            f"{secs:.2f} s with the prompt encode and the decode ({len(batch) / secs:.3f} samples/s)")
+        if not (np.isfinite(images).all() and images.shape == (len(batch), 3, 512, 512)
+                and all(s.negative_prompt_embeds is None for s in samples)):
+            fail("[z-image] the Turbo rollout's images or negatives are not as expected")
+        if any(launched[k] != n for k, n in want.items()):
+            fail(f"[z-image] Turbo rollout launches {launched}, expected {want}")
+        _replay_check("z-image", ad, samples, forward)
+        ad.train()
+
+    _wan22_finish(trainer, "z-image", runs, counts,
+                  "one Z-Image grad step (B 16 x 1536 tokens, 38 layers, remat; LoRA merge, forward, backward, AdamW)",
+                  QWEN_PEAK_PREDICTED, turbo)
+    return counts
+
+
+def phase_qwen_image() -> dict:
+    """[qwen-image]: Qwen-Image at full width, 24 of 60 double blocks, on
+    tests/fixtures/qwen_image_grpo.yaml (the depth read from
+    tests/fixtures/qwen_image_cut/transformer/config.json; Qwen2.5-7B; 512
+    px: a joint length of 1536; CFG 4 with the negatives " ", B 16; remat):
+    a serving rollout of 2 prompts x 4 through ``inference`` (24 K3 and 97
+    K5 a step) and its no-grad replay, ratio exactly 1.0 on every stored
+    step; then two GRPO epochs (48 K3, 24 K2a, 24 K2b, 193 K5 and 94 K5
+    backwards a grad step, ratio exactly 1.0), a moved LoRA, peak memory, a
+    profiled grad step. Returns the launch counts of the epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trainer = _wan22_load_trainer("qwen-image", _qwen_config("qwen_image_grpo.yaml"))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, lm = ad.component_configs["transformer"], ad.component_configs["text_encoder"]
+    log(f"[qwen-image] transformer: {tcfg.num_double_blocks} double + {tcfg.num_single_blocks} single blocks, "
+        f"txt_norm {tcfg.txt_norm}, pooled {tcfg.pooled_dim}, guidance embed {tcfg.guidance_embeds}, context "
+        f"{tcfg.context_dim}; LM {lm.num_layers} layers, width {lm.hidden_dim}, q/k/v biases {lm.attn_bias}")
+    if (tcfg.num_double_blocks, tcfg.num_single_blocks, tcfg.hidden_dim, tcfg.txt_norm, lm.attn_bias,
+            lm.hidden_dim) != (24, 0, 3072, True, True, 3584):
+        fail(f"[qwen-image] not the cut Qwen-Image preset: {tcfg}, {lm}")
+    forward, step = _qwen_launches(tcfg.num_double_blocks)
+    batch = [p for p in _prompts(os.path.join(here, "dataset", "pickscore")) for _ in range(ta.group_size)]
+    ops.reset_launch_counts()
+    ad.rollout()
+    t0 = time.perf_counter()
+    samples = ad.inference(prompt=batch, compute_log_prob=True, trajectory_indices="all", seed=ta.seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: n * ta.num_inference_steps for k, n in forward.items()}
+    images = np.stack([s.image for s in samples])
+    log(f"[qwen-image] serving rollout of {len(batch)}: images {images.shape} in [{images.min():.3f}, "
+        f"{images.max():.3f}], latents {samples[0].all_latents.shape}, launches {counts} (expected {want}), "
+        f"{secs:.2f} s with the prompt encode and the decode ({len(batch) / secs:.3f} samples/s)")
+    if not (np.isfinite(images).all() and images.shape == (len(batch), 3, ta.height, ta.width)):
+        fail(f"[qwen-image] the serving rollout's images are not as expected: {images.shape}")
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"[qwen-image] serving rollout launches {counts}, expected {want}")
+    _negatives_kept("qwen-image", samples, (512, lm.hidden_dim))
+    _replay_check("qwen-image", ad, samples, forward)
+    ad.train()
+    del samples
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+    ops.reset_launch_counts()
+    runs = [_grpo_epoch(trainer, "qwen-image", epoch, forward, {}, grad_step=step) for epoch in range(ta.max_epochs)]
+    counts = ops.launch_counts()
+    _lora_moved("qwen-image", lora, b0)
+    _wan22_finish(trainer, "qwen-image", runs, counts,
+                  "one Qwen-Image grad step (24 double blocks, B 16 x 1536 tokens, remat; LoRA merge, forward, "
+                  "backward, AdamW)", QWEN_PEAK_PREDICTED)
+    return counts
+
+
+def _vision_scatter_check(ad, data_dir: str) -> None:
+    """The Edit-Plus prompt encode with images: the embeddings that enter the
+    LM's first layer are the vision tower's merged tokens, bit for bit in
+    the compute dtype, at each record's image-pad rows, and the token
+    embeddings elsewhere; 196 merged tokens a 512 px reference (the 392²
+    grid of 28 x 28 patches, 2 x 2 merged), with their M-RoPE (t, h, w)
+    ids."""
+    import torch
+
+    from flow_factory_tpu_torch.data.dataset import _load_media_fields, load_raw_records
+
+    recs = [_load_media_fields(r, data_dir) for r in load_raw_records(os.path.join(data_dir, "train.jsonl"))]
+    prompts, images = [r["prompt"] for r in recs], [r["images"] for r in recs]
+    lm = ad.modules["text_encoder"]
+    dt = lm.cfg.compute_dtype
+    host, vis = ad.vision_rows(prompts, images)
+    seen = []
+    hook = lm.model.layers[0].register_forward_pre_hook(lambda m, args: seen.append(args[0].detach().clone()))
+    t0 = time.perf_counter()
+    try:
+        emb = ad.encode_prompt(prompts, images=images)["prompt_embeds"]
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    secs = time.perf_counter() - t0
+    x = seen[0]
+    ids = torch.as_tensor(host["ids"], device=x.device)
+    table = lm.model.embed_tokens.weight.to(dt)
+    pads, ok = [], True
+    for b in range(len(prompts)):
+        rows = torch.as_tensor(host["vis_mask"][b], device=x.device)
+        n = int(rows.sum())
+        pads.append(n)
+        ok &= torch.equal(x[b, rows], vis[b, :n].to(dt)) and torch.equal(x[b, ~rows], table[ids[b, ~rows]])
+    pos = host["pos_ids"][0]
+    log(f"[qwen-edit] vision scatter: image-pad rows a record {pads} of {ad.vl_total_length} (196 merged tokens a "
+        f"reference), the first layer's input equals the vision tower's tokens there and the token embeddings "
+        f"elsewhere, bit for bit: {ok}; M-RoPE ids (t, h, w) of the first image row {pos[:, 0].tolist()}, of its "
+        f"last {pos[:, pads[0] - 1].tolist()}, of the first text row {pos[:, pads[0]].tolist()}; sections "
+        f"{lm.cfg.mrope_sections}; prompt states {tuple(emb.shape)} finite {bool(torch.isfinite(emb).all())}; the "
+        f"vision tower and the 7B LM over both records {secs:.2f} s")
+    if not (ok and pads == [196] * len(prompts) and torch.isfinite(emb).all()
+            and pos[:, pads[0] - 1].tolist() == [0.0, 13.0, 13.0] and pos[:, pads[0]].tolist() == [14.0] * 3):
+        fail("[qwen-edit] the vision tower's merged tokens did not land in the prompt's image-pad rows")
+
+
+def phase_qwen_edit() -> dict:
+    """[qwen-edit]: Qwen-Image-Edit-Plus at the width and depth of
+    [qwen-image] with the full Qwen2.5-VL vision tower and M-RoPE, on
+    tests/fixtures/qwen_image_edit_plus_grpo.yaml over two records with one
+    512 px reference each (``_kontext_dataset``): the vision scatter
+    (:func:`_vision_scatter_check`), then one GRPO epoch (1024 condition
+    tokens a row after the 1024 target tokens and 1103 text positions: a
+    joint length of 3151; the launches of [qwen-image]; ratio exactly 1.0 on
+    every grad step, the condition tokens staged into each), a moved LoRA,
+    peak memory, a profiled grad step. Returns the launch counts of the
+    epoch."""
+    import numpy as np
+
+    from flow_factory_tpu_torch import ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = _kontext_dataset(here)
+    trainer = _wan22_load_trainer("qwen-edit", _qwen_config("qwen_image_edit_plus_grpo.yaml", dataset_dir=data_dir))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, lm, vcfg = (ad.component_configs[c] for c in ("transformer", "text_encoder", "vision_tower"))
+    log(f"[qwen-edit] vision tower depth {vcfg.depth}, width {vcfg.hidden_dim}, {vcfg.num_heads} heads of "
+        f"{vcfg.head_dim}, full attention at {vcfg.fullatt_block_indexes}; LM M-RoPE sections {lm.mrope_sections}; "
+        f"vl_total_length {ad.vl_total_length}; {tcfg.num_double_blocks} double blocks")
+    if (vcfg.depth, vcfg.hidden_dim, lm.mrope_sections, ad.vl_total_length, tcfg.num_double_blocks) != (
+            32, 1280, (16, 24, 24), 1103, 24):
+        fail("[qwen-edit] not the full vision tower, M-RoPE and text length over the cut transformer")
+    _vision_scatter_check(ad, data_dir)
+    forward, step = _qwen_launches(tcfg.num_double_blocks)
+
+    def check_rollout(samples):
+        cond = np.stack([s.extra_kwargs["cond_latents"] for s in samples])
+        joint = samples[0].all_latents.shape[-2] + cond.shape[1] + samples[0].prompt_embeds.shape[0]
+        log(f"[qwen-edit] condition tokens {cond.shape}, joint length {joint}")
+        if not (cond.shape[1:] == (1024, 64) and joint == QWEN_EDIT_S and np.isfinite(cond).all()):
+            fail(f"[qwen-edit] the rollout's condition tokens or joint length are not as expected: {cond.shape}")
+        _negatives_kept("qwen-edit", samples, (ad.vl_total_length, lm.hidden_dim))
+
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+    ops.reset_launch_counts()
+    run = _grpo_epoch(trainer, "qwen-edit", 0, forward, {}, check_rollout, staged_keys=("cond_latents",),
+                      grad_step=step)
+    counts = ops.launch_counts()
+    if not all("cond_latents" in staged for _, _, staged in run["steps"]):
+        fail("[qwen-edit] the grad steps did not stage cond_latents")
+    _lora_moved("qwen-edit", lora, b0)
+    _wan22_finish(trainer, "qwen-edit", [run], counts,
+                  "one Qwen-Image-Edit-Plus grad step (24 double blocks, B 16 x 3151 tokens, remat; LoRA merge, "
+                  "forward, backward, AdamW)", QWEN_PEAK_PREDICTED)
+    return counts
+
+
+def _qwen_phases(which=("z-image", "qwen-image", "qwen-edit")) -> dict:
+    """[qwen-grad], then [z-image], [qwen-image] and [qwen-edit] (those of
+    ``which``), each trainer freed before the next loads; returns the launch
+    counts of each phase's epochs by tag."""
+    import torch
+
+    phase_qwen_grad()
+    phases = {"z-image": phase_z_image, "qwen-image": phase_qwen_image, "qwen-edit": phase_qwen_edit}
+    counts = {}
+    for tag in which:
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts[tag] = phases[tag]()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def qwen_only(flags) -> int:
+    """``python3 chip_smoke.py --qwen`` (Qwen-Image and Edit-Plus) and/or
+    ``--z-image``: the build, [qwen-kernels], [qwen-grad] and the chosen
+    phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_qwen_kernels({})
+    which = (("z-image",) if "--z-image" in flags else ()) + (("qwen-image", "qwen-edit") if "--qwen" in flags else ())
+    counts = _qwen_phases(which)
+    log(f"[qwen] launches {counts}; device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4542,6 +5019,8 @@ def main() -> int:
         return ltx2_only()
     if sys.argv[1:] == ["--wan22"]:
         return wan22_only()
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--qwen", "--z-image"}:
+        return qwen_only(sys.argv[1:])
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -4556,6 +5035,7 @@ def main() -> int:
     phase_decoupled_kernels(results)
     phase_ltx2_kernels(results)
     phase_wan22_kernels(results)
+    phase_qwen_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
@@ -4582,6 +5062,7 @@ def main() -> int:
     decoupled_counts = _decoupled_phases()
     ltx2_counts = _ltx2_phases()
     wan22_counts = _wan22_phases()
+    qwen_counts = _qwen_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -4613,6 +5094,10 @@ def main() -> int:
         for name, tags in tags_of.items():
             for tag in tags:
                 results[name]["shapes"][tag]["launches"] = wan22_counts[phase][name.replace("_d128", "")]
+    # the Qwen-conditioned shapes: their kernels' launches in the Z-Image, Qwen-Image and Edit-Plus epochs
+    for name, tags in QWEN_TAGS.items():
+        for tag, phases in tags.items():
+            results[name]["shapes"][tag]["launches"] = sum(qwen_counts[p][name.replace("_d128", "")] for p in phases)
     # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
     for name, entry in results.items():
         for shape in entry["shapes"].values():

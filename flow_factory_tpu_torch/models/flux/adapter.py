@@ -8,8 +8,10 @@ image-token count, base 0.5 and max 1.15 over 256-4096 tokens). Every
 component is random-initialised from the seed directly on the adapter's
 device in the inference dtype; the LoRA is merged once per rollout and the
 transformer runs on the merged weights through ``functional_call``.
-FLUX.1-Kontext builds on this adapter (``kontext.py``); FLUX.2 and Klein
-are not ported (``models/registry.py``).
+FLUX.1-Kontext builds on this adapter (``kontext.py``), and so do the
+LM-conditioned families with true CFG (``lm_conditioned.py``: Qwen-Image,
+Edit-Plus, Z-Image); FLUX.2 and Klein are not ported
+(``models/registry.py``).
 """
 from __future__ import annotations
 
@@ -218,6 +220,7 @@ class Flux1Adapter(BaseAdapter):
         store_means: bool = False,
         decode: bool = True,
         extra_embeds: Optional[Dict[str, Any]] = None,
+        do_cfg_override: Optional[bool] = None,
         **_,
     ) -> List[T2ISample]:
         """Full rollout → host-resident samples with packed trajectories
@@ -228,7 +231,9 @@ class Flux1Adapter(BaseAdapter):
         draws when given. The LoRA of ``trainable`` (default: the live tree)
         is merged once, here. ``extra_embeds`` ({key: (B, ...)}) join the
         embeds every step's velocity reads, and each sample keeps its row of
-        them in ``extra_kwargs`` (Kontext's condition tokens)."""
+        them in ``extra_kwargs`` (Kontext's condition tokens).
+        ``do_cfg_override`` turns on the velocity's CFG batch (the true-CFG
+        families: their negatives ride ``extra_embeds``)."""
         ta = self.training_args
         height = height or ta.height
         width = width or ta.width
@@ -237,7 +242,7 @@ class Flux1Adapter(BaseAdapter):
 
         if prompt_embeds is None:
             enc = self.encode_prompt(list(prompt))
-            prompt_embeds, pooled_prompt_embeds = enc["prompt_embeds"], enc["pooled_prompt_embeds"]
+            prompt_embeds, pooled_prompt_embeds = enc["prompt_embeds"], enc.get("pooled_prompt_embeds")
         h, w, c = self.latent_shape(height, width)
         txt_len = prompt_embeds.shape[1]
         img_ids = self.latent_image_ids(h, w)
@@ -265,7 +270,7 @@ class Flux1Adapter(BaseAdapter):
         x_final, lat_buf, lp_buf, mean_buf = self.rollout_compute(
             x0, embeds, g, sigmas, timesteps, noise_levels,
             maps.latent_store_slot, maps.logprob_store_slot, generator, noise, params,
-            do_cfg=False, compute_log_prob=compute_log_prob, dynamics_type=dynamics,
+            do_cfg=bool(do_cfg_override), compute_log_prob=compute_log_prob, dynamics_type=dynamics,
             num_latent_slots=maps.num_latent_slots, num_logprob_slots=maps.num_logprob_slots,
             store_means=store_means,
         )

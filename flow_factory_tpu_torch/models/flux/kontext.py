@@ -12,6 +12,7 @@ As in the JAX package, the velocity takes the condition ids of the batch's
 first row for every row (``cond_ids[0]``): rows whose references differ in
 count or size are replayed under row 0's ids (ROADMAP Queue 3, F13). There
 is no pipelined ``finish_rollout`` yet, so the per-sample step runs inline.
+Qwen-Image-Edit-Plus shares the condition tokens (:class:`ConditionTokens`).
 """
 from __future__ import annotations
 
@@ -40,13 +41,14 @@ def _pad_cond_rows(lat_rows: Sequence[np.ndarray], id_rows: Sequence[np.ndarray]
     return np.stack(lats), np.stack(ids)
 
 
-class Flux1KontextAdapter(Flux1Adapter):
-    sample_class = I2ISample
-    embed_keys = ("prompt_embeds", "pooled_prompt_embeds", "img_ids", "txt_ids", "cond_latents", "cond_ids")
+class ConditionTokens:
+    """Condition images as latent tokens after the target's (Kontext, and
+    Qwen-Image-Edit-Plus over its own velocity): a mixin before a packed-
+    latent adapter in the bases. ``cond_latents``/``cond_ids`` ride the
+    embeds; the velocity concatenates them after the target's tokens, the
+    ids of the batch's first row for every row (F13), and reads the target
+    slice out."""
 
-    # ------------------------------------------------------------------
-    # Condition images (stage-1 preprocessing)
-    # ------------------------------------------------------------------
     @torch.no_grad()
     def encode_image(self, images_nchw: np.ndarray) -> np.ndarray:
         """(B, 3, H, W) in [0, 1] → packed latent tokens (B, L, 4c), host fp32."""
@@ -54,32 +56,25 @@ class Flux1KontextAdapter(Flux1Adapter):
         z = self.modules["vae"].encode(img * 2.0 - 1.0, sample=False)
         return self.pack_latents(z.permute(0, 2, 3, 1).float()).cpu().numpy()
 
-    def preprocess_func(self, batch: Dict[str, Any], **kwargs) -> Dict[str, Any]:
-        """The prompt embeddings, and for records with images each record's
-        references encoded and packed one after another (``cond_latents``)
-        with their ids (``cond_ids``), padded to the batch's longest."""
-        out = super().preprocess_func(batch, **kwargs)
-        images = batch.get("images") or batch.get("image")
-        if images is not None:
-            lat_rows, id_rows = [], []
-            for per_record in images:
-                refs = per_record if isinstance(per_record, list) else [per_record]
-                toks, ids = [], []
-                for r_i, ref in enumerate(refs):
-                    arr = standardize_image_batch(ref, output_type="np")  # (1, 3, H, W)
-                    toks.append(self.encode_image(arr)[0])
-                    rid = self.latent_image_ids(arr.shape[2] // self.vae_downscale,
-                                                arr.shape[3] // self.vae_downscale).copy()
-                    rid[:, 0] = 1.0 + r_i  # the condition stream's coordinate
-                    ids.append(rid)
-                lat_rows.append(np.concatenate(toks, axis=0))
-                id_rows.append(np.concatenate(ids, axis=0).astype(np.float32))
-            out["cond_latents"], out["cond_ids"] = _pad_cond_rows(lat_rows, id_rows)
-        return out
+    def condition_tokens(self, images: Sequence[Any]) -> Tuple[np.ndarray, np.ndarray]:
+        """Each record's references encoded and packed one after another
+        (``cond_latents``) with their ids (``cond_ids``: first coordinate
+        1 + r for reference r), padded to the batch's longest."""
+        lat_rows, id_rows = [], []
+        for per_record in images:
+            refs = per_record if isinstance(per_record, list) else [per_record]
+            toks, ids = [], []
+            for r_i, ref in enumerate(refs):
+                arr = standardize_image_batch(ref, output_type="np")  # (1, 3, H, W)
+                toks.append(self.encode_image(arr)[0])
+                rid = self.latent_image_ids(arr.shape[2] // self.vae_downscale,
+                                            arr.shape[3] // self.vae_downscale).copy()
+                rid[:, 0] = 1.0 + r_i  # the condition stream's coordinate
+                ids.append(rid)
+            lat_rows.append(np.concatenate(toks, axis=0))
+            id_rows.append(np.concatenate(ids, axis=0).astype(np.float32))
+        return _pad_cond_rows(lat_rows, id_rows)
 
-    # ------------------------------------------------------------------
-    # Velocity: the condition tokens after the target's, the target's slice out
-    # ------------------------------------------------------------------
     def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
         if "cond_latents" not in embeds:
             return super()._velocity(latents, t, embeds, guidance_scale, do_cfg, params)
@@ -91,24 +86,42 @@ class Flux1KontextAdapter(Flux1Adapter):
         joint = {**embeds, "img_ids": torch.cat([img_ids, cond_ids], dim=0)}
         return super()._velocity(x, t, joint, guidance_scale, do_cfg, params)[:, :L]
 
-    # ------------------------------------------------------------------
+    @staticmethod
+    def keep_condition_images(samples, images) -> None:
+        """Each sample keeps its record's reference images (its group
+        identity recomputed with them)."""
+        for s, per in zip(samples, images):
+            s.images = [standardize_image_batch(p, output_type="np")[0]
+                        for p in (per if isinstance(per, list) else [per])]
+            s._unique_id = None
+
+
+class Flux1KontextAdapter(ConditionTokens, Flux1Adapter):
+    sample_class = I2ISample
+    embed_keys = ("prompt_embeds", "pooled_prompt_embeds", "img_ids", "txt_ids", "cond_latents", "cond_ids")
+
+    def preprocess_func(self, batch: Dict[str, Any], **kwargs) -> Dict[str, Any]:
+        """The prompt embeddings, and for records with images their
+        :meth:`condition_tokens`."""
+        out = super().preprocess_func(batch, **kwargs)
+        images = batch.get("images") or batch.get("image")
+        if images is not None:
+            out["cond_latents"], out["cond_ids"] = self.condition_tokens(images)
+        return out
+
     @torch.no_grad()
     def inference(self, images=None, cond_latents=None, cond_ids=None, **kwargs) -> List[I2ISample]:
         """The rollout with the condition tokens in every step's embeds:
         ``cond_latents``/``cond_ids`` as preprocessed, or encoded here from
         ``images``; each sample keeps its row of them, and with ``images``
-        its reference images (its group identity recomputed with them)."""
+        its reference images."""
         if cond_latents is None and images is not None:
-            pre = self.preprocess_func({"images": images})
-            cond_latents, cond_ids = pre["cond_latents"], pre["cond_ids"]
+            cond_latents, cond_ids = self.condition_tokens(images)
         extra = {}
         if cond_latents is not None:
             extra["cond_latents"] = np.asarray(cond_latents, np.float32)
             extra["cond_ids"] = np.asarray(cond_ids if cond_ids is not None else 0.0, np.float32)
         samples = super().inference(extra_embeds=extra, **kwargs)
         if cond_latents is not None and images is not None:
-            for s, per in zip(samples, images):
-                s.images = [standardize_image_batch(p, output_type="np")[0]
-                            for p in (per if isinstance(per, list) else [per])]
-                s._unique_id = None  # recomputed with the condition images
+            self.keep_condition_images(samples, images)
         return samples

@@ -15,6 +15,10 @@ patches, with ``img_ids`` (L, 3) giving each token's (0, row, col) for RoPE.
 * guidance-distilled conditioning: the time, guidance (x1000) and pooled
   CLIP embeddings summed into every AdaLN modulation.
 
+Qwen-Image is this transformer with double blocks only, no pooled vector
+and no guidance embedding, and ``txt_norm``: an fp32 RMSNorm of the LM
+states before ``context_embedder``.
+
 Parameter names are diffusers' ``FluxTransformer2DModel`` names, but for
 the fused single-block projections (``linear1``, ``linear2``, BFL's
 names). Every AdaLN norm goes through ``adaln_modulate`` (kernel K5 on the
@@ -36,6 +40,7 @@ from ...ops.norms import adaln_modulate
 from ..layers import (
     AdaLayerNormContinuous,
     FeedForward,
+    FP32RMSNorm,
     HeadProj,
     HeadRMSNorm,
     Linear,
@@ -67,6 +72,7 @@ class FluxConfig:
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
     remat: bool = False  # gradient checkpointing (recompute each block in the backward)
+    txt_norm: bool = False  # Qwen-Image: an RMSNorm of the context before the context embedder
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -245,6 +251,8 @@ class FluxTransformer(nn.Module):
         self.cfg = cfg
         D, dt = cfg.hidden_dim, cfg.compute_dtype
         self.x_embedder = Linear(cfg.in_channels, D, compute_dtype=dt)
+        if cfg.txt_norm:
+            self.txt_norm = FP32RMSNorm(cfg.context_dim)
         self.context_embedder = Linear(cfg.context_dim, D, compute_dtype=dt)
         self.time_text_embed = _TimeTextEmbed(cfg)
         self.transformer_blocks = nn.ModuleList([FluxDoubleBlock(cfg) for _ in range(cfg.num_double_blocks)])
@@ -264,6 +272,8 @@ class FluxTransformer(nn.Module):
     ) -> torch.Tensor:
         cfg = self.cfg
         img = self.x_embedder(latents)
+        if cfg.txt_norm:
+            encoder_hidden_states = self.txt_norm(encoder_hidden_states)
         txt = self.context_embedder(encoder_hidden_states)
         emb = self.time_text_embed
         # the JAX expression, so that fp32 rounds alike (diffusers scales t to [0, 1])
@@ -278,8 +288,10 @@ class FluxTransformer(nn.Module):
         for block in self.transformer_blocks:
             img, txt = (checkpointed(block, img, txt, temb, cos, sin) if remat
                         else block(img, txt, temb, cos, sin))
-        x = torch.cat([txt, img], dim=1)
-        for block in self.single_transformer_blocks:
-            x = checkpointed(block, x, temb, cos, sin) if remat else block(x, temb, cos, sin)
-        img = self.norm_out(x[:, txt.shape[1]:].contiguous(), temb)  # K5 reads whole rows
+        if self.single_transformer_blocks:
+            x = torch.cat([txt, img], dim=1)
+            for block in self.single_transformer_blocks:
+                x = checkpointed(block, x, temb, cos, sin) if remat else block(x, temb, cos, sin)
+            img = x[:, txt.shape[1]:].contiguous()  # K5 reads whole rows
+        img = self.norm_out(img, temb)
         return self.proj_out(img)

@@ -364,6 +364,15 @@ class HeadRMSNorm(ScaleParam):
         return _rms_scale(x, self.weight, self.eps).to(x.dtype)
 
 
+class FP32RMSNorm(ScaleParam):
+    """flax ``nn.RMSNorm(epsilon=1e-6, dtype=float32)``: fp32 statistics,
+    ``x32 * (rsqrt(mean(x32^2) + eps) * γ)``, fp32 out (Qwen-Image's
+    ``txt_norm``, Z-Image's norms)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _rms_scale(x, self.weight, 1e-6)
+
+
 class QKNorm(nn.Module):
     """Per-head RMS norm of q and k (JAX ``QKNorm``, ``layers.py:281-303``):
     two :class:`HeadRMSNorm` scales, ``norm_q`` and ``norm_k``."""

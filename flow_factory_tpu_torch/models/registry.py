@@ -19,13 +19,13 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "flux1-kontext": "flow_factory_tpu_torch.models.flux.kontext:Flux1KontextAdapter",
     "ltx2-t2av": "flow_factory_tpu_torch.models.ltx2.t2av:LTX2T2AVAdapter",
     "ltx2-i2av": "flow_factory_tpu_torch.models.ltx2.i2av:LTX2I2AVAdapter",
+    "qwen-image": "flow_factory_tpu_torch.models.qwen_image.adapter:QwenImageAdapter",
+    "qwen-image-edit-plus": "flow_factory_tpu_torch.models.qwen_image.edit_plus:QwenImageEditPlusAdapter",
+    "z-image": "flow_factory_tpu_torch.models.z_image.adapter:ZImageAdapter",
 }
 _NOT_PORTED: Dict[str, str] = {
     "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
     "flux2-klein": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
-    "qwen-image": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
-    "qwen-image-edit-plus": "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)",
-    "z-image": "ROADMAP Queue 1 item 10 (Z-Image)",
 }
 
 

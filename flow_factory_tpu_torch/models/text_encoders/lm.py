@@ -21,15 +21,20 @@ Two layouts, ``arch``:
 The attention is the JAX package's masked product: fp32 logits, the mask as
 -1e30, an fp32 softmax rounded to the compute dtype before PV. Pad
 positions are computed like any other row (their outputs are what the JAX
-encoder gives there, and LTX-2's transformer attends them). Not ported:
-the Qwen2.5-VL vision-embedding scatter and M-RoPE, the Qwen and Mistral
-presets (their families are not ported), and the tied-embedding logits of
-the JAX caption upsampler.
+encoder gives there, and LTX-2's transformer attends them).
+
+Qwen2.5-VL's conditioning path (Qwen-Image-Edit-Plus): the vision tower's
+merged tokens replace the embeddings of the image-pad positions
+(``vision_embeds`` scattered by ``vision_mask``, in order), and M-RoPE
+(``mrope_sections``) takes each rotary frequency's position from the
+temporal, height or width id of ``position_ids``; with equal ids on the
+three axes it is the 1-D RoPE. Not ported: the Mistral preset (FLUX.2 is
+not ported) and the tied-embedding logits of the JAX caption upsampler.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,8 +63,10 @@ class LMConfig:
     head_dim: int = 128
     mlp_dim: int = 18944
     rope_theta: float = 1000000.0
-    attn_bias: bool = False
+    attn_bias: bool = False  # Qwen2.x: biases on the q/k/v projections
     rms_eps: float = 1e-6
+    #: M-RoPE rotary frequencies per (t, h, w) section (sum head_dim // 2)
+    mrope_sections: Optional[Tuple[int, int, int]] = None
     arch: str = "llama"
     query_pre_attn_scalar: Optional[float] = None
     sliding_window: int = 0
@@ -71,6 +78,16 @@ class LMConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @staticmethod
+    def qwen25_7b(**o) -> "LMConfig":
+        """Qwen2.5-7B (Qwen-Image's encoder): the default widths with q/k/v biases."""
+        return LMConfig(**{"attn_bias": True, **o})
+
+    @staticmethod
+    def qwen25_vl_7b(**o) -> "LMConfig":
+        """Qwen2.5-VL-7B's language side: M-RoPE sections (16, 24, 24)."""
+        return LMConfig(**{"attn_bias": True, "mrope_sections": (16, 24, 24), **o})
 
     @staticmethod
     def gemma3(**o) -> "LMConfig":
@@ -214,19 +231,28 @@ class LMEncoder(nn.Module):
         return cfg.arch == "gemma3" and cfg.sliding_window > 0 and bool((i + 1) % cfg.sliding_window_pattern)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
-                vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                vision_embeds: Optional[torch.Tensor] = None, vision_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``vision_embeds`` (B, Lv, D) replace, in order, the embeddings at
+        the True positions of ``vision_mask`` (B, L); ``position_ids``
+        (3, L) or per row (B, 3, L) are the M-RoPE (t, h, w) ids."""
         cfg = self.cfg
         dt, gemma = cfg.compute_dtype, cfg.arch == "gemma3"
-        if vision_embeds is not None:
-            raise NotImplementedError("the Qwen2.5-VL vision embeddings and M-RoPE are not ported yet: "
-                                      "ROADMAP Queue 1 item 10 (Qwen-Image and Edit-Plus)")
         L = input_ids.shape[1]
         dev = input_ids.device
         x = self.model.embed_tokens.weight.to(dt)[input_ids]
         if gemma:  # the sqrt(hidden) scale in the embedding dtype
             x = x * torch.tensor(cfg.hidden_dim ** 0.5, dtype=dt, device=dev)
-        pos = torch.arange(L, device=dev, dtype=torch.float32)[:, None]
-        cos, sin = rope_frequencies(pos / cfg.rope_scaling_factor, (cfg.head_dim,), cfg.rope_theta)
+        if vision_embeds is not None and vision_mask is not None:
+            vm = vision_mask.bool()
+            idx = (torch.cumsum(vm.long(), dim=1) - 1).clamp(0, vision_embeds.shape[1] - 1)
+            gathered = torch.gather(vision_embeds.to(x.dtype), 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+            x = torch.where(vm[..., None], gathered, x)
+        if position_ids is not None and cfg.mrope_sections is not None:
+            cos, sin = self._mrope_tables(position_ids)
+        else:
+            pos = torch.arange(L, device=dev, dtype=torch.float32)[:, None]
+            cos, sin = rope_frequencies(pos / cfg.rope_scaling_factor, (cfg.head_dim,), cfg.rope_theta)
         causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None, None]
         if attention_mask is not None:
             causal = causal & attention_mask.bool()[:, None, None, :]
@@ -244,3 +270,18 @@ class LMEncoder(nn.Module):
             else:
                 x = layer(x, cos, sin, causal)
         return self.model.norm(x)
+
+    def _mrope_tables(self, position_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """M-RoPE (cos, sin): frequency j rotates by the id of its section's
+        axis; (L, hd/2) for (3, L) ids, (B, 1, L, hd/2) for (B, 3, L)."""
+        cfg = self.cfg
+        half = cfg.head_dim // 2
+        dev = position_ids.device
+        freqs = 1.0 / (cfg.rope_theta ** (torch.arange(half, dtype=torch.float32, device=dev) * 2.0 / cfg.head_dim))
+        sel = torch.cat([torch.full((n,), i, dtype=torch.long, device=dev)
+                         for i, n in enumerate(cfg.mrope_sections)])
+        pos = position_ids.float().index_select(-2, sel)  # (..., half, L)
+        angles = pos.transpose(-1, -2) * freqs  # (..., L, half)
+        if angles.ndim == 3:
+            angles = angles[:, None]
+        return torch.cos(angles), torch.sin(angles)

@@ -586,6 +586,94 @@ def ltx2_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 
+def qwen_image_transformer_map(num_double: int) -> Tuple[ModuleMap, RawMap]:
+    """Qwen-Image's transformer: FLUX.1's double blocks (no single blocks,
+    no pooled or guidance embedder) and ``txt_norm``, the port's FLUX names."""
+    m, raw = flux1_transformer_map(num_double, 0)
+    return {**m, "txt_norm": "txt_norm"}, raw
+
+
+def vl_vision_map(depth: int) -> Tuple[ModuleMap, RawMap]:
+    """The Qwen2.5-VL vision tower (inverse of the JAX ``qwen_vl_vision_key_map``,
+    ``utils/checkpoint.py:1494``, without the ``visual.`` prefix)."""
+    m: ModuleMap = {"patch_embed": "patch_embed.proj", "ln_q": "merger.ln_q", "merger_fc1": "merger.mlp.0",
+                    "merger_fc2": "merger.mlp.2"}
+    for i in range(depth):
+        o, b = f"block_{i}", f"blocks.{i}"
+        m[f"{o}/norm1"] = f"{b}.norm1"
+        m[f"{o}/norm2"] = f"{b}.norm2"
+        m[f"{o}/qkv"] = f"{b}.attn.qkv"
+        m[f"{o}/proj"] = f"{b}.attn.proj"
+        for name in ("gate", "up", "down"):
+            m[f"{o}/{name}"] = f"{b}.mlp.{name}_proj"
+    return m, {}
+
+
+def qwen_image_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every Qwen-Image (and Edit-Plus) adapter component,
+    keyed like ``adapter.params``."""
+    v = configs["vae"]
+    maps = {
+        "transformer": qwen_image_transformer_map(configs["transformer"].num_double_blocks),
+        "text_encoder": lm_decoder_map(configs["text_encoder"].num_layers),
+        "vae": vae_map(v.channel_mults, v.layers_per_block, v.use_mid_attention),
+    }
+    if "vision_tower" in configs:
+        maps["vision_tower"] = vl_vision_map(configs["vision_tower"].depth)
+    return maps
+
+
+def qwen_image_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All Qwen-Image (and Edit-Plus) components' flax trees → the port's state dicts."""
+    maps = qwen_image_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
+def z_image_transformer_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
+    """The Z-Image S3-DiT (inverse of the JAX ``z_image_transformer_key_map``,
+    ``utils/checkpoint.py:1138``)."""
+    m: ModuleMap = {
+        "x_embedder": "x_embedder",
+        "cap_norm": "cap_embedder.0",
+        "cap_embedder": "cap_embedder.1",
+        "t_embedder/linear_1": "t_embedder.mlp.0",
+        "t_embedder/linear_2": "t_embedder.mlp.2",
+        "final_adaLN": "final_layer.adaLN_modulation.1",
+        "final_linear": "final_layer.linear",
+    }
+    for i in range(num_layers):
+        o, b = f"layer_{i}", f"layers.{i}"
+        for name in ("to_q", "to_k", "to_v"):
+            m[f"{o}/{name}"] = f"{b}.attention.{name}"
+        m[f"{o}/to_out"] = f"{b}.attention.to_out.0"
+        m[f"{o}/qk_norm/q_norm"] = f"{b}.attention.norm_q"
+        m[f"{o}/qk_norm/k_norm"] = f"{b}.attention.norm_k"
+        for name in ("w1", "w2", "w3"):
+            m[f"{o}/{name}"] = f"{b}.feed_forward.{name}"
+        for name in ("attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2"):
+            m[f"{o}/{name}"] = f"{b}.{name}"
+        m[f"{o}/adaLN_modulation"] = f"{b}.adaLN_modulation.1"
+    return m, {}
+
+
+def z_image_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every Z-Image adapter component, keyed like ``adapter.params``."""
+    v = configs["vae"]
+    return {
+        "transformer": z_image_transformer_map(configs["transformer"].num_layers),
+        "text_encoder": lm_decoder_map(configs["text_encoder"].num_layers),
+        "vae": vae_map(v.channel_mults, v.layers_per_block, v.use_mid_attention),
+    }
+
+
+def z_image_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All Z-Image components' flax trees → the port's state dicts."""
+    maps = z_image_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
 # ---------------------------------------------------------------------------
 # LoRA trees: flax {path/kernel: {a (in, r), b (r, out)}} ↔ the port's PEFT
 # layout {module path: {lora_A (r, in), lora_B (out, r)}}

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from test_torch_port_train import CONFIG as SD35_CONFIG, _leaf_close, _port_grads_as_flax
 from test_torch_port_wan_train import CONFIG as WAN_CONFIG

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from test_torch_port_train import CONFIG as SD35_CONFIG
 from test_torch_port_wan_train import CONFIG as WAN_CONFIG

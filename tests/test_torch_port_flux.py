@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from flow_factory_tpu_torch.models.layers import build_module
 from flow_factory_tpu_torch.utils import weights
@@ -435,7 +436,7 @@ def test_every_jax_model_type_resolves_or_names_its_item():
     from flow_factory_tpu.models.registry import _MODEL_ADAPTER_REGISTRY as JAX_KEYS
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
-    items = {"wan": "item 9", "flux2": "item 10", "qwen": "item 10", "z-image": "item 10"}
+    items = {"wan": "item 9", "flux2": "item 10"}
     ported = []
     for key, target in JAX_KEYS.items():
         try:
@@ -445,5 +446,6 @@ def test_every_jax_model_type_resolves_or_names_its_item():
             continue
         assert cls.__name__ == target.split(":")[1], key
         ported.append(key)
-    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "sd3-5", "sd3.5", "wan2-i2v",
-                              "wan2-t2v", "wan2-v2v", "wan21", "wan22"]
+    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "qwen-image",
+                              "qwen-image-edit-plus", "sd3-5", "sd3.5", "wan2-i2v", "wan2-t2v", "wan2-v2v", "wan21",
+                              "wan22", "z-image"]

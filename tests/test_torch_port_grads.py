@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from flow_factory_tpu.ops import attention as jattn
 from flow_factory_tpu.ops import norms as jnorms

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from test_torch_port_flux import _jax_features
 
@@ -57,7 +58,9 @@ def test_lm_encoder_matches_jax_with_pad_rows(preset):
     """LMEncoder through the bridge: the final states of every position of
     16-token rows, the pad rows' too (the transformer attends them);
     gemma3_tiny runs layers 0 and 2 sliding (the
-    band of 4 keys, local RoPE) and layer 1 global (positions / 8)."""
+    band of 4 keys, local RoPE) and layer 1 global (positions / 8); vision
+    embeddings without an image-pad mask leave the states as they are (the
+    scatter itself: tests/test_torch_port_qwen_image.py)."""
     from flow_factory_tpu.models.text_encoders import lm as J
     from flow_factory_tpu_torch.models.text_encoders import lm as T
 
@@ -79,8 +82,9 @@ def test_lm_encoder_matches_jax_with_pad_rows(preset):
         h_t = port(torch.from_numpy(ids).long(), torch.from_numpy(mask))
     assert h_t.shape == (2, 16, 32)
     _close(h_t, h_j)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port(torch.from_numpy(ids).long(), vision_embeds=torch.zeros(2, 1, 32))
+    with torch.no_grad():  # vision embeddings without an image-pad mask change nothing, as in JAX
+        assert torch.equal(port(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                                vision_embeds=torch.ones(2, 1, 32)), h_t)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from flow_factory_tpu.scheduler import flow_match_euler as jfm
 from flow_factory_tpu_torch.scheduler import flow_match_euler as tfm

@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 PROMPTS = ["a photo of a red fox in the snow"] * 2 + ["a bowl of ramen with chopsticks"] * 2
 SEED = 7

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 from flow_factory_tpu_torch.models.layers import build_module
 from flow_factory_tpu_torch.utils import weights
