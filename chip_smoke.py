@@ -30,6 +30,15 @@ printing one line and exiting non-zero on failure:
    transition, whose ratio ``exp(new_lp - old_lp)`` must be exactly 1.0;
    then a torch.profiler breakdown of one replayed step (device time by
    kernel, idle share; the trace goes to ``chiprun_out/``);
+3a. import: SD3.5-M at full width and depth written by one adapter (A,
+   seed 42) to a diffusers-layout directory (transformer, both CLIPs and
+   the VAE as safetensors under their upstream names, each with its
+   config.json; no T5-XXL) and built from it by ``load_adapter`` with
+   ``strict_import`` and init seed 7 (B): B's imported tensors, its 10-step
+   CFG rollout's latents, log-probs and images on A's prompt embeddings all
+   equal A's bit for bit, its replay ratio is exactly 1.0, one grad step of
+   its LoRA is finite and launches one training forward's and backward's
+   kernels; seconds to write and to import, GB/s and peak memory;
 3b. wan: the Wan2.1-T2V-1.3B serving slice at full width (random weights
    from a seed, bf16: the 30-layer DiT, UMT5-XXL, the causal video VAE)
    through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
@@ -189,6 +198,7 @@ port in the checkout DIR alone (``k2_d128_only``): run it on this checkout
 and on a ``git archive`` of another commit in one call to compare the two
 by one method on one card. ``python3 chip_smoke.py --norms DIR [--sweep]``
 does the same for K5/K6 and their backwards (``norms_only``).
+``python3 chip_smoke.py --import`` runs the build and 3a alone;
 ``python3 chip_smoke.py --kontext`` runs the build, 8b and 11 alone;
 ``python3 chip_smoke.py --decoupled`` the build, 8c and 12;
 ``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14;
@@ -1728,6 +1738,216 @@ def phase_slice() -> None:
     log(f"[slice] phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
         f"{samples_per_s:.3f} samples/s (rollout+decode) | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | advantage/std {metrics['advantage/std']:.4f}")
+
+
+#: [import]: the components written, and each one's
+#: ``config.json`` in its upstream spelling, made from the adapter's configs
+IMPORT_COMPONENTS = ("transformer", "text_encoder", "text_encoder_2", "vae")
+#: predicted before the first chip run: seconds to write and to import the
+#: ~6.8 GB directory, import GB/s, and peak GiB while B loads beside A
+IMPORT_PREDICTED = {"write_s": (3.0, 15.0), "import_s": (1.5, 8.0), "GB/s": (1.0, 5.0), "peak_GiB": (30.0, 32.0)}
+
+
+def _upstream_config_json(comp: str, cfg) -> dict:
+    """A component's diffusers/transformers ``config.json`` at ``cfg``'s values."""
+    if comp == "transformer":
+        return {"_class_name": "SD3Transformer2DModel", "num_layers": cfg.depth, "num_attention_heads": cfg.num_heads,
+                "attention_head_dim": cfg.hidden_dim // cfg.num_heads, "in_channels": cfg.in_channels,
+                "out_channels": cfg.out_channels, "patch_size": cfg.patch_size, "joint_attention_dim": cfg.context_dim,
+                "pooled_projection_dim": cfg.pooled_dim, "pos_embed_max_size": cfg.pos_embed_max_size,
+                "dual_attention_layers": list(cfg.dual_attention_layers), "qk_norm": "rms_norm" if cfg.qk_norm else None}
+    if comp == "vae":
+        return {"_class_name": "AutoencoderKL", "in_channels": cfg.in_channels, "latent_channels": cfg.latent_channels,
+                "block_out_channels": [cfg.base_channels * m for m in cfg.channel_mults],
+                "layers_per_block": cfg.layers_per_block, "scaling_factor": cfg.scaling_factor,
+                "shift_factor": cfg.shift_factor, "mid_block_add_attention": cfg.use_mid_attention}
+    return {"model_type": "clip_text_model", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_dim,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "max_position_embeddings": cfg.max_positions, "projection_dim": cfg.projection_dim,
+            "eos_token_id": cfg.eos_token_id, "hidden_act": cfg.hidden_act, "layer_norm_eps": cfg.layer_norm_eps}
+
+
+def _write_checkpoint(adapter, root: str) -> int:
+    """Write ``IMPORT_COMPONENTS`` of ``adapter`` as a diffusers-layout
+    directory: each component's tensors under the upstream names its import
+    map reads, and its config.json; returns the bytes of the safetensors."""
+    from flow_factory_tpu_torch.utils.checkpoint import upstream_key
+    from flow_factory_tpu_torch.utils.safetensors_io import save_file
+
+    maps = adapter.pretrained_component_maps()
+    nbytes = 0
+    for comp in IMPORT_COMPONENTS:
+        renames = maps[comp].renames
+        d = os.path.join(root, maps[comp].subfolder)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(_upstream_config_json(comp, adapter.component_configs[comp]), f)
+        tensors = {upstream_key(k, renames): v for k, v in adapter.modules[comp].state_dict().items()}
+        if None in tensors:
+            fail(f"[import] {comp} has tensors its import map reads from no upstream key")
+        path = os.path.join(d, "model.safetensors")
+        save_file(tensors, path)
+        nbytes += os.path.getsize(path)
+    return nbytes
+
+
+def _sd35_grad_step_batch(adapter, samples, step: int) -> dict:
+    """One stored transition of every sample as the GRPO trainer stages it."""
+    import numpy as np
+    import torch
+
+    first, dev, B = samples[0], adapter.device, len(samples)
+    lat = torch.from_numpy(np.stack([s.all_latents for s in samples])).to(dev)
+    li, lni = first.latent_index_map[step], first.latent_index_map[step + 1]
+    sigmas, levels = first.extra_kwargs["sigmas"], first.extra_kwargs["noise_levels"]
+    full = lambda v: torch.full((B,), float(v), dtype=torch.float32, device=dev)
+    embeds = {k: torch.from_numpy(np.stack([getattr(s, k) for s in samples])).to(dev) for k in adapter.embed_keys}
+    return dict(latents=lat[:, li].contiguous(), next_latents=lat[:, lni].contiguous(),
+                guidance_scale=float(first.extra_kwargs["guidance_scale"]), sigma_max=full(sigmas[1]),
+                timestep=full(first.timesteps[step]), timestep_host=float(first.timesteps[step]),
+                sigma=full(sigmas[step]), sigma_next=full(sigmas[step + 1]), noise_level=full(levels[step]), **embeds)
+
+
+def phase_import(card: str) -> None:
+    """SD3.5-M at full width and depth written to a diffusers-layout
+    directory and imported back: adapter A (random weights, seed 42) writes
+    the transformer, both CLIPs and the VAE with their config.json files (no
+    T5-XXL: its subfolder is absent, and B keeps its own init there); B is
+    built from the directory through ``load_adapter`` with ``strict_import``
+    and init seed 7. Every imported tensor of B must equal A's bit for bit;
+    fed A's prompt embeddings, B's 10-step CFG rollout (the seed of
+    ``[slice]``) must give A's latents, log-probs and images bit for bit;
+    B's replay ratio exactly 1.0; one grad step of B's LoRA finite, with
+    one training forward's and backward's launches; then seconds to write
+    and to import, GB/s, and peak memory, beside the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models import load_adapter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests/fixtures/tiny_prompts/train.txt")) as f:
+        prompts = [line.strip() for line in f if line.strip()][:2]
+    batch = [p for p in prompts for _ in range(4)]
+    roll = dict(height=512, width=512, num_inference_steps=10, guidance_scale=4.5, compute_log_prob=True,
+                trajectory_indices="all", seed=42, decode=True)
+    secs = {}
+    t0 = time.perf_counter()
+    a = load_adapter(_config())
+    torch.cuda.synchronize()
+    secs["load A (random init)"] = time.perf_counter() - t0
+    enc = a.encode_prompt(batch)
+    neg = a.encode_prompt([""] * len(batch))
+    embeds = dict(prompt_embeds=enc["prompt_embeds"], pooled_prompt_embeds=enc["pooled_prompt_embeds"],
+                  negative_prompt_embeds=neg["prompt_embeds"], negative_pooled_prompt_embeds=neg["pooled_prompt_embeds"])
+    ops.reset_launch_counts()
+    a_samples = a.inference(prompt=batch, **embeds, **roll)
+    a_counts = ops.launch_counts()
+    root = tempfile.mkdtemp(prefix="sd35_import_")
+    try:
+        t0 = time.perf_counter()
+        nbytes = _write_checkpoint(a, root)
+        secs["write"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        b = load_adapter(_config(model={"model_name_or_path": root, "strict_import": True}, train={"seed": 7}))
+        torch.cuda.synchronize()
+        secs["load B (init + import)"] = time.perf_counter() - t0
+        peak_load = torch.cuda.max_memory_allocated() / 2**30
+        imported = {comp: {k: v for k, v in b.modules[comp].state_dict().items()} for comp in IMPORT_COMPONENTS}
+        unequal = [f"{comp}.{k}" for comp, sd in imported.items() for k, v in sd.items()
+                   if not torch.equal(v, a.modules[comp].state_dict()[k])]
+        differs_t5 = any(not torch.equal(v, a.modules["text_encoder_3"].state_dict()[k])
+                         for k, v in b.modules["text_encoder_3"].state_dict().items())
+        same_cfg = all(b.component_configs[c] == a.component_configs[c] for c in a.component_configs)
+        n_tensors = sum(len(sd) for sd in imported.values())
+        n_params = sum(v.numel() for sd in imported.values() for v in sd.values())
+        log(f"[import] wrote {nbytes / 1e9:.3f} GB ({n_params / 1e9:.3f} B bf16 values in {n_tensors} tensors: "
+            f"{', '.join(IMPORT_COMPONENTS)}) in {secs['write']:.2f} s; B from the directory: strict import, "
+            f"init seed 7; {len(unequal)} of {n_tensors} imported tensors differ from A's; B's T5-XXL (no "
+            f"text_encoder_3/ written) kept its own init: {differs_t5}; configs read back from config.json equal "
+            f"A's: {same_cfg}")
+        if unequal or not differs_t5 or not same_cfg:
+            fail(f"[import] B is not A: {unequal[:5]}, T5 re-initialised {differs_t5}, configs equal {same_cfg}")
+        del imported
+        # the import alone, once more into B's built modules (the files in the page cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.import_pretrained_weights()
+        torch.cuda.synchronize()
+        secs["import"] = time.perf_counter() - t0
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        b_samples = b.inference(prompt=batch, **embeds, **roll)
+        torch.cuda.synchronize()
+        secs["rollout+decode B"] = time.perf_counter() - t0
+        b_counts = ops.launch_counts()
+        same = {what: all(np.array_equal(getattr(x, what), getattr(y, what)) for x, y in zip(a_samples, b_samples))
+                for what in ("all_latents", "log_probs", "image")}
+        new_lp = b.replay_log_probs(b_samples)
+        old = np.stack([s.log_probs for s in b_samples], axis=1)
+        bad = [i for i, lp in new_lp.items() if not np.all(np.exp(lp.double().cpu().numpy() - old[i]) == 1.0)]
+        sde_steps = [int(i) for i in np.nonzero(b_samples[0].extra_kwargs["noise_levels"])[0]]
+        step_batch = _sd35_grad_step_batch(b, b_samples, sde_steps[0])
+        old_lp = torch.from_numpy(old[b_samples[0].log_prob_index_map[sde_steps[0]]]).to(b.device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = b.training_forward(b.trainable, step_batch)
+        ratio = torch.exp(out.log_prob - old_lp)
+        leaves = b.trainable_leaves()
+        grads = torch.autograd.grad(-(ratio.mean()), leaves)
+        torch.cuda.synchronize()
+        secs["grad step B"] = time.perf_counter() - t0
+        step_counts = ops.launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        live = sum(bool(g.abs().max() > 0) for g in grads)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutil.rmtree(root)
+    remat = b.component_configs["transformer"].remat
+    want_step = {"qknorm_flash_fwd": 37 * (2 if remat else 1), "flash_bwd_dq": 37, "flash_bwd_dkv": 37,
+                 **SD35_NORMS_A_STEP}
+    gbps = nbytes / 1e9 / secs["import"]
+    log(f"[import] B's rollout against A's, bit for bit: {json.dumps(same)}; launches A {a_counts} | B "
+        f"{b_counts}; B's replay ratio exactly 1.0 on {len(new_lp) - len(bad)}/{len(new_lp)} steps")
+    log(f"[import] B's grad step at SDE step {sde_steps[0]} (LoRA rank {b.model_args.lora_rank}): ratio "
+        f"{ratio.min().item()!r}..{ratio.max().item()!r}, {live}/{len(grads)} LoRA leaves with a gradient, all "
+        f"finite {finite}, launches {step_counts}")
+    log(f"[import] {card}: write {secs['write']:.2f} s, import {secs['import']:.2f} s = {gbps:.2f} GB/s "
+        f"(predicted {IMPORT_PREDICTED['write_s']} s, {IMPORT_PREDICTED['import_s']} s, "
+        f"{IMPORT_PREDICTED['GB/s']} GB/s); peak while B loads beside A {peak_load:.2f} GiB "
+        f"({before / 2**30:.2f} GiB before it; predicted {IMPORT_PREDICTED['peak_GiB']}), B's rollout, replay "
+        f"and grad step {peak:.2f} GiB; phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    if not all(same.values()):
+        fail(f"[import] B's rollout differs from A's: {same}")
+    if bad or not new_lp:
+        fail(f"[import] B's replay ratio != 1.0 at steps {bad}")
+    if b_counts != a_counts or b_counts["qknorm_flash_fwd"] != 37 * 10:
+        fail(f"[import] rollout launches A {a_counts}, B {b_counts}, expected 370 K1 each")
+    if not (finite and live > 0 and bool((ratio == 1.0).all())):
+        fail(f"[import] B's grad step: finite {finite}, {live} live leaves, ratio {ratio.tolist()}")
+    if any(step_counts[k] != n for k, n in want_step.items()):
+        fail(f"[import] grad-step launches {step_counts}, expected {want_step}")
+    del b, b_samples, a_samples, grads, out, step_batch, leaves, ratio
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def import_only() -> int:
+    """``--import``: the environment (the kernels' build) and ``[import]`` alone."""
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_import(phase_environment())
+    return 0
 
 
 def _wan_config(**overrides):
@@ -5011,6 +5231,8 @@ def main() -> int:
     except ImportError as e:
         print(f"the flow_factory_tpu_torch package is not beside this script: {e}", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--import"]:
+        return import_only()
     if sys.argv[1:] == ["--kontext"]:
         return kontext_only()
     if sys.argv[1:] == ["--decoupled"]:
@@ -5038,7 +5260,10 @@ def main() -> int:
     phase_qwen_kernels(results)
     phase_slice()
     gc.collect()
-    torch.cuda.empty_cache()  # the SD3.5 adapter is gone before Wan loads
+    torch.cuda.empty_cache()  # the SD3.5 adapter is gone before the import's two load
+    phase_import(card)
+    gc.collect()
+    torch.cuda.empty_cache()  # and gone again before Wan loads
     wan_counts = phase_wan()
     gc.collect()
     torch.cuda.empty_cache()

@@ -41,6 +41,7 @@ from ..scheduler.flow_match_euler import FlowMatchEulerSDE, sde_step
 from ..scheduler.registry import get_scheduler_class
 from ..scheduler.unipc import compute_unipc_orders, init_unipc_carry, unipc_eval_step
 from ..utils.base import make_generator, resolve_device
+from ..utils.checkpoint import ComponentImport, import_state_dict, load_safetensors_dir, safetensors_files
 from ..utils.safetensors_io import load_file, save_file
 from ..utils.weights import ModuleMap, RawMap, load_component, lora_from_flax
 from .lora import DEFAULT_TARGET_PATTERNS, init_lora, lora_param_count, merge_lora, zero_like_lora
@@ -91,6 +92,9 @@ class BaseAdapter(ABC):
         #: configs per component
         self.component_configs: Dict[str, Any] = {}
         self.load_models()
+        # before the LoRA, the reference and snapshot stores, the EMA and a
+        # resume read the weights
+        self.import_pretrained_weights()
         self.scheduler = self.load_scheduler()
         self._setup_trainable()
         self.ema: Optional[EMA] = None
@@ -131,6 +135,32 @@ class BaseAdapter(ABC):
         """The weight bridge's maps from the JAX package's parameter paths to
         this adapter's, per component (families override)."""
         raise NotImplementedError(f"{type(self).__name__} has no weight bridge to the JAX package's names")
+
+    def pretrained_component_maps(self) -> Dict[str, ComponentImport]:
+        """How each component imports from a local diffusers-layout
+        checkpoint (:meth:`import_pretrained_weights`; families override)."""
+        return {}
+
+    def import_pretrained_weights(self) -> None:
+        """Copy ``<model_name_or_path>/<subfolder>/*.safetensors`` into each
+        built component that has a map (JAX ``models/abc.py:312-341``): a
+        component whose subfolder is absent or holds no safetensors keeps its
+        init; ``strict_import`` raises on any tensor left at init or key left
+        unread. Without a preprocess the files are read one at a time."""
+        path = self.model_args.model_name_or_path
+        if not path or not os.path.isdir(path):
+            return
+        strict = bool(getattr(self.model_args, "strict_import", False))
+        for comp, spec in self.pretrained_component_maps().items():
+            d = os.path.join(path, spec.subfolder)
+            files = safetensors_files(d) if comp in self.modules and os.path.isdir(d) else []
+            if not files:
+                continue
+            sd = (spec.preprocess(load_safetensors_dir(d)) if spec.preprocess is not None
+                  else (load_file(f) for f in files))
+            report = import_state_dict(self.modules[comp], sd, spec.renames, strict=strict, component=comp,
+                                       unmatched_scope=spec.scope)
+            logger.info("Imported pretrained %s weights from %s (%s)", comp, d, report.summary())
 
     def load_scheduler(self) -> FlowMatchEulerSDE:
         """The scheduler class of ``scheduler_type`` or the adapter's

@@ -6,7 +6,8 @@ T5-XXL context plus the CLIP-L pooled vector as conditioning, and the
 resolution-dependent dynamic shift of the sigma schedule (mu from the
 image-token count, base 0.5 and max 1.15 over 256-4096 tokens). Every
 component is random-initialised from the seed directly on the adapter's
-device in the inference dtype; the LoRA is merged once per rollout and the
+device in the inference dtype, or configured and imported from a local
+diffusers-layout checkpoint; the LoRA is merged once per rollout and the
 transformer runs on the merged weights through ``functional_call``.
 FLUX.1-Kontext builds on this adapter (``kontext.py``), and so do the
 LM-conditioned families with true CFG (``lm_conditioned.py``: Qwen-Image,
@@ -16,6 +17,7 @@ Edit-Plus, Z-Image); FLUX.2 and Klein are not ported
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -24,6 +26,14 @@ from torch.func import functional_call
 
 from ...samples import T2ISample
 from ...utils.base import make_generator
+from ...utils.checkpoint import FLUX1_TRANSFORMER_RENAMES, ComponentImport, fuse_flux_single_block_qkv_mlp
+from ...utils.model_config import (
+    apply_config_json_overrides,
+    clip_text_overrides_from_config,
+    flux_transformer_overrides_from_config,
+    image_vae_overrides_from_config,
+    t5_overrides_from_config,
+)
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
 from ...utils.weights import flux1_component_maps
@@ -80,6 +90,11 @@ class Flux1Adapter(BaseAdapter):
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "dev")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
+        for key, sub, fn in (("transformer", "transformer", flux_transformer_overrides_from_config),
+                             ("clip_l", "text_encoder", clip_text_overrides_from_config),
+                             ("t5", "text_encoder_2", t5_overrides_from_config),
+                             ("vae", "vae", image_vae_overrides_from_config)):
+            preset[key] = apply_config_json_overrides(preset[key], ma.model_name_or_path, sub, fn)
         if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
             preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
         self.t5_max_length = preset["t5_max_length"]
@@ -115,6 +130,14 @@ class Flux1Adapter(BaseAdapter):
 
     def weight_maps(self):
         return flux1_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # JAX flux/adapter.py:70-105: the single blocks' four projections
+        # fused into linear1 first
+        fuse = functools.partial(fuse_flux_single_block_qkv_mlp,
+                                 num_single=self.component_configs["transformer"].num_single_blocks)
+        return {"transformer": ComponentImport("transformer", FLUX1_TRANSFORMER_RENAMES, fuse),
+                **{comp: ComponentImport(comp) for comp in ("text_encoder", "text_encoder_2", "vae")}}
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         # FLUX dynamic shifting (diffusers FluxPipeline defaults)

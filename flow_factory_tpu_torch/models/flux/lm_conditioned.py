@@ -9,7 +9,9 @@ dynamic shift and rollout, with
 * the preset's components self-configured from ``<model_name_or_path>/
   {transformer,text_encoder,vae}/config.json`` where present (a directory
   with ``transformer/config.json`` holding ``{"num_layers": N}`` runs the
-  model at depth N), and remat on under ``enable_gradient_checkpointing``;
+  model at depth N), their safetensors imported where present (each
+  family's ``pretrained_component_maps``), and remat on under
+  ``enable_gradient_checkpointing``;
 * CFG by a doubled batch, the negatives first, the negative embeddings
   riding the embeds of the rollout and every replay
   (``negative_prompt_embeds`` on each sample).

@@ -17,13 +17,15 @@ and one with the cross-modal attentions off. Decode: the LTX video VAE
 model knobs), and the audio VAE's mel decoder then the HiFi-GAN vocoder.
 
 Every component is random-initialised from the seed directly on the
-adapter's device in the inference dtype. Not ported, and raising if asked
+adapter's device in the inference dtype, or configured and imported from a
+local diffusers-layout checkpoint. Not ported, and raising if asked
 for: the LLM prompt enhancer (``use_prompt_enhancer``) and the decoupled
 trainers' joint velocity tree (:attr:`decoupled_latent_keys`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +40,22 @@ from ...scheduler.flow_match_euler import (
     sde_step,
 )
 from ...utils.base import make_generator
+from ...utils.checkpoint import (
+    LTX2_AUDIO_VAE_RENAMES,
+    LTX2_TRANSFORMER_RENAMES,
+    LTX_VIDEO_VAE_RENAMES,
+    ComponentImport,
+    hifigan_vocoder_preprocess,
+    pop_ltx_vae_latent_stats,
+)
+from ...utils.model_config import (
+    apply_config_json_overrides,
+    lm_overrides_from_config,
+    load_component_config,
+    ltx2_audio_vae_overrides_from_config,
+    ltx2_transformer_overrides_from_config,
+    ltx_video_vae_overrides_from_config,
+)
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
 from ...utils.weights import ltx2_component_maps
@@ -95,12 +113,25 @@ class LTX2T2AVAdapter(BaseAdapter):
                                       "(Z-Image's caption.py)")
         variant = getattr(ma, "variant", None) or ("tiny" if ma.model_name_or_path in ("", "tiny") else "ltx2")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
-        # the VAEs' latent widths are the transformer's token widths; the
+        path = ma.model_name_or_path
+        for key, sub, fn in (("transformer", "transformer", ltx2_transformer_overrides_from_config),
+                             ("audio_vae", "audio_vae", ltx2_audio_vae_overrides_from_config),
+                             ("lm", "text_encoder", lm_overrides_from_config),
+                             ("video_vae", "vae", ltx_video_vae_overrides_from_config)):
+            preset[key] = apply_config_json_overrides(preset[key], path, sub, fn)
+        # the VAEs' latent widths are the transformer's token widths (JAX
+        # ltx2/t2av.py:160-176): where they differ, a VAE config.json that
+        # declares its width wins, else the transformer's does; the
         # connectors read the LM's hidden states
-        preset["video_vae"] = dataclasses.replace(preset["video_vae"],
-                                                  latent_channels=preset["transformer"].video_channels)
-        preset["audio_vae"] = dataclasses.replace(preset["audio_vae"],
-                                                  latent_channels=preset["transformer"].audio_channels)
+        for tx_field, key, sub in (("video_channels", "video_vae", "vae"), ("audio_channels", "audio_vae", "audio_vae")):
+            tx_w, vae_w = getattr(preset["transformer"], tx_field), preset[key].latent_channels
+            if tx_w == vae_w:
+                continue
+            vae_json = load_component_config(path, sub) if path and os.path.isdir(path) else None
+            if vae_json and vae_json.get("latent_channels") is not None:
+                preset["transformer"] = dataclasses.replace(preset["transformer"], **{tx_field: vae_w})
+            else:
+                preset[key] = dataclasses.replace(preset[key], latent_channels=tx_w)
         preset["transformer"] = dataclasses.replace(preset["transformer"], context_dim=preset["lm"].hidden_dim)
         if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
             preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
@@ -137,6 +168,24 @@ class LTX2T2AVAdapter(BaseAdapter):
 
     def weight_maps(self):
         return ltx2_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # JAX ltx2/t2av.py:84-135: the video VAE's latent statistics become
+        # its config; the audio VAE takes its vocoder from a HiFi-GAN
+        # generator checkpoint in vocoder/
+        return {"transformer": ComponentImport("transformer", LTX2_TRANSFORMER_RENAMES),
+                "text_encoder": ComponentImport("text_encoder"),
+                "vae": ComponentImport("vae", LTX_VIDEO_VAE_RENAMES, self._vae_latent_stats),
+                "audio_vae": ComponentImport("vocoder", LTX2_AUDIO_VAE_RENAMES, hifigan_vocoder_preprocess)}
+
+    def _vae_latent_stats(self, sd):
+        """A video VAE state dict without its ``latents_mean``/``latents_std``,
+        which go into the VAE's config."""
+        sd, mean, std = pop_ltx_vae_latent_stats(sd)
+        if mean is not None and std is not None:
+            cfg = dataclasses.replace(self.component_configs["vae"], latents_mean=mean, latents_std=std)
+            self.component_configs["vae"] = self.modules["vae"].cfg = cfg
+        return sd
 
     @property
     def decoupled_latent_keys(self) -> Dict[str, str]:

@@ -12,6 +12,7 @@ from typing import Any, Dict
 
 import numpy as np
 
+from ...utils.checkpoint import QWEN_IMAGE_TRANSFORMER_RENAMES, ComponentImport
 from ...utils.model_config import flux_transformer_overrides_from_config
 from ...utils.weights import qwen_image_component_maps
 from ..flux.lm_conditioned import LMConditionedAdapter
@@ -54,6 +55,13 @@ class QwenImageAdapter(LMConditionedAdapter):
 
     def weight_maps(self):
         return qwen_image_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # JAX qwen_image/adapter.py:72-97: the LM claims the language-side keys
+        # of text_encoder/, where Qwen2.5-VL also ships its vision tower
+        return {"transformer": ComponentImport("transformer", QWEN_IMAGE_TRANSFORMER_RENAMES),
+                "text_encoder": ComponentImport("text_encoder", scope=r"^(model\.|lm_head)"),
+                "vae": ComponentImport("vae")}
 
     def _transformer_args(self, x, t, ctx, img_ids, txt_ids):
         return (x, t, ctx, None, img_ids, txt_ids, None)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ...samples import I2ISample
+from ...utils.checkpoint import VL_VISION_RENAMES, ComponentImport, qwen_vl_vision_preprocess
 from ...utils.media import standardize_image_batch
 from ..flux.kontext import ConditionTokens
 from ..text_encoders import LMConfig
@@ -61,6 +62,13 @@ class QwenImageEditPlusAdapter(ConditionTokens, QwenImageAdapter):
 
     def _components(self, preset):
         return {**super()._components(preset), "vision_tower": (preset["vision"], VLVisionTower)}
+
+    def pretrained_component_maps(self):
+        # JAX edit_plus.py:119-134: the tower ships in text_encoder/ and
+        # claims its visual.* keys
+        return {**super().pretrained_component_maps(),
+                "vision_tower": ComponentImport("text_encoder", VL_VISION_RENAMES, qwen_vl_vision_preprocess,
+                                                r"^visual\.")}
 
     def load_models(self) -> None:
         super().load_models()

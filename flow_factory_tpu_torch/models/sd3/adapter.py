@@ -10,7 +10,9 @@ Port of ``flow_factory_tpu/models/sd3/adapter.py``:
 * the schedule uses the resolution-dependent dynamic shift (mu from the
   image-token count);
 * every component is random-initialised from the seed directly on the
-  adapter's device in the inference dtype (no weights are downloaded);
+  adapter's device in the inference dtype; a local diffusers-layout
+  ``model_name_or_path`` then self-configures each component from its
+  ``config.json`` and imports its safetensors (no weights are downloaded);
 * the LoRA is merged once per rollout; the transformer runs on the merged
   weights through ``functional_call``.
 """
@@ -26,6 +28,14 @@ from torch.func import functional_call
 
 from ...samples import T2ISample
 from ...utils.base import make_generator
+from ...utils.checkpoint import ComponentImport
+from ...utils.model_config import (
+    apply_config_json_overrides,
+    clip_text_overrides_from_config,
+    image_vae_overrides_from_config,
+    sd3_transformer_overrides_from_config,
+    t5_overrides_from_config,
+)
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
 from ...utils.weights import sd35_component_maps
@@ -77,6 +87,12 @@ class SD35Adapter(BaseAdapter):
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "medium")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
+        for key, sub, fn in (("transformer", "transformer", sd3_transformer_overrides_from_config),
+                             ("clip_l", "text_encoder", clip_text_overrides_from_config),
+                             ("clip_g", "text_encoder_2", clip_text_overrides_from_config),
+                             ("t5", "text_encoder_3", t5_overrides_from_config),
+                             ("vae", "vae", image_vae_overrides_from_config)):
+            preset[key] = apply_config_json_overrides(preset[key], ma.model_name_or_path, sub, fn)
         if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
             preset["transformer"] = dataclasses.replace(preset["transformer"], remat=True)
         self.t5_max_length = preset["t5_max_length"]
@@ -118,6 +134,11 @@ class SD35Adapter(BaseAdapter):
 
     def weight_maps(self):
         return sd35_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # the diffusers names throughout (JAX sd3/adapter.py:90-124)
+        return {comp: ComponentImport(comp) for comp in
+                ("transformer", "text_encoder", "text_encoder_2", "text_encoder_3", "vae")}
 
     def scheduler_defaults(self) -> Dict[str, Any]:
         return dict(use_dynamic_shifting=True)

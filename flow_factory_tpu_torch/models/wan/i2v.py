@@ -41,7 +41,7 @@ class WanI2VAdapter(WanT2VAdapter):
     sample_class = I2VSample
     embed_keys = ("prompt_embeds", "negative_prompt_embeds", "cond_latents")
 
-    def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig) -> WanConfig:
+    def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig, declared_width: bool = False) -> WanConfig:
         ma = self.model_args
         # Wan2.2-TI2V-5B: no widening, no mask channel (JAX i2v.py:44-52)
         self.expand_timesteps = bool(getattr(ma, "expand_timesteps", False))
@@ -49,7 +49,7 @@ class WanI2VAdapter(WanT2VAdapter):
         if getattr(ma, "use_image_encoder", False):
             raise NotImplementedError("use_image_encoder (the Wan2.1-I2V-14B CLIP image stream) is not ported yet: "
                                       "ROADMAP Queue 1 item 16, after Queue 2 item 1's head dim 80")
-        if self.expand_timesteps:
+        if self.expand_timesteps or declared_width:  # a checkpoint's config.json gives the widened input (JAX :59-66)
             return cfg
         return dataclasses.replace(cfg, in_channels=cfg.in_channels + vae.latent_channels + 1)
 

@@ -6,7 +6,8 @@ JAX package keeps them), true-CFG batch doubling in ``[uncond, cond]``
 order, and the UniPC-SDE scheduler: the rollout and replay steps are the
 FlowMatch-Euler SDE ones, an eval rollout runs the UniPC predictor-corrector
 (``rollout_compute``). Every component is random-initialised from the seed
-directly on the adapter's device in the inference dtype; the LoRA is merged
+directly on the adapter's device in the inference dtype, or configured and
+imported from a local diffusers-layout checkpoint; the LoRA is merged
 once per rollout and the transformer runs on the merged weights through
 ``functional_call``.
 
@@ -32,6 +33,13 @@ from torch.func import functional_call
 
 from ...samples import T2VSample
 from ...utils.base import make_generator
+from ...utils.checkpoint import ComponentImport
+from ...utils.model_config import (
+    apply_config_json_overrides,
+    t5_overrides_from_config,
+    wan_transformer_overrides_from_config,
+    wan_vae_overrides_from_config,
+)
 from ...utils.tokenizer import load_tokenizer
 from ...utils.trajectory import build_store_maps
 from ...utils.weights import wan_t2v_component_maps
@@ -123,14 +131,22 @@ class WanT2VAdapter(BaseAdapter):
         variant = getattr(ma, "variant", None) or (
             "tiny" if ma.model_name_or_path in ("", "tiny") else "1.3b")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
-        # explicit config knobs win (JAX wan/t2v.py:161-174): e.g. Wan 2.2's
+        # a checkpoint directory's config.json files first (JAX wan/t2v.py:131-158:
+        # the DiT, UMT5, and the VAE's graph and latent normalisation) ...
+        path = ma.model_name_or_path
+        tcfg = apply_config_json_overrides(preset["transformer"], path, "transformer",
+                                           wan_transformer_overrides_from_config)
+        declared_width = tcfg.in_channels != preset["transformer"].in_channels
+        preset["t5"] = apply_config_json_overrides(preset["t5"], path, "text_encoder", t5_overrides_from_config)
+        if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
+            tcfg = dataclasses.replace(tcfg, remat=True)
+        preset["vae"] = apply_config_json_overrides(preset["vae"], path, "vae", wan_vae_overrides_from_config)
+        # ... then the explicit config knobs win (JAX :161-174): e.g. Wan 2.2's
         # `vae_overrides`, or a depth cut at full width, `transformer_overrides:
         # {num_layers: 8}`
         preset["vae"] = _overridden(preset["vae"], getattr(ma, "vae_overrides", None))
-        tcfg = _overridden(preset["transformer"], getattr(ma, "transformer_overrides", None))
-        if self.training_args.enable_gradient_checkpointing or ma.enable_gradient_checkpointing_override:
-            tcfg = dataclasses.replace(tcfg, remat=True)
-        tcfg = self.transformer_config(tcfg, preset["vae"])
+        tcfg = _overridden(tcfg, getattr(ma, "transformer_overrides", None))
+        tcfg = self.transformer_config(tcfg, preset["vae"], declared_width)
         self.t5_max_length = preset["t5_max_length"]
         self.boundary_ratio = getattr(ma, "boundary_ratio", None) or preset["boundary_ratio"]
         self.component_configs = {
@@ -159,8 +175,10 @@ class WanT2VAdapter(BaseAdapter):
         self.vae_spatial_down = vcfg.spatial_down
         self.vae_temporal_down = vcfg.temporal_down
 
-    def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig) -> WanConfig:
-        """The DiT's config from the preset's (the conditioned adapters widen it)."""
+    def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig, declared_width: bool = False) -> WanConfig:
+        """The DiT's config from the preset's (the conditioned adapters widen
+        it, unless a checkpoint's config.json declared another input width,
+        ``declared_width``)."""
         return cfg
 
     @property
@@ -175,6 +193,11 @@ class WanT2VAdapter(BaseAdapter):
 
     def weight_maps(self):
         return wan_t2v_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # the diffusers names throughout, each MoE expert from its own
+        # subfolder (JAX wan/t2v.py:93-121)
+        return {comp: ComponentImport(comp) for comp in ("transformer", "transformer_2", "text_encoder", "vae")}
 
     def merged_params(self, component: str, trainable=None):
         """The MoE gives both experts (JAX ``merged_params``, ``wan/t2v.py:328-335``),

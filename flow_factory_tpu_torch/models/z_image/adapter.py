@@ -13,6 +13,7 @@ from typing import Any, Dict
 
 import numpy as np
 
+from ...utils.checkpoint import ComponentImport
 from ...utils.model_config import z_image_transformer_overrides_from_config
 from ...utils.weights import z_image_component_maps
 from ..flux.lm_conditioned import LMConditionedAdapter
@@ -63,6 +64,10 @@ class ZImageAdapter(LMConditionedAdapter):
 
     def weight_maps(self):
         return z_image_component_maps(self.component_configs)
+
+    def pretrained_component_maps(self):
+        # the upstream names throughout (JAX z_image/adapter.py:67-84)
+        return {comp: ComponentImport(comp) for comp in ("transformer", "text_encoder", "vae")}
 
     def _transformer_args(self, x, t, ctx, img_ids, txt_ids):
         return (x, t, ctx, img_ids, txt_ids)

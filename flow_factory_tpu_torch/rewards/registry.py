@@ -1,4 +1,7 @@
-"""Reward model registry of the port: config name → ``module:Class``."""
+"""Reward model registry of the port: config name → ``module:Class``.
+Reward names of the JAX package that are not ported raise
+``NotImplementedError`` with the reason; a name in neither registry raises
+``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -7,9 +10,24 @@ from typing import Type
 _REWARD_REGISTRY = {
     "MyReward": "flow_factory_tpu_torch.rewards.models:MyReward",
 }
+_ITEM_6 = "ROADMAP Queue 1 item 6 (rewards past pointwise-synchronous)"
+_LOCAL_WEIGHTS = "it needs local weights or a package that is not installed (ROADMAP Queue 1 item 6, not queued)"
+_SERVER = "it needs a reward server (ROADMAP Queue 1 item 6, not queued)"
+#: the JAX registry's other names (``flow_factory_tpu/rewards/registry.py``)
+_NOT_PORTED = {
+    "MyGroupReward": _ITEM_6,
+    "PickScoreNative": _ITEM_6,
+    "CLIPNative": _ITEM_6,
+    **{name: _LOCAL_WEIGHTS for name in ("PickScore", "PickScoreRank", "CLIPScore", "OCR", "CLAP", "ImageBind")},
+    **{name: _SERVER for name in ("Remote", "MyRewardRemote", "RemoteGroup", "MyGroupRewardRemote",
+                                  "VLLMEvaluate", "RationalRewardT2I", "RationalRewardEdit", "vllm_evaluate",
+                                  "rational_rewards_t2i", "rational_rewards_edit")},
+}
 
 
 def resolve_reward_class(name: str) -> Type:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"reward_model {name!r} is not ported: {_NOT_PORTED[name]}")
     target = _REWARD_REGISTRY.get(name, name)
     if ":" in target:
         module_name, cls_name = target.split(":")
