@@ -183,12 +183,27 @@ printing one line and exiting non-zero on failure:
    epoch at the joint length 3151). Each: launches as predicted, ratio
    exactly 1.0, the negatives on every sample, peak memory, seconds, a
    profiled grad step.
+8g. flux2-kernels (run right after 8f): K3 and K2a/K2b at FLUX.2's B8 H32
+   S2560 D128 (512 text + 1024 target + 1024 condition tokens), K2a/K2b at
+   Klein's grad step B8 H24 S1536, K5 and its backward at width 4096 ((8,
+   2048 / 512 / 2560) rows), through the checks of 2;
+17. klein, flux2: FLUX.2-Klein at full size (8 + 24 blocks at width 3072,
+   the whole Mistral-Small) on tests/fixtures/flux2_klein_grpo.yaml, and
+   FLUX.2 multi-reference I2I at full width with the gated FFN, 8 + 16
+   blocks and an 8-layer Mistral-Small (tests/fixtures/flux2_cut) on
+   tests/fixtures/flux2_grpo.yaml, both with the caption upsampler: the
+   upsampler's strings the same on a second call, a serving rollout and its
+   replay (Klein's also as two micro-batches of 4, ROADMAP Queue 3's
+   watch), then two (Klein) or one (FLUX.2) GRPO epochs. Each: launches as
+   predicted, ratio exactly 1.0, peak memory against its prediction,
+   seconds, a profiled grad step.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
-FLUX.1-Kontext, B 8, LTX-2, Wan2.2 and Qwen/Z-Image shapes nested under
-their kernels' entries, with their launches in the DPO epochs, the three
-Kontext phases, the DGPO or CRD epochs, the LTX-2 T2AV epochs, the TI2V-5B
-I2V or A14B T2V epochs and the Qwen/Z-Image epochs); the last line is
+FLUX.1-Kontext, B 8, LTX-2, Wan2.2, Qwen/Z-Image and FLUX.2 shapes nested
+under their kernels' entries, with their launches in the DPO epochs, the
+three Kontext phases, the DGPO or CRD epochs, the LTX-2 T2AV epochs, the
+TI2V-5B I2V or A14B T2V epochs, the Qwen/Z-Image epochs and the Klein or
+FLUX.2 epochs); the last line is
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
@@ -204,7 +219,8 @@ does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --ltx2`` the build, 8d, 13 and 14;
 ``python3 chip_smoke.py --wan22`` the build, 8e and 15;
 ``python3 chip_smoke.py --qwen`` and/or ``--z-image`` the build, 8f and
-16 (Qwen-Image and Edit-Plus, and/or Z-Image).
+16 (Qwen-Image and Edit-Plus, and/or Z-Image);
+``python3 chip_smoke.py --flux2`` the build, 8g and 17.
 """
 from __future__ import annotations
 
@@ -5213,6 +5229,290 @@ def qwen_only(flags) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# FLUX.2-Klein at full size and FLUX.2 at full width (8 + 16 blocks, the
+# gated FFN), both conditioned on Mistral-Small, under GRPO
+# ---------------------------------------------------------------------------
+
+#: FLUX.2 multi-reference I2I at 512 px: 512 text + 1024 target + 1024
+#: condition tokens, 32 heads of 128; Klein's joint length is FLUX.1's 1536
+FLUX2_S, KLEIN_S = 2560, 1536
+#: K5's LayerNorm form at width 4096: FLUX.2's image + condition rows, its
+#: text rows and the single blocks' joint rows, all bf16 -> bf16
+FLUX2_K5_SHAPES = tuple(NormShape(tag, 8, S, 4096, "bfloat16", "bfloat16", False, False, False, True)
+                        for tag, S in (("flux2-img", 2048), ("flux2-txt", 512), ("flux2-joint", FLUX2_S)))
+#: the table's shapes of each kernel and the phases whose launches they take;
+#: Klein's K3 shape is FLUX.1's 512 px rollout shape, flux-512px-b8, whose
+#: entry also counts the FLUX.1 DPO epochs' launches
+FLUX2_TAGS = {
+    "flash_fwd": {"flux2-2560-b8": ("flux2",), "flux-512px-b8": ("klein",)},
+    **{name: {"flux2-2560": ("flux2",), "klein-1536": ("klein",)}
+       for name in ("flash_bwd_dq_d128", "flash_bwd_dkv_d128")},
+    **{name: {shape.tag: ("flux2",) for shape in FLUX2_K5_SHAPES} for name in ("ln_mul_add", "ln_mul_add_backward")},
+}
+#: peak device memory predicted for each phase, GiB (PERF.md §6)
+FLUX2_PEAK_PREDICTED = {"klein": (65.0, 73.0), "flux2": (50.0, 60.0)}
+
+
+def _flux2_launches(num_double: int, num_single: int):
+    """Launches of one forward of the FLUX transformer (a K3 a block; four
+    K5 a double block, one a single block, norm_out) and of one rematted
+    grad step: the blocks recomputed in the backward (norm_out is outside
+    them); K2a/K2b for every K3; K5's backward for every K5 but block 0's
+    two first norms, whose inputs (the embedded latents and context, the
+    AdaLN vectors) are frozen."""
+    blocks, norms = num_double + num_single, 4 * num_double + num_single + 1
+    forward = {"flash_fwd": blocks, "ln_mul_add": norms, **_NOT_ON_PATH}
+    step = {"flash_fwd": 2 * blocks, "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks,
+            "ln_mul_add": 2 * norms - 1, "ln_mul_add_backward": norms - 2, **_NOT_ON_PATH}
+    return forward, step
+
+
+def phase_flux2_kernels(results: dict) -> None:
+    """[flux2-kernels]: K3 at FLUX.2's B8 H32 S2560 D128, K2a/K2b there (the
+    control without Delta) and at Klein's grad-step shape B8 H24 S1536 (the
+    control without Delta), K5 and its backward at ``FLUX2_K5_SHAPES``
+    (width 4096, the backward's controls on the image rows), through the
+    checks, bits and times of the earlier shapes. Klein's K3 shape is
+    checked in [flux-kernels]. The entries join the table under the
+    ``FLUX2_TAGS``."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    D = 128
+    log(f"[flux2-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    t0 = time.perf_counter()
+    q, k, v = (randn(8, 32, FLUX2_S, D) for _ in range(3))
+    _k3_shape_checks(results, "flux2-2560-b8", q, k, v, "q/k/v contiguous",
+                     functools.partial(_k3_flux_call, 8, 32, FLUX2_S, D))
+    del q, k, v
+    _k2_d128_shape_checks(results, "flux2-2560", 8, 32, FLUX2_S, FLUX2_S, True, randn)
+    _k2_d128_shape_checks(results, "klein-1536", 8, 24, KLEIN_S, KLEIN_S, True, randn)
+    for shape in FLUX2_K5_SHAPES:
+        _k5_shape_checks(results, gen, shape, shape.tag == "flux2-img")
+    log(f"[flux2-kernels] every shape within its tolerance, the controls rejected: 1 K3, 2 K2, "
+        f"{len(FLUX2_K5_SHAPES)} K5 shapes, {time.perf_counter() - t0:.1f} s")
+
+
+def _caption_check(tag: str, ad, prompts) -> None:
+    """The caption upsampler twice on the same prompts: the same strings
+    (greedy over the card's deterministic kernels), a rewrite for every
+    prompt, and the seconds of one call."""
+    import torch
+
+    t0 = time.perf_counter()
+    first = ad.caption_upsampler(prompts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    second = ad.caption_upsampler(prompts)
+    up = ad.caption_upsampler
+    log(f"[{tag}] caption upsampler ({up.max_new_tokens} new tokens over {up.max_length} slots, B {len(prompts)}): "
+        f"{first}; the same strings on a second call: {first == second}; {secs:.2f} s a call")
+    if first != second or any(a == b for a, b in zip(first, prompts)):
+        fail(f"[{tag}] the caption upsampler is not deterministic or left a prompt as it was: {first} / {second}")
+
+
+def _microbatch_replay_probe(tag: str, ad, samples, size: int = 4) -> None:
+    """ROADMAP Queue 3's watch: the rollout's rows replayed as micro-batches
+    of ``size`` (another GEMM shape than the rollout's): whether the ratio is
+    exactly 1.0 on the SDE steps (the stored steps that carry a log-prob)
+    and on every stored step of each, the largest |log-ratio| on the SDE
+    steps; then whether the first single block's ``linear1`` product gives
+    the first ``size`` rows the same bits alone as in the rollout's batch.
+    A finding, not a gate: the gates replay at the rollout's batch."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    sde = set(np.nonzero(samples[0].extra_kwargs["noise_levels"])[0].tolist())
+    lp_map = samples[0].log_prob_index_map
+    held_sde, held_all, worst = [], [], 0.0
+    for i in range(0, len(samples), size):
+        part = samples[i:i + size]
+        old = np.stack([s.log_probs for s in part], axis=1)
+        diffs = {j: lp.cpu().numpy().astype(np.float64) - old[lp_map[j]] for j, lp in ad.replay_log_probs(part).items()}
+        held_all.append(all(np.all(np.exp(d) == 1.0) for d in diffs.values()))
+        held_sde.append(all(np.all(np.exp(d) == 1.0) for j, d in diffs.items() if j in sde))
+        worst = max([worst] + [float(np.abs(d).max()) for j, d in diffs.items() if j in sde])
+    block = ad.modules["transformer"].single_transformer_blocks[0].linear1
+    dev = block.weight.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(len(samples), KLEIN_S, block.in_features, generator=gen, device=dev).to(torch.bfloat16)
+    w = block.weight.to(torch.bfloat16)
+    same = torch.equal(F.linear(x, w)[:size], F.linear(x[:size], w))
+    log(f"[{tag}] Queue 3 watch: the {len(samples)} rows replayed as {len(held_sde)} micro-batches of {size}: ratio "
+        f"exactly 1.0 on the SDE steps {sorted(sde)} of each: {held_sde}, on every stored step: {held_all}; max "
+        f"|log-ratio| on the SDE steps {worst!r}; linear1 ({x.shape[1]} x {block.in_features} -> "
+        f"{block.out_features}) gives the first {size} rows the same bits alone as in the batch of {len(samples)}: "
+        f"{same}")
+
+
+def _flux2_serving(tag: str, ad, ta, batch, forward: dict, **inputs) -> list:
+    """A serving rollout of ``batch`` through ``inference`` (the caption
+    upsampler and the prompt encode included), its images and launches, and
+    its no-grad replay (ratio exactly 1.0); returns the samples."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    ad.rollout()
+    t0 = time.perf_counter()
+    samples = ad.inference(prompt=batch, compute_log_prob=True, trajectory_indices="all", seed=ta.seed, **inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: n * ta.num_inference_steps for k, n in forward.items()}
+    images = np.stack([s.image for s in samples])
+    log(f"[{tag}] serving rollout of {len(batch)}: images {images.shape} in [{images.min():.3f}, {images.max():.3f}], "
+        f"latents {samples[0].all_latents.shape}, prompt states {samples[0].prompt_embeds.shape}, launches {counts} "
+        f"(expected {want}), {secs:.2f} s with the caption upsampler, the encodes and the decode "
+        f"({len(batch) / secs:.3f} samples/s)")
+    if not (np.isfinite(images).all() and images.shape == (len(batch), 3, ta.height, ta.width)):
+        fail(f"[{tag}] the serving rollout's images are not as expected: {images.shape}")
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"[{tag}] serving rollout launches {counts}, expected {want}")
+    _replay_check(tag, ad, samples, forward)
+    return samples
+
+
+def phase_klein() -> dict:
+    """[klein]: FLUX.2-Klein at full size on tests/fixtures/flux2_klein_grpo.yaml
+    (8 + 24 blocks at width 3072, the whole Mistral-Small, 512 px: a joint
+    length of 1536; 8 steps, guidance 3.5 embedded, B 8; remat; the caption
+    upsampler on): the upsampler twice (:func:`_caption_check`), a serving
+    rollout of 2 prompts x 4 (32 K3 and 57 K5 a step) and its no-grad
+    replay, ratio exactly 1.0 on every stored step, also replayed as two
+    micro-batches of 4 (Queue 3's watch); then two GRPO epochs (64 K3, 32
+    K2a, 32 K2b, 113 K5 and 55 K5 backwards a grad step, ratio exactly 1.0),
+    a moved LoRA, peak memory against ``FLUX2_PEAK_PREDICTED``, a profiled
+    grad step. Returns the launch counts of the epochs."""
+    from flow_factory_tpu_torch import ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trainer = _wan22_load_trainer("klein", _qwen_config("flux2_klein_grpo.yaml"))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, lm = ad.component_configs["transformer"], ad.component_configs["text_encoder"]
+    log(f"[klein] transformer: {tcfg.num_double_blocks} double + {tcfg.num_single_blocks} single blocks, width "
+        f"{tcfg.hidden_dim}, {tcfg.num_heads} heads, FFN {tcfg.mlp_style}, pooled {tcfg.pooled_dim}, context "
+        f"{tcfg.context_dim}; LM {lm.num_layers} layers, width {lm.hidden_dim}, {lm.num_heads}/{lm.num_kv_heads} "
+        f"heads, vocabulary {lm.vocab_size}; the single-adapter route (predicted peak under 74 GiB)")
+    if (tcfg.num_double_blocks, tcfg.num_single_blocks, tcfg.hidden_dim, tcfg.pooled_dim, lm.num_layers,
+            lm.hidden_dim, tcfg.remat) != (8, 24, 3072, 0, 40, 5120, True) or ad.caption_upsampler is None:
+        fail(f"[klein] not the full-size Klein preset with the upsampler under remat: {tcfg}, {lm}")
+    forward, step = _flux2_launches(tcfg.num_double_blocks, tcfg.num_single_blocks)
+    prompts = _prompts(os.path.join(here, "dataset", "pickscore"))
+    _caption_check("klein", ad, prompts)
+    samples = _flux2_serving("klein", ad, ta, [p for p in prompts for _ in range(ta.group_size)], forward)
+    _microbatch_replay_probe("klein", ad, samples)
+    ad.train()
+    del samples
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+    ops.reset_launch_counts()
+    runs = [_grpo_epoch(trainer, "klein", epoch, forward, {}, grad_step=step) for epoch in range(ta.max_epochs)]
+    counts = ops.launch_counts()
+    _lora_moved("klein", lora, b0)
+    _wan22_finish(trainer, "klein", runs, counts,
+                  "one FLUX.2-Klein grad step (8 + 24 blocks, B 8 x 1536 tokens, remat; LoRA merge, forward, "
+                  "backward, AdamW)", FLUX2_PEAK_PREDICTED)
+    return counts
+
+
+def phase_flux2() -> dict:
+    """[flux2]: FLUX.2 multi-reference I2I at full width, 8 + 16 blocks with
+    the gated FFN and an 8-layer Mistral-Small (tests/fixtures/flux2_cut), on
+    tests/fixtures/flux2_grpo.yaml over two records with one 512 px
+    reference each (``_kontext_dataset``): 1024 condition tokens a row after
+    the 1024 target and 512 text tokens, a joint length of 2560; 10 steps,
+    guidance 3.5 embedded, B 8; remat; the caption upsampler on. The
+    upsampler twice, a serving rollout of the two records x 4 with their
+    references (24 K3 and 49 K5 a step) and its replay, ratio exactly 1.0;
+    one GRPO epoch (48 K3, 24 K2a, 24 K2b, 97 K5 and 47 K5 backwards a grad
+    step, ratio exactly 1.0, the condition tokens staged into each), a moved
+    LoRA, peak memory, a profiled grad step. Returns the launch counts of
+    the epoch."""
+    import numpy as np
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.data.dataset import _load_media_fields, load_raw_records
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = _kontext_dataset(here)
+    trainer = _wan22_load_trainer("flux2", _qwen_config("flux2_grpo.yaml", dataset_dir=data_dir))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, lm = ad.component_configs["transformer"], ad.component_configs["text_encoder"]
+    log(f"[flux2] transformer: {tcfg.num_double_blocks} double + {tcfg.num_single_blocks} single blocks, width "
+        f"{tcfg.hidden_dim}, {tcfg.num_heads} heads, FFN {tcfg.mlp_style}, RoPE axes {tcfg.axes_dim}, pooled "
+        f"{tcfg.pooled_dim}; LM {lm.num_layers} layers, width {lm.hidden_dim}")
+    if (tcfg.num_double_blocks, tcfg.num_single_blocks, tcfg.hidden_dim, tcfg.mlp_style, tcfg.pooled_dim,
+            lm.num_layers, lm.hidden_dim, tcfg.remat) != (8, 16, 4096, "swiglu", 0, 8, 5120, True):
+        fail(f"[flux2] not the cut FLUX.2 preset with the gated FFN under remat: {tcfg}, {lm}")
+    forward, step = _flux2_launches(tcfg.num_double_blocks, tcfg.num_single_blocks)
+    recs = [_load_media_fields(r, data_dir) for r in load_raw_records(os.path.join(data_dir, "train.jsonl"))]
+    _caption_check("flux2", ad, [r["prompt"] for r in recs])
+    _flux2_serving("flux2", ad, ta, [r["prompt"] for r in recs for _ in range(ta.group_size)], forward,
+                   images=[r["images"] for r in recs for _ in range(ta.group_size)])
+    ad.train()
+
+    def check_rollout(samples):
+        cond = np.stack([s.extra_kwargs["cond_latents"] for s in samples])
+        joint = samples[0].all_latents.shape[-2] + cond.shape[1] + samples[0].prompt_embeds.shape[0]
+        log(f"[flux2] condition tokens {cond.shape}, joint length {joint}")
+        if not (cond.shape[1:] == (1024, 64) and joint == FLUX2_S and np.isfinite(cond).all()):
+            fail(f"[flux2] the rollout's condition tokens or joint length are not as expected: {cond.shape}")
+
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+    ops.reset_launch_counts()
+    run = _grpo_epoch(trainer, "flux2", 0, forward, {}, check_rollout, staged_keys=("cond_latents",),
+                      grad_step=step)
+    counts = ops.launch_counts()
+    if not all("cond_latents" in staged for _, _, staged in run["steps"]):
+        fail("[flux2] the grad steps did not stage cond_latents")
+    _lora_moved("flux2", lora, b0)
+    _wan22_finish(trainer, "flux2", [run], counts,
+                  "one FLUX.2 grad step (8 + 16 blocks at width 4096, gated FFN, B 8 x 2560 tokens, remat; LoRA "
+                  "merge, forward, backward, AdamW)", FLUX2_PEAK_PREDICTED)
+    return counts
+
+
+def _flux2_phases() -> dict:
+    """[klein] then [flux2], each trainer freed before the next loads;
+    returns the launch counts of each phase's epochs by tag."""
+    import torch
+
+    counts = {}
+    for tag, phase in (("klein", phase_klein), ("flux2", phase_flux2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts[tag] = phase()
+        log(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} (load and preprocess included)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def flux2_only() -> int:
+    """``python3 chip_smoke.py --flux2``: the build, [flux2-kernels],
+    [klein] and [flux2] alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_flux2_kernels({})
+    counts = _flux2_phases()
+    log(f"[flux2] launches {counts}; device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5243,6 +5543,8 @@ def main() -> int:
         return wan22_only()
     if sys.argv[1:] and set(sys.argv[1:]) <= {"--qwen", "--z-image"}:
         return qwen_only(sys.argv[1:])
+    if sys.argv[1:] == ["--flux2"]:
+        return flux2_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -5258,6 +5560,7 @@ def main() -> int:
     phase_ltx2_kernels(results)
     phase_wan22_kernels(results)
     phase_qwen_kernels(results)
+    phase_flux2_kernels(results)
     phase_slice()
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before the import's two load
@@ -5288,6 +5591,7 @@ def main() -> int:
     ltx2_counts = _ltx2_phases()
     wan22_counts = _wan22_phases()
     qwen_counts = _qwen_phases()
+    flux2_counts = _flux2_phases()
     phase_device_times()
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
@@ -5323,6 +5627,13 @@ def main() -> int:
     for name, tags in QWEN_TAGS.items():
         for tag, phases in tags.items():
             results[name]["shapes"][tag]["launches"] = sum(qwen_counts[p][name.replace("_d128", "")] for p in phases)
+    # the FLUX.2 and Klein shapes: their kernels' launches in the [flux2] and [klein] epochs (Klein's K3 shape
+    # is FLUX.1's rollout shape: its entry counts the FLUX.1 DPO epochs' and the Klein epochs' launches)
+    for name, tags in FLUX2_TAGS.items():
+        for tag, phases in tags.items():
+            shape = results[name]["shapes"][tag]
+            shape["launches"] = shape.get("launches", 0) + sum(flux2_counts[p][name.replace("_d128", "")]
+                                                               for p in phases)
     # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
     for name, entry in results.items():
         for shape in entry["shapes"].values():

@@ -11,8 +11,7 @@ diffusers-layout checkpoint; the LoRA is merged once per rollout and the
 transformer runs on the merged weights through ``functional_call``.
 FLUX.1-Kontext builds on this adapter (``kontext.py``), and so do the
 LM-conditioned families with true CFG (``lm_conditioned.py``: Qwen-Image,
-Edit-Plus, Z-Image); FLUX.2 and Klein are not ported
-(``models/registry.py``).
+Edit-Plus, Z-Image); FLUX.2 and Klein build on Kontext (``flux2.py``).
 """
 from __future__ import annotations
 
@@ -44,12 +43,13 @@ from ..vae import AutoencoderKL, VAEConfig
 from .transformer import FluxConfig, FluxTransformer
 
 #: LoRA targets (JAX ``FLUX_LORA_TARGETS``, ``flux/adapter.py:31-35``) over
-#: the port's names: every double-block attention projection and FFN linear,
-#: and the single blocks' fused ``linear1``/``linear2``
+#: the port's names: every double-block attention projection and FFN linear
+#: (the gated FFN's ``linear_in``/``linear_out`` too), and the single
+#: blocks' fused ``linear1``/``linear2``
 FLUX_LORA_TARGETS = (
     r".*transformer_blocks\.\d+\.attn\.(to_q|to_k|to_v|to_out\.0|add_q_proj|add_k_proj|add_v_proj|to_add_out)"
     r"\.weight$",
-    r".*transformer_blocks\.\d+\.(ff|ff_context)\.net\.(0\.proj|2)\.weight$",
+    r".*transformer_blocks\.\d+\.(ff|ff_context)\.(net\.0\.proj|net\.2|linear_in|linear_out)\.weight$",
     r".*single_transformer_blocks\.\d+\.(linear1|linear2)\.weight$",
 )
 

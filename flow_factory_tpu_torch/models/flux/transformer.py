@@ -17,7 +17,10 @@ patches, with ``img_ids`` (L, 3) giving each token's (0, row, col) for RoPE.
 
 Qwen-Image is this transformer with double blocks only, no pooled vector
 and no guidance embedding, and ``txt_norm``: an fp32 RMSNorm of the LM
-states before ``context_embedder``.
+states before ``context_embedder``. FLUX.2 and Klein run it with no pooled
+vector, and FLUX.2's upstream checkpoints with ``mlp_style`` ``swiglu``: the
+double blocks' FFNs gated (``ff.linear_in``/``linear_out``, the
+[gate; value] halves of one projection), the single blocks unchanged.
 
 Parameter names are diffusers' ``FluxTransformer2DModel`` names, but for
 the fused single-block projections (``linear1``, ``linear2``, BFL's
@@ -47,6 +50,7 @@ from ..layers import (
     MergeProj,
     PooledTextEmbedding,
     QKNorm,
+    SwiGLUFeedForward,
     TimestepEmbedding,
     apply_rope,
     checkpointed,
@@ -69,6 +73,9 @@ class FluxConfig:
     rope_theta: float = 10000.0
     guidance_embeds: bool = True
     mlp_ratio: float = 4.0
+    #: the double blocks' FFN: "gelu_tanh" (FLUX.1) or "swiglu" (gated,
+    #: upstream FLUX.2's ``ff.linear_in``/``linear_out``)
+    mlp_style: str = "gelu_tanh"
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
     remat: bool = False  # gradient checkpointing (recompute each block in the backward)
@@ -152,8 +159,11 @@ class FluxDoubleBlock(nn.Module):
         self.norm1 = _AdaLinear(D, 6)
         self.norm1_context = _AdaLinear(D, 6)
         self.attn = FluxAttention(cfg)
-        self.ff = FeedForward(D, cfg.mlp_dim, dt)
-        self.ff_context = FeedForward(D, cfg.mlp_dim, dt)
+        ffn = {"gelu_tanh": FeedForward, "swiglu": SwiGLUFeedForward}.get(cfg.mlp_style)
+        if ffn is None:
+            raise ValueError(f"Unknown FLUX mlp_style {cfg.mlp_style!r}; known: 'gelu_tanh', 'swiglu'")
+        self.ff = ffn(D, cfg.mlp_dim, dt)
+        self.ff_context = ffn(D, cfg.mlp_dim, dt)
 
     def forward(self, img, txt, temb, cos, sin):
         dt = self.compute_dtype

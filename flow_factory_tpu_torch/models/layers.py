@@ -294,6 +294,21 @@ class FeedForward(nn.Module):
         return self.net[2](self.net[0](x))
 
 
+class SwiGLUFeedForward(nn.Module):
+    """The gated FFN (JAX ``FeedForward(activation="swiglu")``, diffusers
+    ``Flux2FeedForward``): ``linear_in`` packs [gate; value] along its
+    output, then SiLU(gate)·value → ``linear_out``."""
+
+    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.linear_in = Linear(hidden_dim, 2 * inner, compute_dtype=compute_dtype)
+        self.linear_out = Linear(inner, hidden_dim, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, value = self.linear_in(x).chunk(2, dim=-1)
+        return self.linear_out(F.silu(gate) * value)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

@@ -18,9 +18,11 @@ model knobs), and the audio VAE's mel decoder then the HiFi-GAN vocoder.
 
 Every component is random-initialised from the seed directly on the
 adapter's device in the inference dtype, or configured and imported from a
-local diffusers-layout checkpoint. Not ported, and raising if asked
-for: the LLM prompt enhancer (``use_prompt_enhancer``) and the decoupled
-trainers' joint velocity tree (:attr:`decoupled_latent_keys`).
+local diffusers-layout checkpoint. Under ``use_prompt_enhancer`` the
+rollout's prompts are rewritten by the Gemma3 LM itself before they are
+encoded (``text_encoders/caption.py``, with the enhancer's own template).
+Not ported, and raising if asked for: the decoupled trainers' joint
+velocity tree (:attr:`decoupled_latent_keys`).
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ from ...utils.trajectory import build_store_maps
 from ...utils.weights import ltx2_component_maps
 from ..abc import BaseAdapter
 from ..layers import build_module
+from ..text_encoders.caption import LMCaptionUpsampler
 from ..text_encoders.lm import LMConfig, LMEncoder
 from .audio import AudioVAE, AudioVAEConfig
 from .transformer import LTX2Config, LTX2Transformer
@@ -108,9 +111,6 @@ class LTX2T2AVAdapter(BaseAdapter):
     # ------------------------------------------------------------------
     def load_models(self) -> None:
         ma = self.model_args
-        if getattr(ma, "use_prompt_enhancer", False):
-            raise NotImplementedError("the LTX-2 prompt enhancer is not ported yet: ROADMAP Queue 1 item 10 "
-                                      "(Z-Image's caption.py)")
         variant = getattr(ma, "variant", None) or ("tiny" if ma.model_name_or_path in ("", "tiny") else "ltx2")
         preset = _preset(variant, ma.attn_backend, ma.inference_dtype)
         path = ma.model_name_or_path
@@ -165,6 +165,15 @@ class LTX2T2AVAdapter(BaseAdapter):
         self.audio_cfg: AudioVAEConfig = preset["audio_vae"]
         # the audio stream's own scheduler: ODE on its own sigma grid
         self.audio_scheduler = FlowMatchEulerSDE(noise_level=0.0, dynamics_type="ODE", seed=self.scheduler_args.seed)
+        # the LLM prompt enhancer (JAX ltx2/t2av.py:273-283): a greedy rewrite
+        # through the conditioning decoder itself
+        self.prompt_enhancer = None
+        if getattr(ma, "use_prompt_enhancer", False) and "text_encoder" in self.modules:
+            self.prompt_enhancer = LMCaptionUpsampler(
+                self.modules["text_encoder"], self.tokenizer,
+                template="Expand into a cinematic audio-video scene description: {prompt}\n",
+                max_new_tokens=int(getattr(ma, "caption_max_new_tokens", 24)),
+                max_length=min(self.max_length, 96))
 
     def weight_maps(self):
         return ltx2_component_maps(self.component_configs)
@@ -206,6 +215,12 @@ class LTX2T2AVAdapter(BaseAdapter):
         to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
         emb = self.modules["text_encoder"](to_dev(enc["input_ids"]), to_dev(enc["attention_mask"]))
         return {"prompt_embeds": emb.float()}
+
+    def enhance_prompt(self, prompts: Sequence[str]) -> List[str]:
+        """The prompts rewritten by :attr:`prompt_enhancer`, or as given
+        without one (JAX ``enhance_prompt``: the rollout's prompts only, not
+        the preprocessing's)."""
+        return list(self.prompt_enhancer(prompts)) if self.prompt_enhancer is not None else list(prompts)
 
     def preprocess_func(self, batch: Dict[str, Any], **_) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
@@ -431,7 +446,7 @@ class LTX2T2AVAdapter(BaseAdapter):
         do_cfg = g > 1.0
 
         if prompt_embeds is None:
-            prompt_embeds = self.encode_prompt(list(prompt))["prompt_embeds"]
+            prompt_embeds = self.encode_prompt(self.enhance_prompt(list(prompt)))["prompt_embeds"]
         if do_cfg and negative_prompt_embeds is None:
             neg = list(negative_prompt) if negative_prompt is not None else [""] * len(prompt_embeds)
             negative_prompt_embeds = self.encode_prompt(neg)["prompt_embeds"]

@@ -1,7 +1,8 @@
 """Model adapter registry of the port: config ``model_type`` → adapter class,
 imported lazily; unknown keys may be a dotted path ``pkg.module:ClassName``.
-Model types of the JAX package that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them."""
+Every model type of the JAX package's registry is ported; a model type
+listed in ``_NOT_PORTED`` would raise ``NotImplementedError`` with its
+reason."""
 from __future__ import annotations
 
 import importlib
@@ -22,11 +23,10 @@ _MODEL_ADAPTER_REGISTRY: Dict[str, str] = {
     "qwen-image": "flow_factory_tpu_torch.models.qwen_image.adapter:QwenImageAdapter",
     "qwen-image-edit-plus": "flow_factory_tpu_torch.models.qwen_image.edit_plus:QwenImageEditPlusAdapter",
     "z-image": "flow_factory_tpu_torch.models.z_image.adapter:ZImageAdapter",
+    "flux2": "flow_factory_tpu_torch.models.flux.flux2:Flux2Adapter",
+    "flux2-klein": "flow_factory_tpu_torch.models.flux.flux2:Flux2KleinAdapter",
 }
-_NOT_PORTED: Dict[str, str] = {
-    "flux2": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
-    "flux2-klein": "ROADMAP Queue 1 item 10 (FLUX.2 and Klein)",
-}
+_NOT_PORTED: Dict[str, str] = {}
 
 
 def resolve_adapter_class(model_type: str) -> Type:

@@ -28,8 +28,12 @@ merged tokens replace the embeddings of the image-pad positions
 (``vision_embeds`` scattered by ``vision_mask``, in order), and M-RoPE
 (``mrope_sections``) takes each rotary frequency's position from the
 temporal, height or width id of ``position_ids``; with equal ids on the
-three axes it is the 1-D RoPE. Not ported: the Mistral preset (FLUX.2 is
-not ported) and the tied-embedding logits of the JAX caption upsampler.
+three axes it is the 1-D RoPE.
+
+``return_logits`` adds the next-token logits of the tied embedding (JAX
+``Embed.attend``): the final states times the token table in the compute
+dtype, cast to fp32, with no Gemma √width scale (it scales the input
+embedding only). The caption upsampler (``caption.py``) generates from them.
 """
 from __future__ import annotations
 
@@ -88,6 +92,15 @@ class LMConfig:
     def qwen25_vl_7b(**o) -> "LMConfig":
         """Qwen2.5-VL-7B's language side: M-RoPE sections (16, 24, 24)."""
         return LMConfig(**{"attn_bias": True, "mrope_sections": (16, 24, 24), **o})
+
+    @staticmethod
+    def mistral_small(**o) -> "LMConfig":
+        """Mistral-Small (FLUX.2's encoder): 40 layers, width 5120, 32 q / 8
+        kv heads of 128, MLP 32768, vocabulary 131072."""
+        base = dict(vocab_size=131072, hidden_dim=5120, num_layers=40, num_heads=32,
+                    num_kv_heads=8, head_dim=128, mlp_dim=32768)
+        base.update(o)
+        return LMConfig(**base)
 
     @staticmethod
     def gemma3(**o) -> "LMConfig":
@@ -219,7 +232,8 @@ class _LMModel(nn.Module):
 
 class LMEncoder(nn.Module):
     """Causal LM; ``forward(input_ids, attention_mask)`` returns the final
-    hidden states (B, L, D) in the compute dtype."""
+    hidden states (B, L, D) in the compute dtype, and with ``return_logits``
+    also the tied-embedding logits (B, L, vocab) in fp32."""
 
     def __init__(self, cfg: LMConfig):
         super().__init__()
@@ -232,7 +246,7 @@ class LMEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 vision_embeds: Optional[torch.Tensor] = None, vision_mask: Optional[torch.Tensor] = None,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None, return_logits: bool = False):
         """``vision_embeds`` (B, Lv, D) replace, in order, the embeddings at
         the True positions of ``vision_mask`` (B, L); ``position_ids``
         (3, L) or per row (B, 3, L) are the M-RoPE (t, h, w) ids."""
@@ -269,7 +283,10 @@ class LMEncoder(nn.Module):
                 x = layer(x, cos_l, sin_l, sliding)
             else:
                 x = layer(x, cos, sin, causal)
-        return self.model.norm(x)
+        x = self.model.norm(x)
+        if return_logits:
+            return x, F.linear(x.to(dt), self.model.embed_tokens.weight.to(dt)).float()
+        return x
 
     def _mrope_tables(self, position_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """M-RoPE (cos, sin): frequency j rotates by the id of its section's

@@ -168,6 +168,19 @@ FLUX1_TRANSFORMER_RENAMES: Renames = (
     (r"(single_transformer_blocks\.\d+)\.linear2\.", r"\1.proj_out."),
 )
 
+#: FLUX.2 and Klein (JAX ``flux2_transformer_key_map`` :432): the time and
+#: guidance embedders under ``time_guidance_embed``, the double blocks' FFNs
+#: as ``linear_in``/``linear_out`` in either ``mlp_style`` (the gated form
+#: holds those names itself), and the single blocks' natively fused
+#: projections
+FLUX2_TRANSFORMER_RENAMES: Renames = (
+    (r"time_text_embed\.", "time_guidance_embed."),
+    (r"(transformer_blocks\.\d+\.ff(_context)?)\.net\.0\.proj\.", r"\1.linear_in."),
+    (r"(transformer_blocks\.\d+\.ff(_context)?)\.net\.2\.", r"\1.linear_out."),
+    (r"(single_transformer_blocks\.\d+)\.linear1\.", r"\1.attn.to_qkv_mlp_proj."),
+    (r"(single_transformer_blocks\.\d+)\.linear2\.", r"\1.attn.to_out.0."),
+)
+
 #: Qwen-Image (JAX ``qwen_image_transformer_key_map`` :564): the port runs it
 #: as the FLUX transformer, under FLUX's names
 QWEN_IMAGE_TRANSFORMER_RENAMES: Renames = (
@@ -219,6 +232,23 @@ def fuse_flux_single_block_qkv_mlp(sd: StateDict, num_single: int) -> StateDict:
             if all(p is not None for p in parts):
                 out[f"{b}.attn.to_q.{suffix}"] = torch.cat(parts, dim=0)
     return out
+
+
+def check_flux2_mlp_style(sd: StateDict, mlp_style: str) -> StateDict:
+    """Raise, with the fix, when a FLUX.2 checkpoint's double-block FFN is
+    gated (``linear_in``'s output twice ``linear_out``'s input: SwiGLU) and
+    ``mlp_style`` says otherwise, or the other way round (JAX :486)."""
+    win = sd.get("transformer_blocks.0.ff.linear_in.weight")
+    wout = sd.get("transformer_blocks.0.ff.linear_out.weight")
+    if win is not None and wout is not None:
+        gated = win.shape[0] == 2 * wout.shape[1]
+        want = "swiglu" if gated else "gelu_tanh"
+        if want != mlp_style:
+            raise ValueError(
+                f"FLUX.2 checkpoint FFN is {'gated (SwiGLU)' if gated else 'ungated'} "
+                f"but the model was built with mlp_style={mlp_style!r}; set "
+                f"model.mlp_style: {want!r} in the config.")
+    return sd
 
 
 def pop_ltx_vae_latent_stats(sd: StateDict) -> Tuple[StateDict, Optional[Tuple[float, ...]],

@@ -408,6 +408,37 @@ def flux1_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 
+def flux2_transformer_map(num_double: int, num_single: int, mlp_style: str = "gelu_tanh"
+                          ) -> Tuple[ModuleMap, RawMap]:
+    """The FLUX.2 / Klein transformer: FLUX.1's names, with the double blocks'
+    gated FFNs (``mlp_style`` ``swiglu``) as ``linear_in``/``linear_out``."""
+    m, raw = flux1_transformer_map(num_double, num_single)
+    if mlp_style == "swiglu":
+        for i in range(num_double):
+            o, b = f"double_{i}", f"transformer_blocks.{i}"
+            for src, dst in (("img_ff", "ff"), ("txt_ff", "ff_context")):
+                m[f"{o}/{src}/fc1"] = f"{b}.{dst}.linear_in"
+                m[f"{o}/{src}/fc2"] = f"{b}.{dst}.linear_out"
+    return m, raw
+
+
+def flux2_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
+    """Module maps for every FLUX.2 / Klein adapter component, keyed like ``adapter.params``."""
+    t, v = configs["transformer"], configs["vae"]
+    return {
+        "transformer": flux2_transformer_map(t.num_double_blocks, t.num_single_blocks, t.mlp_style),
+        "text_encoder": lm_decoder_map(configs["text_encoder"].num_layers),
+        "vae": vae_map(v.channel_mults, v.layers_per_block, v.use_mid_attention),
+    }
+
+
+def flux2_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """All FLUX.2 / Klein components' flax trees → the port's state dicts."""
+    maps = flux2_component_maps(configs)
+    return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
 def ltx2_transformer_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
     """The LTX-2 AV DiT (inverse of the JAX ``ltx2_transformer_key_map``,
     ``utils/checkpoint.py:504``, plus the two connector projections)."""

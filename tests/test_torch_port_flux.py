@@ -416,36 +416,32 @@ def test_flux_replay_ratio_is_exactly_one(both, shared_time_features):
 
 
 def test_unported_flux_family_members_raise():
-    """``flux1`` and ``flux1-kontext`` resolve to the port's adapters;
-    FLUX.2 and Klein raise, naming the ROADMAP item that ports them."""
+    """Every FLUX family member resolves to the port's adapter now that
+    FLUX.2 and Klein are ported: ``flux1``, ``flux1-kontext``, ``flux2`` and
+    ``flux2-klein``; none raises."""
     from flow_factory_tpu_torch.models.flux.adapter import Flux1Adapter
+    from flow_factory_tpu_torch.models.flux.flux2 import Flux2Adapter, Flux2KleinAdapter
     from flow_factory_tpu_torch.models.flux.kontext import Flux1KontextAdapter
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
     assert resolve_adapter_class("flux1") is Flux1Adapter
     assert resolve_adapter_class("flux1-kontext") is Flux1KontextAdapter
-    for name, item in (("flux2", "item 10"), ("flux2-klein", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            resolve_adapter_class(name)
+    assert resolve_adapter_class("flux2") is Flux2Adapter
+    assert resolve_adapter_class("flux2-klein") is Flux2KleinAdapter
 
 
 def test_every_jax_model_type_resolves_or_names_its_item():
     """Every key of the JAX package's adapter registry resolves in the port
-    to the adapter class of the same name, or raises ``NotImplementedError``
-    naming its ROADMAP item (9 or 10); none raises ``KeyError``."""
+    to the adapter class of the same name: none raises
+    ``NotImplementedError`` or ``KeyError``, and ``ported`` lists them all."""
     from flow_factory_tpu.models.registry import _MODEL_ADAPTER_REGISTRY as JAX_KEYS
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
-    items = {"wan": "item 9", "flux2": "item 10"}
     ported = []
     for key, target in JAX_KEYS.items():
-        try:
-            cls = resolve_adapter_class(key)
-        except NotImplementedError as e:
-            assert any(key.startswith(p) and item in str(e) for p, item in items.items()), (key, str(e))
-            continue
+        cls = resolve_adapter_class(key)
         assert cls.__name__ == target.split(":")[1], key
         ported.append(key)
-    assert sorted(ported) == ["flux1", "flux1-kontext", "ltx2-i2av", "ltx2-t2av", "qwen-image",
-                              "qwen-image-edit-plus", "sd3-5", "sd3.5", "wan2-i2v", "wan2-t2v", "wan2-v2v", "wan21",
-                              "wan22", "z-image"]
+    assert sorted(ported) == sorted(JAX_KEYS) == ["flux1", "flux1-kontext", "flux2", "flux2-klein", "ltx2-i2av",
+                                                  "ltx2-t2av", "qwen-image", "qwen-image-edit-plus", "sd3-5", "sd3.5",
+                                                  "wan2-i2v", "wan2-t2v", "wan2-v2v", "wan21", "wan22", "z-image"]

@@ -1,7 +1,8 @@
 """PyTorch port, the pretrained-checkpoint import (ROADMAP Queue 1 item 19,
 fault F16), the image families: SD3.5, FLUX.1, FLUX.1-Kontext, Qwen-Image,
-Qwen-Image-Edit-Plus and Z-Image each loaded from one directory in both
-packages (``tests/torch_port_import_cases.py``), the tiny SD3.5's rollout
+Qwen-Image-Edit-Plus, Z-Image, FLUX.2 and Klein each loaded from one
+directory in both packages (``tests/torch_port_import_cases.py``), FLUX.2's
+``mlp_style`` check before the import, the tiny SD3.5's rollout
 from its directory against JAX's, the importer's strictness, scope, skip
 rule and place before the trainable copies, and the copies of the JAX
 preprocesses and config.json translators against the JAX functions."""
@@ -11,9 +12,10 @@ import pytest
 import torch
 from torch_port_threads import one_torch_thread  # noqa: F401
 
-from torch_port_import_cases import _port, cases, check_config_json_like_jax, check_import_equals_jax  # noqa: F401
+from torch_port_import_cases import _jax, _port, cases, check_config_json_like_jax, check_import_equals_jax  # noqa: F401
 
-IMAGE_FAMILIES = ("sd3-5", "flux1", "flux1-kontext", "qwen-image", "qwen-image-edit-plus", "z-image")
+IMAGE_FAMILIES = ("sd3-5", "flux1", "flux1-kontext", "qwen-image", "qwen-image-edit-plus", "z-image", "flux2",
+                  "flux2-klein")
 
 
 @pytest.mark.parametrize("model_type", IMAGE_FAMILIES)
@@ -25,12 +27,39 @@ def test_import_equals_jax_through_the_bridge(cases, model_type):
     check_import_equals_jax(cases, model_type)
 
 
-@pytest.mark.parametrize("model_type", ("sd3-5", "flux1"))
+@pytest.mark.parametrize("model_type", ("sd3-5", "flux1", "flux2"))
 def test_config_json_self_configures_like_jax(cases, model_type):
     """The transformer's, the encoders' and the VAE's config.json give the
     port's dataclasses the JAX adapter's values on every field they share,
     and each moved off the tiny preset."""
     check_config_json_like_jax(cases, model_type)
+
+
+def test_flux2_mlp_style_mismatch_raises_in_both_packages(cases):
+    """FLUX.2's gated checkpoint (``linear_in``'s output twice
+    ``linear_out``'s input) loaded with ``mlp_style: gelu_tanh`` raises the
+    same ``ValueError`` in both packages, naming the fix; in the port
+    Klein's ungated one loaded with ``swiglu`` raises too, and FLUX.2's
+    renames read the time embedders under ``time_guidance_embed``, the FFNs
+    as ``linear_in``/``linear_out`` and the single blocks' fused
+    ``attn.to_qkv_mlp_proj``/``attn.to_out.0``."""
+    from flow_factory_tpu_torch.utils.checkpoint import FLUX2_TRANSFORMER_RENAMES, upstream_key
+
+    errors = []
+    for build in (_jax, _port):
+        with pytest.raises(ValueError, match="model.mlp_style: 'swiglu'") as e:
+            build("flux2", cases("flux2").ckpt, mlp_style="gelu_tanh")
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="model.mlp_style: 'gelu_tanh'"):
+        _port("flux2-klein", cases("flux2-klein").ckpt, mlp_style="swiglu")
+    assert [upstream_key(k, FLUX2_TRANSFORMER_RENAMES) for k in (
+        "time_text_embed.guidance_embedder.linear_1.weight", "transformer_blocks.3.ff_context.net.0.proj.bias",
+        "transformer_blocks.3.ff.linear_out.weight", "single_transformer_blocks.2.linear1.weight",
+        "single_transformer_blocks.2.linear2.bias")] == [
+        "time_guidance_embed.guidance_embedder.linear_1.weight", "transformer_blocks.3.ff_context.linear_in.bias",
+        "transformer_blocks.3.ff.linear_out.weight", "single_transformer_blocks.2.attn.to_qkv_mlp_proj.weight",
+        "single_transformer_blocks.2.attn.to_out.0.bias"]
 
 
 def test_sd35_rollout_from_a_directory_matches_jax(cases):

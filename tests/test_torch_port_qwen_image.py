@@ -540,6 +540,10 @@ def test_f15_edit_plus_replays_every_row_under_row_0s_condition_ids(edit, shared
 
 
 def test_registry_resolves_the_three_families_and_flux2_still_raises():
+    """The three families resolve to their adapters, and FLUX.2 and Klein,
+    once the last two model types the port raised for, now resolve to the
+    port's FLUX.2 adapters."""
+    from flow_factory_tpu_torch.models.flux.flux2 import Flux2Adapter, Flux2KleinAdapter
     from flow_factory_tpu_torch.models.qwen_image import QwenImageAdapter, QwenImageEditPlusAdapter
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
     from flow_factory_tpu_torch.models.z_image import ZImageAdapter
@@ -547,9 +551,8 @@ def test_registry_resolves_the_three_families_and_flux2_still_raises():
     assert resolve_adapter_class("qwen-image") is QwenImageAdapter
     assert resolve_adapter_class("qwen-image-edit-plus") is QwenImageEditPlusAdapter
     assert resolve_adapter_class("z-image") is ZImageAdapter
-    for key in ("flux2", "flux2-klein"):
-        with pytest.raises(NotImplementedError, match=r"item 10 \(FLUX.2 and Klein\)"):
-            resolve_adapter_class(key)
+    assert resolve_adapter_class("flux2") is Flux2Adapter
+    assert resolve_adapter_class("flux2-klein") is Flux2KleinAdapter
 
 
 def test_qwen_image_grpo_epoch_through_load_trainer(tmp_path):

@@ -8,8 +8,9 @@ each importer preprocesses: FLUX.1's unfused single blocks, the LTX VAE's
 latent-stat buffers, a weight-norm HiFi-GAN generator under ``generator.``
 with (in, out, k) transposed convolutions, Qwen2.5-VL's ``visual.*`` keys and
 conv3d patch kernel beside the LM's, SD3's (1, G·G, D) position grid and the
-Wan VAE's (C, 1, 1, 1) norm gains. SD3, FLUX.1, Wan, Wan I2V and LTX-2 also
-get config.json files that reshape their tiny presets. The JAX adapter is
+Wan VAE's (C, 1, 1, 1) norm gains (FLUX.2's single blocks ship fused, as
+the map reads them). SD3, FLUX.1, FLUX.2, Wan, Wan I2V and LTX-2 also get
+config.json files that reshape their tiny presets. The JAX adapter is
 built from the config.json files, the safetensors are written from its
 parameters, its ``import_pretrained_weights`` runs, and the port loads the
 same directory through ``load_adapter``: its ``state_dict()`` must equal the
@@ -40,6 +41,8 @@ FAMILIES = {
     "qwen-image": {},
     "qwen-image-edit-plus": {},
     "z-image": {},
+    "flux2": {"mlp_style": "swiglu"},  # upstream FLUX.2's gated double-block FFN
+    "flux2-klein": {},
 }
 
 #: config.json files (upstream field names) that reshape the tiny presets
@@ -80,6 +83,10 @@ CONFIG_JSON = {
         "transformer": {"_class_name": "WanTransformer3DModel", "num_layers": 3, "in_channels": 33},
         "vae": {"_class_name": "AutoencoderKLWan", "num_res_blocks": 2},
     },
+    "flux2": {
+        "transformer": {"_class_name": "Flux2Transformer2DModel", "num_layers": 1, "num_single_layers": 3},
+        "text_encoder": {"model_type": "mistral", "num_hidden_layers": 3},
+    },
     "ltx2-t2av": {
         "transformer": {"num_layers": 3, "num_attention_heads": 4, "attention_head_dim": 16},
         "text_encoder": {"model_type": "gemma3_text", "vocab_size": 1000, "hidden_size": 32,
@@ -104,6 +111,7 @@ CONFIGURED = {
     "wan2-t2v": {"transformer": ("ffn_dim", 96), "text_encoder": ("per_layer_rel_bias", True),
                  "vae": ("latents_std", (2.0,) * 16)},
     "wan2-i2v": {"transformer": ("in_channels", 33), "vae": ("layers_per_block", 2)},
+    "flux2": {"transformer": ("num_single_blocks", 3), "text_encoder": ("num_layers", 3)},
     "ltx2-t2av": {"transformer": ("video_channels", 8), "text_encoder": ("arch", "gemma3"),
                   "vae": ("decoder_inject_noise", (False, True)), "audio_vae": ("base_channels", 16)},
 }
