@@ -59,8 +59,13 @@ printing one line and exiting non-zero on failure:
    per epoch, EMA 0.99 every 4) for two epochs: the replay ratio is exactly
    1.0 on every grad step of both epochs (epoch 1 rolls out with the LoRA
    that epoch 0 moved), the gradient norm is finite and non-zero, the LoRA
-   moves, and every kernel launches on the path; then a torch.profiler
-   breakdown of one grad step (forward, backward, optimizer);
+   moves, and every kernel launches on the path; then F18's gate (a serving
+   rollout of 8 replayed as micro-batches of 4 + 4, 2 x 4 and 5 + 3, ratio
+   exactly 1.0 on every stored step of each; the first block's AdaLN
+   modulation gives 4 rows the same bits alone as in the 8; the same 8 rows
+   through the trainer's grad step as micro-batches of 5 + 3, GRPO's ratio
+   exactly 1.0 on every row) and a torch.profiler breakdown of one grad
+   step (forward, backward, optimizer);
 5b. resume: the run plumbing on the SD3.5-M GRPO path at full width. The
    training config of 5 goes to a YAML file for ``python -m
    flow_factory_tpu_torch.cli`` in a subprocess on the card, which takes
@@ -193,17 +198,36 @@ printing one line and exiting non-zero on failure:
    blocks and an 8-layer Mistral-Small (tests/fixtures/flux2_cut) on
    tests/fixtures/flux2_grpo.yaml, both with the caption upsampler: the
    upsampler's strings the same on a second call, a serving rollout and its
-   replay (Klein's also as two micro-batches of 4, ROADMAP Queue 3's
-   watch), then two (Klein) or one (FLUX.2) GRPO epochs. Each: launches as
-   predicted, ratio exactly 1.0, peak memory against its prediction,
-   seconds, a profiled grad step.
+   replay (Klein's also as micro-batches of 4 + 4, 2 x 4 and 5 + 3: F18's
+   gate, with the first double block's AdaLN modulation and the first
+   single block's ``linear1`` giving 4 rows the same bits alone), then two
+   (Klein) or one (FLUX.2) GRPO epochs. Each: launches as predicted, ratio
+   exactly 1.0, peak memory against its prediction, seconds, a profiled
+   grad step.
+18. ltx2-nft, ltx2-i2av-dpo, wan22-moe-awm, wan22-ti2v-dgpo, z-image-crd,
+   qwen-image-nft, qwen-edit-awm: one epoch of a decoupled trainer on each
+   family at the width of its GRPO phase (tests/fixtures/ltx2_t2av_nft.yaml,
+   ltx2_i2av_dpo.yaml, wan22_a14b_awm.yaml, wan22_ti2v_dgpo.yaml,
+   z_image_crd.yaml, qwen_image_nft.yaml, qwen_image_edit_plus_awm.yaml)
+   through ``load_trainer``: the trainer's own rollout (the final latent
+   alone), then a rollout of the batch's first 4 rows that keeps every step
+   and a no-grad replay of its rows 0-1 (another micro-batch size than the
+   rollout's) with ratio exactly 1.0 on every stored step, the trainer's
+   step-0 invariants on every grad step of the epoch, a non-zero LoRA
+   gradient on the component each grad step reaches (the A14B: the expert
+   of its host timestep, both over the epoch), the launches predicted a
+   grad step, no read of the timestep from the device for routing, a moved
+   LoRA, peak memory against its prediction, seconds; ``[ltx2-nft]``'s grad
+   step profiled.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
 FLUX.1-Kontext, B 8, LTX-2, Wan2.2, Qwen/Z-Image and FLUX.2 shapes nested
 under their kernels' entries, with their launches in the DPO epochs, the
 three Kontext phases, the DGPO or CRD epochs, the LTX-2 T2AV epochs, the
 TI2V-5B I2V or A14B T2V epochs, the Qwen/Z-Image epochs and the Klein or
-FLUX.2 epochs); the last line is
+FLUX.2 epochs, each family's with its decoupled phase of 18); ``[time]``
+lines give the seconds since the start after each group of phases; the last
+line is
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside the script.
@@ -220,7 +244,8 @@ does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --wan22`` the build, 8e and 15;
 ``python3 chip_smoke.py --qwen`` and/or ``--z-image`` the build, 8f and
 16 (Qwen-Image and Edit-Plus, and/or Z-Image);
-``python3 chip_smoke.py --flux2`` the build, 8g and 17.
+``python3 chip_smoke.py --flux2`` the build, 8g and 17;
+``python3 chip_smoke.py --decoupled-families`` the build and 18.
 """
 from __future__ import annotations
 
@@ -2120,7 +2145,9 @@ def phase_wan() -> dict:
 
 def _profile(what: str, fn, trace: str) -> dict:
     """torch.profiler over one call of ``fn`` after a warm call: device time
-    by kernel, launches, and the device's idle share of the wall time. The
+    by kernel, launches, and the device's idle share of the wall time, read
+    from the exported trace (``prof.key_averages()`` takes tens of seconds
+    of host time on a grad step's hundreds of thousands of events). The
     trace goes to chiprun_out/<trace>.gz."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2132,21 +2159,21 @@ def _profile(what: str, fn, trace: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-    busy_ms = sum(dev(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
-        f"idle share {1 - busy_ms / wall_ms:.3f}, {launches} kernel launches")
-    for e in sorted(kernels, key=dev, reverse=True)[:14]:
-        log(f"[profile]   {dev(e):9.3f} ms {100 * dev(e) / busy_ms:5.1f}% x{e.count:<4d} {e.key[:90]}")
+    t0 = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", trace)
     prof.export_chrome_trace(path)
-    by_op = _device_ms_by_op(path)
-    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:  # ~10x smaller
+    by_kernel, calls, by_op = _trace_device_ms(path)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb", compresslevel=1) as dst:  # ~10x smaller
         shutil.copyfileobj(src, dst)
     os.remove(path)
+    busy_ms = sum(by_kernel.values())
+    launches = sum(calls.values())
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.3f}, {launches} kernel launches (the trace read in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for name, ms in by_kernel.most_common(14):
+        log(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{calls[name]:<4d} {name[:90]}")
     for name, ms in by_op.most_common(10):
         log(f"[profile]   by op {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% {name}")
     for name in ("backward _LnMulAddBackward", "backward _ResidualGateModulateBackward"):  # K5/K6's backwards
@@ -2155,10 +2182,12 @@ def _profile(what: str, fn, trace: str) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
 
 
-def _device_ms_by_op(trace_path: str):
-    """Device time of a torch.profiler chrome trace by what launched it: in
-    the backward the outermost autograd node (a Function's own backward
-    includes the VJPs it runs inside), in the forward the outermost op."""
+def _trace_device_ms(trace_path: str):
+    """The device time of a torch.profiler chrome trace (kernels, copies and
+    memsets): (ms by kernel name, launches by kernel name, ms by what
+    launched it: in the backward the outermost autograd node, a Function's
+    own backward including the VJPs it runs inside; in the forward the
+    outermost op)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     ops = sorted((e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"),
@@ -2180,12 +2209,15 @@ def _device_ms_by_op(trace_path: str):
             outer = op
         return f"backward {node}" if node else f"forward {outer['name']}"
 
-    ms = collections.Counter()
+    by_kernel, calls, by_op = collections.Counter(), collections.Counter(), collections.Counter()
     for k in events:
         if k.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms = k["dur"] / 1e3
+            by_kernel[k["name"]] += ms
+            calls[k["name"]] += 1
             op = launcher.get(k["args"].get("External id"))
-            ms[phase(op) if op else "unattributed"] += k["dur"] / 1e3
-    return ms
+            by_op[phase(op) if op else "unattributed"] += ms
+    return by_kernel, calls, by_op
 
 
 def phase_profile(adapter, samples, step: int, trace: str = "replay_step_trace.json") -> None:
@@ -2565,6 +2597,16 @@ def phase_train(record: list) -> dict:
         **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}}, record)
     if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the SD3.5 GRPO epochs: {counts}")
+    # F18: a serving rollout of 2 prompts x 4 under the trained LoRA, replayed at other micro-batch sizes
+    ad = trainer.adapter
+    prompts = _prompts(os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset", "pickscore"))
+    ad.rollout()
+    samples = ad.inference(prompt=[p for p in prompts for _ in range(ta.group_size)], compute_log_prob=True,
+                           trajectory_indices="all", seed=ta.seed)
+    _microbatch_replay_probe("train", ad, samples, _f18_products(ad, "single_transformer_blocks", 0))
+    ad.train()
+    _microbatch_grad_probe("train", trainer, samples)
+    del samples
     _profile_grad_step(trainer, "one grad step (forward, backward, AdamW)", "grad_step_trace.json")
     trainer.cleanup()
     return counts
@@ -5315,39 +5357,110 @@ def _caption_check(tag: str, ad, prompts) -> None:
         fail(f"[{tag}] the caption upsampler is not deterministic or left a prompt as it was: {first} / {second}")
 
 
-def _microbatch_replay_probe(tag: str, ad, samples, size: int = 4) -> None:
-    """ROADMAP Queue 3's watch: the rollout's rows replayed as micro-batches
-    of ``size`` (another GEMM shape than the rollout's): whether the ratio is
-    exactly 1.0 on the SDE steps (the stored steps that carry a log-prob)
-    and on every stored step of each, the largest |log-ratio| on the SDE
-    steps; then whether the first single block's ``linear1`` product gives
-    the first ``size`` rows the same bits alone as in the rollout's batch.
-    A finding, not a gate: the gates replay at the rollout's batch."""
+#: F18's gate: the rollout's 8 rows replayed in these micro-batches
+F18_SPLITS = ((4, 4), (2, 2, 2, 2), (5, 3))
+
+
+def _microbatch_replay_probe(tag: str, ad, samples, products) -> None:
+    """F18's gate: the rollout's rows replayed as the micro-batches of
+    ``F18_SPLITS`` (other GEMM shapes than the rollout's), the ratio
+    exactly 1.0 on every stored step of each, and the largest |log-ratio|;
+    then each of ``products`` ((name, module, input rows)) gives its first 4
+    rows the same bits alone as beside the others. Fails otherwise."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    sde = set(np.nonzero(samples[0].extra_kwargs["noise_levels"])[0].tolist())
     lp_map = samples[0].log_prob_index_map
-    held_sde, held_all, worst = [], [], 0.0
-    for i in range(0, len(samples), size):
-        part = samples[i:i + size]
-        old = np.stack([s.log_probs for s in part], axis=1)
-        diffs = {j: lp.cpu().numpy().astype(np.float64) - old[lp_map[j]] for j, lp in ad.replay_log_probs(part).items()}
-        held_all.append(all(np.all(np.exp(d) == 1.0) for d in diffs.values()))
-        held_sde.append(all(np.all(np.exp(d) == 1.0) for j, d in diffs.items() if j in sde))
-        worst = max([worst] + [float(np.abs(d).max()) for j, d in diffs.items() if j in sde])
-    block = ad.modules["transformer"].single_transformer_blocks[0].linear1
-    dev = block.weight.device
+    held, worst = {}, 0.0
+    for split in F18_SPLITS:
+        ok, start = True, 0
+        for size in split:
+            part = samples[start:start + size]
+            start += size
+            old = np.stack([s.log_probs for s in part], axis=1)
+            for j, lp in ad.replay_log_probs(part).items():
+                d = lp.cpu().numpy().astype(np.float64) - old[lp_map[j]]
+                ok &= bool(np.all(np.exp(d) == 1.0))
+                worst = max(worst, float(np.abs(d).max()))
+        held[" + ".join(map(str, split))] = ok
+    same = {}
+    with torch.no_grad():
+        for name, module, x in products:
+            whole, alone = _tensors(module(x)), _tensors(module(x[:4]))
+            same[f"{name} ({x.shape[0]} rows x {module.in_features} -> {module.out_features}, {x.dtype})"] = all(
+                torch.equal(a[:4], b) for a, b in zip(whole, alone))
+    log(f"[{tag}] F18: the {len(samples)} rows replayed as micro-batches of {list(held)}: ratio exactly 1.0 on "
+        f"every stored step of each: {list(held.values())}; max |log-ratio| {worst!r}; each product gives its "
+        f"first 4 rows the same bits alone as in the batch: {same}")
+    if not all(held.values()) or not all(same.values()):
+        fail(f"[{tag}] F18: a replay at another micro-batch size is not bit-exact: {held}, {same}")
+
+
+def _tensors(x) -> list:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _microbatch_grad_probe(tag: str, trainer, samples, split=(5, 3)) -> None:
+    """F18's case in the trainer's own grad step: the rollout's rows staged
+    by ``grad_step_batches`` as micro-batches of ``split`` (the last one
+    partial against the first, both other sizes than the rollout's) and put
+    through ``loss_and_grads`` (the training forward with a gradient) at
+    every train timestep: GRPO's ratio exactly 1.0 on every row of each.
+    The advantages are set to 0 (the ratio does not read them); the
+    gradients are dropped. Fails otherwise."""
+    import numpy as np
+
+    for s in samples:
+        s.extra_kwargs["advantage"] = 0.0
+    size0, ratios, start = trainer.micro_batch_size, [], 0
+    try:
+        for size in split:
+            rows = np.arange(start, start + size)
+            start += size
+            trainer.micro_batch_size = size
+            trainer._micro_batches = lambda n, epoch, rows=rows: [rows]
+            for batch in trainer.grad_step_batches(samples, 0):
+                (_, aux), _ = trainer.loss_and_grads(trainer.adapter.trainable, batch)
+                ratios.append((size, float(aux["train/ratio_min"]), float(aux["train/ratio_max"])))
+    finally:
+        trainer.micro_batch_size = size0
+        del trainer._micro_batches
+    held = bool(ratios) and all(lo == 1.0 and hi == 1.0 for _, lo, hi in ratios)
+    log(f"[{tag}] F18: the {len(samples)} rows through the trainer's grad step as micro-batches of "
+        f"{' + '.join(map(str, split))}: (rows, ratio min, ratio max) at each train timestep {ratios}; exactly 1.0 "
+        f"on every row: {held}")
+    if not held:
+        fail(f"[{tag}] F18: a grad step at another micro-batch size is not bit-exact: {ratios}")
+
+
+def _f18_products(ad, single: str, tokens: int):
+    """F18's products on the adapter's transformer at a batch of 8: the
+    first double block's AdaLN modulation (the op F18's bisection named:
+    fp32, the rows are the batch) on SiLU-like fp32 rows and, where the
+    model has single blocks, the first one's bf16 ``linear1`` over
+    ``tokens`` tokens a row (a product whose M is the batch times the
+    tokens)."""
+    import torch
+
+    model = ad.modules["transformer"]
+    block = model.transformer_blocks[0]
+    mod = block.norm1.linear
+    dev = mod.weight.device
     gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(len(samples), KLEIN_S, block.in_features, generator=gen, device=dev).to(torch.bfloat16)
-    w = block.weight.to(torch.bfloat16)
-    same = torch.equal(F.linear(x, w)[:size], F.linear(x[:size], w))
-    log(f"[{tag}] Queue 3 watch: the {len(samples)} rows replayed as {len(held_sde)} micro-batches of {size}: ratio "
-        f"exactly 1.0 on the SDE steps {sorted(sde)} of each: {held_sde}, on every stored step: {held_all}; max "
-        f"|log-ratio| on the SDE steps {worst!r}; linear1 ({x.shape[1]} x {block.in_features} -> "
-        f"{block.out_features}) gives the first {size} rows the same bits alone as in the batch of {len(samples)}: "
-        f"{same}")
+    out = [("transformer_blocks.0.norm1.linear", mod,
+            torch.randn(8, mod.in_features, generator=gen, device=dev))]
+    blocks = getattr(model, single, None)
+    if blocks:
+        lin = blocks[0].linear1
+        out.append((f"{single}.0.linear1", lin,
+                    torch.randn(8, tokens, lin.in_features, generator=gen, device=dev).to(torch.bfloat16)))
+    return out
 
 
 def _flux2_serving(tag: str, ad, ta, batch, forward: dict, **inputs) -> list:
@@ -5408,7 +5521,7 @@ def phase_klein() -> dict:
     prompts = _prompts(os.path.join(here, "dataset", "pickscore"))
     _caption_check("klein", ad, prompts)
     samples = _flux2_serving("klein", ad, ta, [p for p in prompts for _ in range(ta.group_size)], forward)
-    _microbatch_replay_probe("klein", ad, samples)
+    _microbatch_replay_probe("klein", ad, samples, _f18_products(ad, "single_transformer_blocks", KLEIN_S))
     ad.train()
     del samples
     lora = ad.trainable["transformer"]
@@ -5513,6 +5626,292 @@ def flux2_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The decoupled trainers on LTX-2, Wan2.2 and the Qwen-conditioned families
+# ---------------------------------------------------------------------------
+
+def _add(*counts) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in set().union(*counts)}
+
+
+def _mul(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def _family_launches(family: str, ad):
+    """(one forward's launches, one grad step's forward and backward) of the
+    phase's transformer (a rematted grad step runs its blocks twice)."""
+    tcfg = ad.component_configs["transformer"]
+    if family == "ltx2":
+        forward, both, _ = _ltx2_launches(tcfg.num_layers)  # the decoupled losses reach both streams
+        return forward, _add(forward, both)
+    if family == "wan":
+        forward, backward = _wan_launches(tcfg.num_layers)
+        return forward, _add(forward, backward)
+    if family == "z-image":
+        return _z_image_launches(tcfg.num_layers)
+    return _qwen_launches(tcfg.num_double_blocks)
+
+
+#: −log σ(0) in fp32, DPO's loss where θ is the reference
+_LOG2_FP32 = 0.6931471824645996
+#: the step-0 invariants of each trainer, held on every grad step of epoch 0
+#: (θ = the sampling policy = every snapshot = the zero LoRA = the
+#: reference; the optimizer steps once, after all of them)
+DECOUPLED_INVARIANTS = {
+    "nft": lambda a: a["train/positive_loss"] == a["train/negative_loss"],
+    "awm": lambda a: a["train/ratio_mean"] == 1.0 and a["train/clip_frac"] == 0.0,
+    "dpo": lambda a: a["train/loss"] == _LOG2_FP32 and a["train/implicit_margin"] == 0.0,
+    "dgpo": lambda a: (a["train/pref_mean"], a["train/group_weight_mean"], a["train/kl"],
+                       a["train/clip_ratio"]) == (0.0, 0.5, 0.0, 0.0),
+    "crd": lambda a: (a["train/r_theta_mean"], a["train/old_deviate"], a["train/kl"]) == (0.0, 0.0, 0.0),
+}
+#: the decoupled phases: fixture, family, the trainer's frozen forwards and
+#: forwards with a gradient a grad step, the dataset maker, the predicted
+#: peak (GiB, PERF.md §6), whether the grad step is profiled
+FAMILY_PHASES = {
+    "ltx2-nft": dict(fixture="ltx2_t2av_nft.yaml", family="ltx2", frozen=1, grads=1, peak=(55.0, 62.0),
+                     profile=True),
+    "ltx2-i2av-dpo": dict(fixture="ltx2_i2av_dpo.yaml", family="ltx2", frozen=2, grads=2, peak=(45.0, 58.0),
+                          data=_ltx2_i2av_dataset),
+    "wan22-moe-awm": dict(fixture="wan22_a14b_awm.yaml", family="wan", frozen=1, grads=1, peak=(44.0, 50.0)),
+    "wan22-ti2v-dgpo": dict(fixture="wan22_ti2v_dgpo.yaml", family="wan", frozen=2, grads=1, peak=(45.0, 58.0),
+                            data=lambda root: _wan22_image_dataset(root, "wan22_image_data_256", 256)),
+    "z-image-crd": dict(fixture="z_image_crd.yaml", family="z-image", frozen=2, grads=1, peak=(38.0, 46.0)),
+    "qwen-image-nft": dict(fixture="qwen_image_nft.yaml", family="qwen", frozen=1, grads=1, peak=(46.0, 52.0)),
+    "qwen-edit-awm": dict(fixture="qwen_image_edit_plus_awm.yaml", family="qwen", frozen=1, grads=1,
+                          peak=(54.0, 60.0), data=_kontext_dataset),
+}
+
+
+#: the rows of a decoupled phase's F18 rollout, and of its replay
+F18_ROLLOUT_ROWS, F18_REPLAY_ROWS = 4, 2
+
+
+def _first_inference(ad):
+    """A spy on ``ad.inference`` that keeps the keyword arguments of its
+    first call and passes every call on as it came; returns (the kept
+    calls, the undo)."""
+    inference = ad.inference
+    calls: list = []
+
+    def spy(*args, **kwargs):
+        if not calls:
+            calls.append(dict(kwargs))
+        return inference(*args, **kwargs)
+
+    ad.inference = spy
+    return calls, lambda: delattr(ad, "inference")
+
+
+def _first_rows(kwargs: dict, n: int) -> dict:
+    """Inference arguments cut to their batch's first ``n`` rows: every list,
+    array or tensor that leads with the batch of ``prompt``."""
+    B = len(kwargs["prompt"])
+    leads = lambda v: (len(v) == B if isinstance(v, (list, tuple))
+                       else getattr(v, "ndim", 0) > 0 and v.shape[0] == B)
+    return {k: v[:n] if leads(v) else v for k, v in kwargs.items()}
+
+
+def phase_decoupled_family(tag: str) -> dict:
+    """One epoch of a decoupled trainer on its family at the width of the
+    family's GRPO phase (``FAMILY_PHASES``), through ``load_trainer``: the
+    trainer's own rollout (the final latent alone, no log-probs; finite
+    media, one forward's launches a step); F18's case on a rollout of the
+    first ``F18_ROLLOUT_ROWS`` rows of the same batch that keeps every step
+    and its log-prob, its rows 0-1 replayed without a gradient (a
+    micro-batch of 2 against 4) with ratio exactly 1.0 on every stored step
+    (this rollout's launches join the phase's); the optimize phase with
+    every grad step recorded: the trainer's step-0 invariants
+    (``DECOUPLED_INVARIANTS``) on each, finite losses, a non-zero LoRA
+    gradient on the component each reaches (on the MoE the expert of the
+    step's host timestep alone, both over the epoch), the launches predicted
+    a grad step (frozen forwards x one forward + forwards with a gradient x
+    the grad step), no read of the timestep from the device for routing; a
+    moved LoRA, peak memory against the prediction, seconds, and for
+    ``profile`` a profiled grad step. Returns the launch counts of the
+    rollout, the replay and the optimize phase."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models.wan.t2v import WanT2VAdapter
+
+    spec = FAMILY_PHASES[tag]
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = {"dataset_dir": spec["data"](here)} if "data" in spec else {}
+    t_phase = time.perf_counter()
+    if spec["family"] == "ltx2":
+        _, trainer = _ltx2_load(spec["fixture"], tag, **data)
+    else:
+        config = _qwen_config if spec["family"] in ("qwen", "z-image") else _wan22_config
+        trainer = _wan22_load_trainer(tag, config(spec["fixture"], **data))
+    ad, ta = trainer.adapter, trainer.training_args
+    kind = ta.trainer_type.lower()
+    forward, grad_step = _family_launches(spec["family"], ad)
+    per_step = _add(_mul(forward, spec["frozen"]), _mul(grad_step, spec["grads"]))
+    lora = ad.trainable
+    b0 = {c: {p: ab["lora_B"].detach().clone() for p, ab in t.items()} for c, t in lora.items()}
+    log(f"[{tag}] {type(trainer).__name__} on {type(ad).__name__}: remat "
+        f"{ad.component_configs['transformer'].remat}, {ta.get_num_train_timesteps(trainer.config)} train timesteps, "
+        f"B {ta.per_device_batch_size}; predicted launches a rollout step {forward}, a grad step {per_step}")
+    trainer.epoch = 0
+    trainer.scheduler.set_seed(ta.seed)
+    WanT2VAdapter.route_reads = 0
+    ops.reset_launch_counts()
+    secs = {}
+    calls, undo = _first_inference(ad)
+    t0 = time.perf_counter()
+    try:
+        samples = trainer.sample(0)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    secs["rollout"] = time.perf_counter() - t0
+    in_sample = ops.launch_counts()
+    batches = -(-len(samples) // ta.per_device_batch_size)
+    want = _mul(forward, ta.num_inference_steps * batches)
+    media = np.stack([s.video if s.video is not None else s.image for s in samples])
+    log(f"[{tag}] the trainer's rollout of {len(samples)} (compute_log_prob {calls[0]['compute_log_prob']}, "
+        f"trajectory {calls[0]['trajectory_indices']}): media {media.shape} in [{media.min():.3f}, "
+        f"{media.max():.3f}], stored latents {samples[0].all_latents.shape}, launches {in_sample} (expected {want}), "
+        f"{secs['rollout']:.2f} s")
+    if not (np.isfinite(media).all() and media.shape[-2:] == (ta.height, ta.width)):
+        fail(f"[{tag}] the rollout's media are not as expected: {media.shape}")
+    if any(in_sample[k] != n for k, n in want.items()):
+        fail(f"[{tag}] rollout launches {in_sample}, expected {want}")
+    if spec["family"] == "ltx2":
+        waves = np.stack([s.audio for s in samples])
+        log(f"[{tag}] waveforms {waves.shape}, audio latents {samples[0].extra_kwargs['audio_all_latents'].shape}")
+        if not np.isfinite(waves).all():
+            fail(f"[{tag}] the rollout's waveforms are not finite")
+    ad.rollout()
+    kwargs = {k: v for k, v in _first_rows(calls[0], F18_ROLLOUT_ROWS).items() if k != "generator"}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    kept = ad.inference(**{**kwargs, "compute_log_prob": True, "trajectory_indices": "all", "seed": ta.seed})
+    torch.cuda.synchronize()
+    secs[f"F18 rollout of {F18_ROLLOUT_ROWS}"] = time.perf_counter() - t0
+    f18_rollout = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    want = _mul(forward, ta.num_inference_steps)
+    log(f"[{tag}] F18: a rollout of the batch's first {len(kept)} rows keeping every step, launches {f18_rollout} "
+        f"(expected {want}), {secs[f'F18 rollout of {F18_ROLLOUT_ROWS}']:.2f} s; its rows 0-1 replayed:")
+    if len(kept) != F18_ROLLOUT_ROWS or any(f18_rollout[k] != n for k, n in want.items()):
+        fail(f"[{tag}] the F18 rollout: {len(kept)} rows, launches {f18_rollout}, expected {want}")
+    t0 = time.perf_counter()
+    replayed = _replay_check(tag, ad, kept[:F18_REPLAY_ROWS], forward)
+    secs[f"replay of {F18_REPLAY_ROWS} rows"] = time.perf_counter() - t0
+    del kept
+    ad.train()
+    metrics = trainer.prepare_feedback(samples)
+    steps: list = []
+    auxes: list = []
+    loss_fn = trainer.loss_fn
+
+    streams: list = []
+
+    def recording_loss_fn(trainable, batch, *args):
+        loss, aux = loss_fn(trainable, batch, *args)
+        auxes.append(dict(aux))
+        streams.append(sorted(batch["chosen" if kind == "dpo" else "clean"]))
+        return loss, aux
+
+    trainer.loss_fn = recording_loss_fn
+    undo = _grad_recorder(trainer, steps)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        info = trainer.optimize(samples, 0)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        del trainer.loss_fn
+    secs["optimize"] = time.perf_counter() - t0
+    _live_components(steps)
+    in_optimize = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
+    want = _mul(per_step, len(steps))
+    shown = {k: [round(a[k], 6) for a in auxes] for k in sorted(auxes[0])} if auxes else {}
+    log(f"[{tag}] reward mean {metrics['reward/mean']:.5f}; {len(steps)} grad steps (host t, components with a "
+        f"non-zero LoRA gradient): {[(round(t, 2), live) for t, live, _ in steps]}; aux {shown}; loss "
+        f"{info['train/loss']:.4e}, grad_norm {info['train/grad_norm']:.4e}; launches in optimize {in_optimize} "
+        f"(expected {want}); global step {trainer.global_step}; device reads of the timestep for routing "
+        f"{WanT2VAdapter.route_reads}")
+    want_streams = sorted(ad.decoupled_latent_keys)
+    log(f"[{tag}] the latent streams of every grad step's tree: {streams[0] if streams else None} (expected "
+        f"{want_streams} on each)")
+    if any(st != want_streams for st in streams):
+        fail(f"[{tag}] a grad step's latent tree lacks a stream: {streams}")
+    moe = len(lora) == 2
+    reached = [["transformer_2" if ad.routes_high(t) else "transformer"] if moe else sorted(lora)
+               for t, _, _ in steps]
+    if not steps or any(live != want_live for (_, live, _), want_live in zip(steps, reached)):
+        fail(f"[{tag}] the grad steps' non-zero LoRA gradients {steps} are not on {reached}")
+    if moe and {c for live in reached for c in live} != {"transformer", "transformer_2"}:
+        fail(f"[{tag}] not both experts trained in the epoch: {steps}")
+    if not all(DECOUPLED_INVARIANTS[kind](a) for a in auxes):
+        fail(f"[{tag}] the {kind} step-0 invariants do not hold on every grad step of epoch 0: {auxes}")
+    if not (np.isfinite(info["train/grad_norm"]) and info["train/grad_norm"] > 0
+            and all(np.isfinite(v) for a in auxes for v in a.values())):
+        fail(f"[{tag}] a loss or the grad norm is not finite and positive: {info}")
+    if any(in_optimize[k] != n for k, n in want.items()):
+        fail(f"[{tag}] launches in optimize {in_optimize}, expected {want}")
+    if WanT2VAdapter.route_reads or trainer.global_step != 1:
+        fail(f"[{tag}] {WanT2VAdapter.route_reads} device reads for routing, global step {trainer.global_step}")
+    moved = {c: max((lora[c][p]["lora_B"] - b).abs().max().item() for p, b in t.items()) for c, t in b0.items()}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"[{tag}] a trained component's LoRA did not move: {moved}")
+    counts = _add(in_sample, f18_rollout, replayed, in_optimize)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = spec["peak"]
+    grad_s = secs["optimize"] / len(steps)
+    log(f"[{tag}] {card_name()}: peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} GiB: "
+        f"{'inside' if lo <= peak <= hi else 'outside'}); seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}"
+        f", {grad_s:.3f} s a grad step (its frozen forwards and the optimizer step included); LoRA B max|change| "
+        f"{moved}; launches {counts}")
+    if spec.get("profile"):
+        _profile_grad_step(trainer, f"one {tag} grad step (its batch's frozen forward before it; LoRA merge, "
+                           "forward, backward, AdamW)", f"{tag}_grad_step_trace.json")
+    trainer.cleanup()
+    log(f"[{tag}] phase seconds {time.perf_counter() - t_phase:.1f} (load and preprocess included)")
+    return counts
+
+
+def _decoupled_family_phases() -> dict:
+    """Every phase of ``FAMILY_PHASES``, each trainer freed before the next
+    loads: {tag: launch counts}."""
+    import torch
+
+    out = {}
+    for tag in FAMILY_PHASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = phase_decoupled_family(tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoupled_families_only() -> int:
+    """``python3 chip_smoke.py --decoupled-families``: the build and the
+    phases of ``FAMILY_PHASES`` alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    counts = _decoupled_family_phases()
+    log(f"[decoupled-families] launches {counts}; device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
+def _mark(what: str) -> None:
+    """Log the seconds since the whole script's first phase began, after ``what``."""
+    log(f"[time] {what} done: {time.perf_counter() - _mark.start:.1f} s since the start")
+
+
 def main() -> int:
     try:
         import torch
@@ -5545,15 +5944,19 @@ def main() -> int:
         return qwen_only(sys.argv[1:])
     if sys.argv[1:] == ["--flux2"]:
         return flux2_only()
+    if sys.argv[1:] == ["--decoupled-families"]:
+        return decoupled_families_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
 
     use_full_fp32()
 
+    _mark.start = time.perf_counter()
     card = phase_environment()
     results: dict = {}
     phase_kernels(results)
+    _mark("kernel checks")
     phase_flux_kernels(results)
     phase_kontext_kernels(results)
     phase_decoupled_kernels(results)
@@ -5561,38 +5964,55 @@ def main() -> int:
     phase_wan22_kernels(results)
     phase_qwen_kernels(results)
     phase_flux2_kernels(results)
+    _mark("family kernel checks")
     phase_slice()
+    _mark("[slice]")
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 adapter is gone before the import's two load
     phase_import(card)
+    _mark("[import]")
     gc.collect()
     torch.cuda.empty_cache()  # and gone again before Wan loads
     wan_counts = phase_wan()
+    _mark("[wan]")
     gc.collect()
     torch.cuda.empty_cache()
     phase_grad()
     train_record: list = []
     counts = phase_train(train_record)
+    _mark("[grad], [train]")
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the CLI's and the resumed trainer load
     phase_resume(train_record, card)
+    _mark("[resume]")
     gc.collect()
     torch.cuda.empty_cache()  # and gone again before the Wan trainer loads
     log(f"[resume] device memory allocated once the SD3.5 trainers are freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     phase_grad_wan()
     wan_train_counts = phase_wan_train()
+    _mark("[grad] Wan, [wan-train]")
     gc.collect()
     torch.cuda.empty_cache()  # the Wan trainer is gone before FLUX.1 loads
     phase_flux_grad()
     flux_counts = phase_flux_dpo()
+    _mark("[flux-grad], [flux-dpo]")
     kontext_counts = _kontext_phases()
+    _mark("Kontext phases")
     decoupled_counts = _decoupled_phases()
+    _mark("[dgpo], [crd-wan]")
     ltx2_counts = _ltx2_phases()
+    _mark("LTX-2 phases")
     wan22_counts = _wan22_phases()
+    _mark("Wan2.2 phases")
     qwen_counts = _qwen_phases()
+    _mark("Qwen-conditioned phases")
     flux2_counts = _flux2_phases()
+    _mark("FLUX.2 phases")
+    family_counts = _decoupled_family_phases()
+    _mark("decoupled family phases")
     phase_device_times()
+    _mark("device times")
     # each kernel's launches on its main path: K3 in the Wan rollout, K2a/K2b
     # at head dim 128 in the Wan GRPO epochs, the others in the SD3.5 GRPO epochs
     counts["flash_fwd"] = wan_counts["flash_fwd"]
@@ -5614,7 +6034,13 @@ def main() -> int:
         for name, tags in tags_of.items():
             for tag in tags:
                 results[name]["shapes"][tag]["launches"] = decoupled_counts[trainer_type][name.replace("_d128", "")]
-    # the LTX-2 shapes: their kernels' launches in the two LTX-2 T2AV GRPO epochs
+    # the decoupled trainers' phases run at their family's shapes: their launches join the family's
+    ltx2_counts = _add(ltx2_counts, family_counts["ltx2-nft"], family_counts["ltx2-i2av-dpo"])
+    for phase, tag in (("wan22-moe", "wan22-moe-awm"), ("wan22-ti2v", "wan22-ti2v-dgpo")):
+        wan22_counts[phase] = _add(wan22_counts[phase], family_counts[tag])
+    for phase, tag in (("z-image", "z-image-crd"), ("qwen-image", "qwen-image-nft"), ("qwen-edit", "qwen-edit-awm")):
+        qwen_counts[phase] = _add(qwen_counts[phase], family_counts[tag])
+    # the LTX-2 shapes: their kernels' launches in the two LTX-2 T2AV GRPO epochs and the LTX-2 decoupled phases
     for name, tags in LTX2_TAGS.items():
         for tag in tags:
             results[name]["shapes"][tag]["launches"] = ltx2_counts[name.replace("_d128", "")]

@@ -41,6 +41,8 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.norms import adaln_modulate
 from ..layers import (
+    HEAD_ROWS,
+    SAMPLE_ROWS,
     AdaLayerNormContinuous,
     FeedForward,
     FP32RMSNorm,
@@ -112,7 +114,7 @@ class _AdaLinear(nn.Module):
     def __init__(self, hidden_dim: int, chunks: int):
         super().__init__()
         self.chunks = chunks
-        self.linear = Linear(hidden_dim, chunks * hidden_dim, compute_dtype=torch.float32)
+        self.linear = Linear(hidden_dim, chunks * hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, temb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return self.linear(F.silu(temb)).chunk(self.chunks, dim=-1)
@@ -268,7 +270,7 @@ class FluxTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList([FluxDoubleBlock(cfg) for _ in range(cfg.num_double_blocks)])
         self.single_transformer_blocks = nn.ModuleList([FluxSingleBlock(cfg) for _ in range(cfg.num_single_blocks)])
         self.norm_out = AdaLayerNormContinuous(D)
-        self.proj_out = Linear(D, cfg.in_channels, compute_dtype=torch.float32)
+        self.proj_out = Linear(D, cfg.in_channels, compute_dtype=torch.float32, rows=HEAD_ROWS)
 
     def forward(
         self,

@@ -50,18 +50,58 @@ def checkpointed(block: nn.Module, *inputs):
     return checkpoint(run, *inputs, *params, use_reentrant=False)
 
 
+#: F18. A GEMM library picks its kernel (tile shape, split-K) by the
+#: product's shape, so a product whose M grows with the batch may round a
+#: row by how many rows stand beside it, and a replay at another micro-batch
+#: size than the rollout's would then miss the rollout's bits. The products
+#: that do so on the card run at a fixed row count whatever the batch,
+#: zero-padded and chunked (:func:`fixed_rows_linear`):
+#:
+#: * ``SAMPLE_ROWS``: the products whose rows are the batch itself (the
+#:   time, guidance and pooled-text embedders, every AdaLN modulation of
+#:   the time embedding; fp32, M 8 against 4 at
+#:   N 18432, K 3072 rounds otherwise). A CFG batch of 16 runs as two
+#:   products of 8; on the CPU a product of up to 8 rows rounds as the
+#:   unpadded rows do;
+#: * ``FEW_TOKEN_ROWS``: a stream of a few tokens a sample, LTX-2's 9 audio
+#:   tokens (its FFN's down-projection, M 36 against 144 at K 8192);
+#: * ``HEAD_ROWS``: the fp32 output heads, whose N is the latent width (the
+#:   A14B's, M 2048 against 8192 at N 64, K 5120).
+SAMPLE_ROWS = 8
+FEW_TOKEN_ROWS = 256
+HEAD_ROWS = 1024
+
+
+def fixed_rows_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      rows: int = SAMPLE_ROWS) -> torch.Tensor:
+    """``F.linear`` over the rows of ``x`` (every dim but the last) run as
+    products of exactly ``rows`` rows: zero-padded up to a multiple of
+    ``rows``, then one product a block of ``rows``."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    if M % rows or M == 0:
+        x2 = F.pad(x2, (0, 0, 0, rows - M % rows))
+    out = torch.cat([F.linear(block, weight, bias) for block in x2.split(rows)])
+    return out[:M].reshape(*lead, weight.shape[0])
+
+
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` (flax ``nn.Dense(dtype=...)``)."""
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``nn.Dense(dtype=...)``);
+    with ``rows``, at that fixed row count (F18, :func:`fixed_rows_linear`)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, rows: Optional[int] = None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.rows = rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.rows is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return fixed_rows_linear(x.to(dt), self.weight.to(dt), bias, self.rows)
 
 
 class ScaleParam(nn.Module):
@@ -163,13 +203,13 @@ def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int, max_period:
 
 
 class TimestepEmbedding(nn.Module):
-    """Sinusoidal features → 2-layer SiLU MLP (fp32)."""
+    """Sinusoidal features → 2-layer SiLU MLP (fp32, per-sample products)."""
 
     def __init__(self, hidden_dim: int, freq_dim: int = 256):
         super().__init__()
         self.freq_dim = freq_dim
-        self.linear_1 = Linear(freq_dim, hidden_dim, compute_dtype=torch.float32)
-        self.linear_2 = Linear(hidden_dim, hidden_dim, compute_dtype=torch.float32)
+        self.linear_1 = Linear(freq_dim, hidden_dim, rows=SAMPLE_ROWS)
+        self.linear_2 = Linear(hidden_dim, hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x = sinusoidal_timestep_embedding(t, self.freq_dim)
@@ -177,12 +217,12 @@ class TimestepEmbedding(nn.Module):
 
 
 class PooledTextEmbedding(nn.Module):
-    """Pooled CLIP projection → time-conditioning vector (fp32)."""
+    """Pooled CLIP projection → time-conditioning vector (fp32, per-sample products)."""
 
     def __init__(self, pooled_dim: int, hidden_dim: int):
         super().__init__()
-        self.linear_1 = Linear(pooled_dim, hidden_dim, compute_dtype=torch.float32)
-        self.linear_2 = Linear(hidden_dim, hidden_dim, compute_dtype=torch.float32)
+        self.linear_1 = Linear(pooled_dim, hidden_dim, rows=SAMPLE_ROWS)
+        self.linear_2 = Linear(hidden_dim, hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(pooled.float())))
@@ -247,7 +287,7 @@ class AdaLayerNormZero(nn.Module):
     def __init__(self, hidden_dim: int, num_chunks: int = 6):
         super().__init__()
         self.num_chunks = num_chunks
-        self.linear = Linear(hidden_dim, num_chunks * hidden_dim, compute_dtype=torch.float32)
+        self.linear = Linear(hidden_dim, num_chunks * hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         chunks = self.linear(F.silu(emb.float())).chunk(self.num_chunks, dim=-1)
@@ -263,7 +303,7 @@ class AdaLayerNormContinuous(nn.Module):
 
     def __init__(self, hidden_dim: int):
         super().__init__()
-        self.linear = Linear(hidden_dim, 2 * hidden_dim, compute_dtype=torch.float32)
+        self.linear = Linear(hidden_dim, 2 * hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         scale, shift = self.linear(F.silu(emb.float())).chunk(2, dim=-1)
@@ -273,9 +313,9 @@ class AdaLayerNormContinuous(nn.Module):
 class GELUProj(nn.Module):
     """diffusers ``GELU(approximate='tanh')``: a projection then tanh-GELU."""
 
-    def __init__(self, dim_in: int, dim_out: int, compute_dtype: torch.dtype):
+    def __init__(self, dim_in: int, dim_out: int, compute_dtype: torch.dtype, rows: Optional[int] = None):
         super().__init__()
-        self.proj = Linear(dim_in, dim_out, compute_dtype=compute_dtype)
+        self.proj = Linear(dim_in, dim_out, compute_dtype=compute_dtype, rows=rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(self.proj(x), approximate="tanh")
@@ -285,10 +325,10 @@ class FeedForward(nn.Module):
     """Linear → tanh-GELU → Linear (diffusers ``ff.net.0.proj`` / ``ff.net.2``;
     Wan's ``ffn``)."""
 
-    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype):
+    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype, rows: Optional[int] = None):
         super().__init__()
-        self.net = nn.ModuleList([GELUProj(hidden_dim, inner, compute_dtype), nn.Identity(),
-                                  Linear(inner, hidden_dim, compute_dtype=compute_dtype)])
+        self.net = nn.ModuleList([GELUProj(hidden_dim, inner, compute_dtype, rows), nn.Identity(),
+                                  Linear(inner, hidden_dim, compute_dtype=compute_dtype, rows=rows)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -330,8 +370,9 @@ class HeadProj(Linear):
     view of the (B, S, H*E) product (JAX ``layers.py:346``); an
     ``nn.Linear`` by its parameters, so diffusers names hold."""
 
-    def __init__(self, in_features: int, heads: int, head_dim: int, compute_dtype: torch.dtype):
-        super().__init__(in_features, heads * head_dim, compute_dtype=compute_dtype)
+    def __init__(self, in_features: int, heads: int, head_dim: int, compute_dtype: torch.dtype,
+                 rows: Optional[int] = None):
+        super().__init__(in_features, heads * head_dim, compute_dtype=compute_dtype, rows=rows)
         self.heads = heads
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,9 @@ adapter's device in the inference dtype, or configured and imported from a
 local diffusers-layout checkpoint. Under ``use_prompt_enhancer`` the
 rollout's prompts are rewritten by the Gemma3 LM itself before they are
 encoded (``text_encoders/caption.py``, with the enhancer's own template).
-Not ported, and raising if asked for: the decoupled trainers' joint
-velocity tree (:attr:`decoupled_latent_keys`).
+The decoupled trainers train on the tree of both streams
+(:attr:`decoupled_latent_keys`), one joint pass giving both leaves
+(:meth:`training_velocity_tree`).
 """
 from __future__ import annotations
 
@@ -76,7 +77,6 @@ LTX2_LORA_TARGETS = (
     r"\.(to_q|to_k|to_v|to_out\.0)\.weight$",
     r".*transformer_blocks\.\d+\.(ff|audio_ff)\.net\.(0\.proj|2)\.weight$",
 )
-_DECOUPLED = "ROADMAP Queue 1 item 15 (LTX-2 under the decoupled trainers)"
 
 
 def _preset(name: str, attn_backend: str, dtype: str) -> Dict[str, Any]:
@@ -198,7 +198,10 @@ class LTX2T2AVAdapter(BaseAdapter):
 
     @property
     def decoupled_latent_keys(self) -> Dict[str, str]:
-        raise NotImplementedError(f"LTX-2's joint velocity tree in the decoupled losses is not ported yet: {_DECOUPLED}")
+        """Both streams (JAX ``models/abc.py:355-366``): the video latents and
+        the audio trajectory of :attr:`trajectory_batch_keys`, each a leaf of
+        the decoupled losses' latent tree (:meth:`training_velocity_tree`)."""
+        return {"latents": "all_latents", **self.trajectory_batch_keys}
 
     # ------------------------------------------------------------------
     # Prompt encoding

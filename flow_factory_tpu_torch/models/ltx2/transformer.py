@@ -33,6 +33,9 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.norms import rms_modulate
 from ..layers import (
+    FEW_TOKEN_ROWS,
+    HEAD_ROWS,
+    SAMPLE_ROWS,
     AcrossHeadsQKNorm,
     FeedForward,
     HeadProj,
@@ -86,16 +89,18 @@ class LTX2Attention(nn.Module):
     across-heads qk-norm (``norm_q``/``norm_k``, γ (D,)), RoPE when tables
     are given; K3 on the card."""
 
-    def __init__(self, cfg: LTX2Config):
+    def __init__(self, cfg: LTX2Config, q_rows: Optional[int] = None, kv_rows: Optional[int] = None):
         super().__init__()
         D, H, E, dt = cfg.hidden_dim, cfg.num_heads, cfg.head_dim, cfg.compute_dtype
         self.compute_dtype, self.attn_backend = dt, cfg.attn_backend
-        self.to_q = HeadProj(D, H, E, dt)
-        self.to_k = HeadProj(D, H, E, dt)
-        self.to_v = HeadProj(D, H, E, dt)
+        # the query stream's products (and the output's) and the key/value
+        # stream's at a fixed row count where that stream is the audio (F18)
+        self.to_q = HeadProj(D, H, E, dt, rows=q_rows)
+        self.to_k = HeadProj(D, H, E, dt, rows=kv_rows)
+        self.to_v = HeadProj(D, H, E, dt, rows=kv_rows)
         self.norm_q = AcrossHeadsQKNorm(D)
         self.norm_k = AcrossHeadsQKNorm(D)
-        self.to_out = nn.ModuleList([MergeProj(D, D, compute_dtype=dt)])
+        self.to_out = nn.ModuleList([MergeProj(D, D, compute_dtype=dt, rows=q_rows)])
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
@@ -130,11 +135,15 @@ class LTX2Block(nn.Module):
         self.compute_dtype = dt
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 6, D))
         self.audio_scale_shift_table = nn.Parameter(torch.zeros(1, 6, D))
+        # the audio stream's products at FEW_TOKEN_ROWS (F18): as queries in its
+        # self- and text attention and v2a, as keys and values in a2v
+        audio = dict(audio_attn1=(FEW_TOKEN_ROWS, FEW_TOKEN_ROWS), audio_attn2=(FEW_TOKEN_ROWS, None),
+                     audio_to_video_attn=(None, FEW_TOKEN_ROWS), video_to_audio_attn=(FEW_TOKEN_ROWS, None))
         for name in ("attn1", "audio_attn1", "attn2", "audio_attn2", "audio_to_video_attn",
                      "video_to_audio_attn"):
-            setattr(self, name, LTX2Attention(cfg))
+            setattr(self, name, LTX2Attention(cfg, *audio.get(name, (None, None))))
         self.ff = FeedForward(D, cfg.ffn_dim, dt)
-        self.audio_ff = FeedForward(D, cfg.ffn_dim, dt)
+        self.audio_ff = FeedForward(D, cfg.ffn_dim, dt, rows=FEW_TOKEN_ROWS)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)
@@ -176,7 +185,7 @@ class AdaLNSingle(nn.Module):
         super().__init__()
         self.emb = nn.Module()
         self.emb.timestep_embedder = TimestepEmbedding(cfg.hidden_dim, freq_dim=cfg.freq_dim)
-        self.linear = Linear(cfg.hidden_dim, 6 * cfg.hidden_dim, compute_dtype=torch.float32)
+        self.linear = Linear(cfg.hidden_dim, 6 * cfg.hidden_dim, rows=SAMPLE_ROWS)
 
     def forward(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N,) timesteps → (the embedding (N, D), its projection (N, 6D))."""
@@ -195,7 +204,7 @@ class LTX2Transformer(nn.Module):
         self.cfg = cfg
         D, dt = cfg.hidden_dim, cfg.compute_dtype
         self.proj_in = Linear(cfg.video_channels, D, compute_dtype=dt)
-        self.audio_proj_in = Linear(cfg.audio_channels, D, compute_dtype=dt)
+        self.audio_proj_in = Linear(cfg.audio_channels, D, compute_dtype=dt, rows=FEW_TOKEN_ROWS)
         self.time_embed = AdaLNSingle(cfg)
         self.audio_time_embed = AdaLNSingle(cfg)
         self.video_connector = Linear(cfg.context_dim, D, compute_dtype=dt)
@@ -203,8 +212,8 @@ class LTX2Transformer(nn.Module):
         self.transformer_blocks = nn.ModuleList([LTX2Block(cfg) for _ in range(cfg.num_layers)])
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 2, D))
         self.audio_scale_shift_table = nn.Parameter(torch.zeros(1, 2, D))
-        self.proj_out = Linear(D, cfg.video_channels, compute_dtype=torch.float32)
-        self.audio_proj_out = Linear(D, cfg.audio_channels, compute_dtype=torch.float32)
+        self.proj_out = Linear(D, cfg.video_channels, compute_dtype=torch.float32, rows=HEAD_ROWS)
+        self.audio_proj_out = Linear(D, cfg.audio_channels, compute_dtype=torch.float32, rows=FEW_TOKEN_ROWS)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from ...ops.norms import residual_gate_modulate
 from ..layers import (
+    HEAD_ROWS,
     AdaLayerNormContinuous,
     AdaLayerNormZero,
     FeedForward,
@@ -156,7 +157,7 @@ class SD3Transformer(nn.Module):
         ])
         self.norm_out = AdaLayerNormContinuous(D)
         self.proj_out = Linear(D, cfg.patch_size * cfg.patch_size * cfg.out_channels,
-                               compute_dtype=torch.float32)
+                               compute_dtype=torch.float32, rows=HEAD_ROWS)
 
     def forward(self, latents: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, pooled_projections: torch.Tensor) -> torch.Tensor:

@@ -122,6 +122,11 @@ class WanT2VAdapter(BaseAdapter):
     default_target_patterns = WAN_LORA_TARGETS
     default_scheduler = "unipc"
     embed_keys = ("prompt_embeds", "negative_prompt_embeds")
+    #: the MoE's reads of row 0's timestep from the device to route a call
+    #: that came with no host timestep (:meth:`_velocity`), counted for every
+    #: Wan adapter as the kernel wrappers count their launches; the rollout,
+    #: the replay and every trainer's grad step give the host value
+    route_reads = 0
 
     # ------------------------------------------------------------------
     # Loading
@@ -258,6 +263,7 @@ class WanT2VAdapter(BaseAdapter):
         caller had no host timestep: then row 0's t (with per-frame t, its
         largest) is read from the device, as JAX routes."""
         if isinstance(params, WanExperts):
+            WanT2VAdapter.route_reads += 1
             t0 = t[0] if t.ndim == 1 else t[0].max()
             params = self.step_params(params, float(t0))
         if isinstance(params, Routed):

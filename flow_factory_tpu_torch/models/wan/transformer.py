@@ -33,6 +33,8 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.norms import adaln_modulate
 from ..layers import (
+    HEAD_ROWS,
+    SAMPLE_ROWS,
     AcrossHeadsQKNorm,
     FeedForward,
     FusedLayerNorm,
@@ -159,7 +161,7 @@ class WanTimeTextEmbedding(nn.Module):
         super().__init__()
         D, dt = cfg.hidden_dim, cfg.compute_dtype
         self.time_embedder = TimestepEmbedding(D, freq_dim=cfg.freq_dim)
-        self.time_proj = Linear(D, 6 * D, compute_dtype=torch.float32)
+        self.time_proj = Linear(D, 6 * D, rows=SAMPLE_ROWS)
         self.text_embedder = nn.ModuleDict({"linear_1": Linear(cfg.context_dim, D, compute_dtype=dt),
                                             "linear_2": Linear(D, D, compute_dtype=dt)})
 
@@ -181,7 +183,7 @@ class WanTransformer(nn.Module):
         self.blocks = nn.ModuleList([WanBlock(cfg) for _ in range(cfg.num_layers)])
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 2, D))
         pt, ph, pw = cfg.patch_size
-        self.proj_out = Linear(D, pt * ph * pw * cfg.out_channels, compute_dtype=torch.float32)
+        self.proj_out = Linear(D, pt * ph * pw * cfg.out_channels, compute_dtype=torch.float32, rows=HEAD_ROWS)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)

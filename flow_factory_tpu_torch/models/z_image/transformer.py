@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.norms import adaln_modulate
 from .. import layers
-from ..layers import FP32RMSNorm, HeadProj, HeadRMSNorm, Linear, MergeProj, apply_rope, checkpointed, rope_frequencies
+from ..layers import (HEAD_ROWS, SAMPLE_ROWS, FP32RMSNorm, HeadProj, HeadRMSNorm, Linear, MergeProj, apply_rope,
+                      checkpointed, rope_frequencies)
 
 
 @dataclass(frozen=True)
@@ -72,7 +73,8 @@ class _Modulation(nn.Module):
     def __init__(self, hidden_dim: int, chunks: int):
         super().__init__()
         self.chunks = chunks
-        self.adaLN_modulation = nn.ModuleList([nn.Identity(), Linear(hidden_dim, chunks * hidden_dim)])
+        self.adaLN_modulation = nn.ModuleList([nn.Identity(),
+                                               Linear(hidden_dim, chunks * hidden_dim, rows=SAMPLE_ROWS)])
 
     def modulation(self, temb: torch.Tensor):
         return self.adaLN_modulation[1](F.silu(temb)).chunk(self.chunks, dim=-1)
@@ -133,7 +135,8 @@ class _TimestepEmbedder(nn.Module):
     def __init__(self, hidden_dim: int, freq_dim: int):
         super().__init__()
         self.freq_dim = freq_dim
-        self.mlp = nn.ModuleList([Linear(freq_dim, hidden_dim), nn.Identity(), Linear(hidden_dim, hidden_dim)])
+        self.mlp = nn.ModuleList([Linear(freq_dim, hidden_dim, rows=SAMPLE_ROWS), nn.Identity(),
+                                  Linear(hidden_dim, hidden_dim, rows=SAMPLE_ROWS)])
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x = layers.sinusoidal_timestep_embedding(t, self.freq_dim)
@@ -143,7 +146,7 @@ class _TimestepEmbedder(nn.Module):
 class _FinalLayer(_Modulation):
     def __init__(self, cfg: ZImageConfig):
         super().__init__(cfg.hidden_dim, 2)
-        self.linear = Linear(cfg.hidden_dim, cfg.in_channels)
+        self.linear = Linear(cfg.hidden_dim, cfg.in_channels, rows=HEAD_ROWS)
 
     def forward(self, x, temb):
         shift, scale = self.modulation(temb)

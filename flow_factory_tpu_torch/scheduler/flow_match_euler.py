@@ -93,8 +93,18 @@ def _bcast(x: Scalar, ref: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], *([1] * (ref.ndim - 1)))
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """(B,) the sum of each row over its non-batch dims, each row reduced
+    on its own: a reduction kernel's configuration (how it splits the work
+    across threads and blocks) follows how many outputs it has, so rows
+    reduced together would round by how many rows stand beside them, and a
+    replay at another micro-batch size than the rollout's would not give
+    the rollout's log-prob bit for bit."""
+    return torch.stack([row.sum() for row in x.reshape(x.shape[0], -1)])
+
+
 def _mean_over_nonbatch(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(x, dim=tuple(range(1, x.ndim)))
+    return _row_sums(x) / float(x[0].numel())
 
 
 def _gaussian_log_prob(out, mean, std_dev_t, dt):
@@ -153,8 +163,7 @@ def sde_step(
         if token_mask is None:
             return _mean_over_nonbatch(lp)
         tm = token_mask.float().expand(lp.shape)
-        nb = tuple(range(1, lp.ndim))
-        return torch.sum(lp * tm, dim=nb) / torch.clamp(torch.sum(tm, dim=nb), min=1.0)
+        return _row_sums(lp * tm) / torch.clamp(_row_sums(tm), min=1.0)
 
     def _store(t):
         return t.to(storage_dtype).float()

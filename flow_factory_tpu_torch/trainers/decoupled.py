@@ -130,6 +130,14 @@ class DecoupledTrainer(BaseTrainer):
                 force_init=strategy == "discrete_with_init", seed=seed)
         raise ValueError(f"Unknown time sampling strategy {strategy!r}")
 
+    def timesteps(self, t: np.ndarray) -> Dict[str, Any]:
+        """A grad step's (B,) timesteps drawn on the host: ``timestep`` on the
+        device and ``timestep_host``, row 0's value as a host float, by which
+        a model that routes on the timestep (Wan2.2's MoE) picks its expert
+        with no read from the device (JAX routes on row 0's t)."""
+        t = np.ascontiguousarray(t, dtype=np.float32)
+        return {"timestep": torch.from_numpy(t).to(self.adapter.device), "timestep_host": float(t[0])}
+
     # ------------------------------------------------------------------
     # Micro-batches
     # ------------------------------------------------------------------
@@ -166,11 +174,17 @@ class DecoupledTrainer(BaseTrainer):
                 if batch_np.get(k) is not None}
 
     def clean_latent_tree(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The final (clean) latents of every stream: {batch key: (B, ...)}."""
+        """The final (clean) latents of every stream of
+        ``decoupled_latent_keys``: {batch key: (B, ...)}. A stream the batch
+        lacks raises: dropped, it would leave every loss without a word."""
         if "__staged_clean__" in batch_np:
             return batch_np["__staged_clean__"]
-        return {bk: self._to_device(batch_np[sk][:, -1]) for bk, sk in self.adapter.decoupled_latent_keys.items()
-                if batch_np.get(sk) is not None}
+        keys = self.adapter.decoupled_latent_keys
+        missing = sorted(sk for sk in keys.values() if batch_np.get(sk) is None)
+        if missing:
+            raise KeyError(f"the samples carry no {missing}, a latent stream of {type(self.adapter).__name__}'s "
+                           f"decoupled_latent_keys {keys}")
+        return {bk: self._to_device(batch_np[sk][:, -1]) for bk, sk in keys.items()}
 
     # ------------------------------------------------------------------
     # Latent trees: each stream a leaf for the forward; the losses reduce
@@ -304,8 +318,7 @@ class OldPolicyTrainer(DecoupledTrainer):
                     params = self.old_policy_params()
                     for t_idx in range(T):
                         gen = make_generator(dev, f"{self.tag}_noise", ta.seed, epoch, inner, bi, t_idx)
-                        batch = dict(base, noise=self.tree_normal(gen, clean),
-                                     timestep=torch.from_numpy(all_t[t_idx]).to(dev))
+                        batch = dict(base, noise=self.tree_normal(gen, clean), **self.timesteps(all_t[t_idx]))
                         fwd = self.noised_batch(batch)
                         old_v = ad.training_velocity_tree(None, fwd if self.old_policy_cfg else uncfg(fwd),
                                                           params=params)

@@ -144,8 +144,8 @@ class DGPOTrainer(DecoupledTrainer):
                     old = (ad.merged_params(ad.velocity_component, ad.get_named_parameters(self.EMA_REF))
                            if self.requires_ema_ref else None)
                     for t_idx in range(T):
-                        t = torch.full((len(mb),), float(shared_t[t_idx]), dtype=torch.float32, device=dev)
-                        steps.append(self.with_frozen_velocities(dict(base, timestep=t), old))
+                        t = np.full((len(mb),), shared_t[t_idx], dtype=np.float32)
+                        steps.append(self.with_frozen_velocities(dict(base, **self.timesteps(t)), old))
                     del old
                 yield from steps
 

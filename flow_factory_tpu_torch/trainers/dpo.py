@@ -145,7 +145,7 @@ class DPOTrainer(DecoupledTrainer):
                         chosen=chosen_lat,
                         rejected=rejected_lat,
                         noise=self.tree_normal(gen, chosen_lat),  # shared ε across the pair
-                        timestep=torch.from_numpy(all_t[t_idx]).to(dev),
+                        **self.timesteps(all_t[t_idx]),
                         guidance_scale=float(chosen[0].extra_kwargs.get("guidance_scale", ta.guidance_scale)),
                         **embeds,
                     )

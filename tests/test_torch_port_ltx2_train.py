@@ -328,14 +328,16 @@ def test_ltx2_grpo_run_has_ratio_one_and_replays_the_audio_stream(tmp_path):
 
 def test_ltx2_model_types_resolve():
     """``ltx2-t2av`` and ``ltx2-i2av`` resolve to the port's adapters; the
-    decoupled trainers' joint velocity tree raises, naming its ROADMAP item."""
+    decoupled trainers' latent tree holds both streams, as JAX's default
+    does (tests/test_torch_port_decoupled_ltx2.py holds the losses)."""
     from flow_factory_tpu_torch.models.ltx2 import LTX2I2AVAdapter, LTX2T2AVAdapter
     from flow_factory_tpu_torch.models.registry import resolve_adapter_class
 
     assert resolve_adapter_class("ltx2-t2av") is LTX2T2AVAdapter
     assert resolve_adapter_class("ltx2-i2av") is LTX2I2AVAdapter
-    with pytest.raises(NotImplementedError, match="item 15"):
-        LTX2T2AVAdapter.decoupled_latent_keys.fget(None)
+    for cls in (LTX2T2AVAdapter, LTX2I2AVAdapter):
+        assert object.__new__(cls).decoupled_latent_keys == {"latents": "all_latents",
+                                                             "audio_latents": "audio_all_latents"}
 
 
 def test_preprocess_cache_keys_the_model_variant(tmp_path):

@@ -161,10 +161,10 @@ def test_ti2v_i2v_grpo_epoch_on_the_image_dataset(tmp_path):
 
 def test_nft_on_the_moe_gives_the_untaken_expert_zeros(tmp_path):
     """A decoupled trainer on the MoE (one DiffusionNFT epoch of the tiny
-    MoE through ``load_trainer``): its fresh timesteps have no host value,
-    so the velocity routes on row 0's t read from the tensor, as JAX does;
-    each grad step gives the routed expert's LoRA a gradient and the other
-    expert's exact zeros, not None."""
+    MoE through ``load_trainer``): each grad step routes on row 0's t, as
+    JAX does (the trainer gives it from the host as ``timestep_host``); it
+    gives the routed expert's LoRA a gradient and the other expert's exact
+    zeros, not None."""
     from flow_factory_tpu_torch.models.wan.t2v import WanT2VAdapter
     from flow_factory_tpu_torch.trainers import load_trainer
 
