@@ -172,6 +172,21 @@ printing one line and exiting non-zero on failure:
    a rollout on condition clips given as arrays, its replay and an
    optimize phase. Each: launches as predicted, ratio exactly 1.0, peak
    memory, seconds, a profiled grad step.
+8h. wan-i2v-kernels (run right after 8e): K3 and K2a/K2b at head dim 128
+   at Wan2.1-I2V-14B's image cross-attention (B 16 H 40, 512 video tokens
+   against the 257 CLIP tokens: one key in the last 64-key tile), through
+   the checks of 2 (the one-key ragged tail's control among them);
+15b. wan-i2v14b (after 15): Wan2.1-I2V-14B GRPO with the CLIP image stream
+   at full width, 14 of 40 layers, the 32-layer ViT-H/14, on
+   tests/fixtures/wan21_i2v14b_grpo.yaml (256 px x 5 frames; two records of
+   dataset/sharegpt4o_image_mini; the native PickScore scored
+   asynchronously and the brightness reward), two epochs: the image tokens
+   on every sample and staged into every grad step, 3 K3 a block, a no-grad
+   replay of every stored step and every grad step at ratio exactly 1.0,
+   the async CLIP scores equal to a synchronous rescoring bit for bit,
+   F18's rollout of 4 rows and replay of rows 0-1 at 1.0,
+   ``tools/f18_bisect.py``'s bisection of the DiT at B 16 against its first
+   4 rows, launches as predicted, peak memory, a profiled grad step.
 8f. qwen-kernels (run right after 8e): K3 at B 16 x 1536 tokens (Z-Image
    and Qwen-Image at 512 px) and B 8 x 3151 (Edit-Plus, ragged), K2a/K2b at
    B 16 x 1536 and B 4 x 3151, K5 and its backward at width 3072 (the
@@ -224,8 +239,9 @@ The line before the last holds the kernel table as JSON (the FLUX.1,
 FLUX.1-Kontext, B 8, LTX-2, Wan2.2, Qwen/Z-Image and FLUX.2 shapes nested
 under their kernels' entries, with their launches in the DPO epochs, the
 three Kontext phases, the DGPO or CRD epochs, the LTX-2 T2AV epochs, the
-TI2V-5B I2V or A14B T2V epochs, the Qwen/Z-Image epochs and the Klein or
-FLUX.2 epochs, each family's with its decoupled phase of 18); ``[time]``
+TI2V-5B I2V or A14B T2V epochs, the Wan2.1-I2V-14B epochs, the
+Qwen/Z-Image epochs and the Klein or FLUX.2 epochs, each family's with its
+decoupled phase of 18); ``[time]``
 lines give the seconds since the start after each group of phases; the last
 line is
 ``{"ok": true, "device": {...}}``.
@@ -245,7 +261,9 @@ does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --qwen`` and/or ``--z-image`` the build, 8f and
 16 (Qwen-Image and Edit-Plus, and/or Z-Image);
 ``python3 chip_smoke.py --flux2`` the build, 8g and 17;
-``python3 chip_smoke.py --decoupled-families`` the build and 18.
+``python3 chip_smoke.py --decoupled-families`` the build and 18;
+``python3 chip_smoke.py --wan-i2v`` the build, 8h, 15b and the device
+times of 8h's shapes.
 """
 from __future__ import annotations
 
@@ -1269,7 +1287,8 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     flux-512px and the kontext shapes q/k/v contiguous (the joint sequence,
     concatenated, q and k as RoPE returns them); the ltx2 and wan22 shapes
     q/k contiguous (the across-heads qk-norm and RoPE return them so), v a
-    head-split view; ragged-d128 every
+    head-split view (wan-i2v's image cross-attention too: its k through the
+    k-only norm); ragged-d128 every
     operand a view; dO always head-interleaved, as the head merge's backward
     hands it over."""
     from flow_factory_tpu_torch.ops import attention as A
@@ -1277,7 +1296,7 @@ def _k2_d128_inputs(tag: str, B: int, H: int, Sq: int, Sk: int, randn):
     D = 128
     view = lambda S: randn(B, S, H, D).transpose(1, 2)  # head-split view of a (B, S, H*D) projection
     q = view(Sq) if tag == "ragged-d128" else randn(B, H, Sq, D)
-    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext", "ltx2", "wan22")) else view(Sk)
+    k = randn(B, H, Sk, D) if tag.startswith(("wan-self", "flux", "kontext", "ltx2", "wan22", "wan-i2v")) else view(Sk)
     v = randn(B, H, Sk, D) if tag.startswith(("flux", "kontext")) else view(Sk)
     dout = view(Sq)
     out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
@@ -1348,13 +1367,14 @@ def _k2_d128_shape_checks(results: dict, tag: str, B: int, H: int, Sq: int, Sk: 
     errs, tols = _k2_check(f"{tag} D128", got, ref, torch.bfloat16)
     del ref
     d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
-    if tag in ("wan-self", "flux-512px", "kontext-2560", "qwen-1536") or (
+    if tag in ("wan-self", "flux-512px", "kontext-2560", "qwen-1536", "wan-i2v-image") or (
             tag.startswith("wan22") and tag.endswith("-self")):
         zero = torch.zeros_like(delta)
         _k2_negative_control(f"K2 D128 {tag} vs a plain version without Delta", got,
                              (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
                               *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
-    if tag in ("ragged-d128", "kontext-ragged", "qwen-edit-3151") or (tag.startswith("ltx2") and Sk % 64):
+    if tag in ("ragged-d128", "kontext-ragged", "qwen-edit-3151", "wan-i2v-image") or (
+            tag.startswith("ltx2") and Sk % 64):
         # the kernels' last whole key tile; under one tile (LTX-2's 9 audio
         # keys) a plain version without the last key
         n = Sk // 64 * 64 if Sk > 64 else Sk - 1
@@ -4827,6 +4847,190 @@ def wan22_only() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Wan2.1-I2V-14B with the CLIP image stream at full width, under GRPO
+# ---------------------------------------------------------------------------
+
+#: the image cross-attention of Wan2.1-I2V-14B at 256 px x 5 frames (tag,
+#: heads, Sq, Sk): 512 video tokens against the 257 CLIP tokens (four 64-key
+#: tiles and one key in the last), at the rollout's B 16 (8 samples under
+#: CFG) for K3 and at the grad step's, a micro-batch of 8 under CFG (B 16),
+#: for K2a/K2b; the self and text attentions are the A14B's shapes
+#: (``WAN22_ATTENTION``)
+WAN_I2V_IMAGE = ("wan-i2v-image", 40, 512, 257)
+#: the Wan2.1-I2V kernel tags of the table and the kernels whose launches in
+#: [wan-i2v14b]'s epochs they take, a third of each (the image
+#: cross-attention is one of a block's three attentions, the only K3 and K2
+#: calls there: :func:`_wan_i2v_launches`)
+WAN_I2V_TAGS = {name: (WAN_I2V_IMAGE[0],) for name in ("flash_fwd", "flash_bwd_dq_d128", "flash_bwd_dkv_d128")}
+#: peak device memory predicted for [wan-i2v14b] (GiB; PERF.md §6)
+WAN_I2V_PEAK_PREDICTED = {"wan-i2v14b": (66.0, 72.0)}
+
+
+def phase_wan_i2v_kernels(results: dict) -> None:
+    """[wan-i2v-kernels]: K3 and K2a/K2b at head dim 128 at the image
+    cross-attention (``WAN_I2V_IMAGE``: q and k contiguous, the text
+    stream's normed query and the k-only norm's output, v a head-split view
+    of ``add_v_proj``), through ``_k3_shape_checks`` (the controls without
+    log2(e) and with the 63 padded keys taken for real) and
+    ``_k2_d128_shape_checks`` (the controls without Delta and without the
+    one-key ragged tail), timed by events and by device time beside SDPA;
+    the entries join the table under their tag."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    log(f"[wan-i2v-kernels] card (SM clock, max, power, temperature): {gpu_state()}")
+    t0 = time.perf_counter()
+    tag, H, Sq, Sk = WAN_I2V_IMAGE
+    B = 16
+    q, k = randn(B, H, Sq, 128), randn(B, H, Sk, 128)
+    v = randn(B, Sk, H, 128).transpose(1, 2)
+    _k3_shape_checks(results, tag, q, k, v, "q/k contiguous, v a view",
+                     functools.partial(_k3_qk_contiguous_call, B, H, Sq, Sk))
+    del q, k, v
+    _k2_d128_shape_checks(results, tag, B, H, Sq, Sk, True, randn)
+    log(f"[wan-i2v-kernels] K3 and K2a/K2b at B{B} H{H} Sq{Sq} Sk{Sk} D128 within their tolerances, the controls "
+        f"rejected, {time.perf_counter() - t0:.1f} s")
+
+
+def _wan_i2v_launches(num_layers: int):
+    """A Wan2.1-I2V forward's launches and its backward's: 3 K3 a block
+    (self, text cross, image cross; the image embedder's LayerNorms are
+    plain), K5 as in :func:`_wan_launches`, K2a/K2b for every K3."""
+    forward, backward = _wan_launches(num_layers)
+    return ({**forward, "flash_fwd": 3 * num_layers},
+            {**backward, "flash_bwd_dq": 3 * num_layers, "flash_bwd_dkv": 3 * num_layers})
+
+
+def _f18_bisect_module():
+    """``tools/f18_bisect.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "f18_bisect.py")
+    spec = importlib.util.spec_from_file_location("f18_bisect", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_wan_i2v() -> dict:
+    """[wan-i2v14b]: Wan2.1-I2V-14B GRPO with the CLIP image stream through
+    ``load_trainer`` on tests/fixtures/wan21_i2v14b_grpo.yaml (width 5120,
+    40 heads of 128, FFN 13824, 14 of 40 layers; the 32-layer ViT-H/14 with
+    257 tokens; UMT5-XXL; 256 px x 5 frames = 512 tokens of 33 channels; 10
+    steps, CFG 5, Flow-SDE; two records x group 4; the native PickScore
+    scored asynchronously and the brightness reward), two epochs phase by
+    phase: ``image_embeds`` (257, 1280) finite on every sample, K3 and K5 as
+    predicted in every rollout (3 K3 a block) and in every grad step with
+    ``cond_latents`` and ``image_embeds`` staged into it, a no-grad replay of
+    every stored step and every grad step at ratio exactly 1.0 (epoch 1
+    under the LoRA epoch 0 moved), the async CLIP scores equal to a
+    synchronous rescoring of the same samples in the same batches bit for
+    bit; then F18's case (a rollout of 4 rows, rows 0-1 replayed at 1.0),
+    peak memory against ``WAN_I2V_PEAK_PREDICTED``, what was live at a grad
+    step's peak, a profiled grad step, and ``tools/f18_bisect.py``'s
+    bisection of the DiT at B 16 against its first 4 rows (every product the
+    same bits). Returns the launch counts of the two epochs."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    tag = "wan-i2v14b"
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = _wan22_image_dataset(here, "wan22_image_data_256", 256)
+    trainer = _wan22_load_trainer(tag, _wan22_config("wan21_i2v14b_grpo.yaml", dataset_dir=data_dir))
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg, vcfg = ad.component_configs["transformer"], ad.component_configs["image_encoder"]
+    L = tcfg.num_layers
+    forward, backward = _wan_i2v_launches(L)
+    log(f"[{tag}] image stream: {tcfg.image_context_tokens} tokens of {tcfg.image_context_dim} from the ViT "
+        f"({vcfg.num_layers} layers, width {vcfg.hidden_dim}, {vcfg.image_size} px / {vcfg.patch_size}, post-LN "
+        f"{vcfg.use_post_ln}); embed keys {ad.embed_keys}; predicted launches a forward {forward}, a backward "
+        f"{backward}")
+    if (tcfg.hidden_dim, tcfg.num_heads, tcfg.ffn_dim, tcfg.in_channels, tcfg.image_context_tokens,
+            tcfg.image_context_dim, vcfg.num_layers, vcfg.use_post_ln) != (5120, 40, 13824, 33, 257, 1280, 32, False):
+        fail(f"[{tag}] not the Wan2.1-I2V-14B geometry: {tcfg}, {vcfg}")
+    clip = trainer.reward_buffer.async_pointwise[0]
+    lora = ad.trainable["transformer"]
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
+
+    image = (tcfg.image_context_tokens, tcfg.image_context_dim)
+
+    def check_rollout(samples):
+        embeds = [s.extra_kwargs.get("image_embeds") for s in samples]
+        ok = all(e is not None and e.shape == image and np.isfinite(e).all() for e in embeds)
+        log(f"[{tag}] image_embeds {image} finite on every sample: {ok}")
+        if not ok:
+            fail(f"[{tag}] a sample lacks its image_embeds: {[None if e is None else e.shape for e in embeds]}")
+        _replay_check(tag, ad, samples, forward)
+
+    calls, undo = _first_inference(ad)
+    ops.reset_launch_counts()
+    runs = []
+    for epoch in range(ta.max_epochs):
+        try:
+            run = _grpo_epoch(trainer, tag, epoch, forward, backward, check_rollout,
+                              staged_keys=("cond_latents", "image_embeds"))
+        finally:
+            if epoch == 0:
+                undo()
+        runs.append(run)
+        got = np.asarray([s.extra_kwargs["rewards"][clip.name] for s in run["samples"]])
+        again = trainer.reward_buffer.processor._score_pointwise(clip, run["samples"])
+        log(f"[{tag}] epoch {epoch}: async {clip.name} scores {got.tolist()} equal a synchronous rescoring bit for "
+            f"bit: {np.array_equal(got, again)}")
+        if not (np.isfinite(got).all() and np.array_equal(got, again)):
+            fail(f"[{tag}] epoch {epoch}: the async CLIP scores {got} differ from the rescoring {again}")
+        staged = [st for _, _, st in run["steps"]]
+        if not all(st.get("image_embeds", (0,))[1:] == image and "cond_latents" in st for st in staged):
+            fail(f"[{tag}] epoch {epoch}: a grad step lacks its cond_latents or image_embeds: {staged}")
+        if epoch == 0:
+            moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
+            log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
+            if not moved > 0:
+                fail(f"[{tag}] the LoRA did not move after the optimizer step")
+    counts = ops.launch_counts()  # the two epochs alone: the F18 probe below is not the main path
+    secs: dict = {}
+    _f18_rows_replay(tag, ad, calls[0], forward, secs)
+
+    def bisect():
+        gen = torch.Generator(device=ad.device).manual_seed(18)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device=ad.device)
+        B = 16
+        T, h, w, _ = ad.latent_shape(ta.height, ta.width, int(ta.num_frames))
+        inputs = (randn(B, T, h, w, tcfg.in_channels), torch.linspace(980.0, 120.0, B, device=ad.device),
+                  randn(B, ad.t5_max_length, tcfg.context_dim), randn(B, *image))
+        same, varying = _f18_bisect_module().bisect(tag, ad.modules["transformer"], inputs, B, 4)
+        if not same or varying:
+            fail(f"[{tag}] F18: the DiT's first 4 rows differ at B {B} ({same}) or products vary: {varying}")
+
+    _wan22_finish(trainer, tag, runs, counts, f"one Wan2.1-I2V-14B ({L} layers) grad step with the image stream "
+                  "(LoRA merge, forward, backward, AdamW)", predicted=WAN_I2V_PEAK_PREDICTED, then=bisect)
+    log(f"[{tag}] F18 rollout and replay seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    return counts
+
+
+def wan_i2v_only() -> int:
+    """``python3 chip_smoke.py --wan-i2v``: the build, [wan-i2v-kernels],
+    [wan-i2v14b] and the device times of the new shapes."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_wan_i2v_kernels({})
+    counts = phase_wan_i2v()
+    phase_device_times()
+    log(f"[wan-i2v14b] launches {counts}; device memory still allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # The Qwen-conditioned image families: Z-Image at full size, Qwen-Image and
 # Qwen-Image-Edit-Plus at full width and 24 double blocks, under GRPO
 # ---------------------------------------------------------------------------
@@ -5713,6 +5917,38 @@ def _first_rows(kwargs: dict, n: int) -> dict:
     return {k: v[:n] if leads(v) else v for k, v in kwargs.items()}
 
 
+def _f18_rows_replay(tag: str, ad, kwargs: dict, forward: dict, secs: dict):
+    """F18's case: a rollout of the first ``F18_ROLLOUT_ROWS`` rows of the
+    inference call ``kwargs`` that keeps every step and its log-prob (one
+    forward's launches a step), its rows 0-1 replayed without a gradient (a
+    micro-batch of 2 against 4) with ratio exactly 1.0 on every stored step;
+    the adapter back in train mode. Returns the launch counts of the rollout
+    and of the replay."""
+    import torch
+
+    from flow_factory_tpu_torch import ops
+
+    ta = ad.training_args
+    ad.rollout()
+    kwargs = {k: v for k, v in _first_rows(kwargs, F18_ROLLOUT_ROWS).items() if k != "generator"}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    kept = ad.inference(**{**kwargs, "compute_log_prob": True, "trajectory_indices": "all", "seed": ta.seed})
+    torch.cuda.synchronize()
+    secs[f"F18 rollout of {F18_ROLLOUT_ROWS}"] = time.perf_counter() - t0
+    f18_rollout = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    want = _mul(forward, ta.num_inference_steps)
+    log(f"[{tag}] F18: a rollout of the batch's first {len(kept)} rows keeping every step, launches {f18_rollout} "
+        f"(expected {want}), {secs[f'F18 rollout of {F18_ROLLOUT_ROWS}']:.2f} s; its rows 0-1 replayed:")
+    if len(kept) != F18_ROLLOUT_ROWS or any(f18_rollout[k] != n for k, n in want.items()):
+        fail(f"[{tag}] the F18 rollout: {len(kept)} rows, launches {f18_rollout}, expected {want}")
+    t0 = time.perf_counter()
+    replayed = _replay_check(tag, ad, kept[:F18_REPLAY_ROWS], forward)
+    secs[f"replay of {F18_REPLAY_ROWS} rows"] = time.perf_counter() - t0
+    ad.train()
+    return f18_rollout, replayed
+
+
 def phase_decoupled_family(tag: str) -> dict:
     """One epoch of a decoupled trainer on its family at the width of the
     family's GRPO phase (``FAMILY_PHASES``), through ``load_trainer``: the
@@ -5785,24 +6021,7 @@ def phase_decoupled_family(tag: str) -> dict:
         log(f"[{tag}] waveforms {waves.shape}, audio latents {samples[0].extra_kwargs['audio_all_latents'].shape}")
         if not np.isfinite(waves).all():
             fail(f"[{tag}] the rollout's waveforms are not finite")
-    ad.rollout()
-    kwargs = {k: v for k, v in _first_rows(calls[0], F18_ROLLOUT_ROWS).items() if k != "generator"}
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    kept = ad.inference(**{**kwargs, "compute_log_prob": True, "trajectory_indices": "all", "seed": ta.seed})
-    torch.cuda.synchronize()
-    secs[f"F18 rollout of {F18_ROLLOUT_ROWS}"] = time.perf_counter() - t0
-    f18_rollout = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    want = _mul(forward, ta.num_inference_steps)
-    log(f"[{tag}] F18: a rollout of the batch's first {len(kept)} rows keeping every step, launches {f18_rollout} "
-        f"(expected {want}), {secs[f'F18 rollout of {F18_ROLLOUT_ROWS}']:.2f} s; its rows 0-1 replayed:")
-    if len(kept) != F18_ROLLOUT_ROWS or any(f18_rollout[k] != n for k, n in want.items()):
-        fail(f"[{tag}] the F18 rollout: {len(kept)} rows, launches {f18_rollout}, expected {want}")
-    t0 = time.perf_counter()
-    replayed = _replay_check(tag, ad, kept[:F18_REPLAY_ROWS], forward)
-    secs[f"replay of {F18_REPLAY_ROWS} rows"] = time.perf_counter() - t0
-    del kept
-    ad.train()
+    f18_rollout, replayed = _f18_rows_replay(tag, ad, calls[0], forward, secs)
     metrics = trainer.prepare_feedback(samples)
     steps: list = []
     auxes: list = []
@@ -5946,6 +6165,8 @@ def main() -> int:
         return flux2_only()
     if sys.argv[1:] == ["--decoupled-families"]:
         return decoupled_families_only()
+    if sys.argv[1:] == ["--wan-i2v"]:
+        return wan_i2v_only()
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -5962,6 +6183,7 @@ def main() -> int:
     phase_decoupled_kernels(results)
     phase_ltx2_kernels(results)
     phase_wan22_kernels(results)
+    phase_wan_i2v_kernels(results)
     phase_qwen_kernels(results)
     phase_flux2_kernels(results)
     _mark("family kernel checks")
@@ -6005,6 +6227,8 @@ def main() -> int:
     _mark("LTX-2 phases")
     wan22_counts = _wan22_phases()
     _mark("Wan2.2 phases")
+    wan_i2v_counts = phase_wan_i2v()
+    _mark("[wan-i2v14b]")
     qwen_counts = _qwen_phases()
     _mark("Qwen-conditioned phases")
     flux2_counts = _flux2_phases()
@@ -6049,6 +6273,10 @@ def main() -> int:
         for name, tags in tags_of.items():
             for tag in tags:
                 results[name]["shapes"][tag]["launches"] = wan22_counts[phase][name.replace("_d128", "")]
+    # the Wan2.1-I2V image cross-attention: its share of its kernels' launches in [wan-i2v14b]'s epochs
+    for name, tags in WAN_I2V_TAGS.items():
+        for tag in tags:
+            results[name]["shapes"][tag]["launches"] = wan_i2v_counts[name.replace("_d128", "")] // 3
     # the Qwen-conditioned shapes: their kernels' launches in the Z-Image, Qwen-Image and Edit-Plus epochs
     for name, tags in QWEN_TAGS.items():
         for tag, phases in tags.items():

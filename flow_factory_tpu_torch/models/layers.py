@@ -128,6 +128,16 @@ class NormParams(nn.Module):
         nn.init.zeros_(self.bias)
 
 
+def flax_layer_norm(x: torch.Tensor, norm: NormParams, eps: float) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)`` in plain PyTorch (the CLIP towers,
+    Wan's image embedder): fp32 fast-variance stats, then
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    return (x32 - mean) * (torch.rsqrt(var + eps) * norm.weight.float()) + norm.bias.float()
+
+
 class FusedLayerNorm(NormParams):
     """Affine fp32 LayerNorm (flax ``nn.LayerNorm`` semantics, eps 1e-6) in
     one pass through kernel K5's fold path (JAX ``layers.py:251``)."""
@@ -311,24 +321,28 @@ class AdaLayerNormContinuous(nn.Module):
 
 
 class GELUProj(nn.Module):
-    """diffusers ``GELU(approximate='tanh')``: a projection then tanh-GELU."""
+    """diffusers ``GELU(approximate=...)``: a projection then GELU, tanh by
+    default, exact with ``approximate="none"``."""
 
-    def __init__(self, dim_in: int, dim_out: int, compute_dtype: torch.dtype, rows: Optional[int] = None):
+    def __init__(self, dim_in: int, dim_out: int, compute_dtype: torch.dtype, rows: Optional[int] = None,
+                 approximate: str = "tanh"):
         super().__init__()
         self.proj = Linear(dim_in, dim_out, compute_dtype=compute_dtype, rows=rows)
+        self.approximate = approximate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.proj(x), approximate="tanh")
+        return F.gelu(self.proj(x), approximate=self.approximate)
 
 
 class FeedForward(nn.Module):
     """Linear → tanh-GELU → Linear (diffusers ``ff.net.0.proj`` / ``ff.net.2``;
-    Wan's ``ffn``)."""
+    Wan's ``ffn``), back to ``hidden_dim`` unless ``out_dim`` is given."""
 
-    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype, rows: Optional[int] = None):
+    def __init__(self, hidden_dim: int, inner: int, compute_dtype: torch.dtype, rows: Optional[int] = None,
+                 out_dim: Optional[int] = None, approximate: str = "tanh"):
         super().__init__()
-        self.net = nn.ModuleList([GELUProj(hidden_dim, inner, compute_dtype, rows), nn.Identity(),
-                                  Linear(inner, hidden_dim, compute_dtype=compute_dtype, rows=rows)])
+        self.net = nn.ModuleList([GELUProj(hidden_dim, inner, compute_dtype, rows, approximate), nn.Identity(),
+                                  Linear(inner, out_dim or hidden_dim, compute_dtype=compute_dtype, rows=rows)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))

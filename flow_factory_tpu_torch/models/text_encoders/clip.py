@@ -1,11 +1,19 @@
-"""CLIP text encoder (port of ``flow_factory_tpu/models/text_encoders/clip.py``).
+"""CLIP text and vision towers (port of ``flow_factory_tpu/models/text_encoders/clip.py``).
 
 Hand-ported: the card's machine has no ``transformers``. Parameter names are
-``transformers``' ``CLIPTextModelWithProjection`` names. Covers CLIP-L
-(quick-GELU) and OpenCLIP-bigG (exact GELU) via config. LayerNorms are flax's
-fast-variance form (``max(0, E[x^2] - E[x]^2)``), not ``F.layer_norm``'s
-two-pass variance. Returns the final and penultimate hidden states and the
-projected EOS embedding.
+``transformers``' ``CLIPTextModelWithProjection`` and ``CLIPVisionModel``
+names (the vision tower's ``pre_layrnorm`` spelling included), so a
+transformers checkpoint imports with no renames. The text tower covers
+CLIP-L (quick-GELU) and OpenCLIP-bigG (exact GELU) via config and returns
+the final and penultimate hidden states and the projected EOS embedding.
+The vision tower is the ViT-H/14 of Wan2.1-I2V's image stream and of the
+native PickScore reward: OpenAI-CLIP pixel normalisation, a bias-free patch
+convolution, the class token and position table, an fp32 pre-LN, the
+text tower's blocks with no mask, and the optional post-LN; it returns the
+fp32 states of every token. LayerNorms are flax's fast-variance form
+(``max(0, E[x^2] - E[x]^2)``), not ``F.layer_norm``'s two-pass variance.
+Attention is the plain masked product of the JAX ``CLIPBlock`` (head dim
+64 or 80), not a flash kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +24,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Linear, NormParams, merge_heads, split_heads
+from ..layers import Linear, NormParams, flax_layer_norm, merge_heads, split_heads
+
+#: OpenAI-CLIP pixel normalisation
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclass(frozen=True)
@@ -59,15 +71,6 @@ class CLIPTextOutput(NamedTuple):
     last_hidden_state: torch.Tensor  # (B, L, D) post-final-LN
     penultimate_hidden_state: torch.Tensor  # (B, L, D) input of the last block
     pooled: torch.Tensor  # (B, projection_dim) projected EOS embedding
-
-
-def flax_layer_norm(x: torch.Tensor, norm: NormParams, eps: float) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=float32)``: fp32 fast-variance stats, then
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
-    return (x32 - mean) * (torch.rsqrt(var + eps) * norm.weight.float()) + norm.bias.float()
 
 
 def _act(name: str):
@@ -168,3 +171,95 @@ class CLIPTextEncoder(nn.Module):
         eos_idx = torch.argmax((input_ids == cfg.eos_token_id).int(), dim=-1)
         pooled = self.text_projection(final[torch.arange(B, device=x.device), eos_idx])
         return CLIPTextOutput(final.to(dt), penultimate, pooled)
+
+
+# ---------------------------------------------------------------------------
+# The vision tower (JAX ``CLIPVisionConfig`` / ``CLIPVisionEncoder``, clip.py:157-218)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_dim: int = 1280
+    num_layers: int = 32
+    num_heads: int = 16
+    hidden_act: str = "gelu"
+    #: the final LayerNorm (the contrastive pooling wants it; Wan's image
+    #: stream reads the block stack's output without it)
+    use_post_ln: bool = False
+    layer_norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def num_tokens(self) -> int:
+        """The class token and one a patch."""
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    @staticmethod
+    def vit_h14(**o) -> "CLIPVisionConfig":
+        return CLIPVisionConfig(**o)
+
+    @staticmethod
+    def tiny(**o) -> "CLIPVisionConfig":
+        base = dict(image_size=16, patch_size=8, hidden_dim=32, num_layers=2, num_heads=4)
+        base.update(o)
+        return CLIPVisionConfig(**base)
+
+
+class CLIPVisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        D, P = cfg.hidden_dim, cfg.patch_size
+        self.class_embedding = nn.Parameter(torch.zeros(D))
+        self.patch_embedding = nn.Conv2d(3, D, P, stride=P, bias=False)
+        self.position_embedding = nn.Embedding(cfg.num_tokens, D)
+        self.position_embedding.init_std = 0.02
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        self.class_embedding.normal_(0.0, 0.02, generator=generator)
+
+
+class CLIPVisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = CLIPVisionEmbeddings(cfg)
+        self.pre_layrnorm = NormParams(cfg.hidden_dim)
+        self.encoder = CLIPEncoder(cfg)
+        if cfg.use_post_ln:
+            self.post_layernorm = NormParams(cfg.hidden_dim)
+
+
+class CLIPVisionEncoder(nn.Module):
+    """(B, 3, H, W) pixels in [0, 1] at ``image_size`` → (B, L, D) fp32 token
+    states (the class token first), through the post-LN only with
+    ``use_post_ln``."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision_model = CLIPVisionTransformer(cfg)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        vm = self.vision_model
+        emb = vm.embeddings
+        mean = torch.tensor(CLIP_IMAGE_MEAN, device=pixels.device).reshape(1, 3, 1, 1)
+        std = torch.tensor(CLIP_IMAGE_STD, device=pixels.device).reshape(1, 3, 1, 1)
+        x = F.conv2d(((pixels.float() - mean) / std).to(dt), emb.patch_embedding.weight.to(dt),
+                     stride=cfg.patch_size)
+        x = x.flatten(2).transpose(1, 2)  # (B, h·w, D), row-major patches as the flax NHWC conv gives
+        B, _, D = x.shape
+        x = torch.cat([emb.class_embedding.to(dt).expand(B, 1, D), x], dim=1)
+        x = x + emb.position_embedding.weight.to(dt)[None]
+        x = flax_layer_norm(x, vm.pre_layrnorm, cfg.layer_norm_eps).to(dt)
+        keep_all = torch.ones((1, 1, 1, 1), dtype=torch.bool, device=x.device)
+        for layer in vm.encoder.layers:
+            x = layer(x, keep_all)
+        if cfg.use_post_ln:
+            x = flax_layer_norm(x, vm.post_layernorm, cfg.layer_norm_eps)
+        return x.float()

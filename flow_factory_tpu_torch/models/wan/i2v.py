@@ -12,8 +12,15 @@ Wan2.2-TI2V-5B (``expand_timesteps``) conditions instead by replacement:
 latent frame 0 of what the transformer sees is the clean encoded image and
 its tokens ride t = 0 through per-frame timesteps, while the SDE step
 evolves the raw latents (frame 0 included, as in the JAX package); the
-decode composites the clean frame back in. The Wan2.1-I2V-14B CLIP image
-stream (``use_image_encoder``) is not ported and raises.
+decode composites the clean frame back in.
+
+Wan2.1-I2V-14B (``use_image_encoder``) also reads the condition image
+through the CLIP ViT-H/14 tower (``image_encoder``, no post-LN; ``tiny``
+for the tiny variant): resized bilinearly to 224 px, its 257 token states
+(``image_embeds``, host fp32 like the text context, cast to the compute
+dtype at use) ride every step's embeds and every sample, and the DiT's
+image cross-attention stream reads them (JAX ``i2v.py:73-105, 139-151``).
+The CLIP tower imports from no checkpoint subfolder, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +31,10 @@ import numpy as np
 import torch
 
 from ...samples import I2VSample, V2VSample
-from ...utils.media import standardize_image_batch, standardize_video_batch
+from ...utils.base import make_generator
+from ...utils.media import resize_bilinear, standardize_image_batch, standardize_video_batch
+from ..layers import build_module
+from ..text_encoders.clip import CLIPVisionConfig, CLIPVisionEncoder
 from .t2v import WanT2VAdapter
 from .transformer import WanConfig
 from .video_vae import VideoVAEConfig
@@ -43,15 +53,44 @@ class WanI2VAdapter(WanT2VAdapter):
 
     def transformer_config(self, cfg: WanConfig, vae: VideoVAEConfig, declared_width: bool = False) -> WanConfig:
         ma = self.model_args
-        # Wan2.2-TI2V-5B: no widening, no mask channel (JAX i2v.py:44-52)
+        # Wan2.2-TI2V-5B: no widening, no mask channel, no CLIP tower (JAX i2v.py:44-52)
         self.expand_timesteps = bool(getattr(ma, "expand_timesteps", False))
         self._ti2v_cond: Optional[np.ndarray] = None
-        if getattr(ma, "use_image_encoder", False):
-            raise NotImplementedError("use_image_encoder (the Wan2.1-I2V-14B CLIP image stream) is not ported yet: "
-                                      "ROADMAP Queue 1 item 16, after Queue 2 item 1's head dim 80")
-        if self.expand_timesteps or declared_width:  # a checkpoint's config.json gives the widened input (JAX :59-66)
+        self.use_image_encoder = not self.expand_timesteps and bool(getattr(ma, "use_image_encoder", False))
+        if self.expand_timesteps:
+            return cfg
+        if self.use_image_encoder:  # Wan2.1's CLIP image stream (JAX i2v.py:73-90)
+            variant = getattr(ma, "variant", None) or ("tiny" if ma.model_name_or_path in ("", "tiny") else "1.3b")
+            make = CLIPVisionConfig.tiny if variant == "tiny" else CLIPVisionConfig.vit_h14
+            self.vision_config = make(dtype=ma.inference_dtype)
+            self.embed_keys = tuple(self.embed_keys) + ("image_embeds",)
+        vis = self.vision_config if self.use_image_encoder else None
+        cfg = dataclasses.replace(cfg, image_context_tokens=vis.num_tokens if vis else 0,
+                                  image_context_dim=vis.hidden_dim if vis else 0)
+        if declared_width:  # a checkpoint's config.json gives the widened input (JAX :59-66)
             return cfg
         return dataclasses.replace(cfg, in_channels=cfg.in_channels + vae.latent_channels + 1)
+
+    def load_models(self) -> None:
+        super().load_models()
+        if self.use_image_encoder:
+            wanted = getattr(self.model_args, "load_components", None)
+            self.component_configs["image_encoder"] = vis = self.vision_config
+            if not wanted or "image_encoder" in set(wanted):
+                self.modules["image_encoder"] = build_module(
+                    lambda: CLIPVisionEncoder(vis), self.device, self.inference_dtype,
+                    make_generator(self.device, "wan_init", self.training_args.seed, "image_encoder"))
+
+    @torch.no_grad()
+    def encode_image_clip(self, images: Sequence[Any]) -> np.ndarray:
+        """Condition images (each record's first) → the CLIP tower's token
+        states (B, 257, 1280), host fp32: the images resized bilinearly (with
+        JAX's antialias) to the tower's size."""
+        if "image_encoder" not in self.modules:
+            raise RuntimeError("image_encoder was not loaded (load_components); cannot encode images")
+        size = self.vision_config.image_size
+        pixels = resize_bilinear(self._on_device(standardize_image_batch(_first_images(images))), size, size)
+        return self.modules["image_encoder"](pixels).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Conditions
@@ -105,10 +144,13 @@ class WanI2VAdapter(WanT2VAdapter):
     # ------------------------------------------------------------------
     # Rollout and preprocessing
     # ------------------------------------------------------------------
-    def inference(self, images=None, cond_latents=None, last_images=None, **kwargs) -> List[I2VSample]:
+    def inference(self, images=None, cond_latents=None, last_images=None, image_embeds=None,
+                  **kwargs) -> List[I2VSample]:
         """:meth:`WanT2VAdapter.inference` with the condition latents (built
-        from ``images`` when not given) among the embeds; each sample keeps
-        its ``cond_latents`` and its condition image."""
+        from ``images`` when not given) among the embeds, and with the image
+        stream its ``image_embeds`` (encoded from ``images`` when not given);
+        each sample keeps its ``cond_latents``, ``image_embeds`` and its
+        condition image."""
         ta = self.training_args
         num_frames = kwargs.get("num_frames") or int(getattr(ta, "num_frames", 5))
         height = kwargs.get("height") or ta.height
@@ -117,11 +159,17 @@ class WanI2VAdapter(WanT2VAdapter):
             cond_latents = self.build_condition(images, num_frames, height, width, last_images=last_images)
         if cond_latents is None:
             raise ValueError("WanI2VAdapter.inference needs images or cond_latents")
-        cond_latents = np.asarray(cond_latents, np.float32)
+        extra = {"cond_latents": np.asarray(cond_latents, np.float32)}
+        if self.use_image_encoder:
+            if image_embeds is None and images is not None:
+                image_embeds = self.encode_image_clip(images)
+            if image_embeds is None:
+                raise ValueError("use_image_encoder needs images or image_embeds")
+            extra["image_embeds"] = np.asarray(image_embeds, np.float32)
         if self.expand_timesteps:
-            self._ti2v_cond = cond_latents
+            self._ti2v_cond = extra["cond_latents"]
         try:
-            samples = super().inference(extra_embeds={"cond_latents": cond_latents}, **kwargs)
+            samples = super().inference(extra_embeds=extra, **kwargs)
         finally:
             self._ti2v_cond = None
         if images is not None:
@@ -132,12 +180,14 @@ class WanI2VAdapter(WanT2VAdapter):
 
     def preprocess_func(self, batch: Dict[str, Any], **kwargs) -> Dict[str, np.ndarray]:
         """The prompt embeddings, and for records with images their
-        ``cond_latents``."""
+        ``cond_latents`` and with the image stream their ``image_embeds``."""
         out = super().preprocess_func(batch, **kwargs)
         images = batch.get("images") or batch.get("image")
         if images is not None:
             ta = self.training_args
             out["cond_latents"] = self.build_condition(images, int(getattr(ta, "num_frames", 5)), ta.height, ta.width)
+            if self.use_image_encoder:
+                out["image_embeds"] = self.encode_image_clip(images)
         return out
 
 

@@ -275,16 +275,22 @@ class WanT2VAdapter(BaseAdapter):
             comp, high = "transformer", True
         model = self.modules[comp]
         dt = self.component_configs["transformer"].compute_dtype
-        run = lambda *args: functional_call(model, params, args) if params else model(*args)
+        img = embeds.get("image_embeds")  # Wan2.1 I2V's CLIP tokens, cast at use like the text context
+
+        def run(x, tt, ctx, img):
+            args = (x, tt, ctx) if img is None else (x, tt, ctx, img.to(dt))
+            return functional_call(model, params, args) if params else model(*args)
+
         if do_cfg:
             ctx = torch.cat([embeds["negative_prompt_embeds"], embeds["prompt_embeds"]]).to(dt)
-            v = run(torch.cat([latents, latents]).to(dt), torch.cat([t, t]), ctx).float()
+            img2 = None if img is None else torch.cat([img, img])  # the image context is not CFG-dropped
+            v = run(torch.cat([latents, latents]).to(dt), torch.cat([t, t]), ctx, img2).float()
             v_uncond, v_cond = v.chunk(2)
             g2 = getattr(self.training_args, "guidance_scale_2", None)
             if self.is_moe and g2 is not None and not high:  # the low-noise expert's own CFG scale
                 guidance_scale = float(g2)
             return v_uncond + guidance_scale * (v_cond - v_uncond)
-        return run(latents.to(dt), t, embeds["prompt_embeds"].to(dt)).float()
+        return run(latents.to(dt), t, embeds["prompt_embeds"].to(dt), img).float()
 
     # ------------------------------------------------------------------
     # Rollout → samples

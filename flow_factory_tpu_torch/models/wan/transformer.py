@@ -19,8 +19,17 @@ embedder. ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``; the JAX package's ``nn.remat(WanBlock)``,
 ``wan/transformer.py:242``). Per-frame timesteps (Wan2.2 TI2V, a (B, gt)
 ``timestep``) give per-token AdaLN modulations, frame-major like the tokens,
-which K5 takes as (B, L, D) shift and scale. The Wan2.1 I2V CLIP image
-stream is not ported and raises.
+which K5 takes as (B, L, D) shift and scale.
+
+The Wan2.1 I2V image stream (``image_context_tokens``, JAX
+``transformer.py:148-162, 223-234``): the CLIP tokens go through
+``condition_embedder.image_embedder`` (fp32 LayerNorm with flax's eps 1e-6,
+Linear to the width, exact GELU, Linear, fp32 LayerNorm) once a forward;
+each block's cross-attention then attends a second time, with the text
+stream's normed query, over them (``attn2.add_k_proj`` / ``add_v_proj``, the
+across-heads RMS norm on k alone, ``norm_added_k``; K3 on the card), and the
+two attention outputs are summed before ``to_out``. The image tokens stay
+apart from the text tokens, as in the JAX package; the names are diffusers'.
 """
 from __future__ import annotations
 
@@ -41,9 +50,11 @@ from ..layers import (
     HeadProj,
     Linear,
     MergeProj,
+    NormParams,
     TimestepEmbedding,
     apply_rope,
     checkpointed,
+    flax_layer_norm,
     rope_frequencies,
 )
 
@@ -65,8 +76,10 @@ class WanConfig:
     attn_backend: str = "auto"
     dtype: str = "bfloat16"
     remat: bool = False  # gradient checkpointing (recompute each block in the backward)
-    #: Wan2.1 I2V CLIP image tokens (not ported: a non-zero value raises)
+    #: Wan2.1 I2V: CLIP image tokens read by a second cross-attention
+    #: stream (0: none; Wan2.2 I2V conditions by latent concat alone)
     image_context_tokens: int = 0
+    image_context_dim: int = 1280
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -96,9 +109,11 @@ class WanConfig:
 
 class WanAttention(nn.Module):
     """Self- or cross-attention with the across-heads qk-norm; RoPE on q and k
-    when tables are given (diffusers ``attn1`` / ``attn2``)."""
+    when tables are given (diffusers ``attn1`` / ``attn2``); with
+    ``image_stream`` (``attn2`` of Wan2.1 I2V) the second attention over the
+    image tokens, summed before ``to_out``."""
 
-    def __init__(self, cfg: WanConfig):
+    def __init__(self, cfg: WanConfig, image_stream: bool = False):
         super().__init__()
         D, H, E, dt = cfg.hidden_dim, cfg.num_heads, cfg.head_dim, cfg.compute_dtype
         self.attn_backend = cfg.attn_backend
@@ -108,17 +123,29 @@ class WanAttention(nn.Module):
         if cfg.qk_norm:
             self.norm_q = AcrossHeadsQKNorm(D)
             self.norm_k = AcrossHeadsQKNorm(D)
+        if image_stream:
+            self.add_k_proj = HeadProj(D, H, E, dt)
+            self.add_v_proj = HeadProj(D, H, E, dt)
+            if cfg.qk_norm:
+                self.norm_added_k = AcrossHeadsQKNorm(D)
         self.to_out = nn.ModuleList([MergeProj(D, D, compute_dtype=dt)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                context_img: Optional[torch.Tensor] = None) -> torch.Tensor:
         kv = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(kv), self.to_v(kv)
         if hasattr(self, "norm_q"):
             q, k = self.norm_q(q), self.norm_k(k)
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-        return self.to_out[0](dot_product_attention(q, k, v, backend=self.attn_backend))
+        attn = dot_product_attention(q, k, v, backend=self.attn_backend)
+        if context_img is not None:
+            ik, iv = self.add_k_proj(context_img), self.add_v_proj(context_img)
+            if hasattr(self, "norm_added_k"):
+                ik = self.norm_added_k(ik)
+            attn = attn + dot_product_attention(q, ik, iv, backend=self.attn_backend)
+        return self.to_out[0](attn)
 
 
 class WanBlock(nn.Module):
@@ -129,16 +156,16 @@ class WanBlock(nn.Module):
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 6, D))
         self.attn1 = WanAttention(cfg)
         self.norm2 = FusedLayerNorm(D, out_dtype=dt)
-        self.attn2 = WanAttention(cfg)
+        self.attn2 = WanAttention(cfg, image_stream=bool(cfg.image_context_tokens))
         self.ffn = FeedForward(D, cfg.ffn_dim, dt)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, x, context, temb6, cos, sin):
+    def forward(self, x, context, temb6, cos, sin, context_img=None):
         """x (B, L, D); context (B, Lc, D); temb6 (B, 6, D) fp32, or (B, L, 6,
         D) with per-frame timesteps: then every shift, scale and gate is per
-        token."""
+        token; context_img (B, Li, D), the embedded image tokens, or None."""
         dt = self.compute_dtype
         table = self.scale_shift_table.float()
         if temb6.ndim == 4:
@@ -148,7 +175,7 @@ class WanBlock(nn.Module):
         shift_sa, scale_sa, gate_sa, shift_ff, scale_ff, gate_ff = mods.unbind(-2)
         h = adaln_modulate(x, shift_sa, scale_sa, out_dtype=dt)
         x = x + tok(gate_sa).to(x.dtype) * self.attn1(h, rope=(cos, sin))
-        x = x + self.attn2(self.norm2(x), context.to(dt))
+        x = x + self.attn2(self.norm2(x), context.to(dt), context_img=context_img)
         h = adaln_modulate(x, shift_ff, scale_ff, out_dtype=dt)
         return x + tok(gate_ff).to(x.dtype) * self.ffn(h)
 
@@ -164,18 +191,41 @@ class WanTimeTextEmbedding(nn.Module):
         self.time_proj = Linear(D, 6 * D, rows=SAMPLE_ROWS)
         self.text_embedder = nn.ModuleDict({"linear_1": Linear(cfg.context_dim, D, compute_dtype=dt),
                                             "linear_2": Linear(D, D, compute_dtype=dt)})
+        if cfg.image_context_tokens:
+            self.image_embedder = WanImageEmbedding(cfg)
+
+
+class WanImageEmbedding(nn.Module):
+    """diffusers ``condition_embedder.image_embedder`` at the JAX package's
+    shapes (``img_emb_*``, ``transformer.py:223-234``): fp32 LayerNorm, then
+    ``ff.net.0.proj`` (image dim → width), exact GELU, ``ff.net.2`` (width →
+    width) in the compute dtype, then fp32 LayerNorm, cast to the compute
+    dtype. flax's LayerNorm eps (1e-6) and fast variance, not torch's."""
+
+    EPS = 1e-6
+
+    def __init__(self, cfg: WanConfig):
+        super().__init__()
+        D, dt = cfg.hidden_dim, cfg.compute_dtype
+        self.compute_dtype = dt
+        self.norm1 = NormParams(cfg.image_context_dim)
+        self.ff = FeedForward(cfg.image_context_dim, D, dt, out_dim=D, approximate="none")
+        self.norm2 = NormParams(D)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        h = self.ff(flax_layer_norm(x.float(), self.norm1, self.EPS).to(dt))
+        return flax_layer_norm(h, self.norm2, self.EPS).to(dt)
 
 
 class WanTransformer(nn.Module):
     """Video DiT. Input (B, T, H, W, C) channel-last; timestep (B,) in the
     scheduler's [0, 1000] scale, or (B, T / pt) per latent frame; context
-    (B, Lc, context_dim)."""
+    (B, Lc, context_dim); with the image stream, the CLIP tokens (B, Li,
+    image_context_dim)."""
 
     def __init__(self, cfg: WanConfig):
         super().__init__()
-        if cfg.image_context_tokens:
-            raise NotImplementedError("the Wan2.1 I2V CLIP image stream is not ported yet: ROADMAP Queue 1 item 16 "
-                                      "(after Queue 2 item 1's head dim 80)")
         self.cfg = cfg
         D, dt = cfg.hidden_dim, cfg.compute_dtype
         self.patch_embedding = nn.Conv3d(cfg.in_channels, D, cfg.patch_size, stride=cfg.patch_size)
@@ -188,8 +238,8 @@ class WanTransformer(nn.Module):
     def reset_parameters_(self, generator: torch.Generator) -> None:
         self.scale_shift_table.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, latents: torch.Tensor, timestep: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+    def forward(self, latents: torch.Tensor, timestep: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                encoder_hidden_states_image: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.compute_dtype
         B, T, H, W, C = latents.shape
@@ -218,11 +268,16 @@ class WanTransformer(nn.Module):
         ids = torch.stack([torch.arange(gt, device=dev).repeat_interleave(gh * gw),
                            torch.arange(gh, device=dev).repeat_interleave(gw).repeat(gt),
                            torch.arange(gw, device=dev).repeat(gt * gh)], dim=-1)
+        # the image stream: the CLIP tokens embedded once a forward
+        image = ()
+        if cfg.image_context_tokens and encoder_hidden_states_image is not None:
+            image = (ce.image_embedder(encoder_hidden_states_image),)
+
         cos, sin = rope_frequencies(ids, cfg.axes_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = (checkpointed(block, x, context, temb6, cos, sin) if remat
-                 else block(x, context, temb6, cos, sin))
+            x = (checkpointed(block, x, context, temb6, cos, sin, *image) if remat
+                 else block(x, context, temb6, cos, sin, *image))
 
         # head: (1, 2, D) table + the raw time embedding, shift first
         if per_frame:

@@ -1,8 +1,10 @@
 """Built-in reward models of the port (from ``flow_factory_tpu/rewards/models.py``).
 
 ``MyReward`` returns a deterministic, optimisable signal (mean image
-brightness) so smoke runs have a real direction to follow. The model-backed
-rewards (PickScore, CLIP, OCR, remote judges) wait for a later slice.
+brightness) so smoke runs have a real direction to follow; ``MyGroupReward``
+ranks it within a group. The native CLIP-H scorer is
+:mod:`.clip_native`; the rewards that need local weights of another package
+or a server are not ported (:mod:`.registry`).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .abc import PointwiseRewardModel
+from .abc import GroupwiseRewardModel, PointwiseRewardModel
 
 
 class MyReward(PointwiseRewardModel):
@@ -27,3 +29,16 @@ class MyReward(PointwiseRewardModel):
             media = img if img is not None else vid
             out.append(float(np.mean(media)) if media is not None else 0.0)
         return np.asarray(out, np.float64)
+
+
+class MyGroupReward(GroupwiseRewardModel):
+    """Groupwise reward: the brightness rank within the group, in [0, 1]."""
+
+    required_fields = ("image", "prompt")
+
+    def compute_group_reward(self, image: Sequence[np.ndarray], prompt: Sequence[str], **_) -> np.ndarray:
+        vals = np.asarray([float(np.mean(img)) if img is not None else 0.0 for img in image])
+        order = np.argsort(np.argsort(vals))
+        if len(vals) <= 1:
+            return np.ones_like(vals)
+        return order.astype(np.float64) / (len(vals) - 1)

@@ -9,15 +9,14 @@ from typing import Type
 
 _REWARD_REGISTRY = {
     "MyReward": "flow_factory_tpu_torch.rewards.models:MyReward",
+    "MyGroupReward": "flow_factory_tpu_torch.rewards.models:MyGroupReward",
+    "PickScoreNative": "flow_factory_tpu_torch.rewards.clip_native:NativeCLIPReward",
+    "CLIPNative": "flow_factory_tpu_torch.rewards.clip_native:NativeCLIPReward",
 }
-_ITEM_6 = "ROADMAP Queue 1 item 6 (rewards past pointwise-synchronous)"
 _LOCAL_WEIGHTS = "it needs local weights or a package that is not installed (ROADMAP Queue 1 item 6, not queued)"
 _SERVER = "it needs a reward server (ROADMAP Queue 1 item 6, not queued)"
 #: the JAX registry's other names (``flow_factory_tpu/rewards/registry.py``)
 _NOT_PORTED = {
-    "MyGroupReward": _ITEM_6,
-    "PickScoreNative": _ITEM_6,
-    "CLIPNative": _ITEM_6,
     **{name: _LOCAL_WEIGHTS for name in ("PickScore", "PickScoreRank", "CLIPScore", "OCR", "CLAP", "ImageBind")},
     **{name: _SERVER for name in ("Remote", "MyRewardRemote", "RemoteGroup", "MyGroupRewardRemote",
                                   "VLLMEvaluate", "RationalRewardT2I", "RationalRewardEdit", "vllm_evaluate",

@@ -10,7 +10,7 @@ Port of ``flow_factory_tpu/trainers/abc.py``:
   before the step;
 * every ``eval_freq`` epochs, before the epoch's rollout, :meth:`evaluate`
   rolls out the test split under the EMA weights, each prompt from its own
-  generator, scores it pointwise and logs its media;
+  generator, scores it with the pointwise rewards and logs its media;
 * every ``save_freq`` epochs a checkpoint is saved at the head of the epoch,
   and at the end a ``final`` one; ``model.resume_path`` resumes (the
   adapter reads the checkpoint, the trainer takes the optimizer state, epoch
@@ -139,11 +139,11 @@ class BaseTrainer(ABC):
         distributed_groups = self.config.data_args.sampler_type == "distributed_k_repeat"
         loader = MultiRewardLoader()
         train_models = loader.load(ra)
-        self.reward_buffer = RewardBuffer(train_models, reward_weights=weights)
-        # the eval rewards default to the training ones; a RewardBuffer takes
-        # pointwise models only, which is what the JAX evaluate's
-        # finalize(split="pointwise") scores
-        self.eval_reward_buffer = RewardBuffer(loader.load(era) if era else train_models,
+        self.reward_buffer = RewardBuffer(train_models, group_size=ta.group_size,
+                                          distributed_groups=distributed_groups, reward_weights=weights)
+        # the eval rewards default to the training ones (JAX trainers/abc.py:139-152)
+        self.eval_reward_buffer = RewardBuffer(loader.load(era) if era else train_models, group_size=ta.group_size,
+                                               distributed_groups=False,
                                                reward_weights=era.reward_weights if era else weights)
         self.advantage_processor = AdvantageProcessor(
             group_size=ta.group_size,
@@ -344,7 +344,8 @@ class BaseTrainer(ABC):
         """One eval rollout of the test split under the EMA weights (JAX
         ``evaluate``, ``trainers/abc.py:380-469``): the eval geometry, no
         log-probs or trajectory, each prompt's x0 from its own generator; the
-        loader's tail padding dropped; pointwise scoring; the metrics logged
+        loader's tail padding dropped; the pointwise rewards' scores (the
+        groupwise ones sit out: no group completes); the metrics logged
         at ``epoch`` with up to 16 samples' media and, for conditioned tasks,
         their condition images. Synchronous, batch after batch (no
         ``PendingRollout`` yet)."""
@@ -373,7 +374,8 @@ class BaseTrainer(ABC):
             )
             samples.extend(out[: len(out) - int(batch.get("_num_pad") or 0)])
         self.eval_reward_buffer.add_samples(samples)
-        self.eval_reward_buffer.finalize()
+        # one sample a prompt: no group completes, so the groupwise models sit out
+        self.eval_reward_buffer.finalize(split="pointwise")
         metrics = gather_eval_reward_metrics(samples)
         if self.logger_backend:
             self.logger_backend.log_data(metrics, epoch)

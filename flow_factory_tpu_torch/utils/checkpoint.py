@@ -161,6 +161,13 @@ def import_state_dict(module: torch.nn.Module, sd: Union[StateDict, Iterable[Sta
 # port's name (every other component reads its keys as they are)
 # ---------------------------------------------------------------------------
 
+# CLIP's text and vision towers (JAX ``clip_text_encoder_key_map`` :1309 and
+# ``clip_vision_encoder_key_map`` :1465, transformers' ``pre_layrnorm``
+# spelling included) and the Wan2.1 I2V image stream (the ``i2v`` keys of
+# ``wan_transformer_key_map`` :420) read the upstream keys as the port names
+# them: no renames (``tests/test_torch_port_clip_vision.py``,
+# ``tests/test_torch_port_wan_i2v_clip.py``).
+
 #: FLUX.1 (JAX ``flux_transformer_key_map`` :315): the single blocks' fused
 #: projections, after :func:`fuse_flux_single_block_qkv_mlp`
 FLUX1_TRANSFORMER_RENAMES: Renames = (

@@ -18,6 +18,8 @@ import hashlib
 from typing import Any, Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 try:  # optional: only PIL inputs need it
     from PIL import Image
@@ -85,6 +87,14 @@ def standardize_image_batch(images: Any, output_type: str = "np") -> np.ndarray:
     if (isinstance(images, np.ndarray) and images.ndim == 4) or isinstance(images, (list, tuple)):
         return np.stack([to_image_array(i) for i in images], axis=0)
     raise ValueError(f"Cannot standardize images of type {type(images)}")
+
+
+def resize_bilinear(images: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, height, width), fp32: ``jax.image.resize(...,
+    method="bilinear")``, whose default ``antialias=True`` widens the filter
+    by the scale when it shrinks (the Wan I2V image stream and the native
+    CLIP reward resize to the tower's 224 px so)."""
+    return F.interpolate(images.float(), size=(height, width), mode="bilinear", align_corners=False, antialias=True)
 
 
 def to_video_array(video: Any) -> np.ndarray:

@@ -149,6 +149,26 @@ def clip_text_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
     return m, raw
 
 
+def clip_vision_map(num_layers: int) -> Tuple[ModuleMap, RawMap]:
+    """The CLIP vision tower (inverse of the JAX ``clip_vision_encoder_key_map``,
+    ``utils/checkpoint.py:1465``): transformers' ``vision_model.*`` names; the
+    (1, L, D) position table → the (L, D) embedding."""
+    v = "vision_model"
+    m: ModuleMap = {"patch_embedding": f"{v}.embeddings.patch_embedding", "pre_ln": f"{v}.pre_layrnorm",
+                    "post_ln": f"{v}.post_layernorm"}
+    for i in range(num_layers):
+        o, b = f"layer_{i}", f"{v}.encoder.layers.{i}"
+        m[f"{o}/ln1"] = f"{b}.layer_norm1"
+        m[f"{o}/ln2"] = f"{b}.layer_norm2"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            m[f"{o}/{name}"] = f"{b}.self_attn.{name}"
+        m[f"{o}/fc1"] = f"{b}.mlp.fc1"
+        m[f"{o}/fc2"] = f"{b}.mlp.fc2"
+    raw: RawMap = {"class_embedding": (f"{v}.embeddings.class_embedding", lambda a: a),
+                   "position_embedding": (f"{v}.embeddings.position_embedding.weight", lambda a: a[0])}
+    return m, raw
+
+
 def t5_encoder_map(num_layers: int, per_layer_rel_bias: bool = False) -> Tuple[ModuleMap, RawMap]:
     """T5 (bias table on block 0) or UMT5 (``per_layer_rel_bias``: on every block)."""
     m: ModuleMap = {"token_embedding": "shared", "final_ln": "encoder.final_layer_norm"}
@@ -216,9 +236,11 @@ def sd35_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
 
 
-def wan_transformer_map(num_layers: int, patch_size=(1, 2, 2)) -> Tuple[ModuleMap, RawMap]:
+def wan_transformer_map(num_layers: int, patch_size=(1, 2, 2), image_stream: bool = False
+                        ) -> Tuple[ModuleMap, RawMap]:
     """The Wan DiT (inverse of the JAX ``wan_transformer_key_map``,
-    ``utils/checkpoint.py:382``, T2V)."""
+    ``utils/checkpoint.py:382``; with ``image_stream`` its ``i2v`` keys, the
+    Wan2.1 I2V image cross-attention and the CLIP-token embedder)."""
     pt, ph, pw = patch_size
 
     def patch_kernel(a: np.ndarray) -> np.ndarray:  # (pt*ph*pw*C, D) → (D, C, pt, ph, pw)
@@ -247,6 +269,14 @@ def wan_transformer_map(num_layers: int, patch_size=(1, 2, 2)) -> Tuple[ModuleMa
         m[f"{o}/norm2"] = f"{b}.norm2"
         m[f"{o}/ffn1"] = f"{b}.ffn.net.0.proj"
         m[f"{o}/ffn2"] = f"{b}.ffn.net.2"
+        if image_stream:
+            m[f"{o}/ca_k_img"] = f"{b}.attn2.add_k_proj"
+            m[f"{o}/ca_v_img"] = f"{b}.attn2.add_v_proj"
+            m[f"{o}/ca_k_img_norm"] = f"{b}.attn2.norm_added_k"
+    if image_stream:
+        e = "condition_embedder.image_embedder"
+        m.update({"img_emb_norm1": f"{e}.norm1", "img_emb_fc1": f"{e}.ff.net.0.proj",
+                  "img_emb_fc2": f"{e}.ff.net.2", "img_emb_norm2": f"{e}.norm2"})
     return m, raw
 
 
@@ -331,17 +361,21 @@ def wan_vae_map(cfg) -> Tuple[ModuleMap, RawMap]:
 def wan_t2v_component_maps(configs: Mapping[str, Any]) -> Dict[str, Tuple[ModuleMap, RawMap]]:
     """Module maps for every Wan adapter component, keyed like ``adapter.params``:
     the Wan2.2 MoE's ``transformer_2`` takes the same map as ``transformer``,
-    and a widened patch embedding (I2V/V2V's 33 input channels, TI2V's 48)
-    goes through the same reshape."""
+    a widened patch embedding (I2V/V2V's 33 input channels, TI2V's 48)
+    goes through the same reshape, and Wan2.1 I2V adds its image stream
+    and ``image_encoder``."""
     t = configs["transformer"]
-    dit = wan_transformer_map(t.num_layers, t.patch_size)
-    return {
+    dit = wan_transformer_map(t.num_layers, t.patch_size, bool(t.image_context_tokens))
+    maps = {
         "transformer": dit,
         "transformer_2": dit,
         "text_encoder": t5_encoder_map(configs["text_encoder"].num_layers,
                                        configs["text_encoder"].per_layer_rel_bias),
         "vae": wan_vae_map(configs["vae"]),
     }
+    if "image_encoder" in configs:  # Wan2.1 I2V's CLIP tower
+        maps["image_encoder"] = clip_vision_map(configs["image_encoder"].num_layers)
+    return maps
 
 
 def wan_t2v_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, Any]

@@ -253,19 +253,23 @@ def test_video_vae_encode_and_decode_match_jax_through_bridge(mults, temporal_do
 
 
 def test_not_ported_wan_options_raise():
-    """What of Wan is still not ported raises naming its ROADMAP item: the
-    Wan2.1-I2V CLIP image stream, in the DiT and as the I2V adapter's
-    ``use_image_encoder``. The Wan2.2 presets, its VAE, per-frame
-    timesteps and the MoE build (``tests/test_torch_port_wan22.py`` holds
-    them to JAX)."""
+    """Every Wan option builds: the Wan2.1-I2V CLIP image stream, in the DiT
+    (``attn2.add_k_proj``/``add_v_proj``/``norm_added_k`` and the image
+    embedder) and as the I2V adapter's ``use_image_encoder`` (the tiny CLIP
+    tower, 5 image tokens among the embed keys;
+    ``tests/test_torch_port_wan_i2v_clip.py`` holds it to JAX), the Wan2.2
+    presets, its VAE, per-frame timesteps and the MoE build
+    (``tests/test_torch_port_wan22.py`` holds them to JAX)."""
     from flow_factory_tpu_torch.models.wan.t2v import _preset
     from flow_factory_tpu_torch.models.wan.transformer import WanConfig, WanTransformer
     from flow_factory_tpu_torch.models.wan.video_vae import VideoVAE, VideoVAEConfig
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        WanTransformer(WanConfig.tiny(image_context_tokens=4))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _tiny_wan_port(model={"model_type": "wan2-i2v", "use_image_encoder": True})
+    dit = WanTransformer(WanConfig.tiny(image_context_tokens=4, image_context_dim=32))
+    assert dit.blocks[0].attn2.add_k_proj.weight.shape == (64, 64)
+    assert dit.condition_embedder.image_embedder.norm1.weight.shape == (32,)
+    i2v = _tiny_wan_port(model={"model_type": "wan2-i2v", "use_image_encoder": True})
+    assert "image_encoder" in i2v.modules and i2v.embed_keys[-1] == "image_embeds"
+    assert i2v.component_configs["transformer"].image_context_tokens == 5
     assert _preset("wan2.2-a14b", "auto", "bfloat16")["boundary_ratio"] == 0.875
     VideoVAE(VideoVAEConfig.tiny(spatial_patch=2))
     tm = build_module(lambda: WanTransformer(WanConfig.tiny(dtype="float32")), torch.device("cpu"),

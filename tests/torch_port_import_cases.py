@@ -36,6 +36,7 @@ FAMILIES = {
     "flux1-kontext": {},
     "wan2-t2v": {},
     "wan2-i2v": {},
+    "wan2-i2v-clip": {"use_image_encoder": True},  # Wan2.1 I2V with the CLIP image stream
     "wan22": {"boundary_ratio": 0.8},  # the A14B MoE: two experts
     "ltx2-t2av": {},
     "qwen-image": {},
@@ -44,6 +45,9 @@ FAMILIES = {
     "flux2": {"mlp_style": "swiglu"},  # upstream FLUX.2's gated double-block FFN
     "flux2-klein": {},
 }
+
+#: a case's model type where its name is not one
+MODEL_TYPE = {"wan2-i2v-clip": "wan2-i2v"}
 
 #: config.json files (upstream field names) that reshape the tiny presets
 CONFIG_JSON = {
@@ -83,6 +87,9 @@ CONFIG_JSON = {
         "transformer": {"_class_name": "WanTransformer3DModel", "num_layers": 3, "in_channels": 33},
         "vae": {"_class_name": "AutoencoderKLWan", "num_res_blocks": 2},
     },
+    "wan2-i2v-clip": {
+        "transformer": {"_class_name": "WanTransformer3DModel", "num_layers": 3, "in_channels": 33},
+    },
     "flux2": {
         "transformer": {"_class_name": "Flux2Transformer2DModel", "num_layers": 1, "num_single_layers": 3},
         "text_encoder": {"model_type": "mistral", "num_hidden_layers": 3},
@@ -120,7 +127,7 @@ CONFIGURED = {
 def _cfg_dict(model_type: str, path: str, **model) -> dict:
     return {
         "data": {},
-        "model": {"model_type": model_type, "model_name_or_path": path, "variant": "tiny",
+        "model": {"model_type": MODEL_TYPE.get(model_type, model_type), "model_name_or_path": path, "variant": "tiny",
                   "finetune_type": "lora", "lora_rank": 4, "lora_alpha": 8, "attn_backend": "native",
                   "master_dtype": "float32", "inference_dtype": "float32", **FAMILIES.get(model_type, {}), **model},
         "scheduler": {"dynamics_type": "Flow-SDE", "noise_level": 0.7, "num_sde_steps": 2, "sde_steps": [0, 1, 2]},

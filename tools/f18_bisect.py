@@ -9,7 +9,9 @@ bf16 weights) at batch ``B`` (default 8) and one on its first ``N`` rows
 rows differ between the two, then every product (each ``F.linear`` on a
 (batch, tokens, features) input, each leaf module) whose first ``N`` rows
 differ, by its M, N, K and dtype. TAGs pick transformers (default all:
-klein, sd35-medium, ltx2, a14b, ti2v-5b, z-image, qwen-image).
+klein, sd35-medium, ltx2, a14b, ti2v-5b, wan21-i2v-14b, z-image,
+qwen-image). ``chip_smoke.py`` calls :func:`bisect` on its own Wan2.1-I2V
+transformer.
 
 The port is imported from the checkout this file lies in; to bisect another
 commit, copy this file into a ``git archive`` of it. A batch-invariant port
@@ -37,7 +39,8 @@ def _models(gen, B: int):
     tokens, guidance embedded), SD3.5-M (512 px, 333 text tokens, the pooled
     vector), LTX-2 (28 blocks; 128 video, 9 audio and 512 text tokens), the
     A14B (8 layers; 512 tokens), TI2V-5B (320 tokens at per-frame t, frame 0
-    at 0), Z-Image (38 layers; 1024 + 512 tokens) and Qwen-Image (24 double
+    at 0), Wan2.1-I2V-14B (8 layers; 512 tokens of 33 channels, 257 CLIP
+    tokens through the image stream), Z-Image (38 layers; 1024 + 512 tokens) and Qwen-Image (24 double
     blocks; 1024 + 512 tokens)."""
     import torch
 
@@ -83,6 +86,11 @@ def _models(gen, B: int):
         cfg = dataclasses.replace(WT._preset("wan2.2-a14b", *args)["transformer"], num_layers=8)
         return build(WanTransformer, cfg), (randn(B, 2, 32, 32, 16), t, randn(B, 512, 4096))
 
+    def wan21_i2v():
+        cfg = dataclasses.replace(WT._preset("14b", *args)["transformer"], num_layers=8, in_channels=33,
+                                  image_context_tokens=257, image_context_dim=1280)
+        return build(WanTransformer, cfg), (randn(B, 2, 32, 32, 33), t, randn(B, 512, 4096), randn(B, 257, 1280))
+
     def ti2v():
         cfg = WT._preset("wan2.2-ti2v-5b", *args)["transformer"]
         tf = t[:, None] * torch.tensor([0.0, 1, 1, 1, 1], device=dev)
@@ -98,8 +106,8 @@ def _models(gen, B: int):
         return build(FluxTransformer, cfg), (randn(B, 1024, 64), t, randn(B, 512, cfg.context_dim), None,
                                              grid(1, 32, 32), no_text_ids())
 
-    return {"klein": klein, "sd35-medium": sd35, "ltx2": ltx2, "a14b": a14b, "ti2v-5b": ti2v, "z-image": z_image,
-            "qwen-image": qwen_image}
+    return {"klein": klein, "sd35-medium": sd35, "ltx2": ltx2, "a14b": a14b, "ti2v-5b": ti2v,
+            "wan21-i2v-14b": wan21_i2v, "z-image": z_image, "qwen-image": qwen_image}
 
 
 def _rows(x, n: int, batch: int):
@@ -123,12 +131,13 @@ def _tensors(x) -> list:
     return []
 
 
-def bisect(tag: str, model, inputs, B: int, n: int) -> None:
+def bisect(tag: str, model, inputs, B: int, n: int):
     """One forward on ``inputs`` (batch ``B``) and one on their first ``n``
     rows; forward hooks name the first module, in the order the modules
     finish, whose output's first ``n`` rows differ; a torch function mode
     and leaf-module hooks re-run each product of the batch-``B`` forward on
-    its first ``n`` rows alone and count those that differ."""
+    its first ``n`` rows alone and count those that differ. Returns (the
+    output's first ``n`` rows the same bits, {batch-variant product: calls})."""
     import torch
     import torch.nn.functional as F
     from torch.overrides import TorchFunctionMode
@@ -209,6 +218,7 @@ def bisect(tag: str, model, inputs, B: int, n: int) -> None:
         log(f"[f18] {tag}: batch-variant product: {key} ({count} calls)")
     if not varying:
         log(f"[f18] {tag}: every product checked gives its first {n} rows the same bits at B {B} as alone")
+    return same, varying
 
 
 def main() -> int:
