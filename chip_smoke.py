@@ -234,6 +234,24 @@ printing one line and exiting non-zero on failure:
    grad step, no read of the timestep from the device for routing, a moved
    LoRA, peak memory against its prediction, seconds; ``[ltx2-nft]``'s grad
    step profiled.
+7b. full-grad, full-sd35, full-wan-dpo (run right after 7): full
+   finetuning, the fp32 master the only copy of the trained weights on the
+   card. The full-finetune gradient of every weight at SD3.5-M width and
+   depth 2 through the kernels against the plain path (the position grid
+   and the qk-norm scales through K1's backward included), with the
+   controls K1's backward without dγ and K5's without dmul (a key
+   projection's bias on its weight's gradient scale), and the port's
+   update (in-place clip, AdamW's grouped path in groups of bounded size)
+   against the update as it was, bit for bit; SD3.5-M full GRPO at full width and depth on
+   tests/fixtures/sd35_full_grpo.yaml (remat, text encoders offloaded): two
+   epochs with ratio exactly 1.0 on every stored step and grad step, every
+   weight moved but the zero-gradient ones, the EMA off θ, launches as
+   predicted, a grad step's and an update's seconds, the peak split by
+   site, then a full-layout save and a fresh adapter resumed from it
+   (master and replayed log-probs bit for bit); Wan2.1-1.3B full DPO on
+   tests/fixtures/wan21_full_dpo.yaml, one epoch: the reference store equal
+   to θ, the first loss exactly ln 2 and margin 0, launches as predicted,
+   the peak.
 
 The line before the last holds the kernel table as JSON (the FLUX.1,
 FLUX.1-Kontext, B 8, LTX-2, Wan2.2, Qwen/Z-Image and FLUX.2 shapes nested
@@ -263,7 +281,10 @@ does the same for K5/K6 and their backwards (``norms_only``).
 ``python3 chip_smoke.py --flux2`` the build, 8g and 17;
 ``python3 chip_smoke.py --decoupled-families`` the build and 18;
 ``python3 chip_smoke.py --wan-i2v`` the build, 8h, 15b and the device
-times of 8h's shapes.
+times of 8h's shapes;
+``python3 chip_smoke.py --full`` the build and 7b;
+``python3 chip_smoke.py --full-grad SEED [SEED ...]`` the build and
+``[full-grad]`` at each seed.
 """
 from __future__ import annotations
 
@@ -2259,44 +2280,61 @@ def _swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool = False,
-                     k5_rms_control: bool = False):
-    """LoRA gradients of the summed Flow-SDE log-prob of one transition
-    (drawn once, near the step's mean) through the kernels (the K5/K6
-    backward kernels included), against the same gradient through the plain
-    path (attention backend ``native``, the norm wrappers swapped for their
-    plain versions under autograd), and a run with K2a's dq zeroed that must
-    miss the bar; with ``k5_control`` also a run whose K5 backward drops its
-    dmul term (the AdaLN scale's gradient, which reaches the LoRA on the
-    AdaLN linears), that must miss it too. ``forward(params)`` is the velocity of
-    ``model`` on the LoRA-merged weights ``params`` at latents ``x``; a
-    tuple of velocities at a tuple of latents (LTX-2's video and audio)
-    sums the streams' log-probs. With ``k5_rms_control`` also a run whose
-    K5 backward drops the RMS term of dx (−x̂·mean(ĝ·x̂)) must miss the bar. The
-    bar: both paths run the same math in bf16 but round in other places
-    (the kernels' folded softmax scale and bf16 p, the fp32 norms' summation
-    order), which the backward carries into every LoRA leaf: worst leaf
-    1.2e-2 (SD3.5) and 1.4e-2 (Wan) of its max on the card, so 3e-2.
-    Returns (leaf names, kernel-path grads, plain-path grads, launch counts
-    of the kernel path)."""
+def _k5_backward_controls(N):
+    """Stand-ins for K5's backward that drop one term: the dmul term (the
+    AdaLN scale's gradient) and, on RMS rows, the −x̂·mean(ĝ·x̂) term of dx.
+    Each counts no launch of its own (the kernel counts its launch on what
+    stands in its name)."""
+    import torch
+
+    k5_backward = N.ln_mul_add_backward
+
+    def without_dmul(*args, **kwargs):
+        dx, dmul, dadd = k5_backward(*args, **kwargs)
+        return dx, None if dmul is None else torch.zeros_like(dmul), dadd
+
+    def without_rms_term(x, mul, g, eps, rms, needs):
+        dx, dmul, dadd = k5_backward(x, mul, g, eps, rms, needs)
+        if rms and dx is not None:  # r * g_hat alone: the -x_hat * mean(g_hat * x_hat) term dropped
+            x32 = x.float()
+            r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+            dx = (r * g.float() * mul).to(x.dtype)
+        return dx, dmul, dadd
+
+    without_dmul.launches = without_rms_term.launches = 0
+    return without_dmul, without_rms_term
+
+
+def _grad_paths_check(tag: str, what: str, model, names, leaves, velocity, x, gen, controls: dict, bar,
+                      kind: str = "LoRA", scale_by=None, kinds=None):
+    """The gradients of ``leaves`` (named ``names``) of the summed Flow-SDE
+    log-prob of one transition (drawn once, near the step's mean) through
+    the kernels (the K5/K6 backward kernels included), against the same
+    gradients through the plain path (attention backend ``native``, the
+    norm wrappers swapped for their plain versions under autograd), each
+    leaf within ``bar`` of its max (one bar, or one a leaf; ``scale_by[i]``,
+    where given, names the leaf whose plain gradient's max scales leaf
+    ``i``'s error instead); then each of ``controls`` ({name: a context
+    manager swapping a kernel's backward for a wrong one}) must miss a
+    leaf's bar, its worst error by each of ``kinds`` (a kind a leaf) logged. ``velocity()`` is the velocity of ``model`` at latents ``x``
+    on the current leaves; a tuple of velocities at a tuple of latents
+    (LTX-2's video and audio) sums the streams' log-probs. Returns (the
+    per-leaf errors, kernel-path grads, plain-path grads, launch counts of
+    the kernel path)."""
     import torch
 
     from flow_factory_tpu_torch import ops
-    from flow_factory_tpu_torch.models.lora import merge_lora
-    from flow_factory_tpu_torch.ops import attention as A
     from flow_factory_tpu_torch.ops import norms as N
     from flow_factory_tpu_torch.scheduler.flow_match_euler import sde_step
 
-    names = [f"{path}.{k}" for path in sorted(lora) for k in ("lora_A", "lora_B")]
-    leaves = [lora[path][k] for path in sorted(lora) for k in ("lora_A", "lora_B")]
     xs = x if isinstance(x, tuple) else (x,)
     full = lambda value: torch.full((xs[0].shape[0],), value, device=xs[0].device)
     sigma, sigma_next = full(0.75), full(0.65)
     step = dict(dynamics_type="Flow-SDE", noise_level=full(0.8), sigma_max=full(0.95), storage_dtype=torch.float16)
     drawn = []
 
-    def lora_grads():
-        vs = forward(merge_lora(model, lora, 2.0))
+    def grads():
+        vs = velocity()
         vs = [v.float() for v in (vs if isinstance(vs, tuple) else (vs,))]
         if not drawn:
             drawn.extend(sde_step(v.detach(), xi, sigma, sigma_next, generator=gen, compute_log_prob=False,
@@ -2307,7 +2345,7 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool =
 
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    kern = lora_grads()
+    kern = grads()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     secs = time.perf_counter() - t0
@@ -2318,53 +2356,69 @@ def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool =
         stack.enter_context(_swapped(
             N, ln_mul_add=lambda x, m, a, eps, dt, fold, rms=False: N._native_ln_mul_add(x, m, a, eps, dt, fold, rms),
             residual_gate_modulate_rows=N._native_residual_gate_modulate))
-        plain = lora_grads()
-    k5_backward = N.ln_mul_add_backward
+        plain = grads()
 
-    def k5_without_dmul(*args, **kwargs):
-        dx, dmul, dadd = k5_backward(*args, **kwargs)
-        return dx, None if dmul is None else torch.zeros_like(dmul), dadd
-
-    k5_without_dmul.launches = 0  # the kernel counts its launch on what stands in its name
-
-    def k5_without_rms_term(x, mul, g, eps, rms, needs):
-        dx, dmul, dadd = k5_backward(x, mul, g, eps, rms, needs)
-        if rms and dx is not None:  # r * g_hat alone: the -x_hat * mean(g_hat * x_hat) term dropped
-            x32 = x.float()
-            r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-            dx = (r * g.float() * mul).to(x.dtype)
-        return dx, dmul, dadd
-
-    k5_without_rms_term.launches = 0
-
-    controls = {"K2a's dq zeroed": lambda: _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q))}
-    if k5_control:
-        controls["K5's backward without its dmul term"] = lambda: _swapped(N, ln_mul_add_backward=k5_without_dmul)
-    if k5_rms_control:
-        controls["K5's backward without the RMS term of dx"] = lambda: _swapped(
-            N, ln_mul_add_backward=k5_without_rms_term)
+    scales = [plain[i if scale_by is None else scale_by[i]].abs().max().clamp_min(1e-30)
+              for i in range(len(leaves))]
 
     def rel_errors(got):
-        return [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() for g, r in zip(got, plain)]
+        return [((g - r).abs().max() / c).item() for g, r, c in zip(got, plain, scales)]
 
+    bars = [bar] * len(leaves) if isinstance(bar, float) else list(bar)
     errs = rel_errors(kern)
-    worst = max(range(len(errs)), key=errs.__getitem__)
-    bar = 3e-2
-    log(f"[grad] {what}: {len(leaves)} LoRA leaves, kernel-path grad in {secs:.2f} s, launches {counts}")
-    log(f"[grad] kernel path vs plain path, per-leaf max|d|/max|ref|: worst {errs[worst]:.3e} ({names[worst]}), "
-        f"median {statistics.median(errs):.3e} (bar {bar:.1e}) {'ok' if errs[worst] <= bar else 'FAILED'}")
-    if errs[worst] > bar:
-        fail(f"{what}: LoRA gradients through the kernels disagree with the plain path: {names[worst]} {errs[worst]}")
+    worst = max(range(len(errs)), key=lambda i: errs[i] / bars[i])
+    held = all(e <= b for e, b in zip(errs, bars))
+    log(f"[{tag}] {what}: {len(leaves)} {kind} leaves, kernel-path grad in {secs:.2f} s, launches {counts}")
+    log(f"[{tag}] kernel path vs plain path, per-leaf max|d|/max|ref|: worst {errs[worst]:.3e} ({names[worst]}), "
+        f"median {statistics.median(errs):.3e} (bar {bars[worst]:.1e}) {'ok' if held else 'FAILED'}")
+    if not held:
+        fail(f"{what}: {kind} gradients through the kernels disagree with the plain path: {names[worst]} "
+             f"{errs[worst]}")
     for name, swap in controls.items():
         with swap():
-            grads = lora_grads()
-        off = rel_errors(grads)
-        caught = max(off) > bar
-        log(f"[grad] negative control, {name}: worst leaf {max(off):.3e} "
-            f"({names[max(range(len(off)), key=off.__getitem__)]}; bar {bar:.1e}) "
-            f"{'rejected as it must be' if caught else 'NOT REJECTED'}")
+            off = rel_errors(grads())
+        caught = any(e > b for e, b in zip(off, bars))
+        top = max(range(len(off)), key=lambda i: off[i] / bars[i])
+        by_kind = {k: float(f"{max(e for e, ki in zip(off, kinds) if ki == k):.3e}") for k in sorted(set(kinds))} \
+            if kinds else {}
+        log(f"[{tag}] negative control, {name}: worst leaf {off[top]:.3e} ({names[top]}; bar {bars[top]:.1e}) "
+            f"{'rejected as it must be' if caught else 'NOT REJECTED'}{f'; worst by kind {json.dumps(by_kind)}' if kinds else ''}")
         if not caught:
-            fail(f"{what}: the [grad] check cannot tell the right backward from one with {name}")
+            fail(f"{what}: the [{tag}] check cannot tell the right backward from one with {name}")
+    return errs, kern, plain, counts
+
+
+def _lora_grad_check(what: str, model, lora, forward, x, gen, k5_control: bool = False,
+                     k5_rms_control: bool = False):
+    """LoRA gradients through the kernels against the plain path
+    (:func:`_grad_paths_check`), with the control K2a's dq zeroed; with
+    ``k5_control`` also K5's backward without its dmul term (the AdaLN
+    scale's gradient, which reaches the LoRA on the AdaLN linears), with
+    ``k5_rms_control`` K5's backward without the RMS term of dx.
+    ``forward(params)`` is the velocity of ``model`` on the LoRA-merged
+    weights ``params``. The bar: both paths run the same math in bf16 but
+    round in other places (the kernels' folded softmax scale and bf16 p,
+    the fp32 norms' summation order), which the backward carries into every
+    LoRA leaf: worst leaf 1.2e-2 (SD3.5) and 1.4e-2 (Wan) of its max on the
+    card, so 3e-2. Returns (leaf names, kernel-path grads, plain-path grads,
+    launch counts of the kernel path)."""
+    import torch
+
+    from flow_factory_tpu_torch.models.lora import merge_lora
+    from flow_factory_tpu_torch.ops import attention as A
+    from flow_factory_tpu_torch.ops import norms as N
+
+    names = [f"{path}.{k}" for path in sorted(lora) for k in ("lora_A", "lora_B")]
+    leaves = [lora[path][k] for path in sorted(lora) for k in ("lora_A", "lora_B")]
+    without_dmul, without_rms_term = _k5_backward_controls(N)
+    controls = {"K2a's dq zeroed": lambda: _swapped(A, flash_bwd_dq=lambda q, *args: torch.zeros_like(q))}
+    if k5_control:
+        controls["K5's backward without its dmul term"] = lambda: _swapped(N, ln_mul_add_backward=without_dmul)
+    if k5_rms_control:
+        controls["K5's backward without the RMS term of dx"] = lambda: _swapped(
+            N, ln_mul_add_backward=without_rms_term)
+    _, kern, plain, counts = _grad_paths_check("grad", what, model, names, leaves,
+                                               lambda: forward(merge_lora(model, lora, 2.0)), x, gen, controls, 3e-2)
     return names, kern, plain, counts
 
 
@@ -2517,13 +2571,13 @@ def _epoch_record(trainer, samples, scalars: dict) -> dict:
 
 
 def _one_grad_step(trainer):
-    """A closure of one grad step (forward, backward, accumulation, AdamW)
-    on the first batch of the last epoch's rollout."""
+    """A closure of one grad step as ``optimize`` runs it (forward, the
+    backward into the leaves' ``.grad``, the update) on the first batch of
+    the last epoch's rollout."""
     batch = next(trainer.grad_step_batches(trainer.reward_buffer.samples, trainer.training_args.max_epochs - 1))
 
     def grad_step():
-        _, grads = trainer.loss_and_grads(trainer.adapter.trainable, batch)
-        trainer.accumulate_grads(grads)
+        trainer.backward_step(batch)
         trainer.apply_accumulated()
 
     return grad_step
@@ -2538,14 +2592,16 @@ def _peak_breakdown(tag: str, fn, top: int = 10) -> None:
     """Run ``fn`` with the allocator's history on and log what was live at
     its peak: the bytes allocated before it, then the blocks it allocated
     and had not freed, grouped by the innermost frame of the port that
-    allocated them (autograd's backward allocates with no Python frame)."""
+    allocated them (autograd's backward allocates with no Python frame).
+    Stacks are recorded for allocations alone (so recorded, a remat
+    recompute runs under it)."""
     import torch
 
     here = os.path.dirname(os.path.abspath(__file__))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, context="alloc", stacks="python")
     try:
         fn()
         torch.cuda.synchronize()
@@ -3169,8 +3225,7 @@ def phase_flux_dpo() -> dict:
     batch = next(trainer.grad_step_batches(samples, ta.max_epochs - 1))
 
     def grad_step():
-        _, grads = trainer.loss_and_grads(ad.trainable, batch, trainer.reference_trainable())
-        trainer.accumulate_grads(grads)
+        trainer.backward_step(batch, trainer.reference_trainable())
         trainer.apply_accumulated()
 
     _profile("one FLUX.1-dev DPO grad step (2 reference + 2 θ forwards, remat, 2 backwards, AdamW)", grad_step,
@@ -3188,15 +3243,9 @@ KONTEXT_TAGS = {"flash_fwd": ("kontext-2560-b8", "kontext-padded", "kontext-ragg
                 "flash_bwd_dq_d128": ("kontext-2560",), "flash_bwd_dkv_d128": ("kontext-2560",),
                 "ln_mul_add": tuple(shape.tag for shape in KONTEXT_K5_SHAPES),
                 "ln_mul_add_backward": tuple(shape.tag for shape in KONTEXT_K5_SHAPES)}
-#: one grad step with remat: the θ forward, each block recomputed in the
-#: backward (norm_out is outside the blocks), the backward; NFT and AWM add
-#: their share of the no-grad old-policy forwards, one a grad step
-_KONTEXT_GRAD = {"flash_fwd": 2 * 57, "flash_bwd_dq": 57, "flash_bwd_dkv": 57, "ln_mul_add": 115 + 114,
-                 "ln_mul_add_backward": 113}
-KONTEXT_A_STEP = {"grpo": _KONTEXT_GRAD,
-                  **{t: {k: n + FLUX_FORWARD.get(k, 0) for k, n in _KONTEXT_GRAD.items()} for t in ("nft", "awm")}}
-#: peak device memory predicted for each [kontext-*] phase, GiB (PERF.md §6)
-KONTEXT_PEAK_PREDICTED = (59.0, 65.0)
+#: peak device memory predicted for each [kontext-*] phase at the depth of
+#: tests/fixtures/flux1_kontext_cut (10 + 19 blocks), GiB (PERF.md §6)
+KONTEXT_PEAK_PREDICTED = (36.0, 46.0)
 
 
 def phase_kontext_kernels(results: dict) -> None:
@@ -3259,19 +3308,21 @@ def _kontext_dataset(root: str) -> str:
 def phase_kontext(trainer_type: str) -> dict:
     """[kontext-<trainer>]: FLUX.1-Kontext-dev LoRA image editing at full
     width through ``load_trainer`` on tests/fixtures/flux1_kontext_<trainer>.yaml
-    (19 double + 38 single blocks, random bf16 weights from seed 42, rank-32
+    (10 of 19 double and 19 of 38 single blocks, the depth of
+    tests/fixtures/flux1_kontext_cut; random bf16 weights from seed 42, rank-32
     LoRA on the JAX FLUX targets, 512 px, 10 steps, guidance 3.5, Flow-SDE η
     0.8, 2 records x group 4 in one rollout batch of 8, AdamW 3e-4, EMA 0.99
     every 4, remat on; the optimizer once an epoch) on ``_kontext_dataset``,
     two epochs phase by phase. Each rollout: images (8, 3, 512, 512) finite,
     1024 condition tokens a row and a joint sequence of 2560, K3 and K5
-    launched as ``FLUX_FORWARD`` predicts per step. Each grad step, recorded
+    launched as ``_flux2_launches`` predicts a forward per step. Each grad step, recorded
     as it runs: GRPO's replay ratio min and max exactly 1.0 and clip_frac 0;
     NFT's positive and negative losses equal (at β 1 both are ‖x0(v)−x1‖²/w
     when v = v_old); AWM's weighted log-prob equal to the precomputed one bit
     for bit on every row (ratio exactly 1.0, clip_frac 0). A finite loss, a
-    finite non-zero grad norm, the LoRA moved, launches in optimize as
-    ``KONTEXT_A_STEP``, peak memory against ``KONTEXT_PEAK_PREDICTED``; for
+    finite non-zero grad norm, the LoRA moved, launches in optimize as its
+    rematted grad step (NFT and AWM: with one no-grad old-policy forward a
+    grad step), peak memory against ``KONTEXT_PEAK_PREDICTED``; for
     GRPO a profile of one grad step. Returns the launch counts of the two
     epochs."""
     import numpy as np
@@ -3298,9 +3349,14 @@ def phase_kontext(trainer_type: str) -> dict:
     load_s = time.perf_counter() - t0
     ad = trainer.adapter
     lora = ad.trainable["transformer"]
-    log(f"[{tag}] load_trainer ({type(ad).__name__}, {type(trainer).__name__}; LoRA rank {cfg.model_args.lora_rank} "
+    tcfg = ad.component_configs["transformer"]
+    forward, grad_step = _flux2_launches(tcfg.num_double_blocks, tcfg.num_single_blocks)
+    if trainer_type in ("nft", "awm"):  # the old-policy forward, no grad, one a grad step
+        grad_step = _add(grad_step, forward)
+    log(f"[{tag}] load_trainer ({type(ad).__name__}, {type(trainer).__name__}; {tcfg.num_double_blocks} double + "
+        f"{tcfg.num_single_blocks} single blocks at width {tcfg.hidden_dim}; LoRA rank {cfg.model_args.lora_rank} "
         f"on {len(lora)} weights; the VAE encode of the references and the prompt encode included) {load_s:.1f} s; "
-        f"remat {ad.component_configs['transformer'].remat}; gradient_accumulation_steps "
+        f"remat {tcfg.remat}; gradient_accumulation_steps "
         f"{ta.gradient_accumulation_steps}; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     steps, lps = [], []
     loss_fn, real_wlp = trainer.loss_fn, awm.weighted_log_prob
@@ -3331,7 +3387,7 @@ def phase_kontext(trainer_type: str) -> dict:
             secs["sample"] = time.perf_counter() - t0
             in_sample = {k: v - before[k] for k, v in ops.launch_counts().items()}
             rollout_steps = ta.num_inference_steps * -(-len(samples) // ta.per_device_batch_size)
-            want = {k: n * rollout_steps for k, n in FLUX_FORWARD.items()}
+            want = {k: n * rollout_steps for k, n in forward.items()}
             images = np.stack([s.image for s in samples])
             cond = np.stack([s.extra_kwargs["cond_latents"] for s in samples])
             joint = samples[0].all_latents.shape[-2] + cond.shape[1] + samples[0].prompt_embeds.shape[0]
@@ -3355,7 +3411,7 @@ def phase_kontext(trainer_type: str) -> dict:
             ad.ema_step(epoch)
             epoch_steps = [{k: float(v) for k, v in aux.items()} for aux in steps[first:]]
             grad_steps = len(epoch_steps)
-            want = {k: n * grad_steps for k, n in KONTEXT_A_STEP[trainer_type].items()}
+            want = {k: n * grad_steps for k, n in grad_step.items()}
             gnorm = info["train/grad_norm"]
             if trainer_type == "grpo":
                 lo, hi = min(a["train/ratio_min"] for a in epoch_steps), max(a["train/ratio_max"] for a in epoch_steps)
@@ -3576,8 +3632,7 @@ def _profile_decoupled_grad_step(trainer, what: str, trace: str) -> None:
     ref = trainer.reference_trainable()
 
     def grad_step():
-        _, grads = trainer.loss_and_grads(ad.trainable, frozen(), ref)
-        trainer.accumulate_grads(grads)
+        trainer.backward_step(frozen(), ref)
         trainer.apply_accumulated()
 
     return _profile(what, grad_step, trace)
@@ -4388,31 +4443,37 @@ def _route_recorder(ad, routes: list):
 
 
 def _grad_recorder(trainer, steps: list, staged_keys=()):
-    """Record each grad step's host timestep, each trainable component's
-    largest |LoRA gradient| as a device scalar (one fused norm, no host
-    sync inside the timed steps; :func:`_live_components` reads them after),
-    and the shapes of the batch's ``staged_keys``; returns the undo."""
+    """Record each grad step (``trainer.backward_step``, which adds its
+    gradient into the leaves' ``.grad``): its host timestep, each trainable
+    component's change in the summed L1 norms of its ``.grad`` over the step
+    as a device scalar (fused norms, no host sync inside the timed steps;
+    :func:`_live_components` reads them after), and the shapes of the
+    batch's ``staged_keys``; returns the undo."""
     import torch
 
-    real = trainer.loss_and_grads
+    real, ad = trainer.backward_step, trainer.adapter
 
-    def spy(trainable, batch, ref_trainable=None):
-        out = real(trainable, batch, ref_trainable)
-        it, peaks = iter(out[1]), {}
-        for comp in sorted(trainable):
-            leaves = [next(it).detach() for ab in trainable[comp].values() for _ in ab]
-            peaks[comp] = torch.stack(torch._foreach_norm(leaves, math.inf)).amax()
+    def l1(comp):
+        grads = [p.grad for p in ad.trainable_leaves({comp: ad.trainable[comp]}) if p.grad is not None]
+        if not grads:
+            return torch.zeros((), device=ad.device)
+        return torch.stack(torch._foreach_norm(grads, 1)).sum()
+
+    def spy(batch, ref_trainable=None):
+        before = {comp: l1(comp) for comp in sorted(ad.trainable)}
+        out = real(batch, ref_trainable)
+        changes = {comp: (l1(comp) - norm).abs() for comp, norm in before.items()}
         staged = {k: tuple(batch[k].shape) for k in staged_keys if batch.get(k) is not None}
-        steps.append((float(batch["timestep_host"]), peaks, staged))
+        steps.append((float(batch["timestep_host"]), changes, staged))
         return out
 
-    trainer.loss_and_grads = spy
-    return lambda: delattr(trainer, "loss_and_grads")
+    trainer.backward_step = spy
+    return lambda: delattr(trainer, "backward_step")
 
 
 def _live_components(steps: list) -> None:
-    """Replace each recorded step's device maxima by the sorted components
-    whose LoRA got a non-zero gradient (one host read of each)."""
+    """Replace each recorded step's device scalars by the sorted components
+    whose gradient the step reached (one host read of each)."""
     for i, (t, peaks, staged) in enumerate(steps):
         steps[i] = (t, [c for c, v in sorted(peaks.items()) if v.item() > 0], staged)
 
@@ -4475,7 +4536,7 @@ def _grpo_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, ch
     ratio_lo, ratio_hi = _loss_value(info, "train/ratio_min", "min"), _loss_value(info, "train/ratio_max", "max")
     clip_hi, gnorm = _loss_value(info, "train/clip_frac", "max"), info["train/grad_norm"]
     log(f"[{tag}] epoch {epoch}: reward mean {metrics['reward/mean']:.5f}, {len(steps)} grad steps (host t, "
-        f"components with a non-zero LoRA gradient, staged shapes): {steps}, ratio min {ratio_lo!r} max "
+        f"components the step's gradient reached, staged shapes): {steps}, ratio min {ratio_lo!r} max "
         f"{ratio_hi!r} on every grad step, clip_frac max {clip_hi}, loss {info['train/loss']:.4e}, grad_norm "
         f"{gnorm:.4e}, launches in optimize {in_optimize} (expected {want}), global step {trainer.global_step}")
     log(f"[{tag}] epoch {epoch} phase seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})} | "
@@ -5630,7 +5691,7 @@ def _microbatch_grad_probe(tag: str, trainer, samples, split=(5, 3)) -> None:
             trainer.micro_batch_size = size
             trainer._micro_batches = lambda n, epoch, rows=rows: [rows]
             for batch in trainer.grad_step_batches(samples, 0):
-                (_, aux), _ = trainer.loss_and_grads(trainer.adapter.trainable, batch)
+                (_, aux), _ = trainer.loss_and_grads(batch)
                 ratios.append((size, float(aux["train/ratio_min"]), float(aux["train/ratio_max"])))
     finally:
         trainer.micro_batch_size = size0
@@ -6126,6 +6187,502 @@ def decoupled_families_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Full finetuning: SD3.5-M under GRPO and Wan2.1-1.3B under DPO at full width
+# ---------------------------------------------------------------------------
+
+#: launches of one SD3.5-M full-finetune grad step under per-block remat:
+#: the blocks' K1 (37), K5 (61: all but ``norm_out``) and K6 (47) run twice,
+#: in the forward and in the recompute, ``norm_out``'s K5 once; every K5 has
+#: a backward node now (block 0's three norms read the trained patch and
+#: context embeddings and AdaLN weights): 62
+SD35_FULL_A_STEP = {"qknorm_flash_fwd": 74, "flash_bwd_dq": 37, "flash_bwd_dkv": 37, "ln_mul_add": 123,
+                    "residual_gate_modulate": 94, "ln_mul_add_backward": 62, "residual_gate_modulate_backward": 47}
+#: launches of one Wan2.1-1.3B full DPO grad step: θ and the reference on
+#: the chosen and the rejected latents (four forwards of ``WAN_FORWARD``),
+#: one backward through θ's two; every K5 has a backward node now (block 0's
+#: first norm reads the trained patch and time embeddings): 2 x 91
+WAN_FULL_DPO_A_STEP = {"flash_fwd": 240, "flash_bwd_dq": 120, "flash_bwd_dkv": 120, "ln_mul_add": 364,
+                       "ln_mul_add_backward": 182}
+#: [full-grad]'s per-leaf bars by the kind of weight (:func:`_full_grad_kind`),
+#: from the rounding observed on an H100 80GB HBM3 at 700 W (both paths run the same math in
+#: bf16 but round in other places, which the backward carries into every
+#: weight): the worst weight 1.21e-2, bias 9.1e-3, qk-norm scale 1.28e-2,
+#: position grid 8.3e-3, so the LoRA check's 3e-2 for every kind. A key
+#: projection's bias is held to the max of its weight's gradient: the bias's
+#: own gradient, a sum over every key of terms the size of the weight's,
+#: nearly cancels (the softmax is blind to a shift shared by all keys but
+#: for the qk-norm) and read 5.03e-2 of its own max
+FULL_GRAD_BARS = {"weight": 3e-2, "bias": 3e-2, "key bias": 3e-2, "qk-norm scale": 3e-2, "pos_embed": 3e-2}
+#: device memory peaks predicted before the first run (PERF.md §6)
+FULL_PEAK_PREDICTED = {"full-sd35": (48.0, 58.0), "full-wan-dpo": (30.0, 40.0)}
+#: the frozen components offloaded to the host after preprocessing
+FULL_OFFLOADED = {"full-sd35": ("text_encoder", "text_encoder_2", "text_encoder_3"),
+                  "full-wan-dpo": ("text_encoder",)}
+
+
+def _sd35_zero_grad(depth: int) -> set:
+    """The SD3.5 weights whose gradient is exactly zero in both packages (F4's
+    kind): the last block is context-pre-only, so its context queries and
+    their qk-norm scale feed no output (tests/test_torch_port_full.py holds
+    the tiny SD3.5's list to JAX's)."""
+    b = f"transformer_blocks.{depth - 1}.attn"
+    return {f"{b}.add_q_proj.weight", f"{b}.add_q_proj.bias", f"{b}.norm_added_q.weight"}
+
+
+def _full_grad_kind(name: str) -> str:
+    """The kind of an SD3.5 weight for [full-grad]'s bars: the key
+    projections' biases (a bias shared by every key, which the softmax
+    cancels but for the qk-norm, so their gradient is small beside its
+    rounding: held to their weight's scale), the other biases, the qk-norm scales, the position grid, and
+    the weights."""
+    if "pos_embed.pos_embed" in name:
+        return "pos_embed"
+    if re.search(r"\.(norm_q|norm_k|norm_added_q|norm_added_k)\.weight$", name):
+        return "qk-norm scale"
+    if re.search(r"\.(to_k|add_k_proj)\.bias$", name):
+        return "key bias"
+    return "bias" if name.endswith(".bias") else "weight"
+
+
+def _old_update(optimizer, params, grads, max_norm: float) -> None:
+    """The update as the port ran it before per-leaf clipping: the clipped
+    gradients built beside the raw ones by ``torch.where``, then the
+    optimizer's step (a reference for ``[full-grad]``'s bit check)."""
+    import torch
+
+    gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = gnorm < max_norm
+    for p, g in zip(params, grads):
+        p.grad = torch.where(keep, g, g / gnorm * max_norm).to(p.dtype)
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
+def phase_full_grad(seed: int = 3) -> None:
+    """[full-grad]: the full-finetune gradient of every weight through the
+    kernels at SD3.5-M width, reduced depth (two MMDiT-X blocks, the first
+    with the dual self-attention, the second context-pre-only; weights
+    and inputs drawn from ``seed``), B=16, 1024
+    image + 333 context tokens: the fp32 master of every parameter (the
+    position grid, and the qk-norm scales, whose gradient K1's backward
+    gives), against the same gradient through the plain path
+    (:func:`_grad_paths_check`; the bar from the rounding observed); the
+    controls K1's backward with dγ zeroed and K5's backward without dmul
+    must miss it. The context-pre-only block's context queries have exact
+    zeros on both paths and every other weight a non-zero gradient. Then the
+    update on these gradients, twice (the clip binding, then not): the
+    port's (in-place clip a leaf at a time, AdamW's grouped path over
+    parameter groups of at most ``GROUP_BYTES``) gives the θ of the
+    update as it was (``torch.where`` clip, one group) bit for bit, each
+    with its peak; whether AdamW's per-tensor and fused paths would is
+    logged."""
+    import dataclasses
+    import types
+
+    import torch
+    from torch.func import functional_call
+
+    from flow_factory_tpu_torch.models.layers import build_module
+    from flow_factory_tpu_torch.models.sd3.adapter import _preset
+    from flow_factory_tpu_torch.models.sd3.transformer import SD3Transformer
+    from flow_factory_tpu_torch.ops import attention as A
+    from flow_factory_tpu_torch.ops import norms as N
+    from flow_factory_tpu_torch.trainers.abc import GROUP_BYTES, apply_updates, make_optimizer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = dataclasses.replace(_preset("medium", "auto", "bfloat16")["transformer"], depth=2,
+                              dual_attention_layers=(0,))
+    model = build_module(lambda: SD3Transformer(cfg), dev, torch.bfloat16, gen)
+    masters = {name: p.detach().float().requires_grad_() for name, p in model.named_parameters()}
+    names = sorted(masters)
+    leaves = [masters[n] for n in names]
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    B = 16
+    x = randn(B, 64, 64, cfg.in_channels)
+    ctx, pooled = randn(B, 333, cfg.context_dim), randn(B, cfg.pooled_dim)
+    t = torch.full((B,), 750.0, device=dev)
+    real_k1_backward = A.qknorm_flash_backward
+
+    def k1_without_dgamma(*args, **kwargs):
+        dq, dk, dv, dgq, dgk = real_k1_backward(*args, **kwargs)
+        zero = lambda g: None if g is None else torch.zeros_like(g)
+        return dq, dk, dv, zero(dgq), zero(dgk)
+
+    without_dmul, _ = _k5_backward_controls(N)
+    controls = {"K1's backward with dγ zeroed": lambda: _swapped(A, qknorm_flash_backward=k1_without_dgamma),
+                "K5's backward without its dmul term": lambda: _swapped(N, ln_mul_add_backward=without_dmul)}
+    kinds = [_full_grad_kind(n) for n in names]
+    scale_by = [names.index(n[:-len("bias")] + "weight") if k == "key bias" else i
+                for i, (n, k) in enumerate(zip(names, kinds))]
+    errs, kern, plain, counts = _grad_paths_check(
+        "full-grad", f"SD3.5-M width, depth 2 (dual block 0), B={B}, S=1357, every weight, seed {seed}", model,
+        names, leaves, lambda: functional_call(model, masters, (x.bfloat16(), t, ctx, pooled)), x, gen, controls,
+        [FULL_GRAD_BARS[k] for k in kinds], kind="full-finetune", scale_by=scale_by, kinds=kinds)
+    keys = [i for i, k in enumerate(kinds) if k == "key bias"]
+    on_weight = {names[i]: float(f"{errs[i]:.3e}") for i in keys}
+    on_own = {names[i]: float(f"{((kern[i] - plain[i]).abs().max() / plain[i].abs().max()).item():.3e}")
+              for i in keys}
+    as_zeros = {names[i]: float(f"{(plain[i].abs().max() / plain[scale_by[i]].abs().max()).item():.3e}")
+                for i in keys}
+    log(f"[full-grad] the key biases' error over their weight's max gradient (the bar's scale) {on_weight}, over "
+        f"their own max gradient {on_own}; a gradient of zeros would read {as_zeros} on the bar's scale")
+    by_kind = collections.defaultdict(float)
+    for kind, e in zip(kinds, errs):
+        by_kind[kind] = max(by_kind[kind], e)
+    top = sorted(range(len(errs)), key=errs.__getitem__)[-8:]
+    log(f"[full-grad] the 8 largest per-leaf errors: {[(names[i], float(f'{errs[i]:.3e}')) for i in top]}")
+    zero = {n for n, g, r in zip(names, kern, plain) if not g.any().item() and not r.any().item()}
+    dead = sorted(n for n, g in zip(names, kern) if not g.any().item())
+    log(f"[full-grad] worst per-leaf error by kind {json.dumps({k: float(f'{v:.3e}') for k, v in by_kind.items()})}; "
+        f"pos_embed grad max {kern[names.index('pos_embed.pos_embed')].abs().max().item():.3e}; exactly zero on both "
+        f"paths: {sorted(zero)} (expected {sorted(_sd35_zero_grad(cfg.depth))}); zero on the kernel path alone: "
+        f"{sorted(set(dead) - zero)}")
+    if zero != _sd35_zero_grad(cfg.depth) or set(dead) != zero:
+        fail(f"[full-grad] the weights with a zero gradient are not the context-pre-only block's context queries")
+    if any(counts[k] <= 0 for k in SD35_KERNELS):
+        fail(f"a kernel never launched in the [full-grad] run: {counts}")
+
+    ta = types.SimpleNamespace(learning_rate=1e-5, adam_betas=(0.9, 0.999), adam_epsilon=1e-8,
+                               adam_weight_decay=1e-4)
+    hyper = dict(lr=ta.learning_rate, betas=ta.adam_betas, eps=ta.adam_epsilon, weight_decay=ta.adam_weight_decay)
+    copies = {key: [p.detach().clone().requires_grad_() for p in leaves]
+              for key in ("before", "port", "per-tensor", "fused")}
+    opts = {"before": torch.optim.AdamW(copies["before"], **hyper),
+            "port": make_optimizer(copies["port"], ta),
+            "per-tensor": torch.optim.AdamW(copies["per-tensor"], foreach=False, **hyper),
+            "fused": torch.optim.AdamW(copies["fused"], fused=True, **hyper)}
+    grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in kern)).item()
+    peaks, same = collections.defaultdict(list), collections.defaultdict(list)
+    for max_norm in (grad_norm / 4, grad_norm * 4):  # the clip binding, then not
+        for key, params in copies.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if key == "before":
+                _old_update(opts[key], params, [g.clone() for g in kern], max_norm)
+            else:  # each gradient in its leaf's layout, as the backward leaves it in .grad
+                for p, g in zip(params, kern):
+                    p.grad = torch.empty_like(p).copy_(g)
+                apply_updates(opts[key], params, max_norm)
+            torch.cuda.synchronize()
+            peaks[key].append(round((torch.cuda.max_memory_allocated() - base) / 2**30, 3))
+        for key in ("port", "per-tensor", "fused"):
+            same[key].append(all(torch.equal(a.detach(), b.detach()) for a, b in zip(copies["before"], copies[key])))
+    log(f"[full-grad] the update on these gradients ({sum(p.numel() for p in leaves) / 1e6:.1f} M fp32 weights, "
+        f"{len(leaves)} leaves; max_grad_norm {grad_norm / 4:.4e}, then {grad_norm * 4:.4e}): θ equal bit for bit to "
+        f"the update as it was (torch.where clip, AdamW's grouped path, one group), with the in-place clip and AdamW "
+        f"grouped in {len(opts['port'].param_groups)} groups of at most {GROUP_BYTES / 2**20:.0f} MiB (the "
+        f"port's): {same['port']}, per-tensor: {same['per-tensor']}, fused: {same['fused']}; GiB allocated above "
+        f"the state by each step (the first makes the moments) {json.dumps(dict(peaks))}")
+    if not all(same["port"]):
+        fail("[full-grad] the port's update does not give the θ of the update as it was")
+    del copies, opts
+    del model, masters, leaves, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_fingerprints(tree: dict) -> dict:
+    """Each tensor's float64 sum and sum of magnitudes, on the device."""
+    import torch
+
+    with torch.no_grad():
+        return {name: torch.stack([t.double().sum(), t.double().abs().sum()]) for name, t in tree.items()}
+
+
+def _full_trainer(tag: str, fixture: str):
+    """``load_trainer`` on ``fixture`` (full finetuning), then the frozen
+    encoders offloaded to the host (``offload_component``): logs the master
+    tree's size, the bytes of the module copy its release freed and of the
+    encoders the offload freed, the EMA's and the reference store's, the
+    optimizer's groups. Returns (config, trainer)."""
+    import torch
+
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", fixture))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache")
+    cfg.log_args.save_dir = os.path.join(here, "chiprun_out", "train")
+    log(f"[{tag}] device memory allocated before the trainer loads: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ad = trainer.adapter
+    gib = lambda n: n / 2**30
+    tree_bytes = lambda tree: sum(t.numel() * t.element_size() for t in tree.values())
+    master = ad.trainable["transformer"]
+    released = sum(p.numel() * p.element_size() for p in ad.modules["transformer"].parameters())
+    loaded = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for comp in FULL_OFFLOADED[tag]:
+        ad.offload_component(comp)
+    torch.cuda.synchronize()
+    offload_s = time.perf_counter() - t0
+    ema = tree_bytes(ad.ema.params["transformer"]) if ad.ema is not None else 0
+    ref = tree_bytes(ad.ref_trainable()["transformer"]) if ad._ref_store is not None else 0
+    log(f"[{tag}] load_trainer ({sum(t.numel() for t in master.values()) / 1e9:.4f} B trained weights in "
+        f"{len(master)} fp32 leaves, {gib(tree_bytes(master)):.2f} GiB; preprocess included) {load_s:.1f} s; the "
+        f"module's own copy released: {gib(released):.2f} GiB ({sorted(ad._released)}); offloaded "
+        f"{list(FULL_OFFLOADED[tag])} in {offload_s:.2f} s, freeing {gib(loaded - torch.cuda.memory_allocated()):.2f} "
+        f"GiB; EMA {gib(ema):.2f} GiB, reference store {gib(ref):.2f} GiB; remat "
+        f"{ad.component_configs['transformer'].remat}; gradient_accumulation_steps "
+        f"{trainer.training_args.gradient_accumulation_steps}; AdamW parameter groups "
+        f"{len(trainer.optimizer.param_groups)}; allocated {gib(torch.cuda.memory_allocated()):.2f} GiB, "
+        f"peak so far {gib(torch.cuda.max_memory_allocated()):.2f} GiB")
+    if ad.is_lora or "transformer" not in ad._released or len(trainer.optimizer.param_groups) < 2:
+        fail(f"[{tag}] not a full finetune with the module copy released and AdamW in groups")
+    return cfg, trainer
+
+
+def _full_peak(tag: str) -> float:
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = FULL_PEAK_PREDICTED[tag]
+    log(f"[{tag}] peak memory {peak:.2f} GiB (predicted {lo:.0f}-{hi:.0f} GiB: "
+        f"{'inside' if lo <= peak <= hi else 'outside'}; the card's 79.65 GiB)")
+    if peak >= 79.65:
+        fail(f"[{tag}] peak memory {peak:.2f} GiB")
+    return peak
+
+
+def phase_full_sd35() -> dict:
+    """[full-sd35]: SD3.5-M full finetuning under GRPO at full width and
+    depth through ``load_trainer`` on tests/fixtures/sd35_full_grpo.yaml
+    (the geometry of examples/grpo/full/sd3_5/default.yaml: 512 px, 10
+    steps, CFG 4.5, micro-batch 8, EMA 0.99 every 4, AdamW 1e-5, per-block
+    remat; 2 prompts x group 4 and the brightness reward), the three text
+    encoders offloaded after preprocessing, two epochs phase by phase: each
+    rollout and its no-grad replay with ratio exactly 1.0 on every stored
+    step, every grad step's ratio exactly 1.0, launches as
+    ``SD35_FORWARD`` and ``SD35_FULL_A_STEP`` predict; after them every
+    trained weight moved (the position grid included) but the ones with an
+    exactly zero gradient (:func:`_sd35_zero_grad`), the EMA differs from θ.
+    Then the seconds of a grad step and of an update, a profiled grad
+    step, what was live at a grad step's peak (:func:`_peak_breakdown`), the
+    peak against its prediction; a ``save_model_only`` full-layout save of θ, the trainer
+    freed, and a fresh adapter resumed from it (``resume_type: full``): its
+    master equal to θ bit for bit, its replay of a stored step giving the
+    saving adapter's log-probs bit for bit; the seconds and bytes of the
+    save and the load. Returns the launch counts of the two epochs."""
+    import shutil
+
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.models import load_adapter
+
+    tag = "full-sd35"
+    cfg, trainer = _full_trainer(tag, "sd35_full_grpo.yaml")
+    ad, ta = trainer.adapter, trainer.training_args
+    depth = ad.component_configs["transformer"].depth
+    before = _leaf_fingerprints(ad.trainable["transformer"])
+    ops.reset_launch_counts()
+    runs = [_grpo_epoch(trainer, tag, epoch, SD35_FORWARD, {}, grad_step=SD35_FULL_A_STEP,
+                        check_rollout=lambda samples: _replay_check(tag, ad, samples, SD35_FORWARD))
+            for epoch in range(ta.max_epochs)]
+    counts = ops.launch_counts()
+    after = _leaf_fingerprints(ad.trainable["transformer"])
+    still = {n for n in before if torch.equal(before[n], after[n])}
+    theta, ema = ad.trainable["transformer"], ad.ema.params["transformer"]
+    differs = sum(not torch.equal(ema[n], theta[n].detach()) for n in theta)
+    log(f"[{tag}] after two epochs (global step {trainer.global_step}): {len(before) - len(still)}/{len(before)} "
+        f"trained weights moved, pos_embed among them: {'pos_embed.pos_embed' not in still}; unmoved {sorted(still)} "
+        f"(expected the zero-gradient {sorted(_sd35_zero_grad(depth))}); the EMA (updated at epoch 0) differs from θ "
+        f"on {differs}/{len(theta)} weights; launches {counts}")
+    if still != _sd35_zero_grad(depth) or trainer.global_step != ta.max_epochs:
+        fail(f"[{tag}] the trained weights did not move as they should: unmoved {sorted(still)}")
+    if differs < len(theta) - len(still):
+        fail(f"[{tag}] the EMA equals θ on a moved weight")
+    samples = runs[-1]["samples"]
+    batch = next(trainer.grad_step_batches(samples, ta.max_epochs - 1))
+    secs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.backward_step(batch)
+    torch.cuda.synchronize()
+    secs["grad step"] = time.perf_counter() - t0
+    trainer.apply_accumulated()
+    torch.cuda.synchronize()
+    secs["update"] = time.perf_counter() - t0 - secs["grad step"]
+    log(f"[{tag}] seconds of one grad step (forward, remat backward into .grad) and of one update (the clip, "
+        f"AdamW over {len(theta)} leaves in groups): {json.dumps({k: round(v, 4) for k, v in secs.items()})}")
+
+    def grad_step():
+        trainer.backward_step(batch)
+        trainer.apply_accumulated()
+
+    _profile("one SD3.5-M full-finetune grad step (forward, remat backward into .grad, the update)", grad_step,
+             "full_sd35_grad_step_trace.json")
+    _peak_breakdown(tag, grad_step)
+    _full_peak(tag)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    save_dir = os.path.join(here, "build", "full_sd35_ckpt")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ad.save_checkpoint(save_dir, model_only=True, save_ema=False)
+    save_s = time.perf_counter() - t0
+    saved_bytes = _dir_bytes(save_dir)
+    lat_map, lp_map = samples[0].latent_index_map, samples[0].log_prob_index_map
+    steps = [i for i in range(len(lp_map)) if lp_map[i] >= 0 and lat_map[i] >= 0 and lat_map[i + 1] >= 0][:1]
+    want = ad.replay_log_probs(samples, steps=steps)[steps[0]].cpu()
+    theta = {n: t.detach() for n, t in theta.items()}
+    trainer.cleanup()
+    del trainer, ad, runs, batch, ema
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", "sd35_full_grpo.yaml"))
+    cfg2.model_args.resume_path, cfg2.model_args.resume_type = save_dir, "full"
+    cfg2.model_args.load_components = ["transformer"]
+    t0 = time.perf_counter()
+    fresh = load_adapter(cfg2)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    master = fresh.trainable["transformer"]
+    same = set(master) == set(theta) and all(torch.equal(master[n].detach(), theta[n]) for n in theta)
+    got = fresh.replay_log_probs(samples, steps=steps)[steps[0]].cpu()
+    bits = torch.equal(got, want)
+    log(f"[{tag}] save_model_only full-layout save of θ: {saved_bytes / 1e9:.3f} GB in {save_s:.2f} s "
+        f"({saved_bytes / 1e9 / save_s:.2f} GB/s); a fresh adapter with resume_type full (transformer only, "
+        f"build and read) {load_s:.2f} s ({saved_bytes / 1e9 / load_s:.2f} GB/s): its master equal to θ bit for "
+        f"bit: {same}; its replay of stored step {steps[0]} gives the saving adapter's log-probs bit for bit: "
+        f"{bits} ({got.tolist()})")
+    if not (same and bits):
+        fail(f"[{tag}] the resumed full checkpoint does not reproduce θ and its log-probs")
+    del fresh, master, theta
+    shutil.rmtree(save_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_full_wan_dpo() -> dict:
+    """[full-wan-dpo]: Wan2.1-T2V-1.3B full finetuning under DPO at full
+    width and depth through ``load_trainer`` on
+    tests/fixtures/wan21_full_dpo.yaml (the geometry of
+    examples/dpo/full/wan21/default.yaml: 256 px x 5 frames, 10 steps, CFG
+    5.0, β 2000, one logit-normal timestep; 2 prompts x group 4, the
+    brightness reward), UMT5-XXL offloaded after preprocessing, one epoch:
+    the reference store (``init_ref_parameters``, fp32, full size) equal to
+    θ bit for bit before the update; the rollout's launches as
+    ``WAN_FORWARD`` predicts; the grad step at θ = the reference with the
+    loss exactly −logsigmoid(0) = ln 2 in fp32 and the implicit margin
+    exactly 0; launches as ``WAN_FULL_DPO_A_STEP``; the update moves θ; what
+    was live at a grad step's peak, the peak against its prediction.
+    Returns the launch counts of the epoch."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch import ops
+
+    tag = "full-wan-dpo"
+    cfg, trainer = _full_trainer(tag, "wan21_full_dpo.yaml")
+    ad, ta = trainer.adapter, trainer.training_args
+    theta, ref = ad.trainable["transformer"], ad.ref_trainable()["transformer"]
+    equal = set(ref) == set(theta) and all(torch.equal(ref[n], theta[n].detach()) for n in theta)
+    log(f"[{tag}] the reference store equal to θ bit for bit before the update: {equal}")
+    if not equal:
+        fail(f"[{tag}] the reference store is not θ")
+    before = _leaf_fingerprints(theta)
+    log2 = -F.logsigmoid(torch.zeros((), dtype=torch.float32)).item()
+    ops.reset_launch_counts()
+    secs = {}
+    t0 = time.perf_counter()
+    samples = trainer.sample(0)
+    torch.cuda.synchronize()
+    secs["sample"] = time.perf_counter() - t0
+    in_sample = ops.launch_counts()
+    want = {k: n * ta.num_inference_steps * -(-len(samples) // ta.per_device_batch_size)
+            for k, n in WAN_FORWARD.items()}
+    videos = np.stack([s.video for s in samples])
+    t0 = time.perf_counter()
+    metrics = trainer.prepare_feedback(samples)
+    secs["feedback"] = time.perf_counter() - t0
+    log(f"[{tag}] rollout: videos {videos.shape} in [{videos.min():.3f}, {videos.max():.3f}], reward mean "
+        f"{metrics['reward/mean']:.5f}, launches {in_sample} (expected {want})")
+    if not (videos.shape == (8, 5, 3, 256, 256) and np.isfinite(videos).all()):
+        fail(f"[{tag}] the rollout's videos are not as expected: {videos.shape}")
+    if any(in_sample[k] != n for k, n in want.items()):
+        fail(f"[{tag}] rollout launches {in_sample}, expected {want}")
+    base = ops.launch_counts()
+    t0 = time.perf_counter()
+    info = trainer.optimize(samples, 0)
+    torch.cuda.synchronize()
+    secs["optimize"] = time.perf_counter() - t0
+    in_optimize = {k: v - base[k] for k, v in ops.launch_counts().items()}
+    ad.ema_step(0)
+    grad_steps = ta.get_num_train_timesteps(cfg)
+    want = {k: n * grad_steps for k, n in WAN_FULL_DPO_A_STEP.items()}
+    loss, margin, gnorm = info["train/loss"], info["train/implicit_margin"], info["train/grad_norm"]
+    moved = sum(not torch.equal(a, b) for a, b in zip(before.values(), _leaf_fingerprints(theta).values()))
+    log(f"[{tag}] {info['train/dpo_num_pairs']:.0f} pairs, {grad_steps} grad step(s) at θ = the reference: loss "
+        f"{loss!r} (-logsigmoid(0) in fp32: {log2!r}), implicit margin {margin!r}, theta errs w "
+        f"{info['train/theta_w_err']:.6f} l {info['train/theta_l_err']:.6f}, grad_norm {gnorm:.4e}, launches in "
+        f"optimize {in_optimize} (expected {want}); {moved}/{len(before)} weights moved by the update; phase seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    if not (margin == 0.0 and loss == log2 and np.isfinite(gnorm) and gnorm > 0):
+        fail(f"[{tag}] the first grad step at θ = the reference: margin {margin!r}, loss {loss!r}, grad norm {gnorm}")
+    if any(in_optimize[k] != n for k, n in want.items()):
+        fail(f"[{tag}] launches in optimize {in_optimize}, expected {want}")
+    if not moved:
+        fail(f"[{tag}] the update moved no weight")
+    counts = ops.launch_counts()
+    batch = next(trainer.grad_step_batches(samples, 0))
+
+    def grad_step():
+        trainer.backward_step(batch, trainer.reference_trainable())
+        trainer.apply_accumulated()
+
+    _peak_breakdown(tag, grad_step)
+    _full_peak(tag)
+    trainer.cleanup()
+    del trainer, ad, theta, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _full_phases() -> dict:
+    """[full-grad], [full-sd35], [full-wan-dpo]; their launch counts."""
+    import torch
+
+    phase_full_grad()
+    out = {"full-sd35": phase_full_sd35(), "full-wan-dpo": phase_full_wan_dpo()}
+    log(f"[full] device memory still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+def full_only() -> int:
+    """``python3 chip_smoke.py --full``: the build and the three full-finetune phases."""
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    _full_phases()
+    return 0
+
+
+def full_grad_only(seeds) -> int:
+    """``python3 chip_smoke.py --full-grad SEED [SEED ...]``: the build and
+    ``[full-grad]`` at each seed."""
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    for seed in seeds:
+        phase_full_grad(seed)
+    return 0
+
+
 def _mark(what: str) -> None:
     """Log the seconds since the whole script's first phase began, after ``what``."""
     log(f"[time] {what} done: {time.perf_counter() - _mark.start:.1f} s since the start")
@@ -6167,6 +6724,10 @@ def main() -> int:
         return decoupled_families_only()
     if sys.argv[1:] == ["--wan-i2v"]:
         return wan_i2v_only()
+    if sys.argv[1:] == ["--full"]:
+        return full_only()
+    if len(sys.argv) > 2 and sys.argv[1] == "--full-grad":
+        return full_grad_only([int(a) for a in sys.argv[2:]])
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
     # the port's entry points set it
     from flow_factory_tpu_torch.utils.base import use_full_fp32
@@ -6215,7 +6776,9 @@ def main() -> int:
     wan_train_counts = phase_wan_train()
     _mark("[grad] Wan, [wan-train]")
     gc.collect()
-    torch.cuda.empty_cache()  # the Wan trainer is gone before FLUX.1 loads
+    torch.cuda.empty_cache()  # the Wan trainer is gone before the full finetunes load
+    full_counts = _full_phases()
+    _mark("full-finetune phases")
     phase_flux_grad()
     flux_counts = phase_flux_dpo()
     _mark("[flux-grad], [flux-dpo]")
@@ -6242,6 +6805,12 @@ def main() -> int:
     counts["flash_fwd"] = wan_counts["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         counts[f"{name}_d128"] = wan_train_counts[name]
+    # the full finetunes run them at the same shapes: SD3.5-M's kernels in [full-sd35]'s epochs, K3 and
+    # K2a/K2b at head dim 128 in [full-wan-dpo]'s
+    counts = _add(counts, {k: v for k, v in full_counts["full-sd35"].items() if k in SD35_KERNELS})
+    counts["flash_fwd"] += full_counts["full-wan-dpo"]["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        counts[f"{name}_d128"] += full_counts["full-wan-dpo"][name]
     # the FLUX.1 shapes: their kernels' launches in the two FLUX.1 DPO epochs
     for name, tags in (("flash_fwd", ("flux-512px-b2", "flux-512px-b8")),
                        ("flash_bwd_dq_d128", ("flux-512px",)), ("flash_bwd_dkv_d128", ("flux-512px",)),

@@ -6,6 +6,8 @@ tensors (for LoRA, a copy of the small LoRA tree), updated as
 ``update_interval=0`` it never updates and serves as a frozen snapshot (the
 reference policy of full finetuning, and the adapter's named parameter
 snapshots, which :meth:`EMA.blend` and :meth:`EMA.copy_from` move by hand).
+``offload=True`` keeps the tree in host memory (JAX ``ema/ema.py:112-141``):
+each update copies the live tree to the host and blends there.
 """
 from __future__ import annotations
 
@@ -106,13 +108,22 @@ def tree_map(fn, tree, *rest):
 
 
 class EMA:
-    """EMA over a trainable tree; ``update_interval=0`` never updates."""
+    """EMA over a trainable tree; ``update_interval=0`` never updates;
+    ``offload=True`` holds it on the host."""
 
-    def __init__(self, params: Any, decay_fn: Optional[DecayFn] = None, update_interval: int = 1):
+    def __init__(self, params: Any, decay_fn: Optional[DecayFn] = None, update_interval: int = 1,
+                 offload: bool = False):
         self.decay_fn = decay_fn or constant_decay(0.999)
         self.update_interval = update_interval
+        self.offload = offload
         self.step = 0
-        self.params = tree_map(lambda x: x.detach().float().clone(), params)
+        self.params = self._place(params)
+
+    def _place(self, tree: Any) -> Any:
+        """A detached fp32 copy of ``tree``, on the host when offloaded."""
+        if self.offload:
+            return tree_map(lambda x: x.detach().to("cpu", torch.float32, copy=True), tree)
+        return tree_map(lambda x: x.detach().float().clone(), tree)
 
     @torch.no_grad()
     def update(self, params: Any, step: Optional[int] = None) -> None:
@@ -129,11 +140,12 @@ class EMA:
         before the blend keeps its values."""
         d = torch.tensor(decay, dtype=torch.float32)
         keep, take = d.item(), (1.0 - d).item()
-        self.params = tree_map(lambda e, p: e * keep + p.detach().to(e.dtype) * take, self.params, params)
+        self.params = tree_map(lambda e, p: e * keep + p.detach().to(e.device, e.dtype) * take,
+                               self.params, params)
 
     def copy_from(self, params: Any) -> None:
         """A hard reset to a detached fp32 copy of ``params``."""
-        self.params = tree_map(lambda x: x.detach().float().clone(), params)
+        self.params = self._place(params)
 
     def state_dict(self) -> dict:
         return {"step": self.step, "params": self.params}

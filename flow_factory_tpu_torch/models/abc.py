@@ -91,6 +91,8 @@ class BaseAdapter(ABC):
         self.modules: Dict[str, torch.nn.Module] = {}
         #: configs per component
         self.component_configs: Dict[str, Any] = {}
+        #: components whose module parameters were released (:meth:`_release_module_copy`)
+        self._released: set = set()
         self.load_models()
         # before the LoRA, the reference and snapshot stores, the EMA and a
         # resume read the weights
@@ -180,9 +182,21 @@ class BaseAdapter(ABC):
         return sched
 
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        """Load per-component state dicts (e.g. from :mod:`..utils.weights`), strictly."""
+        """Load per-component state dicts (e.g. from :mod:`..utils.weights`),
+        strictly; a component whose module copy was released for full
+        finetuning takes its parameters into the master tree."""
         for comp, sd in state_dicts.items():
-            load_component(self.modules[comp], sd)
+            if comp in self._released:
+                module = self.modules[comp]
+                names = {name for name, _ in module.named_parameters()}
+                missing = sorted(names - set(sd))
+                if missing:
+                    raise KeyError(f"{comp}: the state dict misses parameters {missing[:5]}")
+                self.trainable[comp] = {name: sd[name].to(device=self.device, dtype=self.master_dtype)
+                                        .detach().clone().requires_grad_() for name, _ in module.named_parameters()}
+                module.load_state_dict({k: v for k, v in sd.items() if k not in names}, strict=False)
+            else:
+                load_component(self.modules[comp], sd)
 
     def preprocess_func(self, batch: Dict[str, Any], **kwargs) -> Dict[str, Any]:
         """Stage-1 preprocessing: prompt encoding (families override)."""
@@ -243,6 +257,36 @@ class BaseAdapter(ABC):
                 trainable[comp] = {name: p.detach().to(self.master_dtype).clone().requires_grad_()
                                    for name, p in module.named_parameters()}
         self.trainable: Trainable = trainable
+        if not self.is_lora and self.velocity_component in trainable:
+            self._release_module_copy(self.velocity_component)
+
+    def _release_module_copy(self, component: str) -> None:
+        """Full finetuning: the fp32 master tree becomes the component's only
+        copy on the device. Every forward of the velocity component runs on
+        :meth:`merged_params` through ``functional_call``, which never reads
+        the module's own parameters then, so they are replaced by meta
+        tensors of their shapes and dtypes (the buffers stay)."""
+        module = self.modules[component]
+        with torch.no_grad():
+            for sub in module.modules():
+                for name, p in list(sub._parameters.items()):
+                    if p is not None:
+                        sub._parameters[name] = torch.nn.Parameter(p.to("meta"), requires_grad=False)
+        self._released.add(component)
+        logger.info("Released the module copy of %s: its fp32 master tree is its only copy", component)
+
+    # ------------------------------------------------------------------
+    # Component device management (JAX models/abc.py:1200-1212)
+    # ------------------------------------------------------------------
+    def offload_component(self, name: str) -> None:
+        """Move a frozen component's weights to host RAM (frees device memory)."""
+        if name in self._released or name in self.trainable:
+            raise ValueError(f"{name} is trained: only a frozen component is offloaded")
+        self.modules[name].to("cpu")
+
+    def onload_component(self, name: str) -> None:
+        """Move a component's weights back to the adapter's device."""
+        self.modules[name].to(self.device)
 
     def load_lora(self, component: str, tree: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Replace a component's LoRA tree (e.g. from ``weights.lora_from_flax``),

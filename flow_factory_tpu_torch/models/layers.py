@@ -242,7 +242,9 @@ class PatchEmbed(nn.Module):
     """(B, H, W, C) latents → patch tokens + cropped learned position grid.
 
     The patch convolution (kernel = stride = p) runs as one matmul over
-    flattened (kh, kw, c) patches, the order of a flax HWIO kernel."""
+    flattened (kh, kw, c) patches, the order of a flax HWIO kernel. The
+    position grid is a parameter, as in the JAX package (``layers.py:108``),
+    so a full finetune trains it (diffusers holds it as a buffer)."""
 
     def __init__(self, in_channels: int, hidden_dim: int, patch_size: int,
                  pos_embed_max_size: Optional[int], compute_dtype: torch.dtype):
@@ -252,8 +254,7 @@ class PatchEmbed(nn.Module):
         self.compute_dtype = compute_dtype
         self.proj = nn.Conv2d(in_channels, hidden_dim, patch_size, stride=patch_size)
         if pos_embed_max_size is not None:
-            self.register_buffer(
-                "pos_embed", torch.zeros(1, pos_embed_max_size * pos_embed_max_size, hidden_dim))
+            self.pos_embed = nn.Parameter(torch.zeros(1, pos_embed_max_size * pos_embed_max_size, hidden_dim))
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
         if self.pos_embed_max_size is not None:

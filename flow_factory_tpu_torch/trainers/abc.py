@@ -6,8 +6,11 @@ Port of ``flow_factory_tpu/trainers/abc.py``:
   (``g·max_norm/‖g‖`` once ‖g‖ ≥ max_norm — not ``clip_grad_norm_``, which
   adds 1e-6) followed by ``torch.optim.AdamW`` with the configured betas,
   epsilon and weight decay passed explicitly, over the trainable leaves only;
-* gradient accumulation is an explicit fp32 sum, divided by the count
-  before the step;
+* gradient accumulation is an fp32 sum in each trainable leaf's ``.grad``,
+  which the backward of every grad step adds into (one gradient tree),
+  divided by the count in place before the step; the clip runs in place a
+  leaf at a time, and AdamW's parameters are split into groups of bounded
+  size, so that its temporaries are one group's;
 * every ``eval_freq`` epochs, before the epoch's rollout, :meth:`evaluate`
   rolls out the test split under the EMA weights, each prompt from its own
   generator, scores it with the pointwise rewards and logs its media;
@@ -28,7 +31,7 @@ import os
 import threading
 import time
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,31 +74,66 @@ def gather_eval_reward_metrics(samples: List[BaseSample]) -> Dict[str, float]:
     return metrics
 
 
+#: the most bytes of one AdamW parameter group (:func:`make_optimizer`)
+GROUP_BYTES = 256 * 2**20
+
+
 def make_optimizer(params: Sequence[torch.Tensor], training_args) -> torch.optim.AdamW:
     """AdamW over ``params`` with every hyperparameter passed explicitly
-    (PyTorch's defaults differ from optax's)."""
+    (PyTorch's defaults differ from optax's), the leaves split, in order,
+    into parameter groups of at most ``GROUP_BYTES`` (a larger leaf alone in
+    its group): the grouped (``foreach``) path that the card takes by
+    default holds its temporaries (the square root of the second moments)
+    for one group at a time, not for every leaf at once, with the same
+    arithmetic on every element, so the same θ as one group
+    (``chip_smoke.py`` ``[full-grad]`` checks it bit for bit; the per-tensor
+    and fused paths round otherwise)."""
     ta = training_args
-    return torch.optim.AdamW(params, lr=ta.learning_rate, betas=tuple(ta.adam_betas),
+    groups: List[List[torch.Tensor]] = [[]]
+    size = 0
+    for p in params:
+        nbytes = p.numel() * p.element_size()
+        if groups[-1] and size + nbytes > GROUP_BYTES:
+            groups.append([])
+            size = 0
+        groups[-1].append(p)
+        size += nbytes
+    return torch.optim.AdamW([{"params": g} for g in groups], lr=ta.learning_rate, betas=tuple(ta.adam_betas),
                              eps=ta.adam_epsilon, weight_decay=ta.adam_weight_decay)
 
 
 @torch.no_grad()
-def apply_updates(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
-                  grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """One optimizer step on averaged ``grads`` (JAX ``_apply_updates_jit``,
-    ``trainers/abc.py:545``): the global norm, optax's ``clip_by_global_norm``
-    (unchanged below ``max_norm``, else ``g / norm * max_norm``), then the
-    AdamW update in place. Returns the pre-clip norm (a device scalar)."""
+def apply_updates(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], max_norm: float,
+                  count: int = 1) -> torch.Tensor:
+    """One optimizer step on the gradient sums of ``count`` grad steps held
+    in each leaf's ``.grad`` (JAX ``_apply_updates_jit``,
+    ``trainers/abc.py:545``), with no full-size temporary: each sum divided
+    by ``count`` in place (a leaf with no gradient gets zeros, as under
+    ``jax.grad``), the global norm, optax's ``clip_by_global_norm`` in place
+    a leaf at a time (``g / norm * max_norm`` from ``max_norm`` on; below
+    it ``g / 1 * 1``, the same bits), then the AdamW update, after which
+    the gradients are freed. Returns the pre-clip norm (a device scalar)."""
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad.div_(count))
     gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
     keep = gnorm < max_norm  # a device flag: no host sync
-    for p, g in zip(params, grads):
-        p.grad = torch.where(keep, g, g / gnorm * max_norm).to(p.dtype)
+    div = torch.where(keep, torch.ones_like(gnorm), gnorm)
+    mul = torch.where(keep, torch.ones_like(gnorm), torch.full_like(gnorm, max_norm))
+    for g in grads:
+        g.div_(div).mul_(mul)
+    del grads
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return gnorm
 
 
 class BaseTrainer(ABC):
+    #: grad steps summed into the trainable leaves' ``.grad`` since the last update
+    _accum_count = 0
+
     def __init__(self, config, adapter: BaseAdapter):
         self.config = config
         self.adapter = adapter
@@ -129,7 +167,6 @@ class BaseTrainer(ABC):
 
     def _init_optimizer(self) -> None:
         self.optimizer = make_optimizer(self.adapter.trainable_leaves(), self.training_args)
-        self._accum_grads: Optional[List[torch.Tensor]] = None
         self._accum_count = 0
 
     def _init_rewards(self) -> None:
@@ -156,25 +193,41 @@ class BaseTrainer(ABC):
     # ------------------------------------------------------------------
     # Optimizer mechanics
     # ------------------------------------------------------------------
-    def accumulate_grads(self, grads: Sequence[torch.Tensor]) -> None:
-        """Add one grad step's gradients (ordered as ``trainable_leaves``) to
-        the fp32 sums."""
-        if self._accum_grads is None:
-            self._accum_grads = [g.float().clone() for g in grads]
-        else:
-            for a, g in zip(self._accum_grads, grads):
-                a.add_(g.float())
+    def backward_step(self, batch: Dict[str, Any], ref_trainable=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One grad step on the live tree: the trainer's ``loss_fn`` of
+        ``batch``, its gradient added by the backward into each trainable
+        leaf's ``.grad`` (the one accumulation tree: a leaf's step gradient
+        is added as it is made and freed, and no second tree is held).
+        Returns (loss, aux); this is what ``optimize`` runs."""
+        loss, aux = self.loss_fn(self.adapter.trainable, batch, ref_trainable)
+        torch.autograd.backward(loss, inputs=self.adapter.trainable_leaves())
         self._accum_count += 1
+        return loss.detach(), aux
+
+    def loss_and_grads(self, batch: Dict[str, Any], ref_trainable=None):
+        """((loss, aux), one grad step's gradients in ``trainable_leaves``
+        order): :meth:`backward_step` with no accumulation pending, its
+        ``.grad`` taken off the leaves. A leaf the loss does not reach gets
+        zeros, as under ``jax.grad``: LTX-2's last block updates the audio
+        stream after the video stream's last read of it, and a Wan2.2 step
+        routes to one expert."""
+        leaves = self.adapter.trainable_leaves()
+        if any(p.grad is not None for p in leaves):
+            raise RuntimeError("loss_and_grads with accumulated gradients not yet applied")
+        loss, aux = self.backward_step(batch, ref_trainable)
+        self._accum_count -= 1
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return (loss, aux), grads
 
     def apply_accumulated(self) -> Optional[torch.Tensor]:
         """Average the accumulated gradients and step the optimizer; returns
         the gradient norm as a device scalar (read once per epoch)."""
-        if self._accum_grads is None or self._accum_count == 0:
+        if self._accum_count == 0:
             return None
-        grads = [a / self._accum_count for a in self._accum_grads]
-        gnorm = apply_updates(self.optimizer, self.adapter.trainable_leaves(), grads,
-                              self.training_args.max_grad_norm)
-        self._accum_grads = None
+        gnorm = apply_updates(self.optimizer, self.adapter.trainable_leaves(), self.training_args.max_grad_norm,
+                              self._accum_count)
         self._accum_count = 0
         self.global_step += 1
         return gnorm

@@ -75,22 +75,12 @@ class DecoupledTrainer(BaseTrainer):
         """(loss, aux metrics) of one grad step's batch."""
         raise NotImplementedError
 
-    def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
-        """((loss, aux), gradients in ``trainable_leaves`` order); a leaf the
-        loss does not reach (the expert a Wan2.2 step did not route to) gets
-        zeros, as under ``jax.grad``."""
-        loss, aux = self.loss_fn(trainable, batch, ref_trainable)
-        leaves = self.adapter.trainable_leaves(trainable)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return (loss.detach(), aux), [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-
     def optimize(self, samples: List[BaseSample], epoch: int) -> Dict[str, float]:
         ta = self.training_args
         ref_trainable = self.reference_trainable() if ta.requires_ref_model else None
         infos: List[Dict[str, Any]] = []
         for batch in self.grad_step_batches(samples, epoch):
-            (_, aux), grads = self.loss_and_grads(self.adapter.trainable, batch, ref_trainable)
-            self.accumulate_grads(grads)
+            _, aux = self.backward_step(batch, ref_trainable)
             infos.append(aux)  # device scalars, read once at the end of the phase
             if self._accum_count >= ta.gradient_accumulation_steps:
                 infos[-1]["train/grad_norm"] = self.apply_accumulated()

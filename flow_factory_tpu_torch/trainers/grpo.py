@@ -139,8 +139,7 @@ class GRPOTrainer(BaseTrainer):
         ref_trainable = self.adapter.ref_trainable() if float(getattr(ta, "kl_beta", 0.0)) > 0 else None
         infos: List[Dict[str, Any]] = []
         for batch in self.grad_step_batches(samples, epoch):
-            (_, aux), grads = self.loss_and_grads(self.adapter.trainable, batch, ref_trainable)
-            self.accumulate_grads(grads)
+            _, aux = self.backward_step(batch, ref_trainable)
             infos.append(aux)  # device scalars, read once at the end of the phase
             if self._accum_count >= ta.gradient_accumulation_steps:
                 infos[-1]["train/grad_norm"] = self.apply_accumulated()
@@ -201,16 +200,6 @@ class GRPOTrainer(BaseTrainer):
             aux["train/kl"] = kl.detach()
         aux["train/total_loss"] = loss.detach()
         return loss, aux
-
-    def loss_and_grads(self, trainable, batch: Dict[str, Any], ref_trainable=None):
-        """((loss, aux), gradients in ``trainable_leaves`` order). A leaf the
-        loss does not reach gets zeros, as under ``jax.grad``: LTX-2's last
-        block updates the audio stream after the video stream's last read of
-        it, so its audio-side LoRA has no path to the video log-prob."""
-        loss, aux = self.loss_fn(trainable, batch, ref_trainable)
-        leaves = self.adapter.trainable_leaves(trainable)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return (loss.detach(), aux), [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
 
 class GRPOGuardTrainer(GRPOTrainer):

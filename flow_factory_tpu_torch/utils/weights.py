@@ -12,7 +12,8 @@ names are diffusers' / transformers' names. Layouts:
   O) → (O, I, kt, kh, kw);
 * norm ``scale`` → ``weight``; the Wan VAE's ``gamma`` keeps its name and
   (C,) shape; embeddings keep their (rows, dim) layout;
-* the SD3 position grid (1, G, G, D) → diffusers' (1, G*G, D) buffer;
+* the SD3 position grid (1, G, G, D) → diffusers' (1, G*G, D) layout (a parameter
+  here, as in the JAX package: a full finetune trains it);
 * the Wan patch embedding, a Dense over (pt, ph, pw, C) voxels in flax →
   diffusers' Conv3d weight (D, C, pt, ph, pw).
 
@@ -737,6 +738,18 @@ def z_image_state_dicts(flax_params: Mapping[str, Any], configs: Mapping[str, An
     """All Z-Image components' flax trees → the port's state dicts."""
     maps = z_image_component_maps(configs)
     return {comp: convert(tree, *maps[comp]) for comp, tree in flax_params.items()}
+
+
+def full_from_flax(tree: Mapping[str, Any], maps: Tuple[ModuleMap, RawMap]) -> Dict[str, torch.Tensor]:
+    """A JAX full-finetune trainable tree of one component (numpy leaves)
+    → the port's ``{parameter name: fp32 tensor}`` tree through the
+    component's ``maps`` (strict both ways: a flax leaf no rule maps raises,
+    and so does a tree whose leaf count differs from the result's, e.g.
+    two leaves on one name). SD3's position grid is among the leaves."""
+    out = {name: t.float() for name, t in convert(tree, *maps).items()}
+    if len(out) != len(flatten_flax(tree)):
+        raise KeyError(f"full bridge: {len(flatten_flax(tree))} flax leaves gave {len(out)} port tensors")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 import torch_port_decoupled_cases as C
 from test_torch_port_flux import _host, shared_time_features  # noqa: F401
 from test_torch_port_wan22 import KINDS, PROMPTS, _config_dict, _media
-from test_torch_port_wan22_train import _config
+from test_torch_port_wan22_train import _config, spy_on_grad_steps
 
 #: per-row timesteps: row 0 above the MoE's boundary (800) and below it
 T_ROWS = {"row0_high": (900.0, 300.0, 650.0, 950.0), "row0_low": (600.0, 950.0, 820.0, 120.0)}
@@ -152,20 +152,9 @@ def test_moe_awm_epoch_routes_from_the_host_and_trains_both_experts(tmp_path):
                    "time_sampling_strategy": "logit_normal", "gradient_accumulation_steps": 8})
     trainer = load_trainer(cfg, device="cpu")
     seen = []
-    real = trainer.loss_and_grads
-
-    def spy(trainable, batch, ref_trainable=None):
-        (loss, aux), grads = real(trainable, batch, ref_trainable)
-        it, live = iter(grads), []
-        for comp in sorted(trainable):
-            n = sum(len(ab) for ab in trainable[comp].values())
-            if max(next(it).abs().max().item() for _ in range(n)) > 0:
-                live.append(comp)
-        seen.append((batch["timestep_host"], float(batch["timestep"][0]), live, float(aux["train/ratio_mean"]),
-                     float(aux["train/clip_frac"])))
-        return (loss, aux), grads
-
-    trainer.loss_and_grads = spy
+    spy_on_grad_steps(trainer, lambda batch, aux, live: seen.append(
+        (batch["timestep_host"], float(batch["timestep"][0]), live, float(aux["train/ratio_mean"]),
+         float(aux["train/clip_frac"]))))
     WanT2VAdapter.route_reads = 0
     try:
         trainer.start()

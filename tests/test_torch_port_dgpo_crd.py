@@ -116,6 +116,19 @@ def pairs():
     return out
 
 
+@pytest.fixture(scope="module")
+def shared():
+    """JAX quantities that every case of one pair reads, computed by the
+    first case that asks ({key: value})."""
+    return {}
+
+
+def _once(shared, key, compute):
+    if key not in shared:
+        shared[key] = compute()
+    return shared[key]
+
+
 def _jbatch(batch, guidance):
     tree = {k: ({kk: jnp.asarray(vv) for kk, vv in v.items()} if isinstance(v, dict) else jnp.asarray(v))
             for k, v in batch.items()}
@@ -178,7 +191,7 @@ DGPO_CASES = {
 
 @pytest.mark.parametrize("adapter,case", [("sd35", c) for c in DGPO_CASES]
                          + [("wan", c) for c in ("ema_ref-clip_kl", "kl_cfg3")])
-def test_dgpo_loss_aux_and_lora_grads_match_jax(pairs, adapter, case):
+def test_dgpo_loss_aux_and_lora_grads_match_jax(pairs, shared, adapter, case):
     """One micro-batch of 4 (two prompt groups, rows 0/2 and 1/3, each
     group's rows on one noise draw) at one shared timestep through the JAX
     trainer's ``_grad_fn`` and the port's ``with_frozen_velocities`` +
@@ -194,7 +207,8 @@ def test_dgpo_loss_aux_and_lora_grads_match_jax(pairs, adapter, case):
 
     ja, pa, lora, module_map, batch = pairs[adapter]
     opts = {"clip_kl": False, "use_ema_ref": False, "kl_cfg": 1.0, **DGPO_CASES[case]}
-    clip = _clip_range_binding_once_a_sign(ja, batch, lora) if opts["clip_dsm"] else (-0.01, 0.01)
+    clip = (_once(shared, ("clip", adapter), lambda: _clip_range_binding_once_a_sign(ja, batch, lora))
+            if opts["clip_dsm"] else (-0.01, 0.01))
     ta = types.SimpleNamespace(dpo_beta=5.0, group_size=2, clip_range=clip, **opts)
     needs_ema_ref = bool(ta.clip_dsm or ta.clip_kl or ta.use_ema_ref)
     jt, pt = object.__new__(JDGPO), object.__new__(DGPOTrainer)
@@ -213,7 +227,7 @@ def test_dgpo_loss_aux_and_lora_grads_match_jax(pairs, adapter, case):
     with torch.no_grad():
         old = (pa.merged_params("transformer", {"transformer": weights.lora_from_flax(ema_ref, module_map)})
                if needs_ema_ref else None)
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, pt.with_frozen_velocities(tb, old))
+    (loss, aux), grads = pt.loss_and_grads(pt.with_frozen_velocities(tb, old))
     _compare(loss, aux, grads, j_loss, j_aux, j_grads, pa, module_map, f"dgpo {adapter} {case}")
     if ta.clip_dsm:
         assert float(aux["train/clip_ratio"]) == 0.5
@@ -232,7 +246,7 @@ CRD_CASES = {
 
 @pytest.mark.parametrize("adapter,case", [("sd35", c) for c in CRD_CASES]
                          + [("wan", c) for c in ("bce-w0.5", "kl-reward_adaptive-cfg3")])
-def test_crd_loss_aux_and_lora_grads_match_jax(pairs, adapter, case):
+def test_crd_loss_aux_and_lora_grads_match_jax(pairs, shared, adapter, case):
     """One micro-batch of 4 at four per-row timesteps through the JAX
     trainer's ``_grad_fn`` and the port's ``loss_and_grads``, the old
     velocity (the LoRA with ``b`` x 0.2, without CFG) the JAX one for both
@@ -254,22 +268,27 @@ def test_crd_loss_aux_and_lora_grads_match_jax(pairs, adapter, case):
     adv = np.asarray(opts.pop("advantage", ADVANTAGE), np.float32)
     ta = types.SimpleNamespace(crd_beta=1.5, adv_clip_range=(-1.5, 1.5), **opts)
     batch = {**batch, "timestep": CRD_T, "advantage": adv}
-    jb = _jbatch(batch, 2.0)
-    fwd = {k: v for k, v in {**jb, **JD.tree_noised(jb["clean"], jb["noise"], jb["timestep"])}.items()
-           if not k.startswith("negative_")}
-    old_v = np.array(ja.training_velocity(_lora_tree(lora, 0.2), fwd))
-    tb = _tbatch(batch, 2.0)
-    with torch.no_grad():
-        params = pa.merged_params("transformer", {"transformer": weights.lora_from_flax(_scaled(lora, 0.2), module_map)})
-        ours = pa.training_velocity(None, uncfg({**tb, "latents": CRDTrainer.noised_latents(
-            tb["clean"]["latents"], tb["noise"]["latents"], tb["timestep"])}), params=params).numpy()
-    assert np.abs(ours - old_v).max() <= 1e-5 * np.abs(old_v).max()
+    jb, tb = _jbatch(batch, 2.0), _tbatch(batch, 2.0)
+
+    def old_velocity():  # the advantages do not reach it: one for every case of the pair
+        fwd = {k: v for k, v in {**jb, **JD.tree_noised(jb["clean"], jb["noise"], jb["timestep"])}.items()
+               if not k.startswith("negative_")}
+        old_v = np.array(ja.training_velocity(_lora_tree(lora, 0.2), fwd))
+        with torch.no_grad():
+            params = pa.merged_params("transformer",
+                                      {"transformer": weights.lora_from_flax(_scaled(lora, 0.2), module_map)})
+            ours = pa.training_velocity(None, uncfg({**tb, "latents": CRDTrainer.noised_latents(
+                tb["clean"]["latents"], tb["noise"]["latents"], tb["timestep"])}), params=params).numpy()
+        assert np.abs(ours - old_v).max() <= 1e-5 * np.abs(old_v).max()
+        return old_v
+
+    old_v = _once(shared, ("crd_old_v", adapter), old_velocity)
 
     jt, pt = object.__new__(JCRD), object.__new__(CRDTrainer)
     jt.training_args, jt.adapter, pt.training_args, pt.adapter = ta, ja, ta, pa
     (j_loss, j_aux), j_grads = jt._grad_fn(ja.trainable, ja.frozen_velocity_params(),
                                            {**jb, "old_v": {"latents": jnp.asarray(old_v)}}, ja.ref_trainable())
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, {**tb, "old_v": {"latents": torch.from_numpy(old_v)}},
+    (loss, aux), grads = pt.loss_and_grads({**tb, "old_v": {"latents": torch.from_numpy(old_v)}},
                                            pt.reference_trainable())
     _compare(loss, aux, grads, j_loss, j_aux, j_grads, pa, module_map, f"crd {adapter} {case}")
 
@@ -299,8 +318,8 @@ def test_crd_micro_batch_of_one_gives_exactly_zero(pairs):
     jt.training_args, jt.adapter, pt.training_args, pt.adapter = ta, ja, ta, pa
     (j_loss, _), j_grads = jt._grad_fn(ja.trainable, ja.frozen_velocity_params(),
                                        {**jb, "old_v": {"latents": jnp.asarray(old_v)}}, ja.ref_trainable())
-    (loss, _), grads = pt.loss_and_grads(pa.trainable, {**_tbatch(one, 2.0),
-                                                        "old_v": {"latents": torch.from_numpy(old_v)}})
+    (loss, _), grads = pt.loss_and_grads({**_tbatch(one, 2.0),
+                                            "old_v": {"latents": torch.from_numpy(old_v)}})
     assert float(j_loss) == 0.0 and float(loss) == 0.0
     assert all(not np.asarray(g).any() for g in jax.tree.leaves(j_grads))
     assert all(not g.any() for g in grads)

@@ -79,7 +79,7 @@ def _full_bridge(pa):
     from flow_factory_tpu_torch.utils import weights
 
     maps = weights.wan_transformer_map(pa.component_configs["transformer"].num_layers)
-    return lambda tree: weights.convert(tree, *maps)
+    return lambda tree: weights.full_from_flax(tree, maps)
 
 
 def _flat(tree):

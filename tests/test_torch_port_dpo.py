@@ -181,7 +181,7 @@ def _both_losses(pair, lora_b, beta: float):
     (jloss, jaux), jgrads = jt._grad_fn(trainable, ja.frozen_velocity_params(), jbatch, ja.ref_trainable())
     pa.load_lora("transformer", weights.lora_from_flax(tree, module_map))
     tbatch = {**_tree(batch, torch.from_numpy), "guidance_scale": 3.5}
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, tbatch, pt.reference_trainable())
+    (loss, aux), grads = pt.loss_and_grads(tbatch, pt.reference_trainable())
     it = iter(grads)
     named = {p: {k: next(it) for k in sorted(pa.trainable["transformer"][p])}
              for p in sorted(pa.trainable["transformer"])}

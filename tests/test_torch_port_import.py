@@ -210,6 +210,24 @@ def test_import_lands_before_the_trainable_copies_and_resume(cases, tmp_path):
         assert torch.equal(t, full.trainable["transformer"][name].detach()), name
 
 
+def test_sd3_full_import_trains_the_position_grid(cases):
+    """F9: SD3's position grid is a parameter, as in JAX. A full finetune
+    reads the checkpoint's grid into its trainable tree (fp32, with a
+    gradient, the imported values and not the init) and keeps no module
+    copy of it; LoRA mode leaves it frozen in the module, outside the LoRA
+    tree."""
+    case = cases("sd3-5")
+    init = _port("sd3-5", case.configs).modules["transformer"].state_dict()["pos_embed.pos_embed"]
+    lora = _port("sd3-5", case.ckpt)
+    grid = lora.modules["transformer"].get_parameter("pos_embed.pos_embed")
+    assert not grid.requires_grad and not torch.equal(grid, init)
+    assert not any("pos_embed" in path for path in lora.trainable["transformer"])
+    full = _port("sd3-5", case.ckpt, finetune_type="full")
+    theirs = full.trainable["transformer"]["pos_embed.pos_embed"]
+    assert theirs.requires_grad and theirs.dtype == torch.float32 and torch.equal(theirs.detach(), grid)
+    assert full.modules["transformer"].get_parameter("pos_embed.pos_embed").is_meta
+
+
 # ---------------------------------------------------------------------------
 # The copies of the JAX functions, against the JAX functions
 # ---------------------------------------------------------------------------

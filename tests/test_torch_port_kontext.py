@@ -286,7 +286,7 @@ def test_kontext_grpo_loss_and_lora_grads_match_jax(both, shared_time_features):
         trainer.training_args, trainer.use_guard, trainer.adapter = adapter.training_args, False, adapter
     (j_loss, j_aux), j_grads = jt._grad_fn(ja.trainable, ja.frozen_velocity_params(),
                                            _step_batch(samples, step, jnp.asarray, shift, adv), None)
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, _step_batch(samples, step, torch.from_numpy, shift, adv))
+    (loss, aux), grads = pt.loss_and_grads(_step_batch(samples, step, torch.from_numpy, shift, adv))
     assert sorted(aux) == sorted(j_aux)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5, atol=1e-7)
     for k in j_aux:

@@ -218,7 +218,7 @@ def test_nft_and_awm_loss_aux_and_lora_grads_match_jax(pairs, trainer, adapter, 
         ema_lora = {p: {"a": ab["a"], "b": 0.5 * ab["b"]} for p, ab in lora.items()}
         pa.ema = EMA({"transformer": weights.lora_from_flax(ema_lora, module_map)})
     try:
-        (loss, aux), grads = pt.loss_and_grads(pa.trainable, _tbatch(batch), pt.reference_trainable() if kl else None)
+        (loss, aux), grads = pt.loss_and_grads(_tbatch(batch), pt.reference_trainable() if kl else None)
     finally:
         pa.ema = None
     assert sorted(aux) == sorted(j_aux)

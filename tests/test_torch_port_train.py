@@ -219,7 +219,7 @@ def test_grpo_loss_and_grads_match_jax(pair, case):
     pt = object.__new__(GRPOTrainer)
     pt.training_args, pt.use_guard, pt.adapter = t_ta, guard, pa
     p_ref = pa.ref_trainable() if case == "grpo-kl-v" else None
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, _tbatch(batch), p_ref)
+    (loss, aux), grads = pt.loss_and_grads(_tbatch(batch), p_ref)
 
     assert sorted(aux) == sorted(j_aux)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5, atol=1e-7)
@@ -242,9 +242,10 @@ class _LeafAdapter:
 
 @pytest.mark.parametrize("max_norm", [100.0, 0.05], ids=["no-clip", "clip-bites"])
 def test_optimizer_steps_match_optax(max_norm):
-    """Two accumulated grad steps then an update, twice: the port's
-    ``accumulate_grads``/``apply_accumulated`` (fp32 sums / count, optax's
-    global-norm clip, AdamW with the configured betas, epsilon and decay)
+    """Two accumulated grad steps then an update, twice: the port's sums in
+    each leaf's ``.grad`` (as ``backward_step`` leaves them) and
+    ``apply_accumulated`` (fp32 sums / count, optax's global-norm clip,
+    AdamW with the configured betas, epsilon and decay)
     against the JAX trainer's jitted accumulate and ``_apply_updates_jit``
     over ``optax.chain(clip_by_global_norm, adamw)``: updated weights 1e-6,
     grad norms 1e-6 relative."""
@@ -276,7 +277,10 @@ def test_optimizer_steps_match_optax(max_norm):
         j_params, j_state, gnorm = jabc._apply_updates_jit(opt, j_params, j_state, acc, 2)
         j_norms.append(float(gnorm))
         for g in micro:
-            trainer.accumulate_grads([torch.from_numpy(g[k]) for k in sorted(shapes)])
+            for leaf, k in zip(leaves, sorted(shapes)):
+                step = torch.from_numpy(g[k])
+                leaf.grad = step.clone() if leaf.grad is None else leaf.grad.add_(step)
+            trainer._accum_count += 1
         norms.append(float(trainer.apply_accumulated()))
     assert trainer.global_step == 2
     np.testing.assert_allclose(norms, j_norms, rtol=1e-6)

@@ -410,6 +410,22 @@ def test_v2v_condition_rollout_and_replay_match_jax(pairs):
 # GRPO gradients of both experts and of TI2V against the JAX _grad_fn
 # ---------------------------------------------------------------------------
 
+def _jax_trainer(p, cls, training_args, **attrs):
+    """A bare JAX trainer of ``cls`` on the pair ``p``'s adapter, shared
+    across cases: the one an earlier case made with the same class,
+    arguments and attributes, which keeps its jitted ``_grad_fn`` compiled
+    for the pair's shapes."""
+    cache = p.__dict__.setdefault("jax_trainers", {})
+    key = (cls, repr(sorted(vars(training_args).items())), repr(sorted(attrs.items())))
+    if key not in cache:
+        jt = object.__new__(cls)
+        jt.training_args, jt.adapter = training_args, p.ja
+        for name, value in attrs.items():
+            setattr(jt, name, value)
+        cache[key] = jt
+    return cache[key]
+
+
 def _grad_batch(p, step):
     """One GRPO micro-batch of the port's rollout at ``step``, η 0.7 (a
     stored step with no noise has its mean as next latents, which keeps the
@@ -439,12 +455,11 @@ def _grpo_grads(p, step):
     from flow_factory_tpu_torch.trainers.grpo import GRPOTrainer
 
     jbatch, tbatch = _grad_batch(p, step)
-    jt = object.__new__(JGRPO)
-    jt.training_args, jt.use_guard, jt.adapter = copy.copy(p.ja.training_args), False, p.ja
+    jt = _jax_trainer(p, JGRPO, copy.copy(p.ja.training_args), use_guard=False)
     (j_loss, j_aux), j_grads = jt._grad_fn(p.trainable, p.ja.frozen_velocity_params(), jbatch, None)
     pt = object.__new__(GRPOTrainer)
     pt.training_args, pt.use_guard, pt.adapter = copy.copy(p.pa.training_args), False, p.pa
-    (loss, aux), grads = pt.loss_and_grads(p.pa.trainable, tbatch)
+    (loss, aux), grads = pt.loss_and_grads(tbatch)
     return (float(j_loss), j_aux, _host(j_grads)), (float(loss), aux, _port_grads(p.pa, grads))
 
 
@@ -545,11 +560,11 @@ def test_moe_decoupled_reference_routes_as_jax(pairs, trainer, t):
     tcls = getattr(importlib.import_module(f"flow_factory_tpu_torch.trainers.{kind}"), f"{kind.upper()}Trainer")
     ta = copy.copy(p.pa.training_args)
     ta.beta, ta.nft_beta, ta.kl_beta, ta.adv_clip_range = 10.0, 0.7, 0.5, (-1.5, 1.5)
-    jt, pt = object.__new__(jcls), object.__new__(tcls)
-    jt.training_args, jt.adapter, pt.training_args, pt.adapter = ta, p.ja, ta, p.pa
+    jt, pt = _jax_trainer(p, jcls, ta), object.__new__(tcls)
+    pt.training_args, pt.adapter = ta, p.pa
     jb, tb = _decoupled_batch(p, kind, t)
     (j_loss, j_aux), j_grads = jt._grad_fn(p.trainable, p.ja.frozen_velocity_params(), jb, p.ja.ref_trainable())
-    (loss, aux), grads = pt.loss_and_grads(p.pa.trainable, tb, pt.reference_trainable())
+    (loss, aux), grads = pt.loss_and_grads(tb, pt.reference_trainable())
     if kind == "nft":
         assert float(j_aux["train/kl"]) > 0
     assert sorted(aux) == sorted(j_aux)

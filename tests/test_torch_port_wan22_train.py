@@ -32,6 +32,30 @@ def _isolated():
     set_world_size_override(None)
 
 
+def spy_on_grad_steps(trainer, record):
+    """Wrap ``trainer.backward_step``: after each grad step ``record(batch,
+    aux, live)``, ``live`` the sorted trainable components whose leaves the
+    step's gradient reached (their ``.grad``, where the trainer accumulates,
+    changed)."""
+    real = trainer.backward_step
+
+    def reached(grad, before) -> bool:
+        if grad is None:
+            return False
+        return bool(grad.abs().max() > 0) if before is None else not torch.equal(grad, before)
+
+    def spy(batch, ref_trainable=None):
+        ad = trainer.adapter
+        leaves = {c: ad.trainable_leaves({c: ad.trainable[c]}) for c in sorted(ad.trainable)}
+        before = {c: [None if p.grad is None else p.grad.clone() for p in ls] for c, ls in leaves.items()}
+        out = real(batch, ref_trainable)
+        live = [c for c, ls in leaves.items() if any(reached(p.grad, b) for p, b in zip(ls, before[c]))]
+        record(batch, out[1], live)
+        return out
+
+    trainer.backward_step = spy
+
+
 def test_moe_routes_on_the_card_fixtures_schedule_match_jax():
     """tests/fixtures/wan22_a14b_grpo.yaml's schedule (10 steps, flow shift
     3): the two packages' timesteps are equal bit for bit, step 3 is 875.0
@@ -88,19 +112,7 @@ def _start(trainer, tmp_path):
     trainable components whose LoRA got a non-zero gradient, and the batch
     keys; returns the records and the train rows of metrics.jsonl."""
     seen = []
-    real = trainer.loss_and_grads
-
-    def spy(trainable, batch, ref_trainable=None):
-        out = real(trainable, batch, ref_trainable)
-        it, live = iter(out[1]), []
-        for comp in sorted(trainable):
-            n = sum(len(ab) for ab in trainable[comp].values())
-            if max(next(it).abs().max().item() for _ in range(n)) > 0:
-                live.append(comp)
-        seen.append((batch["timestep_host"], live, batch))
-        return out
-
-    trainer.loss_and_grads = spy
+    spy_on_grad_steps(trainer, lambda batch, aux, live: seen.append((batch["timestep_host"], live, batch)))
     try:
         trainer.start()
     finally:
@@ -163,8 +175,9 @@ def test_nft_on_the_moe_gives_the_untaken_expert_zeros(tmp_path):
     """A decoupled trainer on the MoE (one DiffusionNFT epoch of the tiny
     MoE through ``load_trainer``): each grad step routes on row 0's t, as
     JAX does (the trainer gives it from the host as ``timestep_host``); it
-    gives the routed expert's LoRA a gradient and the other expert's exact
-    zeros, not None."""
+    adds a gradient to the routed expert's LoRA and nothing to the other
+    expert's, which the update then takes as exact zeros, as under
+    ``jax.grad``."""
     from flow_factory_tpu_torch.models.wan.t2v import WanT2VAdapter
     from flow_factory_tpu_torch.trainers import load_trainer
 
@@ -174,19 +187,7 @@ def test_nft_on_the_moe_gives_the_untaken_expert_zeros(tmp_path):
     trainer = load_trainer(cfg, device="cpu")
     assert isinstance(trainer.adapter, WanT2VAdapter)
     seen = []
-    real = trainer.loss_and_grads
-
-    def spy(trainable, batch, ref_trainable=None):
-        out = real(trainable, batch, ref_trainable)
-        it, live = iter(out[1]), []
-        for comp in sorted(trainable):
-            n = sum(len(ab) for ab in trainable[comp].values())
-            if max(next(it).abs().max().item() for _ in range(n)) > 0:
-                live.append(comp)
-        seen.append((float(batch["timestep"][0]), live))
-        return out
-
-    trainer.loss_and_grads = spy
+    spy_on_grad_steps(trainer, lambda batch, aux, live: seen.append((float(batch["timestep"][0]), live)))
     try:
         trainer.start()
     finally:

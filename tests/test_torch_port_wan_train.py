@@ -155,7 +155,7 @@ def test_wan_grpo_loss_and_grads_match_jax(pair, case):
 
     pt = object.__new__(GRPOTrainer)
     pt.training_args, pt.use_guard, pt.adapter = copy.copy(pa.training_args), guard, pa
-    (loss, aux), grads = pt.loss_and_grads(pa.trainable, _tbatch(batch))
+    (loss, aux), grads = pt.loss_and_grads(_tbatch(batch))
 
     assert sorted(aux) == sorted(j_aux)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5, atol=1e-7)

@@ -231,11 +231,11 @@ def run_case(kind: str, pair: Pair, t, s: float = None):
         tb.update(group_ids=torch.tensor(ids), num_groups=num_groups)
         with torch.no_grad():
             old_params = pa.merged_params(pa.velocity_component, port_lora(pair, ema_ref))
-        (loss, aux), grads = pt.loss_and_grads(pa.trainable, pt.with_frozen_velocities(tb, old_params))
+        (loss, aux), grads = pt.loss_and_grads(pt.with_frozen_velocities(tb, old_params))
     else:
         args = (ja.trainable, frozen, jb, ref) + ((None,) if kind == "awm" else ())
         (j_loss, j_aux), j_grads = jt._grad_fn(*args)
-        (loss, aux), grads = pt.loss_and_grads(pa.trainable, tb, pt.reference_trainable())
+        (loss, aux), grads = pt.loss_and_grads(tb, pt.reference_trainable())
     return ((float(j_loss), {k: float(v) for k, v in j_aux.items()}, host(j_grads)),
             (float(loss), {k: float(v) for k, v in aux.items()}, port_grads(pair, grads)), ta)
 
