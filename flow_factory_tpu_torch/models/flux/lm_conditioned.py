@@ -117,16 +117,21 @@ class LMConditionedAdapter(Flux1Adapter):
     def _transformer_args(self, x, t, ctx, img_ids, txt_ids) -> tuple:
         raise NotImplementedError
 
-    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
+    def _transformer_call(self, params, x, t, ctx, img_ids, txt_ids) -> torch.Tensor:
+        """The transformer on one batch: on ``params`` when given, else on
+        its own weights."""
         model = self.modules["transformer"]
+        args = self._transformer_args(x, t, ctx, img_ids, txt_ids)
+        return functional_call(model, params, args) if params else model(*args)
+
+    def _velocity(self, latents, t, embeds, guidance_scale, do_cfg, params=None) -> torch.Tensor:
         dt = self.component_configs["transformer"].compute_dtype
         img_ids, txt_ids = embeds["img_ids"], embeds["txt_ids"]
         img_ids = img_ids[0] if img_ids.ndim == 3 else img_ids
         txt_ids = txt_ids[0] if txt_ids.ndim == 3 else txt_ids
 
         def fwd(x, tt, ctx):
-            args = self._transformer_args(x.to(dt), tt, ctx, img_ids, txt_ids)
-            return (functional_call(model, params, args) if params else model(*args)).float()
+            return self._transformer_call(params, x.to(dt), tt, ctx, img_ids, txt_ids).float()
 
         if do_cfg and "negative_prompt_embeds" in embeds:
             v = fwd(torch.cat([latents, latents]), torch.cat([t, t]),

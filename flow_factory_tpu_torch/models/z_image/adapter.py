@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from ...utils.checkpoint import ComponentImport
 from ...utils.model_config import z_image_transformer_overrides_from_config
@@ -71,6 +72,19 @@ class ZImageAdapter(LMConditionedAdapter):
 
     def _transformer_args(self, x, t, ctx, img_ids, txt_ids):
         return (x, t, ctx, img_ids, txt_ids)
+
+    def _transformer_call(self, params, x, t, ctx, img_ids, txt_ids) -> torch.Tensor:
+        """On the CPU one sample a call (F19): the CPU splits an elementwise op
+        (the SwiGLU's silu, the RMS norms' rsqrt) over its threads in chunks
+        and rounds an element in a chunk's scalar tail otherwise than in its
+        vector body, so at several threads a row's bits would follow its
+        place in the batch, and a replay of shuffled rows would miss the
+        rollout's; alone, a sample meets the same ops wherever it sits, at any
+        thread count. On the card the batch runs whole (F18 holds it there)."""
+        call = super()._transformer_call
+        if x.device.type != "cpu" or x.shape[0] == 1:
+            return call(params, x, t, ctx, img_ids, txt_ids)
+        return torch.cat([call(params, *row, img_ids, txt_ids) for row in zip(x.split(1), t.split(1), ctx.split(1))])
 
     def preprocess_func(self, batch: Dict[str, Any], **_) -> Dict[str, np.ndarray]:
         """Prompts, and under CFG (guidance > 1) their negatives (the

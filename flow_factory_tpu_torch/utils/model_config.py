@@ -193,8 +193,9 @@ def sd3_transformer_overrides_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]
 
 def wan_transformer_overrides_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """diffusers ``WanTransformer3DModel`` keys → ``WanConfig``. ``image_dim``
-    (the CLIP image stream's width, JAX's ``image_context_dim``) has no field
-    here: that stream is not ported (ROADMAP Queue 1 item 16)."""
+    (the CLIP image stream's width, ``image_context_dim``) is not read here:
+    the I2V adapter takes it from its vision tower
+    (``models/wan/i2v.py``, as JAX ``wan/i2v.py`` does)."""
     out: Dict[str, Any] = {}
     for src, dst in (("dim", "hidden_dim"), ("ffn_dim", "ffn_dim"), ("num_heads", "num_heads"),
                      ("num_layers", "num_layers"), ("in_channels", "in_channels"), ("out_channels", "out_channels"),

@@ -172,6 +172,35 @@ def test_rollout_matches_jax_and_replays_with_ratio_one(mode, z, shared_time_fea
         assert np.all(np.exp(lp.numpy().astype(np.float64) - old[i]) == 1.0), i
 
 
+@pytest.mark.parametrize("threads", [4, 8])
+def test_shuffled_replay_is_exact_at_several_threads(threads, z):
+    """F19: at ``threads`` intra-op threads, a CFG rollout of four prompts
+    and the no-grad replay of its rows in another order (the shuffled
+    micro-batch of a grad step) give exp(new − old) == 1.0 exactly on every
+    stored step, as the JAX package's replay does (the SDE steps' ratio and
+    the zero-noise steps' log-prob, which a velocity an ulp off moves by
+    ~1e10). The thread count is restored afterwards."""
+    pa = z["pa"]
+    embeds = {k: np.concatenate([v, v]) for k, v in z["p_pre"].items()
+              if k in ("prompt_embeds", "negative_prompt_embeds")}
+    perm = [3, 0, 2, 1]
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        pa.rollout()
+        samples = pa.inference(prompt=PROMPTS * 2, seed=SEED, **embeds)
+        pa.train()
+        new = pa.replay_log_probs([samples[i] for i in perm])
+    finally:
+        torch.set_num_threads(n)
+        pa.train()
+    assert len(samples) == 4 and samples[0].negative_prompt_embeds is not None
+    old = np.stack([samples[i].log_probs for i in perm], axis=1)
+    assert sorted(new) == [0, 1, 2, 3]
+    for i, lp in new.items():
+        assert np.all(np.exp(lp.numpy().astype(np.float64) - old[i]) == 1.0), (i, lp.numpy() - old[i])
+
+
 def test_grpo_loss_and_lora_grads_match_jax(z, shared_time_features):
     """The CFG rollout's batch at its first SDE step through the JAX GRPO
     ``_grad_fn`` and the port's ``loss_and_grads``, the old log-probs moved
@@ -207,10 +236,10 @@ def test_z_image_grpo_epoch_through_load_trainer(tmp_path):
     tests/fixtures/smoke_grpo_z_image.yaml (remat on): one epoch of CFG
     rollouts whose samples keep their "" negatives, finite metrics, one
     optimizer step, a moved LoRA, and no kernel launch on the CPU. The grad
-    steps replay the rollout's rows shuffled, and the CPU's GEMM of the
-    bias-free SwiGLU ``w2`` rounds a row by its position in the batch, so a
-    ratio there may sit one fp32 ulp of exp off 1.0 (the replay in the
-    rollout's order is exact: ``test_rollout_matches_jax_and_replays_with_ratio_one``)."""
+    steps replay the rollout's rows shuffled, with every ratio exactly 1.0
+    (F19: the CPU forward runs one sample a call, so a row's bits do not
+    follow its place in the batch; at several threads:
+    ``test_shuffled_replay_is_exact_at_several_threads``)."""
     from flow_factory_tpu_torch import ops
     from flow_factory_tpu_torch.hparams import Arguments
     from flow_factory_tpu_torch.models.z_image import ZImageAdapter
@@ -233,7 +262,7 @@ def test_z_image_grpo_epoch_through_load_trainer(tmp_path):
     assert len(train) == 1 and trainer.global_step == 1
     assert all(np.isfinite(v) for k, v in train[0].items() if k.startswith(("train/", "reward/")))
     stat = lambda key, how: train[0].get(f"{key}_{how}", train[0].get(key))
-    assert 1.0 - 2.0 ** -23 <= stat("train/ratio_min", "min") <= stat("train/ratio_max", "max") <= 1.0 + 2.0 ** -23
+    assert stat("train/ratio_min", "min") == stat("train/ratio_max", "max") == 1.0
     assert all(s.negative_prompt_embeds.shape == (16, 32) for s in trainer.reward_buffer.samples)
     assert max((trainer.adapter.trainable["transformer"][p]["lora_B"] - b).abs().max().item()
                for p, b in b0.items()) > 0
