@@ -176,6 +176,25 @@ printing one line and exiting non-zero on failure:
    at Wan2.1-I2V-14B's image cross-attention (B 16 H 40, 512 video tokens
    against the 257 CLIP tokens: one key in the last 64-key tile), through
    the checks of 2 (the one-key ragged tail's control among them);
+8i. ring (run right after the family kernel checks): ``ops/ring_attention.py``
+   as a loopback ring of 4 virtual ranks in one process through the
+   module's hop and merge functions: at B1 H4 S2048 D128 bf16 against the
+   plain versions on the whole sequence (a merge without the lse weights
+   rejected), at B1 H40 S75600 D128 (Wan2.1-T2V-14B's self-attention at
+   720 px x 81 frames, a hop 18900 x 18900) against K3 and K2 on the whole
+   sequence at their bars, 16 K3 / 16 K2a / 16 K2b launches a ring call and
+   no library attention op; the ring's forward and backward ms, a hop's
+   K3/K2a/K2b beside their bounds, plain versions and SDPA (the kernel
+   table's ``ring-hop`` rows), the merge's ms;
+10b. dist1 (right after 7): ``examples/multinode/wan21_fsdp.yaml`` at world
+   size 1 (tests/fixtures/wan21_dist1.yaml: Wan2.1-1.3B at full width and
+   depth, 256 px x 5 frames, micro-batch 1, 2 prompts x group 4, fsdp 1,
+   the brightness reward): one epoch through ``torchrun --standalone
+   --nproc_per_node 1 -m flow_factory_tpu_torch.cli`` (NCCL, the mesh
+   (1, 1, 1)) and one in this process without a launcher, the LoRA bit for
+   bit, ratio exactly 1.0, the collective calls; then
+   ``tools/f18_bisect.py``'s bisection of the DiT at the per-rank CFG
+   batch of 2 against its first row;
 15b. wan-i2v14b (after 15): Wan2.1-I2V-14B GRPO with the CLIP image stream
    at full width, 7 of 40 layers, the 32-layer ViT-H/14, on
    tests/fixtures/wan21_i2v14b_grpo.yaml (256 px x 5 frames; two records of
@@ -193,8 +212,8 @@ printing one line and exiting non-zero on failure:
    AdaLN norms of both, Z-Image's final layer to fp32), through the checks
    of 2;
 16. qwen-grad, z-image, qwen-image, qwen-edit: the LoRA gradients of both
-   transformers at width 3072, depth 2; Z-Image at full size on
-   tests/fixtures/z_image_grpo.yaml (two GRPO epochs, then the Turbo
+   transformers at width 3072, depth 2; Z-Image at full width, 19 of 38
+   layers (tests/fixtures/z_image_cut), on tests/fixtures/z_image_grpo.yaml (two GRPO epochs, then the Turbo
    serving rollout and its replay); Qwen-Image at full width, 16 double
    blocks (tests/fixtures/qwen_image_cut) on
    tests/fixtures/qwen_image_grpo.yaml (a serving rollout and its replay,
@@ -209,7 +228,7 @@ printing one line and exiting non-zero on failure:
    2048 / 512 / 2560) rows), through the checks of 2;
 17. klein, flux2: FLUX.2-Klein at full size (8 + 24 blocks at width 3072,
    the whole Mistral-Small) on tests/fixtures/flux2_klein_grpo.yaml, and
-   FLUX.2 multi-reference I2I at full width with the gated FFN, 8 + 16
+   FLUX.2 multi-reference I2I at full width with the gated FFN, 4 + 8
    blocks and an 8-layer Mistral-Small (tests/fixtures/flux2_cut) on
    tests/fixtures/flux2_grpo.yaml, both with the caption upsampler: the
    upsampler's strings the same on a second call, a serving rollout and its
@@ -284,7 +303,8 @@ does the same for K5/K6 and their backwards (``norms_only``).
 times of 8h's shapes;
 ``python3 chip_smoke.py --full`` the build and 7b;
 ``python3 chip_smoke.py --full-grad SEED [SEED ...]`` the build and
-``[full-grad]`` at each seed.
+``[full-grad]`` at each seed;
+``python3 chip_smoke.py --ring`` and/or ``--dist1`` the build and 8i and/or 10b.
 """
 from __future__ import annotations
 
@@ -516,7 +536,7 @@ def _k3_call(B: int, H: int, Sq: int, Sk: int, D: int, q_contiguous: bool, scale
     return functools.partial(A.flash_attention, q, view(Sk), view(Sk), scale)
 
 
-def _device_ms(fn, calls: int = 20, sessions: int = 5) -> float:
+def _device_ms(fn, calls: int = 20, sessions: int = 10) -> float:
     """Device time of one call of ``fn`` by torch.profiler over ``calls``
     back-to-back calls (the CUDA-event time of back-to-back calls is the
     host's where the wrapper takes longer to enqueue than the kernel to run):
@@ -525,8 +545,9 @@ def _device_ms(fn, calls: int = 20, sessions: int = 5) -> float:
     summed over kernels. Sessions late in this long process lose records: a
     sum over the records over ``calls`` read low (K2b at the FLUX.1 shape
     0.64 ms from 12-13 records of 20, against 1.03 ms by events and in a
-    fresh process), and one session kept none. So a session that lost
-    records is repeated, up to ``sessions`` in all, the one that kept the
+    fresh process), one session kept none, and once five sessions in a row
+    kept none. So a session that lost records is repeated, up to
+    ``sessions`` in all, the one that kept the
     most kernels and records is used, and its share of records kept is
     logged where it is below 1. Profiling leaves the host slower for the
     rest of the process (the host-bound Wan eval took longer after a profile
@@ -5143,7 +5164,7 @@ QWEN_TAGS = {
        for name in ("ln_mul_add", "ln_mul_add_backward")},
 }
 #: peak device memory predicted for each phase, GiB (PERF.md §6)
-QWEN_PEAK_PREDICTED = {"z-image": (38.0, 50.0), "qwen-image": (37.0, 41.0), "qwen-edit": (45.0, 49.0)}
+QWEN_PEAK_PREDICTED = {"z-image": (26.0, 33.0), "qwen-image": (37.0, 41.0), "qwen-edit": (45.0, 49.0)}
 #: the double blocks of Qwen-Image and Edit-Plus on the card, of 60: the
 #: depth tests/fixtures/qwen_image_cut/transformer/config.json sets
 QWEN_CUT_BLOCKS = 16
@@ -5302,11 +5323,11 @@ def _lora_moved(tag: str, lora, b0) -> None:
 
 
 def phase_z_image() -> dict:
-    """[z-image]: Z-Image at full size on tests/fixtures/z_image_grpo.yaml (38
-    layers, width 3072, the Qwen3-sized LM; 512 px: a joint length of 1536;
-    10 steps, CFG 4 with the negatives "", B 16 a forward; remat): two GRPO
-    epochs by :func:`_grpo_epoch` (38 K3 and 1 K5 a rollout step; 76 K3, 38
-    K2a, 38 K2b, 1 K5 and its backward a grad step; ratio exactly 1.0 on
+    """[z-image]: Z-Image at full width on tests/fixtures/z_image_grpo.yaml (19
+    of 38 layers, width 3072, the Qwen3-sized LM; 512 px: a joint length of
+    1536; 10 steps, CFG 4 with the negatives "", B 16 a forward; remat): two
+    GRPO epochs by :func:`_grpo_epoch` (19 K3 and 1 K5 a rollout step; 38
+    K3, 19 K2a, 19 K2b, 1 K5 and its backward a grad step; ratio exactly 1.0 on
     every grad step; each sample keeps its negatives), a moved LoRA, peak
     memory, a profiled grad step; then a serving rollout at the Turbo
     geometry (6 steps, guidance 0, no negatives: B 8, no CFG) and its
@@ -5320,8 +5341,8 @@ def phase_z_image() -> dict:
     trainer = _wan22_load_trainer("z-image", _qwen_config("z_image_grpo.yaml"))
     ad, ta = trainer.adapter, trainer.training_args
     tcfg, lm = ad.component_configs["transformer"], ad.component_configs["text_encoder"]
-    if (tcfg.num_layers, tcfg.hidden_dim, lm.num_layers, lm.hidden_dim, tcfg.remat) != (38, 3072, 36, 2560, True):
-        fail(f"[z-image] not the full-size preset under remat: {tcfg}, {lm}")
+    if (tcfg.num_layers, tcfg.hidden_dim, lm.num_layers, lm.hidden_dim, tcfg.remat) != (19, 3072, 36, 2560, True):
+        fail(f"[z-image] not the cut preset (tests/fixtures/z_image_cut) under remat: {tcfg}, {lm}")
     forward, step = _z_image_launches(tcfg.num_layers)
     lora = ad.trainable["transformer"]
     b0 = {p: ab["lora_B"].detach().clone() for p, ab in lora.items()}
@@ -5357,7 +5378,7 @@ def phase_z_image() -> dict:
         ad.train()
 
     _wan22_finish(trainer, "z-image", runs, counts,
-                  "one Z-Image grad step (B 16 x 1536 tokens, 38 layers, remat; LoRA merge, forward, backward, AdamW)",
+                  "one Z-Image grad step (B 16 x 1536 tokens, 19 layers, remat; LoRA merge, forward, backward, AdamW)",
                   QWEN_PEAK_PREDICTED, turbo)
     return counts
 
@@ -5555,7 +5576,7 @@ def qwen_only(flags) -> int:
 
 
 # ---------------------------------------------------------------------------
-# FLUX.2-Klein at full size and FLUX.2 at full width (8 + 16 blocks, the
+# FLUX.2-Klein at full size and FLUX.2 at full width (4 + 8 blocks, the
 # gated FFN), both conditioned on Mistral-Small, under GRPO
 # ---------------------------------------------------------------------------
 
@@ -5576,7 +5597,7 @@ FLUX2_TAGS = {
     **{name: {shape.tag: ("flux2",) for shape in FLUX2_K5_SHAPES} for name in ("ln_mul_add", "ln_mul_add_backward")},
 }
 #: peak device memory predicted for each phase, GiB (PERF.md §6)
-FLUX2_PEAK_PREDICTED = {"klein": (65.0, 73.0), "flux2": (50.0, 60.0)}
+FLUX2_PEAK_PREDICTED = {"klein": (65.0, 73.0), "flux2": (32.0, 40.0)}
 
 
 def _flux2_launches(num_double: int, num_single: int):
@@ -5820,15 +5841,15 @@ def phase_klein() -> dict:
 
 
 def phase_flux2() -> dict:
-    """[flux2]: FLUX.2 multi-reference I2I at full width, 8 + 16 blocks with
+    """[flux2]: FLUX.2 multi-reference I2I at full width, 4 + 8 blocks with
     the gated FFN and an 8-layer Mistral-Small (tests/fixtures/flux2_cut), on
     tests/fixtures/flux2_grpo.yaml over two records with one 512 px
     reference each (``_kontext_dataset``): 1024 condition tokens a row after
     the 1024 target and 512 text tokens, a joint length of 2560; 10 steps,
     guidance 3.5 embedded, B 8; remat; the caption upsampler on. The
     upsampler twice, a serving rollout of the two records x 4 with their
-    references (24 K3 and 49 K5 a step) and its replay, ratio exactly 1.0;
-    one GRPO epoch (48 K3, 24 K2a, 24 K2b, 97 K5 and 47 K5 backwards a grad
+    references (12 K3 and 25 K5 a step) and its replay, ratio exactly 1.0;
+    one GRPO epoch (24 K3, 12 K2a, 12 K2b, 49 K5 and 23 K5 backwards a grad
     step, ratio exactly 1.0, the condition tokens staged into each), a moved
     LoRA, peak memory, a profiled grad step. Returns the launch counts of
     the epoch."""
@@ -5846,7 +5867,7 @@ def phase_flux2() -> dict:
         f"{tcfg.hidden_dim}, {tcfg.num_heads} heads, FFN {tcfg.mlp_style}, RoPE axes {tcfg.axes_dim}, pooled "
         f"{tcfg.pooled_dim}; LM {lm.num_layers} layers, width {lm.hidden_dim}")
     if (tcfg.num_double_blocks, tcfg.num_single_blocks, tcfg.hidden_dim, tcfg.mlp_style, tcfg.pooled_dim,
-            lm.num_layers, lm.hidden_dim, tcfg.remat) != (8, 16, 4096, "swiglu", 0, 8, 5120, True):
+            lm.num_layers, lm.hidden_dim, tcfg.remat) != (4, 8, 4096, "swiglu", 0, 8, 5120, True):
         fail(f"[flux2] not the cut FLUX.2 preset with the gated FFN under remat: {tcfg}, {lm}")
     forward, step = _flux2_launches(tcfg.num_double_blocks, tcfg.num_single_blocks)
     recs = [_load_media_fields(r, data_dir) for r in load_raw_records(os.path.join(data_dir, "train.jsonl"))]
@@ -5960,7 +5981,7 @@ FAMILY_PHASES = {
     "wan22-moe-awm": dict(fixture="wan22_a14b_awm.yaml", family="wan", frozen=1, grads=1, peak=(44.0, 50.0)),
     "wan22-ti2v-dgpo": dict(fixture="wan22_ti2v_dgpo.yaml", family="wan", frozen=2, grads=1, peak=(45.0, 58.0),
                             data=lambda root: _wan22_image_dataset(root, "wan22_image_data_256", 256)),
-    "z-image-crd": dict(fixture="z_image_crd.yaml", family="z-image", frozen=2, grads=1, peak=(38.0, 46.0)),
+    "z-image-crd": dict(fixture="z_image_crd.yaml", family="z-image", frozen=2, grads=1, peak=(26.0, 33.0)),
     "qwen-image-nft": dict(fixture="qwen_image_nft.yaml", family="qwen", frozen=1, grads=1, peak=(37.0, 41.0)),
     "qwen-edit-awm": dict(fixture="qwen_image_edit_plus_awm.yaml", family="qwen", frozen=1, grads=1,
                           peak=(45.0, 49.0), data=_kontext_dataset),
@@ -7101,6 +7122,317 @@ def full_grad_only(seeds) -> int:
     return 0
 
 
+#: [ring]: the self-attention of Wan2.1-T2V-14B at 720 px x 81 frames (21 x 45
+#: x 80 latent tokens, 40 heads of 128) over a loopback ring of 4 virtual
+#: ranks, each hop Sq = Sk = 18900; and the small shape held to the plain version
+RING_SHAPE = ("ring-hop", 1, 40, 75600, 128, 4)
+RING_SMALL = (1, 4, 2048, 128)
+#: the names of PyTorch's attention ops (SDPA's backends), which the ring must not call
+LIBRARY_ATTENTION_OPS = ("scaled_dot_product", "flash_attention", "efficient_attention", "cudnn_attention")
+
+
+def _aten_ops_called(fn):
+    """``fn()`` and the names of the aten ops it dispatched (a dispatch mode
+    records them; no profiler session)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    names = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return out, names
+
+
+def _by_heads(fn, *tensors, chunk: int = 4):
+    """``fn`` (a plain version) on head slices of (B, H, ...) tensors, the
+    results concatenated on the head axis: the plain versions' score
+    matrices at a hop of 18900 keys do not fit the card in one call."""
+    import torch
+
+    H = tensors[0].shape[1]
+    parts = [fn(*(t[:, h : h + chunk] for t in tensors)) for h in range(0, H, chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(list(p), dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+def _ring_checks(tag: str, got, ref, got_lse=None, ref_lse=None) -> list:
+    """The ring's O (and lse) and dq/dk/dv against a reference at K3's bars
+    (4 bf16 ulp of max|O|, lse 1e-2) and K2's (``_k2_check``: 2 bf16 ulp of
+    max|ref| per output)."""
+    import torch
+
+    out, grads = got
+    ref_out, ref_grads = ref
+    tol_o = 4 * bf16_ulp(ref_out.float().abs().max().item())
+    err_o = (out.float() - ref_out.float()).abs().max().item()
+    _check(f"ring {tag} O {tuple(out.shape)} bf16", err_o, tol_o)
+    if got_lse is not None:
+        _check(f"ring {tag} lse", (got_lse - ref_lse).abs().max().item(), 1e-2)
+    errs, _ = _k2_check(f"ring {tag}", grads, ref_grads, torch.bfloat16)
+    return [err_o, *errs]
+
+
+def phase_ring(results: dict) -> dict:
+    """[ring]: ``ops/ring_attention.py`` on the card as a loopback ring of 4
+    virtual ranks in one process, through the module's own hop and merge
+    functions (what a rank of a tensor group runs, its P2P rotation a list
+    rotation): every hop of the forward one K3 launch, every hop of the
+    backward one K2a and one K2b launch under the global O and lse. At
+    B1 H4 S2048 D128 against the plain versions on the whole sequence (and a
+    merge without the lse weights rejected); at ``RING_SHAPE``, the
+    self-attention of Wan2.1-T2V-14B at 720 px x 81 frames, against K3 and
+    K2 on the whole sequence, with 16 / 16 / 16 launches a ring call and no
+    library attention op. Times the ring's forward and backward, a hop's K3,
+    K2a and K2b (recorded in the kernel table under ``ring-hop`` with their
+    plain versions by head slices and SDPA at the hop's shape) and the
+    merge. Returns the launches of the one ring call."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.ops import attention as A
+    from flow_factory_tpu_torch.ops import ring_attention as R
+
+    log(f"[ring] card (SM clock, max, power, temperature): {gpu_state()}")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    tag, B, H, S, D, n = RING_SHAPE
+    scale = D ** -0.5
+
+    # the small shape against the plain versions on the whole sequence
+    q, k, v, do = (randn(*RING_SMALL) for _ in range(4))
+    out, lse, backward = R.loopback_ring_attention(q, k, v, n)
+    grads = backward(do)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, scale, return_lse=True)
+    _ring_checks(f"B1 H4 S2048 D128 x{n} vs plain", (out, grads),
+                 (ref, A.flash_backward_plain(q, k, v, ref, ref_lse, do, scale)), lse, ref_lse)
+    shards = lambda t: t.chunk(n, dim=2)
+    partials = [[R.hop_forward(qs, ks, vs, scale)[0].float() for ks, vs in zip(shards(k), shards(v))]
+                for qs in shards(q)]
+    unweighted = torch.cat([torch.stack(p).mean(0) for p in partials], dim=2).to(torch.bfloat16)
+    _negative_control(f"ring vs a merge without the lse weights (the mean of the {n} partials)", (out, lse),
+                      (unweighted, ref_lse), 4 * bf16_ulp(ref.float().abs().max().item()), 1e-2)
+    del q, k, v, do, out, lse, backward, grads, ref, ref_lse, partials, unweighted
+
+    # the whole sequence: K3 and K2 on it, then the ring of n virtual ranks
+    q, k, v, do = (randn(B, H, S, D) for _ in range(4))
+    whole_out, whole_lse = A.flash_forward(q, k, v, scale)
+    whole_grads = A.flash_backward(q, k, v, whole_out, whole_lse, do, scale)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (out, lse, backward), called = _aten_ops_called(lambda: R.loopback_ring_attention(q, k, v, n))
+    fwd_counts = ops.launch_counts()
+    grads, called_b = _aten_ops_called(lambda: backward(do))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    library = sorted(n for n in called | called_b if any(op in n for op in LIBRARY_ATTENTION_OPS))
+    want_f = {name: (n * n if name == "flash_fwd" else 0) for name in counts}
+    want = {name: (n * n if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") else 0) for name in counts}
+    log(f"[ring] launches of one loopback ring call at B{B} H{H} S{S} D{D} over {n} virtual ranks: forward "
+        f"{fwd_counts}, forward + backward {counts} ({n * n} K3 / K2a / K2b predicted, nothing else); library "
+        f"attention ops called: {library or 'none'}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if fwd_counts != want_f or counts != want or library:
+        fail("the ring launched other kernels than n² K3, K2a and K2b, or called a library attention")
+    errs = _ring_checks(f"B{B} H{H} S{S} D{D} x{n} vs K3 and K2 on the whole sequence", (out, grads),
+                        (whole_out, whole_grads), lse, whole_lse)
+    del grads, whole_grads, backward
+    torch.cuda.empty_cache()
+
+    # times: the ring, the whole-sequence kernels, a hop's kernels and the merge
+    events = lambda fn: time_ms(fn, iters=1, warmup=1, reps=3)
+    ring_fwd = events(lambda: R.loopback_ring_attention(q, k, v, n)[:2])
+    holder = {}
+
+    def ring_backward():
+        holder["bwd"](do)
+
+    holder["bwd"] = R.loopback_ring_attention(q, k, v, n)[2]
+    ring_bwd = events(ring_backward)
+    del holder
+    whole_fwd = events(lambda: A.flash_forward(q, k, v, scale))
+    whole_bwd = events(lambda: A.flash_backward(q, k, v, whole_out, whole_lse, do, scale))
+    fwd_flops, (dq_flops, dkv_flops) = 4 * B * H * S * S * D, _k2_flops(B, H, S, S, D)
+    bound = lambda flops: flops / PEAK_BF16_FLOPS * 1e3
+    log(f"[ring] forward {ring_fwd:.2f} ms (K3 on the whole sequence {whole_fwd:.2f} ms; bound {bound(fwd_flops):.1f} "
+        f"ms) | backward {ring_bwd:.2f} ms (K2a + K2b with the prologue on the whole sequence {whole_bwd:.2f} ms; "
+        f"bound {bound(dq_flops):.1f} + {bound(dkv_flops):.1f} ms) | ring / whole: forward "
+        f"{ring_fwd / whole_fwd:.3f}x, backward {ring_bwd / whole_bwd:.3f}x")
+    del whole_out, whole_lse, out, lse
+    torch.cuda.empty_cache()
+
+    c = S // n
+    hq, hk, hv, hdo = (t[:, :, :c] for t in (q, k, v, do))
+    h_out, h_lse = A.flash_forward(hq, hk, hv, scale)
+    d_, delta, lse2 = A._bwd_prologue(hq, h_out, h_lse, hdo)
+    o32 = h_out.float()
+    hop_ms = lambda fn: time_ms(fn, iters=4, warmup=1, reps=3)  # a hop's kernels run 14-35 ms
+    merge_ms = time_ms(lambda: R._merge(o32, h_lse, o32, h_lse))
+    hop_fwd_ms = hop_ms(lambda: R.hop_forward(hq, hk, hv, scale))
+    hop_dq_ms = hop_ms(lambda: A.flash_bwd_dq(hq, hk, hv, d_, lse2, delta, scale))
+    hop_dkv_ms = hop_ms(lambda: A.flash_bwd_dkv(hq, hk, hv, d_, lse2, delta, scale))
+    lib_fwd = hop_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale))
+    leaves = [t.detach().requires_grad_() for t in (hq, hk, hv)]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+    lib_bwd = hop_ms(lambda: torch.autograd.grad(o_lib, leaves, hdo, retain_graph=True))
+    del leaves, o_lib
+    # the hop kernels against their plain versions on head slices, the plain times over every head
+    slices = lambda *t: tuple(x[:, :4] for x in t)
+    ref_h, _ = A.flash_attention_plain(*slices(hq, hk, hv), scale, return_lse=True)
+    err_fwd = (h_out[:, :4].float() - ref_h.float()).abs().max().item()
+    got_dq = A.flash_bwd_dq(hq, hk, hv, d_, lse2, delta, scale)
+    got_dk, got_dv = A.flash_bwd_dkv(hq, hk, hv, d_, lse2, delta, scale)
+    ref_dq = A.flash_bwd_dq_plain(*slices(hq, hk, hv, d_, lse2, delta), scale)
+    ref_dk, ref_dv = A.flash_bwd_dkv_plain(*slices(hq, hk, hv, d_, lse2, delta), scale)
+    err_dq = (got_dq[:, :4].float() - ref_dq.float()).abs().max().item()
+    err_dkv = max((got_dk[:, :4].float() - ref_dk.float()).abs().max().item(),
+                  (got_dv[:, :4].float() - ref_dv.float()).abs().max().item())
+    _check(f"K3 {tag} (B{B} H{H} S{c} D{D}) heads 0-3 vs plain", err_fwd, 4 * bf16_ulp(ref_h.float().abs().max().item()))
+    _k2_check(f"{tag} D128 heads 0-3", (got_dq[:, :4], got_dk[:, :4], got_dv[:, :4]), (ref_dq, ref_dk, ref_dv),
+              torch.bfloat16)
+    del ref_h, got_dq, got_dk, got_dv, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+    once = lambda fn: time_ms(fn, iters=1, warmup=0, reps=1)
+    plain_fwd = once(lambda: _by_heads(lambda a, b, c_: A.flash_attention_plain(a, b, c_, scale), hq, hk, hv))
+    plain_dq = once(lambda: _by_heads(lambda *t: A.flash_bwd_dq_plain(*t, scale), hq, hk, hv, d_, lse2, delta))
+    plain_dkv = once(lambda: _by_heads(lambda *t: A.flash_bwd_dkv_plain(*t, scale), hq, hk, hv, d_, lse2, delta))
+    hop_bytes = nbytes(hq, hk, hv)
+    fwd_bound = _fwd_bound(B, H, c, c, D, hop_bytes + nbytes(h_out, h_lse))
+    _record(results, tag, dict(
+        name="flash_fwd", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_fwd.cu",
+        replaces="flow_factory_tpu/ops/attention.py:101", max_abs_err=err_fwd, ms=hop_fwd_ms, plain_ms=plain_fwd,
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd))
+    for name, ms, plain_ms, flops, outs, err, line in (
+            ("flash_bwd_dq", hop_dq_ms, plain_dq, _k2_flops(B, H, c, c, D)[0], 1, err_dq, ":601"),
+            ("flash_bwd_dkv", hop_dkv_ms, plain_dkv, _k2_flops(B, H, c, c, D)[1], 2, err_dkv, ":653")):
+        byts = hop_bytes + nbytes(d_, lse2, delta) + outs * nbytes(hq)
+        hop_bound = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES) * 1e3
+        _record(results, tag, dict(
+            name=f"{name}_d128", route="cuda", source="flow_factory_tpu_torch/ops/csrc/flash_bwd.cu",
+            replaces=f"flow_factory_tpu/ops/attention.py{line}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=hop_bound, bound_by="operations" if flops / PEAK_BF16_FLOPS > byts / PEAK_BYTES else "bytes",
+            library_ms=lib_bwd))
+    log(f"[ring] a hop (B{B} H{H} Sq {c} Sk {c} D{D}): K3 {hop_fwd_ms:.3f} ms (bound {fwd_bound[0]:.3f}, sdpa "
+        f"{lib_fwd:.3f}, plain by head slices {plain_fwd:.1f}) | K2a {hop_dq_ms:.3f} ms, K2b {hop_dkv_ms:.3f} ms "
+        f"(bounds {bound(_k2_flops(B, H, c, c, D)[0]):.3f}, {bound(_k2_flops(B, H, c, c, D)[1]):.3f}; SDPA's whole "
+        f"backward {lib_bwd:.3f}; plain {plain_dq:.1f}, {plain_dkv:.1f}) | the merge (fp32 O and lse of a hop) "
+        f"{merge_ms:.3f} ms | {n * n} hops each way: forward {n * n * hop_fwd_ms:.1f} + {n * (n - 1)} merges "
+        f"{n * (n - 1) * merge_ms:.1f} ms, backward {n * n * (hop_dq_ms + hop_dkv_ms):.1f} ms of kernels")
+    log(f"[ring] done in {time.perf_counter() - t0:.1f} s; worst ring error vs the whole-sequence kernels "
+        f"{max(errs):.3e}")
+    del q, k, v, do, hq, hk, hv, hdo, h_out, h_lse, d_, delta, lse2, o32
+    torch.cuda.empty_cache()
+    return {"flash_fwd": counts["flash_fwd"], "flash_bwd_dq_d128": counts["flash_bwd_dq"],
+            "flash_bwd_dkv_d128": counts["flash_bwd_dkv"]}
+
+
+#: [dist1]: tests/fixtures/wan21_dist1.yaml, the multi-node example cut to one GPU
+DIST1_FIXTURE = os.path.join("tests", "fixtures", "wan21_dist1.yaml")
+
+
+def _lora_file_tensors(path: str) -> dict:
+    from flow_factory_tpu_torch.utils.safetensors_io import load_file
+
+    return load_file(path)
+
+
+def phase_dist1(card: str) -> None:
+    """[dist1]: ``examples/multinode/wan21_fsdp.yaml`` at world size 1 on the
+    card (``DIST1_FIXTURE``: Wan2.1-T2V-1.3B at full width and depth, 256 px,
+    5 frames, 10 steps, micro-batch 1; 2 prompts x group 4, ``fsdp_size`` 1,
+    the brightness reward): one epoch through ``torchrun --standalone
+    --nproc_per_node 1 -m flow_factory_tpu_torch.cli`` (an NCCL process group
+    of one, the mesh (1, 1, 1): the gradient all-reduce over the replica
+    group), then the same epoch in this process without a launcher. The
+    LoRA each run saves must be the same bits, the ratio exactly 1.0 on
+    every grad step of the launched run; prints its collective calls. Then
+    ``tools/f18_bisect.py``'s bisection of the Wan2.1-1.3B DiT at the
+    per-rank shape: the CFG batch of 2 against its first row alone."""
+    import torch
+
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "chiprun_out", "dist1")
+    os.makedirs(out_dir, exist_ok=True)
+    cache = os.path.join(here, "build", "preprocess_cache")
+    runs = {kind: os.path.join(here, "build", "dist1", kind) for kind in ("torchrun", "plain")}
+    shutil.rmtree(os.path.join(here, "build", "dist1"), ignore_errors=True)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "flow_factory_tpu_torch.cli", DIST1_FIXTURE, "--set", f"data.cache_dir={cache}",
+           "--set", f"log.save_dir={runs['torchrun']}"]
+    log_path = os.path.join(out_dir, "cli.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.run(cmd, cwd=here, stdout=f, stderr=subprocess.STDOUT, timeout=600)
+    launched_s = time.perf_counter() - t0
+    text = open(log_path).read()
+    calls = re.findall(r"collective calls of rank 0 \(backend (\w+), world (\d+)\): (\{.*\})", text)
+    log(f"[dist1] torchrun --standalone --nproc_per_node 1 -m flow_factory_tpu_torch.cli {DIST1_FIXTURE}: exit "
+        f"{proc.returncode} in {launched_s:.1f} s (log chiprun_out/dist1/cli.log); collective calls: "
+        f"{calls[-1] if calls else 'not logged'}")
+    if proc.returncode != 0 or not calls or calls[-1][:2] != ("nccl", "1"):
+        fail(f"[dist1] the launched run failed or ran without an NCCL group of one: {text[-3000:]}")
+    cfg = Arguments.load_from_yaml(os.path.join(here, DIST1_FIXTURE))
+    cfg.data_args.cache_dir, cfg.log_args.save_dir = cache, runs["plain"]
+    t1 = time.perf_counter()
+    trainer = load_trainer(cfg)
+    try:
+        trainer.start()
+    finally:
+        trainer.cleanup()
+    plain_s = time.perf_counter() - t1
+    run = cfg.log_args.run_name
+    lora = {kind: _lora_file_tensors(os.path.join(path, run, "final", "lora_transformer.safetensors"))
+            for kind, path in runs.items()}
+    same = set(lora["torchrun"]) == set(lora["plain"]) and all(
+        torch.equal(lora["torchrun"][k], lora["plain"][k]) for k in lora["plain"])
+    rows = [json.loads(line) for line in open(os.path.join(runs["torchrun"], run, "metrics.jsonl"))]
+    train = [r for r in rows if "train/loss" in r]
+    lo = min(r.get("train/ratio_min_min", r.get("train/ratio_min")) for r in train)
+    hi = max(r.get("train/ratio_max_max", r.get("train/ratio_max")) for r in train)
+    log(f"[dist1] the LoRA after the epoch ({len(lora['plain'])} tensors) launched and without a launcher: bit for "
+        f"bit {same}; the launched run's ratio min {lo!r} max {hi!r} over its grad steps; the run without a "
+        f"launcher {plain_s:.1f} s | {card}")
+    if not same or not (lo == hi == 1.0):
+        fail("[dist1] the launched epoch differs from the one without a launcher, or its ratio left 1.0")
+    model = trainer.adapter.modules["transformer"]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    inputs = (randn(2, 2, 32, 32, 16), torch.tensor([980.0, 980.0], device="cuda"), randn(2, 512, 4096))
+    _f18_bisect_module().bisect("wan21-1.3b dist1 per-rank", model, inputs, 2, 1)
+    del trainer, model, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_only(flags) -> int:
+    """``--ring`` and/or ``--dist1``: the build, then those phases alone."""
+    import torch
+
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    card = phase_environment()
+    if "--ring" in flags:
+        phase_ring({})
+    if "--dist1" in flags:
+        phase_dist1(card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def _mark(what: str) -> None:
     """Log the seconds since the whole script's first phase began, after ``what``."""
     log(f"[time] {what} done: {time.perf_counter() - _mark.start:.1f} s since the start")
@@ -7144,6 +7476,8 @@ def main() -> int:
         return wan_i2v_only()
     if sys.argv[1:] == ["--full"]:
         return full_only()
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--ring", "--dist1"}:
+        return dist_only(sys.argv[1:])
     if len(sys.argv) > 2 and sys.argv[1] == "--full-grad":
         return full_grad_only([int(a) for a in sys.argv[2:]])
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
@@ -7166,6 +7500,8 @@ def main() -> int:
     phase_qwen_kernels(results)
     phase_flux2_kernels(results)
     _mark("family kernel checks")
+    ring_counts = phase_ring(results)
+    _mark("[ring]")
     phase_slice()
     _mark("[slice]")
     gc.collect()
@@ -7194,7 +7530,9 @@ def main() -> int:
     wan_train_counts = phase_wan_train()
     _mark("[grad] Wan, [wan-train]")
     gc.collect()
-    torch.cuda.empty_cache()  # the Wan trainer is gone before the full finetunes load
+    torch.cuda.empty_cache()  # the Wan trainer is gone before the launched run and the full finetunes load
+    phase_dist1(card)
+    _mark("[dist1]")
     full_counts = _full_phases()
     _mark("full-finetune phases")
     phase_flux_grad()
@@ -7278,6 +7616,9 @@ def main() -> int:
             shape = results[name]["shapes"][tag]
             shape["launches"] = shape.get("launches", 0) + sum(flux2_counts[p][name.replace("_d128", "")]
                                                                for p in phases)
+    # the ring's hop shape: its kernels' launches in the one ring call of [ring]
+    for name, launches in ring_counts.items():
+        results[name]["shapes"][RING_SHAPE[0]]["launches"] = launches
     # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
     for name, entry in results.items():
         for shape in entry["shapes"].values():

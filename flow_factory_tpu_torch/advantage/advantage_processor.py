@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..parallel.dist import get_num_processes, get_rank, host_allgather_objects
+from ..parallel.dist import get_data_rank, get_world_size, host_allgather_objects
 from ..samples import BaseSample
 
 logger = logging.getLogger(__name__)
@@ -61,9 +61,9 @@ class AdvantageProcessor:
             (s.unique_id, dict(s.extra_kwargs.get("rewards", {"reward": s.extra_kwargs.get("reward", 0.0)})))
             for s in samples
         ]
-        if self.distributed_groups and get_num_processes() > 1:
+        if self.distributed_groups and get_world_size() > 1:
             all_rows = host_allgather_objects(local_rows)
-            offset = sum(len(r) for r in all_rows[: get_rank()])
+            offset = sum(len(r) for r in all_rows[: get_data_rank()])
             rows = [r for rank_rows in all_rows for r in rank_rows]
         else:
             rows, offset = local_rows, 0

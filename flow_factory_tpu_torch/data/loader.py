@@ -4,7 +4,8 @@ Resolve the dataset splits (``train``/``test`` files under ``dataset_dir``),
 run the cached preprocessing with the adapter's ``preprocess_func``, and wrap
 the result in sampler-driven loaders. Batches are plain dicts of stacked host
 numpy arrays; the trainer moves what it needs to the device. The world size
-and rank come from the port's ``parallel/dist.py`` (one replica per process).
+and rank come from the port's ``parallel/dist.py``: one data-parallel replica
+per process, the ranks of one ``tensor`` group sharing theirs.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..parallel.dist import get_num_processes, get_rank, get_world_size
+from ..parallel.dist import get_data_rank, get_world_size
 from .dataset import GeneralDataset, PreprocessedDataset
 from .sampler import BaseKRepeatSampler, get_data_sampler
 
@@ -73,7 +74,9 @@ class MultiReplicaLoader:
 class SequentialLoader:
     """Plain strided loader for evaluation (process-sharded, no K-repeat);
     tail batches repeat their last row up to a multiple of ``pad_to``, the
-    pad count in ``_num_pad``."""
+    pad count in ``_num_pad``. Every rank yields as many batches, each as
+    large as the widest rank's (a rank short of rows pads): the rollouts
+    run the same collectives on every rank."""
 
     def __init__(self, dataset: PreprocessedDataset, batch_size: int, rank: int = 0,
                  world: int = 1, pad_to: int = 1):
@@ -81,15 +84,18 @@ class SequentialLoader:
         self.batch_size = batch_size
         self.pad_to = max(1, pad_to)
         self.indices = list(range(rank, len(dataset), world))
+        self.rows = -(-len(dataset) // world)  # the widest rank's
 
     def __len__(self) -> int:
-        return -(-len(self.indices) // self.batch_size)
+        return -(-self.rows // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for b in range(len(self)):
-            idxs = self.indices[b * self.batch_size : (b + 1) * self.batch_size]
-            pad = (-len(idxs)) % self.pad_to
-            idxs = idxs + [idxs[-1]] * pad
+            lo = b * self.batch_size
+            idxs = self.indices[lo : lo + self.batch_size]
+            width = min(self.batch_size, self.rows - lo)
+            pad = width - len(idxs) + (-width) % self.pad_to
+            idxs = idxs + [idxs[-1] if idxs else self.indices[-1] if self.indices else 0] * pad
             batch = _fetch(self.dataset, idxs)
             batch["_indices"] = idxs
             batch["_num_pad"] = pad
@@ -114,7 +120,8 @@ def get_dataloader(
     """The (train, test) loaders of the config's geometry."""
     da, ta = config.data_args, config.training_args
     cache_dir = os.path.expanduser(da.cache_dir)
-    world, rank, procs = get_world_size(), get_rank(), get_num_processes()
+    # the data-parallel replicas: the ranks of one tensor group read the same rows
+    world, rank = get_world_size(), get_data_rank()
     model_id = config.model_args.model_name_or_path or config.model_args.model_type
     variant = getattr(config.model_args, "variant", None)
     if variant:  # a preset of one path (``tiny``, ``ltx2``) encodes prompts its own way
@@ -126,21 +133,17 @@ def get_dataloader(
     train_ds = GeneralDataset(train_path, "train", cutoff=da.max_dataset_size).preprocess(
         preprocess_func, cache_dir, func_kwargs=preprocess_kwargs, model_id=model_id,
         batch_size=da.preprocessing_batch_size)
-    # one sampler per local replica; replica ids are numbered process-major
-    local = max(1, world // procs)
-    samplers = [
-        get_data_sampler(
-            da.sampler_type,
-            dataset_size=len(train_ds),
-            unique_sample_num=ta.unique_sample_num_per_epoch,
-            group_size=ta.group_size,
-            batch_size=ta.per_device_batch_size,
-            num_replicas=world,
-            rank=rank * local + j,
-            seed=ta.seed,
-        )
-        for j in range(local)
-    ]
+    # one replica a process: its sampler
+    samplers = [get_data_sampler(
+        da.sampler_type,
+        dataset_size=len(train_ds),
+        unique_sample_num=ta.unique_sample_num_per_epoch,
+        group_size=ta.group_size,
+        batch_size=ta.per_device_batch_size,
+        num_replicas=world,
+        rank=rank,
+        seed=ta.seed,
+    )]
     train_loader = MultiReplicaLoader(train_ds, samplers)
 
     test_loader = None
@@ -150,5 +153,5 @@ def get_dataloader(
             preprocess_func, cache_dir, func_kwargs=preprocess_kwargs, model_id=model_id,
             batch_size=da.preprocessing_batch_size)
         eval_bs = getattr(config.eval_args, "per_device_batch_size", None) or ta.per_device_batch_size
-        test_loader = SequentialLoader(test_ds, eval_bs * local, rank=rank, world=procs, pad_to=local)
+        test_loader = SequentialLoader(test_ds, eval_bs, rank=rank, world=world)
     return train_loader, test_loader

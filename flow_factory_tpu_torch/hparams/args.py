@@ -160,7 +160,7 @@ class Arguments:
             self.data_args.sampler_type = "group_contiguous"
 
         if user_choice == "auto" and trainer_type != "dgpo":
-            world_size = get_world_size()
+            world_size = get_world_size(self.model_args.tensor_size)
             m = ta.unique_sample_num_per_epoch
             groups_per_rank_ok = m % world_size == 0
             local_batch_tiling_ok = (
@@ -185,7 +185,7 @@ class Arguments:
 
     def _base_unique_sample_step(self) -> int:
         ta = self.training_args
-        sample_num_per_iteration = get_world_size() * ta.per_device_batch_size
+        sample_num_per_iteration = get_world_size(self.model_args.tensor_size) * ta.per_device_batch_size
         base = sample_num_per_iteration // math.gcd(ta.group_size, sample_num_per_iteration)
         if not ta._manual_gradient_accumulation_steps:
             base *= ta.gradient_step_per_epoch
@@ -194,7 +194,7 @@ class Arguments:
     def _align_batch_geometry(self) -> None:
         sampler_type = self.data_args.sampler_type
         ta = self.training_args
-        world_size = get_world_size()
+        world_size = get_world_size(self.model_args.tensor_size)
 
         if sampler_type == "distributed_k_repeat":
             step = self._base_unique_sample_step()
@@ -232,7 +232,7 @@ class Arguments:
         ta = self.training_args
         if ta.group_size <= 0:
             raise ValueError(f"group_size must be positive, got {ta.group_size}")
-        world_size = get_world_size()
+        world_size = get_world_size(self.model_args.tensor_size)
         pdbs = ta.per_device_batch_size
         sample_num_per_iteration = world_size * pdbs
         if ta.group_size > sample_num_per_iteration:

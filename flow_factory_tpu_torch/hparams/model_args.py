@@ -30,7 +30,7 @@ class ModelArguments(ArgABC):
     inference_dtype: str = field(default="bfloat16")
 
     # attention backend: 'auto'/'flash' → the CUDA kernel on a CUDA tensor, plain torch on CPU
-    attn_backend: Literal["auto", "native", "flash", "hybrid", "splash"] = field(default="auto")
+    attn_backend: Literal["auto", "native", "flash", "hybrid", "splash", "ring"] = field(default="auto")
 
     # mesh parallelism (declarative replacement for deepspeed/fsdp yaml configs)
     fsdp_size: int = field(default=1)

@@ -78,12 +78,16 @@ class BaseAdapter(ABC):
     #: them among its embeds, the trainers stage them per grad step
     trajectory_batch_keys: Dict[str, str] = {}
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, mesh=None):
         self.config = config
         self.model_args = config.model_args
         self.scheduler_args = config.scheduler_args
         self.training_args = config.training_args
         self.device = resolve_device(device)
+        #: the ``DeviceMesh`` of a multi-process run (``parallel/mesh.py``), else None
+        self.mesh = mesh
+        #: the fsdp sharding of the trainable tree (:meth:`place_on_mesh`); None: every leaf whole
+        self.fsdp_plan = None
         self.master_dtype = getattr(torch, self.model_args.master_dtype)
         self.inference_dtype = getattr(torch, self.model_args.inference_dtype)
         self._mode = "train"
@@ -99,6 +103,8 @@ class BaseAdapter(ABC):
         self.import_pretrained_weights()
         self.scheduler = self.load_scheduler()
         self._setup_trainable()
+        if self.mesh is not None:
+            self.place_on_mesh()
         self.ema: Optional[EMA] = None
         self._ref_store: Optional[EMA] = None
         #: the named parameter snapshots (DGPO's ``ema_ref``, CRD's old and
@@ -192,8 +198,9 @@ class BaseAdapter(ABC):
                 missing = sorted(names - set(sd))
                 if missing:
                     raise KeyError(f"{comp}: the state dict misses parameters {missing[:5]}")
-                self.trainable[comp] = {name: sd[name].to(device=self.device, dtype=self.master_dtype)
-                                        .detach().clone().requires_grad_() for name, _ in module.named_parameters()}
+                self.trainable[comp] = self._place_component(comp, {
+                    name: sd[name].to(device=self.device, dtype=self.master_dtype).detach().clone().requires_grad_()
+                    for name, _ in module.named_parameters()})
                 module.load_state_dict({k: v for k, v in sd.items() if k not in names}, strict=False)
             else:
                 load_component(self.modules[comp], sd)
@@ -297,11 +304,65 @@ class BaseAdapter(ABC):
                            f"unexpected {sorted(set(tree) - set(live))[:5]}")
         for path, ab in tree.items():
             for k, v in ab.items():
-                if v.shape != live[path][k].shape:
-                    raise ValueError(f"{path}.{k}: shape {tuple(v.shape)} != {tuple(live[path][k].shape)}")
-        self.trainable[component] = {
+                want = self._full_shape(component, f"{path}/{k}", live[path][k])
+                if tuple(v.shape) != want:
+                    raise ValueError(f"{path}.{k}: shape {tuple(v.shape)} != {want}")
+        self.trainable[component] = self._place_component(component, {
             path: {k: v.to(device=self.device, dtype=self.master_dtype).detach().clone().requires_grad_()
-                   for k, v in ab.items()} for path, ab in tree.items()}
+                   for k, v in ab.items()} for path, ab in tree.items()})
+
+    # ------------------------------------------------------------------
+    # The mesh (JAX models/abc.py:1273-1291)
+    # ------------------------------------------------------------------
+    def place_on_mesh(self) -> None:
+        """The trainable tree on the mesh: with fsdp above 1 each leaf keeps
+        this rank's slice by the JAX leaf rule (``parallel/mesh.py``), so the
+        optimizer, the EMA, the reference and the named snapshots, all built
+        from it, hold slices too; the frozen components stay whole on every
+        rank. ``attn_backend: ring`` installs the ring of the ``tensor`` axis
+        (JAX :258-261); ``tensor_size`` above 1 under another backend is
+        tensor parallelism, which is not ported."""
+        from ..ops.attention import set_ring_context
+        from ..parallel.mesh import FSDP_AXIS, TENSOR_AXIS, mesh_shape, refuse_tensor_parallelism, shard_params
+
+        shape = mesh_shape(self.mesh)
+        refuse_tensor_parallelism(shape[TENSOR_AXIS], self.model_args.attn_backend)
+        if self.model_args.attn_backend == "ring":
+            set_ring_context(self.mesh.get_group(TENSOR_AXIS), shape[TENSOR_AXIS])
+        if shape[FSDP_AXIS] > 1:
+            self.trainable, self.fsdp_plan = shard_params(self.trainable, self.mesh)
+
+    def full_component(self, component: str, trainable: Optional[Trainable] = None, differentiable: bool = True):
+        """A component's whole trainable tree: under fsdp its slices gathered
+        over the fsdp group (differentiable in the slices when grad is on),
+        else the tree itself."""
+        trainable = self.trainable if trainable is None else trainable
+        if self.fsdp_plan is None:
+            return trainable[component]
+        return self.fsdp_plan.gather(trainable[component], prefix=component, differentiable=differentiable)
+
+    def full_tree(self, trainable: Optional[Trainable] = None) -> Trainable:
+        """Every component's whole tree, without gradients (a collective
+        under fsdp: every rank calls it)."""
+        trainable = self.trainable if trainable is None else trainable
+        with torch.no_grad():
+            return {comp: self.full_component(comp, trainable, differentiable=False) for comp in trainable}
+
+    def _place_component(self, component: str, tree) -> Dict[str, Any]:
+        """A whole component tree as this rank holds it: its slices under
+        fsdp, else the tree."""
+        return tree if self.fsdp_plan is None else self.fsdp_plan.shard(tree, prefix=component)
+
+    def _full_shape(self, component: str, path: str, leaf: torch.Tensor) -> Tuple[int, ...]:
+        """The whole shape of a live leaf at ``<component>/<path>``."""
+        return tuple(leaf.shape) if self.fsdp_plan is None else self.fsdp_plan.shapes[f"{component}/{path}"]
+
+    def trainable_leaf_dims(self) -> List[Optional[int]]:
+        """The fsdp-sharded dimension of each leaf in :meth:`trainable_leaves`
+        order (None: whole on every rank)."""
+        if self.fsdp_plan is None:
+            return [None] * len(self.trainable_leaves())
+        return self.trainable_leaves(self.fsdp_plan.spec_tree(self.trainable))
 
     def trainable_leaves(self, trainable: Optional[Trainable] = None) -> List[torch.Tensor]:
         """Every tensor of the trainable tree, in a fixed order."""
@@ -328,9 +389,10 @@ class BaseAdapter(ABC):
         trainable = self.trainable if trainable is None else trainable
         if component not in trainable:
             return {}
+        tree = self.full_component(component, trainable)  # under fsdp: the slices gathered
         if self.is_lora:
-            return merge_lora(self.modules[component], trainable[component], self.lora_scale)
-        return dict(trainable[component])
+            return merge_lora(self.modules[component], tree, self.lora_scale)
+        return dict(tree)
 
     # ------------------------------------------------------------------
     # EMA and the reference policy
@@ -418,9 +480,11 @@ class BaseAdapter(ABC):
                         extra_state: Optional[Dict[str, Any]] = None) -> None:
         """The weights — the EMA's when EMA is on and ``save_ema`` — as LoRA
         or full files, and unless ``model_only`` the training state with
-        ``extra_state`` (the trainer's optimizer state, epoch, global step)."""
+        ``extra_state`` (the trainer's optimizer state, epoch, global step).
+        Every process calls it: under fsdp the slices are gathered
+        collectively, and rank 0 alone writes."""
         os.makedirs(save_dir, exist_ok=True)
-        trainable = self.ema_trainable if (save_ema and self.ema is not None) else self.trainable
+        trainable = self.full_tree(self.ema_trainable if (save_ema and self.ema is not None) else self.trainable)
         if self.is_lora:
             self._save_lora(save_dir, trainable)
         else:
@@ -430,7 +494,7 @@ class BaseAdapter(ABC):
 
     @staticmethod
     def _is_write_process() -> bool:
-        """One process writes checkpoint files (the port runs one)."""
+        """One process, rank 0, writes checkpoint files."""
         return get_rank() == 0
 
     @staticmethod
@@ -485,7 +549,9 @@ class BaseAdapter(ABC):
         full``); for full finetuning a plain full save."""
         os.makedirs(save_dir, exist_ok=True)
         trainable = self.ema_trainable if (save_ema and self.ema is not None) else self.trainable
-        if self.is_lora:
+        if not self.is_lora:
+            trainable = self.full_tree(trainable)
+        else:
             with torch.no_grad():
                 trainable = {comp: {**dict(self.modules[comp].named_parameters()),
                                     **self.merge_component(comp, trainable)} for comp in trainable}
@@ -493,9 +559,9 @@ class BaseAdapter(ABC):
         logger.info("Exported merged weights to %s", save_dir)
 
     def _save_state(self, save_dir: str, extra_state: Dict[str, Any]) -> None:
-        state: Dict[str, Any] = {"trainable": self.trainable}
+        state: Dict[str, Any] = {"trainable": self.full_tree()}
         if self.ema is not None:
-            state["ema"] = self.ema.state_dict()
+            state["ema"] = {"step": self.ema.step, "params": self.full_tree(self.ema.params)}
         state.update(extra_state)
         path = os.path.join(save_dir, "train_state")
         os.makedirs(path, exist_ok=True)
@@ -570,17 +636,23 @@ class BaseAdapter(ABC):
             for name, leaf in live.items():
                 if name not in tensors:
                     raise KeyError(f"Checkpoint missing tensor {comp}/{name!r}")
-                if tuple(tensors[name].shape) != tuple(leaf.shape):
+                want = self._full_shape(comp, name, leaf)
+                if tuple(tensors[name].shape) != want:
                     raise ValueError(f"Shape mismatch for {comp}/{name}: ckpt {tuple(tensors[name].shape)} "
-                                     f"vs model {tuple(leaf.shape)}")
-            self.trainable[comp] = {name: tensors[name].to(device=leaf.device, dtype=leaf.dtype)
-                                    .requires_grad_(leaf.requires_grad) for name, leaf in live.items()}
+                                     f"vs model {want}")
+            self.trainable[comp] = self._place_component(comp, {
+                name: tensors[name].to(device=leaf.device, dtype=leaf.dtype).requires_grad_(leaf.requires_grad)
+                for name, leaf in live.items()})
         logger.info("Loaded full checkpoint from %s", path)
 
     def _load_state(self, path: str) -> None:
         state = torch.load(os.path.join(path, "train_state", self.TRAIN_STATE_FILE), map_location="cpu",
                            weights_only=True)
-        self.trainable = tree_map(lambda t: t.detach().to(self.device).requires_grad_(), state["trainable"])
+        self.trainable = {comp: self._place_component(comp, tree_map(
+            lambda t: t.detach().to(self.device).requires_grad_(), tree)) for comp, tree in state["trainable"].items()}
+        if "ema" in state and self.fsdp_plan is not None:
+            state["ema"] = {"step": state["ema"]["step"], "params": {
+                comp: self._place_component(comp, tree) for comp, tree in state["ema"]["params"].items()}}
         if "ema" in state:
             if self.ema is not None:
                 self.ema.load_state_dict(state["ema"])

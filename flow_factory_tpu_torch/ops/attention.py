@@ -33,8 +33,13 @@ Backends (``model.attn_backend``): :func:`attention_route` is the JAX
 or above head dim 256; ``auto`` with a mask is ``native`` on every device; ``flash``/``splash`` take K3 (its plain version
 on a CPU tensor, what the JAX package's Pallas kernel computes in interpret
 mode off the TPU) and raise on a mask on every device; ``native`` is the
-plain path on any device; ``hybrid`` and ``ring`` are not ported yet and
-raise. The qk-norm attention has no mask: its flash-class backends take K1.
+plain path on any device; ``ring`` runs self-attention on the ring of the
+mesh's tensor axis (``ring_attention.py``: every hop K3 forward, K2
+backward) and anything else as ``flash`` does (JAX ``_ring_dispatch``, whose
+fallback off the TPU is ``native``); ``hybrid`` is not ported yet and
+raises. The qk-norm attention has no mask: its flash-class backends take K1;
+under ``ring`` the RMS scale is composed with the ring's dispatch, as the JAX
+package composes it.
 """
 from __future__ import annotations
 
@@ -517,6 +522,18 @@ def _launch_flash(q, k, v, scale: float):
     return out, lse
 
 
+def flash_forward(q, k, v, scale: float):
+    """K3 without autograd: (O, natural-log lse) of one launch, counted in
+    ``flash_attention.launches`` — what ring attention runs a hop; a CPU
+    tensor takes :func:`flash_attention_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, return_lse=True)
+    _check_heads("flash_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+    out, lse = _launch_flash(q, k, v, scale)
+    flash_attention.launches += 1
+    return out, lse
+
+
 class _Flash(torch.autograd.Function):
     """K3 with the JAX ``_flash_attention`` custom VJP (:788-804): the forward
     launches K3 and keeps q, k, v, O and the natural-log lse; the backward is
@@ -583,21 +600,28 @@ def qknorm_dot_product_attention(
         return qknorm_flash_attention(q, k, v, gq, gk, float(scale), float(eps), return_lse)
     if backend == "native":
         return qknorm_attention_plain(q, k, v, gq, gk, float(scale), float(eps), return_lse)
+    if backend == "ring" and not return_lse:
+        # the RMS scale composed with the ring's dispatch (JAX :590-594); K1 stays flash's
+        qn = _rms_scale(q, gq, eps).to(q.dtype)
+        kn = _rms_scale(k, gk, eps).to(k.dtype)
+        return _ring_dispatch(qn, kn, v, float(scale))
     if backend in ("hybrid", "ring"):
-        raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
+        raise NotImplementedError(f"attention backend {backend!r}{' with its lse' if backend == 'ring' else ''} "
+                                  "is not ported yet")
     raise ValueError(f"Unknown attention backend {backend!r}")
 
 
 def attention_route(backend: str, masked: bool, device_type: str, head_dim: int) -> str:
     """What :func:`dot_product_attention` runs for ``backend``, a mask or
     none, on a tensor of ``device_type`` with ``head_dim``: ``"native"``
-    (:func:`native_attention`) or ``"flash"`` (:func:`flash_attention`: K3 on
-    CUDA, its plain version on the CPU), or the error the call raises. The
-    JAX rule (``attention.py:955-975``) with CUDA in the TPU's place: ``auto``
-    is ``flash`` on the accelerator without a mask at head dim 256 or less
-    and ``native`` otherwise (on every device with a mask); ``splash`` is
-    ``flash``; ``flash`` with a mask raises on every device, as do ``hybrid``
-    and ``ring``, which are not ported and raise without one too."""
+    (:func:`native_attention`), ``"flash"`` (:func:`flash_attention`: K3 on
+    CUDA, its plain version on the CPU) or ``"ring"`` (:func:`_ring_dispatch`),
+    or the error the call raises. The JAX rule (``attention.py:955-975``)
+    with CUDA in the TPU's place: ``auto`` is ``flash`` on the accelerator
+    without a mask at head dim 256 or less and ``native`` otherwise (on
+    every device with a mask); ``splash`` is ``flash``; ``flash`` and
+    ``ring`` with a mask raise on every device, as does ``hybrid``, which is
+    not ported and raises without one too."""
     if backend == "native":
         return "native"
     if backend == "auto":
@@ -606,18 +630,46 @@ def attention_route(backend: str, masked: bool, device_type: str, head_dim: int)
         name = "flash" if backend == "splash" else backend
         if masked:
             raise NotImplementedError(f"{name} backend does not take a dense mask; use 'native'")
-        if name != "flash":
+        if name == "hybrid":
             raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
-        return "flash"
+        return name
     raise ValueError(f"Unknown attention backend {backend!r}")
+
+
+#: installed by the adapter when ``attn_backend: ring`` runs under a mesh: the
+#: process group of the mesh's ``tensor`` axis, the ring's sequence axis
+_RING_CONTEXT: dict = {"group": None, "size": 1}
+
+
+def set_ring_context(group, size: int) -> None:
+    """The ring's process group and its size (JAX ``set_ring_context``); a
+    size of 1 or no group removes it."""
+    _RING_CONTEXT["group"] = group if size > 1 else None
+    _RING_CONTEXT["size"] = size if group is not None else 1
+
+
+def _ring_dispatch(q, k, v, scale):
+    """JAX ``_ring_dispatch`` (:916-939): self-attention whose sequence the
+    ring's size divides rides the ring (``ops/ring_attention.py``); anything
+    else, or no ring, runs what ``flash`` runs — K3 on CUDA, its plain
+    version on the CPU."""
+    n, group = _RING_CONTEXT["size"], _RING_CONTEXT["group"]
+    if group is None or n <= 1 or q.shape[2] % n or k.shape[2] % n or q.shape[2] != k.shape[2]:
+        return flash_attention(q, k, v, scale=scale)
+    from .ring_attention import ring_self_attention
+
+    return ring_self_attention(q, k, v, group, scale)
 
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, backend: str = "auto"):
     """Attention without a qk-norm (JAX ``dot_product_attention``, :942),
     routed by :func:`attention_route`. On a CUDA tensor K3 takes bf16 at head
     dim 64 or 128 and raises on anything else: there is no silent native."""
-    if attention_route(backend, mask is not None, q.device.type, q.shape[-1]) == "native":
+    route = attention_route(backend, mask is not None, q.device.type, q.shape[-1])
+    if route == "native":
         return native_attention(q, k, v, scale=scale, mask=mask)
+    if route == "ring":
+        return _ring_dispatch(q, k, v, scale)
     return flash_attention(q, k, v, scale=scale)
 
 

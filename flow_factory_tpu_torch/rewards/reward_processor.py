@@ -5,9 +5,10 @@ Samples handed to rewards are host-resident numpy (the rollout copies its
 results to the host once), so asynchrony is plain ``ThreadPoolExecutor``
 futures: a reward that scores on the card (:mod:`.clip_native`) launches from
 its worker thread onto the same device. Group handling follows the sampler
-contracts: ``group_contiguous`` groups are local to the process; the
-``distributed_k_repeat`` gather reduces to the local path at one process and
-raises above one, as the port's dist layer does (ROADMAP Queue 1 item 11).
+contracts: ``group_contiguous`` groups are local to the process; under
+``distributed_k_repeat`` the groups span processes, and a groupwise model
+scores them after one host gather of the samples' fields (the local path
+at one process).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..parallel.dist import get_num_processes
+from ..parallel.dist import get_data_rank, get_world_size, host_allgather_objects
 from ..samples import BaseSample
 from .abc import BaseRewardModel, GroupwiseRewardModel, PointwiseRewardModel
 
@@ -77,14 +78,75 @@ class RewardProcessor:
             scores[np.asarray(idxs)] = self._score_one_group(model, [samples[i] for i in idxs])
         return scores
 
+    # -- wire encoding for the distributed groupwise gather (JAX :83-119) -----
+    # float media in [0, 1] rides the wire as uint8 (the 8-bit pixels a
+    # PNG-fed judge would see), repeated media blobs dedup by content hash
+    # into a per-rank blob table, and only ``model.required_fields`` go.
+    @staticmethod
+    def _encode_field(v, blobs: Dict[str, np.ndarray]):
+        import hashlib
+
+        if isinstance(v, (list, tuple)):
+            return [RewardProcessor._encode_field(x, blobs) for x in v]
+        if isinstance(v, np.ndarray) and v.ndim >= 3 and v.dtype in (np.float32, np.float64, np.float16):
+            packed = (np.clip(v, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+            h = hashlib.sha1(packed.tobytes()).hexdigest()[:16]
+            blobs.setdefault(h, packed)
+            return {"__blob__": h}
+        return v
+
+    @staticmethod
+    def _decode_field(v, blobs: Dict[str, np.ndarray]):
+        if isinstance(v, list):
+            return [RewardProcessor._decode_field(x, blobs) for x in v]
+        if isinstance(v, dict) and "__blob__" in v:
+            return blobs[v["__blob__"]].astype(np.float32) / 255.0
+        return v
+
     def _score_groupwise_distributed(self, model: GroupwiseRewardModel, samples: List[BaseSample],
                                      group_size: int) -> np.ndarray:
-        """Groups spread over processes (``distributed_k_repeat``): at one
-        process the local path; the gather across processes is not ported."""
-        if get_num_processes() > 1:
-            raise NotImplementedError(f"groupwise reward {model.name!r} across {get_num_processes()} processes is "
-                                      "not ported yet: ROADMAP Queue 1 item 11 (multi-GPU)")
-        return self._score_groupwise_local(model, samples, group_size)
+        """Groups spread over processes (``distributed_k_repeat``; JAX
+        :121-181): one host gather of every sample's encoded fields, each
+        complete group scored by the rank its sorted position strides to,
+        then one gather of the scores back to their owners. One process
+        takes the local path."""
+        self._ensure_setup()
+        world, rank = get_world_size(), get_data_rank()
+        if world <= 1:
+            return self._score_groupwise_local(model, samples, group_size)
+        blobs: Dict[str, np.ndarray] = {}
+        local_payload = []
+        for i, s in enumerate(samples):
+            fields = model.extract_fields([s])
+            enc = {k: self._encode_field(v[0], blobs) for k, v in fields.items()}
+            local_payload.append({"uid": s.unique_id, "fields": enc, "origin": (rank, i)})
+        all_payloads = host_allgather_objects([{"samples": local_payload, "blobs": blobs}])
+        merged_blobs: Dict[str, np.ndarray] = {}
+        flat: List[dict] = []
+        for rank_list in all_payloads:
+            for payload in rank_list:
+                merged_blobs.update(payload["blobs"])
+                flat.extend(payload["samples"])
+        groups: Dict[str, List[dict]] = {}
+        for p in flat:
+            groups.setdefault(p["uid"], []).append(p)
+        my_scores: Dict[Tuple[int, int], float] = {}
+        for gi, uid in enumerate(sorted(groups)):
+            if gi % world != rank:
+                continue
+            members = groups[uid]
+            fields = {k: [self._decode_field(m["fields"][k], merged_blobs) for m in members]
+                      for k in members[0]["fields"]}
+            out = np.asarray(model.compute_group_reward(**fields), np.float64).reshape(-1)
+            for m, sc in zip(members, out):
+                my_scores[tuple(m["origin"])] = float(sc)
+        scores = np.zeros(len(samples), np.float64)
+        for rank_list in host_allgather_objects([my_scores]):
+            for d in rank_list:
+                for (r, i), sc in d.items():
+                    if r == rank:
+                        scores[i] = sc
+        return scores
 
     # -- public ----------------------------------------------------------------
     def score(self, samples: List[BaseSample], group_size: int, distributed_groups: bool,

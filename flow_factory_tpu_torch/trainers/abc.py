@@ -22,7 +22,15 @@ Port of ``flow_factory_tpu/trainers/abc.py``:
   under ``<save_dir>/<run>/preempt`` at the next rollout-batch or
   micro-batch boundary, and a clean exit;
 * ``log.profile_dir`` profiles epoch 1, ``FFT_MEMORY_PROFILE=1`` snapshots
-  device memory around each phase; the loop runs on one process.
+  device memory around each phase;
+* over a mesh (several processes, one GPU each) every process runs the
+  loop on its own rows: before the clip the gradient sums are averaged over
+  the data axes (``parallel.mesh.GradSync``; an fsdp-sharded leaf's backward
+  already reduce-scattered its gradient), the clip's global norm sums the
+  slices' squares over the fsdp group, AdamW steps each rank's slices, and
+  the loss statistics go through ``reduce_loss_info`` across processes.
+  Every rank calls the collectives in the same order: the micro-batch
+  schedules are the same length on every rank by construction.
 """
 from __future__ import annotations
 
@@ -104,7 +112,7 @@ def make_optimizer(params: Sequence[torch.Tensor], training_args) -> torch.optim
 
 @torch.no_grad()
 def apply_updates(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], max_norm: float,
-                  count: int = 1) -> torch.Tensor:
+                  count: int = 1, sync=None) -> torch.Tensor:
     """One optimizer step on the gradient sums of ``count`` grad steps held
     in each leaf's ``.grad`` (JAX ``_apply_updates_jit``,
     ``trainers/abc.py:545``), with no full-size temporary: each sum divided
@@ -112,13 +120,21 @@ def apply_updates(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tenso
     ``jax.grad``), the global norm, optax's ``clip_by_global_norm`` in place
     a leaf at a time (``g / norm * max_norm`` from ``max_norm`` on; below
     it ``g / 1 * 1``, the same bits), then the AdamW update, after which
-    the gradients are freed. Returns the pre-clip norm (a device scalar)."""
+    the gradients are freed. ``sync`` (a ``parallel.mesh.GradSync``)
+    averages the sums over the mesh's data axes before the norm and gives
+    the norm of a tree whose slices lie on several ranks. Returns the
+    pre-clip norm (a device scalar)."""
     grads = []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad.div_(count))
-    gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    if sync is not None:
+        sync.average(grads)
+    if sync is not None and sync.any_sharded:
+        gnorm = torch.sqrt(sync.squared_norm(grads))
+    else:
+        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
     keep = gnorm < max_norm  # a device flag: no host sync
     div = torch.where(keep, torch.ones_like(gnorm), gnorm)
     mul = torch.where(keep, torch.ones_like(gnorm), torch.full_like(gnorm, max_norm))
@@ -144,6 +160,7 @@ class BaseTrainer(ABC):
         self.epoch = 0
         self.global_step = 0
 
+        #: 1: one process drives one GPU (a tensor group's ranks share one replica's rows)
         self.local_replicas = max(1, get_world_size() // get_num_processes())
         #: per-process micro-batch = per-replica batch × local replicas
         self.micro_batch_size = self.training_args.per_device_batch_size * self.local_replicas
@@ -168,6 +185,11 @@ class BaseTrainer(ABC):
     def _init_optimizer(self) -> None:
         self.optimizer = make_optimizer(self.adapter.trainable_leaves(), self.training_args)
         self._accum_count = 0
+        self.grad_sync = None
+        if getattr(self.adapter, "mesh", None) is not None:
+            from ..parallel.mesh import GradSync
+
+            self.grad_sync = GradSync(self.adapter.mesh, [d is not None for d in self.adapter.trainable_leaf_dims()])
 
     def _init_rewards(self) -> None:
         ta = self.training_args
@@ -227,7 +249,7 @@ class BaseTrainer(ABC):
         if self._accum_count == 0:
             return None
         gnorm = apply_updates(self.optimizer, self.adapter.trainable_leaves(), self.training_args.max_grad_norm,
-                              self._accum_count)
+                              self._accum_count, self.grad_sync)
         self._accum_count = 0
         self.global_step += 1
         return gnorm
@@ -454,14 +476,50 @@ class BaseTrainer(ABC):
     def save_checkpoint(self, save_dir: str, model_only: Optional[bool] = None,
                         completed_epoch: Optional[int] = None) -> None:
         t0 = time.perf_counter()
+        model_only = self.log_args.save_model_only if model_only is None else model_only
         self.adapter.save_checkpoint(
             save_dir,
-            model_only=self.log_args.save_model_only if model_only is None else model_only,
-            extra_state={"opt_state": self.optimizer.state_dict(),
+            model_only=model_only,
+            extra_state=None if model_only else {"opt_state": self._optimizer_state(),
                          "epoch": self.epoch if completed_epoch is None else completed_epoch,
                          "global_step": self.global_step},
         )
         logger.info("Saved checkpoint to %s in %.3f s", save_dir, time.perf_counter() - t0)
+
+    def _optimizer_state(self) -> Dict[str, Any]:
+        """The AdamW state with every fsdp-sharded state tensor gathered
+        whole (a collective: every rank calls it), so that the saved state
+        is the one-process layout."""
+        sd = self.optimizer.state_dict()
+        plan = self.adapter.fsdp_plan
+        if plan is None:
+            return sd
+        from ..parallel.mesh import all_gather_dim
+
+        dims = self.adapter.trainable_leaf_dims()
+        state = {}
+        for i, st in sorted(sd["state"].items()):
+            st = dict(st)  # the live optimizer's own dicts are not touched
+            if dims[i] is not None:
+                for k, t in st.items():
+                    if torch.is_tensor(t) and t.ndim:
+                        st[k] = all_gather_dim(t, dims[i], plan.group, plan.size)
+            state[i] = st
+        return {**sd, "state": state}
+
+    def _placed_optimizer_state(self, saved: Dict[str, Any]) -> Dict[str, Any]:
+        """A saved (whole) AdamW state as this rank holds it: its slices of
+        every fsdp-sharded state tensor."""
+        plan = self.adapter.fsdp_plan
+        if plan is None:
+            return saved
+        dims = self.adapter.trainable_leaf_dims()
+        state = {}
+        for i, st in saved.get("state", {}).items():
+            d = dims[int(i)] if int(i) < len(dims) else None
+            state[i] = {k: (t.chunk(plan.size, d)[plan.rank].contiguous()
+                            if d is not None and torch.is_tensor(t) and t.ndim else t) for k, t in st.items()}
+        return {**saved, "state": state}
 
     def _restore_state_if_any(self) -> None:
         """The optimizer state, epoch and global step of a ``train_state``
@@ -472,8 +530,9 @@ class BaseTrainer(ABC):
         state = getattr(self.adapter, "_restored_state", None)
         if state:
             if "opt_state" in state:
-                if _optimizer_state_fits(self.optimizer, state["opt_state"]):
-                    self.optimizer.load_state_dict(state["opt_state"])
+                opt_state = self._placed_optimizer_state(state["opt_state"])
+                if _optimizer_state_fits(self.optimizer, opt_state):
+                    self.optimizer.load_state_dict(opt_state)
                 else:
                     logger.warning("Checkpoint optimizer state does not fit the live optimizer (%d parameters) — "
                                    "optimizer state NOT restored (weights/epoch still are)",

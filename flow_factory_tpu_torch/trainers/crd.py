@@ -22,6 +22,7 @@ from typing import Any, Dict, Iterator, List, Tuple, Union
 
 import torch
 
+from ..parallel.dist import get_world_size
 from ..samples import BaseSample
 from .decoupled import OldPolicyTrainer, uncfg
 
@@ -91,6 +92,10 @@ class CRDTrainer(OldPolicyTrainer):
     old_key, tag, old_policy_cfg = "old_v", "crd", False
 
     def __init__(self, config, adapter):
+        if get_world_size() > 1:
+            raise NotImplementedError(
+                f"CRD over {get_world_size()} data-parallel replicas: its centering weights are a softmax over the "
+                "GLOBAL micro-batch, and the port's replicas hold its rows apart (ROADMAP Queue 1 item 24)")
         super().__init__(config, adapter)
         self.adapter.add_named_parameters(self.OLD)
         self.adapter.add_named_parameters(self.SAMPLING)

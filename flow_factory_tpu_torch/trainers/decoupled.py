@@ -19,11 +19,21 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.dist import get_rank, reduce_loss_info
+from ..parallel.dist import get_data_rank, get_world_size, reduce_loss_info
 from ..samples import BaseSample, stack_samples
 from ..utils.base import derive_seed, make_generator
 from ..utils.noise_schedule import TimeSampler
 from .abc import BaseTrainer
+
+
+def rank_seed_parts() -> Tuple[int, ...]:
+    """The data rank as a part of a grad step's noise seed above one
+    replica, so that each replica's rows draw their own noise; none at one,
+    where the seeds stay those of a one-process run. The timesteps stay the
+    same on every replica: row 0's routes a step (Wan2.2's experts) as JAX
+    routes the global batch by its row 0, and every rank must gather the
+    same expert's fsdp slices."""
+    return (get_data_rank(),) if get_world_size() > 1 else ()
 
 
 def uncfg(batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -44,7 +54,7 @@ class DecoupledTrainer(BaseTrainer):
         self.adapter.rollout()
         self.reward_buffer.clear()
         self.train_loader.set_epoch(epoch)
-        rank = get_rank()
+        rank = get_data_rank()
         for b, batch in enumerate(self.train_loader):
             self.check_preempt()
             samples = self.adapter.inference(
@@ -307,7 +317,8 @@ class OldPolicyTrainer(DecoupledTrainer):
                 with torch.no_grad():
                     params = self.old_policy_params()
                     for t_idx in range(T):
-                        gen = make_generator(dev, f"{self.tag}_noise", ta.seed, epoch, inner, bi, t_idx)
+                        gen = make_generator(dev, f"{self.tag}_noise", ta.seed, epoch, inner, bi, t_idx,
+                                             *rank_seed_parts())
                         batch = dict(base, noise=self.tree_normal(gen, clean), **self.timesteps(all_t[t_idx]))
                         fwd = self.noised_batch(batch)
                         old_v = ad.training_velocity_tree(None, fwd if self.old_policy_cfg else uncfg(fwd),

@@ -19,9 +19,12 @@ CFG at ``kl_cfg`` when that is above 1 and negative embeds are present.
 The snapshot and reference velocities are computed per micro-batch without
 gradients (one merge of the snapshot for its T forwards); the group sums are
 a fixed-order reduction over a (G, B) one-hot, so they are deterministic on
-the card. ``ema_ref`` is blended toward the live weights after every
-optimizer step with decay ``min(max_decay, ramp_rate·step)``; past
-``switch_ema_ref`` steps the rollout samples under it.
+the card; over a mesh they are summed over the data axes, since
+``group_distributed`` puts K/W rows of every group on each replica (every
+replica numbers the groups alike: its index sequence is the same).
+``ema_ref`` is blended toward the live weights after every optimizer step
+with decay ``min(max_decay, ramp_rate·step)``; past ``switch_ema_ref``
+steps the rollout samples under it.
 """
 from __future__ import annotations
 
@@ -193,7 +196,12 @@ class DGPOTrainer(DecoupledTrainer):
                 dsm = torch.where(should_clip, dsm.detach(), dsm)
 
         pref = adv * beta * (dsm.detach() - ref_dsm) / K
-        group_w = torch.sigmoid(group_sums(pref, batch["group_ids"], batch["num_groups"]))[batch["group_ids"]]
+        sums = group_sums(pref, batch["group_ids"], batch["num_groups"])
+        if self.adapter.mesh is not None:  # a group's rows lie on every replica (group_distributed)
+            from ..parallel.mesh import data_all_reduce_
+
+            sums = data_all_reduce_(sums, self.adapter.mesh)
+        group_w = torch.sigmoid(sums)[batch["group_ids"]]
         loss = torch.mean(group_w * adv * dsm)
         aux = {
             "train/loss": loss.detach(),

@@ -9,9 +9,11 @@ argmin (rejected); the loss is the flow-matching DPO objective
 with fresh timesteps per pair batch from ``TimeSampler`` and the reference
 policy the zero LoRA (or the frozen snapshot of full finetuning). The
 reference errors are computed first, without gradients, on the frozen
-weights; then one LoRA merge serves both θ forwards of the step. Pair
-formation runs on one process: above one, the cross-process pairing raises
-in ``parallel/dist.py``, as the rest of the port does.
+weights; then one LoRA merge serves both θ forwards of the step. Above one
+data-parallel process the pairs are formed on the gathered samples
+(``distributed_k_repeat``: groups span processes) and strided by rank, or
+locally and cycle-padded to the widest rank's count, so that every rank
+runs as many grad steps.
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..parallel.dist import get_num_processes, get_rank, host_allgather_objects
+from ..parallel.dist import get_data_rank, get_world_size, host_allgather_objects
 from ..samples import BaseSample, stack_samples
 from ..utils.base import derive_seed, make_generator
-from .decoupled import DecoupledTrainer
+from .decoupled import DecoupledTrainer, rank_seed_parts
 
 logger = logging.getLogger(__name__)
 
@@ -54,10 +56,9 @@ class DPOTrainer(DecoupledTrainer):
 
     def _form_pairs(self, samples: List[BaseSample]):
         """Pair formation, and with ``distributed_k_repeat`` over several
-        processes the gathered global pair list's stride for this process
-        (JAX ``_form_pairs``); the cross-process paths raise in
-        ``parallel/dist.py`` until the multi-GPU slice."""
-        ws = get_num_processes()
+        processes the gathered global pair list's stride for this process,
+        cycle-padded to the widest stride (JAX ``_form_pairs``)."""
+        ws = get_world_size()
         distributed = ws > 1 and self.config.data_args.sampler_type == "distributed_k_repeat"
         if not distributed:
             pairs = self._pairs_from_advantages(samples)
@@ -72,7 +73,7 @@ class DPOTrainer(DecoupledTrainer):
                 raise RuntimeError(
                     f"DPO (distributed_k_repeat): need at least one pair per process; got {n} pairs over "
                     f"{ws} processes. Increase unique prompts per epoch or use sampler_type group_contiguous.")
-            mine = all_pairs[get_rank()::ws]
+            mine = all_pairs[get_data_rank()::ws]
             stat_pairs = mine
             target = -(-n // ws) if n else 0
             if mine and len(mine) < target:
@@ -140,7 +141,7 @@ class DPOTrainer(DecoupledTrainer):
                 embeds = self.batch_embeds(cb)
                 all_t = self.sample_timesteps(len(chunk), derive_seed("dpo_t", ta.seed, epoch, inner, start))
                 for t_idx in range(T):
-                    gen = make_generator(dev, "dpo_noise", ta.seed, epoch, inner, start, t_idx)
+                    gen = make_generator(dev, "dpo_noise", ta.seed, epoch, inner, start, t_idx, *rank_seed_parts())
                     yield dict(
                         chosen=chosen_lat,
                         rejected=rejected_lat,

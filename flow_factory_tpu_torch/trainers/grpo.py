@@ -18,7 +18,7 @@ from typing import Any, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from ..parallel.dist import get_rank, reduce_loss_info
+from ..parallel.dist import get_data_rank, reduce_loss_info
 from ..samples import BaseSample, stack_samples
 from ..utils.base import derive_seed, make_generator
 from ..utils.trajectory import compute_trajectory_indices
@@ -39,7 +39,7 @@ class GRPOTrainer(BaseTrainer):
         self.reward_buffer.clear()
         traj_indices = compute_trajectory_indices(self.scheduler.train_timesteps, ta.num_inference_steps)
         self.train_loader.set_epoch(epoch)
-        rank = get_rank()
+        rank = get_data_rank()
         for b, batch in enumerate(self.train_loader):
             self.check_preempt()
             samples = self.adapter.inference(

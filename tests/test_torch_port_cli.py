@@ -140,17 +140,31 @@ def test_cli_one_epoch_writes_the_final_checkpoint(tmp_path):
     ({}, ["--process-id", "0"]),
 ])
 def test_more_than_one_process_raises(monkeypatch, env, flags):
-    """A process count above 1, from the flag or any environment alias, and
-    the flags only a multi-process run needs, raise: the port runs one
-    process and takes no topology it would then ignore."""
-    from flow_factory_tpu_torch.cli import train_cli
+    """The topology comes from the flags, else torchrun's environment, else
+    any JAX alias (``resolve_launch``), and a mesh the port cannot run raises
+    before any process group is made: ``tensor_size`` 2 without
+    ``attn_backend: ring`` is tensor parallelism (ROADMAP item 22). A run on
+    several processes: ``tests/test_torch_port_multiprocess.py``."""
+    import torch.distributed as dist
+    from flow_factory_tpu_torch.cli import resolve_launch, train_cli
 
-    for name in ("NUM_PROCESSES", "NUM_MACHINES", "NUM_NODES", "HOST_NUM"):
-        monkeypatch.delenv(name, raising=False)
+    for names in (("NUM_PROCESSES", "NUM_MACHINES", "NUM_NODES", "HOST_NUM"),
+                  ("COORDINATOR_ADDRESS", "MASTER_IP", "MASTER_ADDR", "CHIEF_IP"),
+                  ("PROCESS_ID", "MACHINE_RANK", "NODE_RANK", "INDEX"),
+                  ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_PORT")):
+        for name in names:
+            monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_cli([FIXTURE, "--set", "model.device=cpu", *flags])
+    kwargs = {"--num-processes": ("num_processes", int), "--process-id": ("process_id", int),
+              "--coordinator-address": ("coordinator_address", str)}
+    given = {kwargs[f][0]: kwargs[f][1](v) for f, v in zip(flags[::2], flags[1::2])}
+    launch = resolve_launch(**given)
+    want = {"coordinator_address": None, "process_id": None, "num_processes": 2 if env else None, **given}
+    assert launch == want
+    with pytest.raises(NotImplementedError, match="item 22"):
+        train_cli([FIXTURE, "--set", "model.device=cpu", "--set", "model.tensor_size=2", *flags])
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

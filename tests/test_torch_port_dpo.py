@@ -102,15 +102,16 @@ def test_pair_formation_and_stats_equal_jax():
 
 
 def test_pairing_across_processes_raises(monkeypatch):
-    """Above one process the pairing's gathers raise in ``parallel/dist.py``
-    (the multi-GPU slice), for both sampler types."""
+    """Above one process named by the environment, without a process group,
+    the pairing's gathers raise in ``parallel/dist.py`` for both sampler
+    types (the pairs across ranks: ``tests/test_torch_port_multiprocess.py``)."""
     from flow_factory_tpu_torch.trainers.dpo import DPOTrainer
 
     trainer = DPOTrainer.__new__(DPOTrainer)
     monkeypatch.setenv("WORLD_SIZE", "2")
     for sampler in ("group_contiguous", "distributed_k_repeat"):
         trainer.config = type("C", (), {"data_args": type("D", (), {"sampler_type": sampler})()})()
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="no process group"):
             trainer._form_pairs(_samples("flow_factory_tpu_torch"))
 
 

@@ -298,9 +298,12 @@ def test_groupwise_incomplete_group_raises():
 def test_groupwise_across_processes_raises_naming_item_11(monkeypatch):
     from flow_factory_tpu_torch.rewards import MyGroupReward, RewardProcessor
 
+    """Above one process named by the environment, without a process group,
+    the groupwise gather raises (across ranks:
+    ``tests/test_torch_port_multiprocess.py``)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     proc = RewardProcessor([MyGroupReward(_args(name="rank", reward_model="MyGroupReward"))])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="no process group"):
         proc.score(_samples(["a", "a"], [0.5, 0.6]), group_size=2, distributed_groups=True)
 
 

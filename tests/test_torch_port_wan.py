@@ -157,7 +157,7 @@ def test_dot_product_attention_dispatch_on_cpu():
     """On a CPU tensor ``auto`` and ``native`` are ``native_attention`` and
     ``flash``/``splash`` K3's plain version, as the JAX package runs
     ``native`` and its Pallas kernel (in interpret mode) off the TPU;
-    hybrid/ring are not ported."""
+    ``ring`` without a ring runs what ``flash`` runs, and with a mask raises."""
     from flow_factory_tpu_torch.ops import attention as T
 
     q = torch.randn(1, 2, 20, 128)
@@ -166,8 +166,9 @@ def test_dot_product_attention_dispatch_on_cpu():
         assert torch.equal(T.dot_product_attention(q, q, q, backend=backend), ref)
     for backend in ("flash", "splash"):
         assert torch.equal(T.dot_product_attention(q, q, q, backend=backend), T.flash_attention_plain(q, q, q))
+    assert torch.equal(T.dot_product_attention(q, q, q, backend="ring"), T.flash_attention_plain(q, q, q))
     with pytest.raises(NotImplementedError):
-        T.dot_product_attention(q, q, q, backend="ring")
+        T.dot_product_attention(q, q, q, backend="ring", mask=torch.ones(1, 1, 20, 20, dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------
