@@ -76,6 +76,25 @@ printing one line and exiting non-zero on failure:
    epoch 1, whose rewards, advantages, losses, ratios (exactly 1.0) and LoRA
    after the update must equal 5's uninterrupted epoch 1 bit for bit; save
    and load seconds and bytes;
+5c. parity (after 5b): the port's parity harness (``flow_factory_tpu_torch
+   /parity``) on the card. The five families of the JAX package's golden
+   test (SD3.5, Wan2.1 T2V, LTX-2 T2AV, FLUX.1-Kontext, Wan2.1 V2V) at their
+   tiny size in fp32 under ``attn_backend: native`` with TF32 off, on the
+   JAX tiny adapters' weights and draws (tests/goldens_torch), against the
+   JAX goldens (tests/goldens) at ``DEFAULT_TOLERANCES`` with L1 exact: max
+   |Δ| by level, K5 (and K6) launched in fp32, no attention kernel; then
+   SD3.5-M at full width and depth in bf16 under ``auto`` at 256 px, its own
+   ``record`` checked on the card at max |Δ| exactly 0 on every key, the L3
+   replay's log-prob the rollout's bit for bit;
+5d. hybrid (after 5c): ``attn_backend: hybrid`` (the plain forward; K3's
+   recompute, then K2a and K2b, in the backward): dq/dk/dv bit-equal to
+   ``flash``'s at SD3.5-M's joint shape (B16 H24 S1357 D64) and Wan2.1's self
+   shape (B16 H12 S512 D128) on the same q, k, v, dO, the forward within
+   K3's bar of K3's plain version, no library attention op; K3 through the
+   checks of 2 at SD3.5-M's joint and self shapes; one epoch of 5's GRPO
+   slice under ``hybrid``: ratio exactly 1.0 on every grad step, no K1, 37
+   K3 / K2a / K2b a grad step and no K3 in the rollout, its rollout and
+   grad-step seconds and peak beside 5's;
 6. the Wan counterpart of 4 (``[grad]``): LoRA gradients through K3, K2a/K2b
    at head dim 128 and K5 at Wan2.1-1.3B width, depth 2, B=16, against the
    plain path, with the dq-zeroed negative control;
@@ -141,7 +160,8 @@ printing one line and exiting non-zero on failure:
    log-probs through the kernels at LTX-2 width, depth 2, B 16 (the
    dq-zeroed and the K5-without-its-RMS-term controls); then LTX-2 T2AV GRPO
    at full width through ``load_trainer`` on
-   tests/fixtures/ltx2_t2av_grpo.yaml (28 blocks, Gemma3-12B, the LTX
+   tests/fixtures/ltx2_t2av_grpo.yaml (28 blocks, Gemma3-12B at 24 of its
+   48 layers (tests/fixtures/ltx2_cut), the LTX
    video VAE and the audio VAE with its vocoder; 256 px x 9 frames, 10
    steps, CFG 3; 2 prompts x group 4), two epochs: videos (8, 9, 3, 256,
    256) and waveforms finite, K3/K5 launched as predicted a rollout and a
@@ -164,7 +184,7 @@ printing one line and exiting non-zero on failure:
    at full size on tests/fixtures/wan22_ti2v_grpo.yaml (256 px x 17 frames):
    a T2V serving rollout and its replay, then two I2V GRPO epochs with
    frame 0 the encoded image at every transformer call and at the decode;
-   the A14B MoE at full width, 8 layers an expert, on
+   the A14B MoE at full width, 4 layers an expert, on
    tests/fixtures/wan22_a14b_grpo.yaml: two T2V GRPO epochs with each
    step's expert as JAX's rule gives it and the routed expert's LoRA alone
    with a gradient on each grad step, then one epoch of channel-concat I2V;
@@ -304,7 +324,9 @@ times of 8h's shapes;
 ``python3 chip_smoke.py --full`` the build and 7b;
 ``python3 chip_smoke.py --full-grad SEED [SEED ...]`` the build and
 ``[full-grad]`` at each seed;
-``python3 chip_smoke.py --ring`` and/or ``--dist1`` the build and 8i and/or 10b.
+``python3 chip_smoke.py --ring`` and/or ``--dist1`` the build and 8i and/or 10b;
+``python3 chip_smoke.py --parity`` and/or ``--hybrid`` the build and 5c and/or
+5d (without 5's figures beside 5d's).
 """
 from __future__ import annotations
 
@@ -2519,14 +2541,16 @@ def _loss_value(info: dict, key: str, stat: str) -> float:
     return info.get(f"{key}_{stat}", info[key])
 
 
-def _train_epochs(trainer, tag: str, want_in_optimize, record=None) -> dict:
+def _train_epochs(trainer, tag: str, want_in_optimize, record=None, figures=None) -> dict:
     """The epochs of ``trainer`` driven phase by phase, each timed: the
     replay ratio exactly 1.0 and clip_frac 0 on every grad step (epoch 1
     rolls out with the LoRA that epoch 0 moved), a finite non-zero grad
     norm, the LoRA B moved after the first update, one optimizer step an
     epoch, and the launches of each optimize phase equal to
     ``want_in_optimize(grad steps)``. Returns the launch counts of the
-    epochs; ``record`` (a list) gets each epoch's :func:`_epoch_record`."""
+    epochs; ``record`` (a list) gets each epoch's :func:`_epoch_record`,
+    ``figures`` (a list) its rollout seconds, grad steps and seconds a grad
+    step, and the peak memory so far."""
     import numpy as np
     import torch
 
@@ -2575,6 +2599,9 @@ def _train_epochs(trainer, tag: str, want_in_optimize, record=None) -> dict:
             fail(f"[{tag}] epoch {epoch}: launches in optimize {during}, expected {want}")
         if record is not None:
             record.append(_epoch_record(trainer, samples, {**metrics, **info}))
+        if figures is not None:
+            figures.append({"sample": secs["sample"], "steps": steps, "per_step": secs["optimize"] / steps,
+                            "peak": torch.cuda.max_memory_allocated() / 2**30})
         if epoch == 0:
             moved = max((lora[p]["lora_B"] - b).abs().max().item() for p, b in b0.items())
             log(f"[{tag}] LoRA B after the first update: max|change| {moved:.3e}")
@@ -2682,10 +2709,11 @@ def _train_config_dict() -> dict:
     )
 
 
-def phase_train(record: list) -> dict:
+def phase_train(record: list, figures: list = None) -> dict:
     """The GRPO training slice at full width through ``load_trainer``, two
-    epochs, each phase timed, each epoch's outcome appended to ``record``;
-    then a profile of one grad step."""
+    epochs, each phase timed, each epoch's outcome appended to ``record``
+    and its seconds and peak to ``figures``; then a profile of one grad
+    step."""
     import torch
 
     from flow_factory_tpu_torch.hparams import Arguments
@@ -2706,7 +2734,7 @@ def phase_train(record: list) -> dict:
     # a backward per attention: 24 joint + 13 dual self-attentions; the norms as SD35_NORMS_A_STEP
     counts = _train_epochs(trainer, "train", lambda steps: {
         "flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps,
-        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}}, record)
+        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}}, record, figures)
     if any(counts[k] <= 0 for k in SD35_KERNELS):
         fail(f"a kernel never launched in the SD3.5 GRPO epochs: {counts}")
     # F18: a serving rollout of 2 prompts x 4 under the trained LoRA, replayed at other micro-batch sizes
@@ -2722,6 +2750,280 @@ def phase_train(record: list) -> dict:
     _profile_grad_step(trainer, "one grad step (forward, backward, AdamW)", "grad_step_trace.json")
     trainer.cleanup()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# [parity] and [hybrid]: the parity harness on the card, the hybrid backend
+# ---------------------------------------------------------------------------
+
+#: the five families of the JAX package's own golden test
+#: (tests/test_parity_harness.py:26-34), by golden name
+PARITY_FAMILIES = ("sd35", "wan2_t2v", "ltx2_t2av", "flux1_kontext", "wan2_v2v")
+#: SD3.5-M's round trip at 256 px: 16 x 16 patches, the seq_len 256 at which
+#: the L2 probe sets the schedule, so that L3 replays the rollout's own step
+PARITY_SD35_RESOLUTION = 256
+#: the hybrid backend's direct check (tag, B, H, S, D, head-split views):
+#: SD3.5-M's joint attention (the concatenated, contiguous q/k/v) and
+#: Wan2.1-1.3B's self-attention
+HYBRID_SHAPES = (("sd35-joint", 16, 24, 1357, 64, False), ("wan-self", 16, 12, 512, 128, True))
+#: K3 at SD3.5-M's attentions, the hybrid backward's recompute (tag, B, H,
+#: S, D, head-split views, attentions of that shape a grad step: 24 joint,
+#: 13 dual self)
+HYBRID_K3_SHAPES = (("sd35-joint", 16, 24, 1357, 64, False, 24), ("sd35-self", 16, 24, 1024, 64, True, 13))
+
+
+def _parity_paths(name: str):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return (os.path.join(here, "tests", "goldens", f"{name}.npz"),
+            os.path.join(here, "tests", "goldens_torch", f"{name}.inputs.npz"))
+
+
+def _max_by_level(max_diffs: dict) -> dict:
+    out: dict = {}
+    for key, d in max_diffs.items():
+        level = key.split("/", 1)[0]
+        out[level] = max(out.get(level, 0.0), d)
+    return dict(sorted(out.items()))
+
+
+def phase_parity() -> None:
+    """[parity]: (a) the five families of the JAX package's golden test at
+    their tiny size on the card (fp32, ``attn_backend: native``, TF32 off),
+    on the JAX tiny adapters' weights and draws (``tests/goldens_torch``),
+    checked against the JAX goldens (``tests/goldens``) at
+    ``DEFAULT_TOLERANCES`` with L1 exact: every key, K5 (and SD3's K6) in
+    fp32 on the path, no attention kernel; (b) SD3.5-M at full width and
+    depth, bf16, ``auto`` (K1, K5, K6), at 256 px: ``record``, then
+    ``check`` against that record, max |Δ| exactly 0 at every key, and the
+    L3 replay's log-prob equal to the rollout's bit for bit."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models import load_adapter
+    from flow_factory_tpu_torch.parity import DEFAULT_TOLERANCES, ParityHarness, ProbeInputs
+    from flow_factory_tpu_torch.parity.__main__ import make_config
+
+    attention = ("qknorm_flash_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("[parity] TF32 is on for fp32 matmuls or convolutions")
+    for name in PARITY_FAMILIES:
+        golden, inputs = _parity_paths(name)
+        with open(golden + ".json") as f:
+            model_type = json.load(f)["model_type"]
+        t0 = time.perf_counter()
+        ad = load_adapter(make_config(model_type, "tiny"), device="cuda")
+        ops.reset_launch_counts()
+        rep = ParityHarness(ad, inputs=ProbeInputs.load(inputs)).check(golden)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        n_keys = len(np.load(golden).files)
+        log(f"[parity] {name} ({model_type}, tiny, fp32, native, cuda) against the JAX golden: max|Δ| by level "
+            f"{_max_by_level(rep.max_diffs)} (tolerances {DEFAULT_TOLERANCES}), L1 config "
+            f"{'equal' if not any(f.startswith('L1') for f in rep.failures) else 'DIFFERS'}, "
+            f"{len(rep.max_diffs)}/{n_keys} keys, missing {rep.missing}, extra {rep.extra} | launches {counts} | "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not rep.passed or rep.missing or rep.extra or len(rep.max_diffs) != n_keys:
+            fail(f"[parity] {name} misses the JAX golden:\n{rep.summary()}")
+        if not counts.get("ln_mul_add") or any(counts.get(k) for k in attention):
+            fail(f"[parity] {name}: K5 must run and no attention kernel under native: {counts}")
+        del ad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) SD3.5-M's own record and check on the card
+    cfg = make_config("sd3-5", "", resolution=PARITY_SD35_RESOLUTION, attn_backend="auto", dtype="bfloat16",
+                      variant="medium")
+    t0 = time.perf_counter()
+    ad = load_adapter(cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parity", "sd35m.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ParityHarness(ad).save(path)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    rep = ParityHarness(ad).check(path)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    rec = dict(np.load(path))
+    zero = bool(rep.max_diffs) and all(d == 0.0 for d in rep.max_diffs.values())
+    l3 = rec["L3/log_prob"], rec["L3/rollout_log_prob"]
+    l3_same = l3[0].shape == l3[1].shape and np.array_equal(l3[0].view(np.uint32), l3[1].view(np.uint32))
+    log(f"[parity] sd35m (SD3.5-M, medium, bf16, auto, {PARITY_SD35_RESOLUTION} px, 4 steps): record then check "
+        f"on the card: {len(rec)} keys, max|Δ| exactly 0 at every key: {zero} (largest "
+        f"{max(rep.max_diffs.values()) if rep.max_diffs else None}), missing {rep.missing}, extra {rep.extra}, "
+        f"L1 config equal: {not rep.failures}; L3 log-prob {l3[0].tolist()} against the rollout's "
+        f"{l3[1].tolist()}: bit for bit {l3_same} | launches of one record {counts} | load {load_s:.1f} s, record "
+        f"{record_s:.1f} s, check {check_s:.1f} s")
+    if not (rep.passed and zero and not rep.missing and not rep.extra and len(rep.max_diffs) == len(rec)):
+        fail(f"[parity] SD3.5-M's record and check differ on the card:\n{rep.summary()}")
+    if not l3_same:
+        fail(f"[parity] SD3.5-M: the L3 replay's log-prob {l3[0]} is not the rollout's {l3[1]}")
+    if any(not counts.get(k) for k in ("qknorm_flash_fwd", "ln_mul_add", "residual_gate_modulate")):
+        fail(f"[parity] SD3.5-M under auto did not run K1, K5 and K6: {counts}")
+    del ad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hybrid_direct_check(tag: str, B: int, H: int, S: int, D: int, strided: bool, randn) -> None:
+    """The hybrid backend against ``flash`` at one shape on the same q, k, v
+    and dO: dq, dk, dv bit for bit (the same K3 recompute feeds the same
+    K2), the forward (the plain product) within K3's bar of K3's plain
+    version, one K3, K2a and K2b launch and no library attention op in its
+    forward and backward."""
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.ops import attention as A
+
+    def heads():
+        t = randn(B, S, H, D).transpose(1, 2) if strided else randn(B, H, S, D)
+        return t.detach().requires_grad_()
+
+    q, k, v = heads(), heads(), heads()
+    dout = randn(B, S, H, D).transpose(1, 2)  # head-interleaved, as the head merge's backward gives it
+    scale = D ** -0.5
+
+    def run(backend):
+        out = A.dot_product_attention(q, k, v, scale=scale, backend=backend)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+    before = ops.launch_counts()
+    hybrid, called = _aten_ops_called(lambda: run("hybrid"))
+    torch.cuda.synchronize()
+    mid = ops.launch_counts()
+    flash = run("flash")
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in mid.items() if n != before[k]}
+    same = [torch.equal(a, b) for a, b in zip(hybrid[1:], flash[1:])]
+    with torch.no_grad():
+        ref = A.flash_attention_plain(q, k, v, scale)
+    tol = 4 * bf16_ulp(ref.float().abs().max().item())
+    err = (hybrid[0].float() - ref.float()).abs().max().item()
+    library = sorted(n for n in called if any(op in n for op in LIBRARY_ATTENTION_OPS))
+    layout = "q/k/v views" if strided else "contiguous"
+    log(f"[hybrid] {tag} B{B} H{H} S{S} D{D} bf16 {layout}: dq/dk/dv against flash's bit for bit {same}; "
+        f"launches of its forward and backward {launched}; library attention ops {library} of {len(called)} "
+        f"ops dispatched")
+    _check(f"hybrid {tag} forward (the plain product) against K3's plain version", err, tol)
+    if not all(same):
+        fail(f"[hybrid] {tag}: the gradients differ from flash's")
+    if launched != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1} or library:
+        fail(f"[hybrid] {tag}: launches {launched}, library ops {library}")
+    del q, k, v, dout, hybrid, flash, ref
+    torch.cuda.empty_cache()
+
+
+def _k3_sd35_call(B: int, H: int, S: int, D: int, strided: bool):
+    """K3 on fresh bf16 inputs of an SD3.5-M attention's shape and layout, as a call."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    make = (lambda: torch.randn(B, S, H, D, device="cuda", dtype=torch.bfloat16).transpose(1, 2)) if strided \
+        else (lambda: torch.randn(B, H, S, D, device="cuda", dtype=torch.bfloat16))
+    return functools.partial(A.flash_attention, make(), make(), make(), D ** -0.5)
+
+
+def phase_hybrid(results: dict, train_figures: list) -> dict:
+    """[hybrid]: ``attn_backend: hybrid`` (the plain forward, K3's recompute
+    and K2a/K2b in the backward) on the card. The direct check at SD3.5-M's
+    joint and Wan2.1's self shapes (:func:`_hybrid_direct_check`); K3 at
+    SD3.5-M's joint and self shapes through the checks of 2 (the kernel
+    table's rows of the recompute); then one epoch of the GRPO training
+    slice of 5 at the same geometry under ``hybrid``: ratio exactly 1.0 on
+    every grad step, no K1 anywhere, 37 K3 / 37 K2a / 37 K2b a grad step and
+    no K3 in the rollout, no library attention op in a grad step; its
+    rollout and grad-step seconds and peak beside [train]'s (flash) from
+    ``train_figures``. Returns the epoch's launch counts."""
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    for shape in HYBRID_SHAPES:
+        _hybrid_direct_check(*shape, randn)
+    for tag, B, H, S, D, strided, _ in HYBRID_K3_SHAPES:
+        heads = (lambda: randn(B, S, H, D).transpose(1, 2)) if strided else (lambda: randn(B, H, S, D))
+        q, k, v = heads(), heads(), heads()
+        _k3_shape_checks(results, tag, q, k, v, "q/k/v views" if strided else "contiguous",
+                         functools.partial(_k3_sd35_call, B, H, S, D, strided))
+        del q, k, v
+
+    cfg_dict = _train_config_dict()
+    cfg_dict["model"] = {**cfg_dict["model"], "attn_backend": "hybrid"}
+    cfg_dict["train"] = {**cfg_dict["train"], "max_epochs": 1}
+    cfg_dict["log"] = {**cfg_dict["log"], "run_name": "chip_smoke_hybrid"}
+    cfg = Arguments.from_dict(cfg_dict)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    t0 = time.perf_counter()
+    trainer = load_trainer(cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if trainer.adapter.component_configs["transformer"].attn_backend != "hybrid":
+        fail("[hybrid] the trainer's transformer does not run the hybrid backend")
+    figures: list = []
+    counts = _train_epochs(trainer, "hybrid", lambda steps: {
+        "qknorm_flash_fwd": 0, "flash_fwd": 37 * steps, "flash_bwd_dq": 37 * steps, "flash_bwd_dkv": 37 * steps,
+        **{name: n * steps for name, n in SD35_NORMS_A_STEP.items()}}, figures=figures)
+    steps = figures[0]["steps"]
+    if counts["qknorm_flash_fwd"] or counts["flash_fwd"] != 37 * steps:
+        fail(f"[hybrid] K1 launched, or K3 outside the grad steps' backwards: {counts}")
+    _, called = _aten_ops_called(_one_grad_step(trainer))
+    torch.cuda.synchronize()
+    library = sorted(n for n in called if any(op in n for op in LIBRARY_ATTENTION_OPS))
+    log(f"[hybrid] one grad step (forward, backward, AdamW) under a dispatch recorder: library attention ops "
+        f"{library} of {len(called)} ops dispatched")
+    if library:
+        fail(f"[hybrid] a library attention op ran in the grad step: {library}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    h = figures[0]
+    f = train_figures[0] if train_figures else None
+    line = (f"[hybrid] hybrid (the plain forward, K3 + K2 backward) against flash (K1 forward, K2 backward) at "
+            f"the [train] geometry (8 samples, 512 px, 10 steps, CFG 4.5, B 16): load_trainer {load_s:.1f} s; "
+            f"epoch 0 rollout {h['sample']:.3f} s, {h['per_step']:.3f} s a grad step; peak {peak:.2f} GiB; the "
+            f"allocator's retries {retries}")
+    if f is not None:
+        line += (f" | [train] epoch 0 (flash, the same LoRA at zero): rollout {f['sample']:.3f} s, "
+                 f"{f['per_step']:.3f} s a grad step, peak {f['peak']:.2f} GiB over its two epochs | hybrid/flash: "
+                 f"rollout {h['sample'] / f['sample']:.2f}x, grad step {h['per_step'] / f['per_step']:.2f}x")
+    log(line)
+    _profile_grad_step(trainer, "one hybrid grad step (forward, backward, AdamW)", "hybrid_grad_step_trace.json")
+    trainer.cleanup()
+    del trainer
+    return counts
+
+
+def parity_hybrid_only(flags) -> int:
+    """``--parity`` and/or ``--hybrid``: the build, then [parity] and/or
+    [hybrid] (without [train]'s figures beside it) and the device times of
+    [hybrid]'s K3 shapes."""
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    if "--parity" in flags:
+        phase_parity()
+    if "--hybrid" in flags:
+        phase_hybrid({}, [])
+        for job in DEVICE_TIME_JOBS:
+            job()
+    log("parity/hybrid phases: ok")
+    return 0
 
 
 def _dir_bytes(path: str) -> int:
@@ -3929,7 +4231,7 @@ def _ltx2_launches(num_layers: int):
 
 
 #: peak device memory predicted for the LTX-2 GRPO phases (GiB; PERF.md §6)
-LTX2_PEAK_PREDICTED = (44.0, 56.0)
+LTX2_PEAK_PREDICTED = (47.0, 51.0)
 #: the LTX-2 kernel tags of the table and the phases whose launches they take
 LTX2_TAGS = {
     "flash_fwd": tuple(t for t, _, _ in LTX2_ATTENTION + LTX2_LONG_ATTENTION),
@@ -4045,8 +4347,9 @@ def _ltx2_epoch(trainer, tag: str, epoch: int, forward: dict, backward: dict, ch
 def phase_ltx2() -> dict:
     """[ltx2] and [ltx2-train]: LTX-2 T2AV GRPO at full width through
     ``load_trainer`` on tests/fixtures/ltx2_t2av_grpo.yaml (28 blocks, width
-    2048; Gemma3-12B at 512 tokens; random bf16 weights from seed 42; LoRA
-    rank 32 on the 784 default targets; 256 px x 9 frames: 128 video and 9
+    2048; Gemma3-12B at 24 of its 48 layers (tests/fixtures/ltx2_cut), at
+    512 tokens; random bf16 weights from seed 42; LoRA rank 32 on the 784
+    default targets; 256 px x 9 frames: 128 video and 9
     audio tokens; 10 steps, CFG 3, Flow-SDE η 0.8 on the video stream, the
     audio ODE on its own grid; 2 prompts x group 4 in one batch), two epochs
     phase by phase: K3 and K5 launched as predicted in each rollout, finite
@@ -4279,7 +4582,7 @@ WAN22_TAGS = {
                                            "wan22-ti2v-norm2")},
 }
 #: peak device memory predicted for the Wan2.2 and V2V trainers (GiB; PERF.md §6)
-WAN22_PEAK_PREDICTED = {"wan22-ti2v": (35.0, 50.0), "wan22-moe": (30.0, 45.0), "wan-v2v": (35.0, 45.0)}
+WAN22_PEAK_PREDICTED = {"wan22-ti2v": (35.0, 50.0), "wan22-moe": (33.0, 41.0), "wan-v2v": (35.0, 45.0)}
 
 
 def phase_wan22_kernels(results: dict) -> None:
@@ -4760,13 +5063,13 @@ def phase_wan22_ti2v() -> dict:
 
 
 def phase_wan22_moe() -> dict:
-    """[wan22-moe]: the Wan2.2-A14B two-expert MoE at full width, 8 layers
+    """[wan22-moe]: the Wan2.2-A14B two-expert MoE at full width, 4 layers
     an expert, on tests/fixtures/wan22_a14b_grpo.yaml (256 px x 5 frames:
     512 tokens; 10 steps, CFG 5 on the high-noise expert and
     ``guidance_scale_2`` 3 on the low-noise one; random bf16 weights). T2V
     GRPO for two epochs: each rollout step's expert as JAX's fp32 rule
     t >= 875 gives it (steps 0-3, 875.0 included, on ``transformer_2``),
-    the kernels launched as one 8-layer forward a step; on every grad step
+    the kernels launched as one 4-layer forward a step; on every grad step
     the routed expert's LoRA gets a gradient and the other's exact zeros;
     an expert's LoRA B moves exactly when a trained step routed to it;
     ratio exactly 1.0. Returns the launch counts of the two epochs;
@@ -4782,8 +5085,8 @@ def phase_wan22_moe() -> dict:
     ad = trainer.adapter
     L = ad.component_configs["transformer"].num_layers
     forward, backward = _wan_launches(L)
-    if sorted(ad.trainable) != ["transformer", "transformer_2"] or L != 8:
-        fail(f"[wan22-moe] expected two trained experts of 8 layers: {sorted(ad.trainable)}, {L}")
+    if sorted(ad.trainable) != ["transformer", "transformer_2"] or L != 4:
+        fail(f"[wan22-moe] expected two trained experts of 4 layers: {sorted(ad.trainable)}, {L}")
     b0 = {c: {p: ab["lora_B"].detach().clone() for p, ab in t.items()} for c, t in ad.trainable.items()}
     routes: list = []
 
@@ -4819,7 +5122,7 @@ def phase_wan22_moe() -> dict:
     if any((moved[c] > 0) != (c in trained) for c in moved):
         fail(f"[wan22-moe] an expert's LoRA moved without a trained step or stayed without one: {moved}")
     _wan22_finish(trainer, "wan22-moe", runs, counts,
-                  "one Wan2.2-A14B (8 layers an expert) grad step (LoRA merge of the routed expert, forward, "
+                  "one Wan2.2-A14B (4 layers an expert) grad step (LoRA merge of the routed expert, forward, "
                   "backward, AdamW)")
     return counts
 
@@ -5974,11 +6277,11 @@ DECOUPLED_INVARIANTS = {
 #: forwards with a gradient a grad step, the dataset maker, the predicted
 #: peak (GiB, PERF.md §6), whether the grad step is profiled
 FAMILY_PHASES = {
-    "ltx2-nft": dict(fixture="ltx2_t2av_nft.yaml", family="ltx2", frozen=1, grads=1, peak=(55.0, 62.0),
+    "ltx2-nft": dict(fixture="ltx2_t2av_nft.yaml", family="ltx2", frozen=1, grads=1, peak=(45.0, 52.0),
                      profile=True),
-    "ltx2-i2av-dpo": dict(fixture="ltx2_i2av_dpo.yaml", family="ltx2", frozen=2, grads=2, peak=(45.0, 58.0),
+    "ltx2-i2av-dpo": dict(fixture="ltx2_i2av_dpo.yaml", family="ltx2", frozen=2, grads=2, peak=(35.0, 48.0),
                           data=_ltx2_i2av_dataset),
-    "wan22-moe-awm": dict(fixture="wan22_a14b_awm.yaml", family="wan", frozen=1, grads=1, peak=(44.0, 50.0)),
+    "wan22-moe-awm": dict(fixture="wan22_a14b_awm.yaml", family="wan", frozen=1, grads=1, peak=(32.0, 42.0)),
     "wan22-ti2v-dgpo": dict(fixture="wan22_ti2v_dgpo.yaml", family="wan", frozen=2, grads=1, peak=(45.0, 58.0),
                             data=lambda root: _wan22_image_dataset(root, "wan22_image_data_256", 256)),
     "z-image-crd": dict(fixture="z_image_crd.yaml", family="z-image", frozen=2, grads=1, peak=(26.0, 33.0)),
@@ -7478,6 +7781,8 @@ def main() -> int:
         return full_only()
     if sys.argv[1:] and set(sys.argv[1:]) <= {"--ring", "--dist1"}:
         return dist_only(sys.argv[1:])
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--parity", "--hybrid"}:
+        return parity_hybrid_only(sys.argv[1:])
     if len(sys.argv) > 2 and sys.argv[1] == "--full-grad":
         return full_grad_only([int(a) for a in sys.argv[2:]])
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
@@ -7516,7 +7821,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_grad()
     train_record: list = []
-    counts = phase_train(train_record)
+    train_figures: list = []
+    counts = phase_train(train_record, train_figures)
     _mark("[grad], [train]")
     gc.collect()
     torch.cuda.empty_cache()  # the SD3.5 trainer is gone before the CLI's and the resumed trainer load
@@ -7526,6 +7832,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # and gone again before the Wan trainer loads
     log(f"[resume] device memory allocated once the SD3.5 trainers are freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    phase_parity()
+    _mark("[parity]")
+    hybrid_counts = phase_hybrid(results, train_figures)
+    _mark("[hybrid]")
+    gc.collect()
+    torch.cuda.empty_cache()  # the hybrid trainer is gone before the Wan trainer loads
     phase_grad_wan()
     wan_train_counts = phase_wan_train()
     _mark("[grad] Wan, [wan-train]")
@@ -7616,6 +7928,12 @@ def main() -> int:
             shape = results[name]["shapes"][tag]
             shape["launches"] = shape.get("launches", 0) + sum(flux2_counts[p][name.replace("_d128", "")]
                                                                for p in phases)
+    # the hybrid backend's epoch: its K2a/K2b join SD3.5-M's D=64 rows; its K3 recomputes are the
+    # SD3.5-M rows of K3, 24 joint and 13 self attentions a grad step
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        counts[name] += hybrid_counts[name]
+    for tag, *_, per_step in HYBRID_K3_SHAPES:
+        results["flash_fwd"]["shapes"][tag]["launches"] = hybrid_counts["flash_fwd"] * per_step // 37
     # the ring's hop shape: its kernels' launches in the one ring call of [ring]
     for name, launches in ring_counts.items():
         results[name]["shapes"][RING_SHAPE[0]]["launches"] = launches

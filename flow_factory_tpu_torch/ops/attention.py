@@ -36,10 +36,14 @@ mode off the TPU) and raise on a mask on every device; ``native`` is the
 plain path on any device; ``ring`` runs self-attention on the ring of the
 mesh's tensor axis (``ring_attention.py``: every hop K3 forward, K2
 backward) and anything else as ``flash`` does (JAX ``_ring_dispatch``, whose
-fallback off the TPU is ``native``); ``hybrid`` is not ported yet and
-raises. The qk-norm attention has no mask: its flash-class backends take K1;
-under ``ring`` the RMS scale is composed with the ring's dispatch, as the JAX
-package composes it.
+fallback off the TPU is ``native``); ``hybrid`` (:func:`hybrid_attention`,
+JAX ``attention.py:838-884``) runs :func:`native_attention` forward and
+recomputes (O, lse) with K3 in its backward, which then runs K2a and K2b,
+and runs as ``flash`` where the score tensor passes
+:data:`NATIVE_SCORE_BYTES_LIMIT`; it raises on a mask on every device. The
+qk-norm attention has no mask: its flash-class backends take K1; under
+``ring`` and ``hybrid`` the RMS scale is composed with the backend's
+dispatch, as the JAX package composes it.
 """
 from __future__ import annotations
 
@@ -577,6 +581,63 @@ def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = F
 flash_attention.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Hybrid: the plain forward, K3's recompute and K2 in the backward
+# ---------------------------------------------------------------------------
+
+#: score-tensor bytes (B·H·Sq·Sk x q's item size) above which ``hybrid`` runs
+#: as ``flash``: the plain forward would hold the whole score tensor (JAX
+#: ``XLA_SCORE_BYTES_LIMIT``, ``attention.py:844``)
+NATIVE_SCORE_BYTES_LIMIT = 8 * 1024 ** 3
+
+
+def score_bytes(q: torch.Tensor, k: torch.Tensor) -> int:
+    """B·H·Sq·Sk x q's item size: the bytes of one score tensor in q's dtype."""
+    B, H, Sq, _ = q.shape
+    return B * H * Sq * k.shape[2] * q.element_size()
+
+
+class _Hybrid(torch.autograd.Function):
+    """The JAX ``_hybrid_attention`` custom VJP (:853-864): the forward is
+    :func:`native_attention` (what XLA's fused attention computes outside
+    any Pallas kernel) and keeps q, k and v alone, no score tensor; the
+    backward recomputes (O, natural-log lse) with K3 (:func:`flash_forward`)
+    and runs :func:`flash_backward` on them, Δ from K3's O. On a CPU tensor
+    both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return native_attention(q, k, v, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        out, lse = flash_forward(q, k, v, ctx.scale)
+        if q.is_cuda and not (dout.stride(-1) == 1 and _vector_aligned(dout)):
+            dout = dout.contiguous()  # the kernels read dO in place when its layout allows
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None
+
+
+def hybrid_attention(q, k, v, scale: Optional[float] = None):
+    """The ``hybrid`` backend (JAX ``hybrid_attention``, :867-884): the
+    plain forward, K3 and K2 in the backward, through :class:`_Hybrid`;
+    above :data:`NATIVE_SCORE_BYTES_LIMIT` of scores, :func:`flash_attention`.
+    On a CUDA tensor it takes what K3 takes (bf16, head dim 64 or 128) and
+    raises on anything else."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if score_bytes(q, k) > NATIVE_SCORE_BYTES_LIMIT:
+        return flash_attention(q, k, v, scale=scale)
+    if q.device.type == "cuda":
+        _check_heads("hybrid_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+    elif q.device.type != "cpu":
+        raise ValueError(f"hybrid_attention: unsupported device {q.device}")
+    return _Hybrid.apply(q, k, v, float(scale))
+
+
 def qknorm_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -600,28 +661,31 @@ def qknorm_dot_product_attention(
         return qknorm_flash_attention(q, k, v, gq, gk, float(scale), float(eps), return_lse)
     if backend == "native":
         return qknorm_attention_plain(q, k, v, gq, gk, float(scale), float(eps), return_lse)
-    if backend == "ring" and not return_lse:
-        # the RMS scale composed with the ring's dispatch (JAX :590-594); K1 stays flash's
+    if backend in ("ring", "hybrid") and not return_lse:
+        # the RMS scale composed with the backend's dispatch (JAX :590-594); K1 stays flash's
         qn = _rms_scale(q, gq, eps).to(q.dtype)
         kn = _rms_scale(k, gk, eps).to(k.dtype)
+        if backend == "hybrid":
+            return hybrid_attention(qn, kn, v, float(scale))
         return _ring_dispatch(qn, kn, v, float(scale))
     if backend in ("hybrid", "ring"):
-        raise NotImplementedError(f"attention backend {backend!r}{' with its lse' if backend == 'ring' else ''} "
-                                  "is not ported yet")
+        raise NotImplementedError(f"attention backend {backend!r} with its lse is not ported yet")
     raise ValueError(f"Unknown attention backend {backend!r}")
 
 
-def attention_route(backend: str, masked: bool, device_type: str, head_dim: int) -> str:
+def attention_route(backend: str, masked: bool, device_type: str, head_dim: int, scores: int = 0) -> str:
     """What :func:`dot_product_attention` runs for ``backend``, a mask or
-    none, on a tensor of ``device_type`` with ``head_dim``: ``"native"``
+    none, on a tensor of ``device_type`` with ``head_dim`` and ``scores``
+    bytes of score tensor (:func:`score_bytes`): ``"native"``
     (:func:`native_attention`), ``"flash"`` (:func:`flash_attention`: K3 on
-    CUDA, its plain version on the CPU) or ``"ring"`` (:func:`_ring_dispatch`),
-    or the error the call raises. The JAX rule (``attention.py:955-975``)
-    with CUDA in the TPU's place: ``auto`` is ``flash`` on the accelerator
-    without a mask at head dim 256 or less and ``native`` otherwise (on
-    every device with a mask); ``splash`` is ``flash``; ``flash`` and
-    ``ring`` with a mask raise on every device, as does ``hybrid``, which is
-    not ported and raises without one too."""
+    CUDA, its plain version on the CPU), ``"hybrid"`` (:func:`hybrid_attention`)
+    or ``"ring"`` (:func:`_ring_dispatch`), or the error the call raises. The
+    JAX rule (``attention.py:955-975``) with CUDA in the TPU's place:
+    ``auto`` is ``flash`` on the accelerator without a mask at head dim 256
+    or less and ``native`` otherwise (on every device with a mask);
+    ``splash`` is ``flash``; ``hybrid`` is ``flash`` above
+    :data:`NATIVE_SCORE_BYTES_LIMIT` of scores (:880-883); ``flash``,
+    ``hybrid`` and ``ring`` with a mask raise on every device."""
     if backend == "native":
         return "native"
     if backend == "auto":
@@ -630,8 +694,8 @@ def attention_route(backend: str, masked: bool, device_type: str, head_dim: int)
         name = "flash" if backend == "splash" else backend
         if masked:
             raise NotImplementedError(f"{name} backend does not take a dense mask; use 'native'")
-        if name == "hybrid":
-            raise NotImplementedError(f"attention backend {backend!r} is not ported yet")
+        if name == "hybrid" and scores > NATIVE_SCORE_BYTES_LIMIT:
+            return "flash"
         return name
     raise ValueError(f"Unknown attention backend {backend!r}")
 
@@ -665,11 +729,13 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, bac
     """Attention without a qk-norm (JAX ``dot_product_attention``, :942),
     routed by :func:`attention_route`. On a CUDA tensor K3 takes bf16 at head
     dim 64 or 128 and raises on anything else: there is no silent native."""
-    route = attention_route(backend, mask is not None, q.device.type, q.shape[-1])
+    route = attention_route(backend, mask is not None, q.device.type, q.shape[-1], score_bytes(q, k))
     if route == "native":
         return native_attention(q, k, v, scale=scale, mask=mask)
     if route == "ring":
         return _ring_dispatch(q, k, v, scale)
+    if route == "hybrid":
+        return hybrid_attention(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale)
 
 

@@ -1106,6 +1106,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 int launch(const Params& p, bool dkv, int d, int dtype, const long long* tma, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t bound = bind_device_of(p.q);
+  if (bound != cudaSuccess) return (int)bound;
   if (d == D && dtype == 0) return (int)launch_f32(p, dkv, s);
   if (dtype != 1 || (d != D && d != WD) || !aligned16(p, dkv)) return (int)cudaErrorInvalidValue;
   return (int)launch_wgmma(p, dkv, d, tma, s);

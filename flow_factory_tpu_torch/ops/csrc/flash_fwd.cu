@@ -43,6 +43,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, 
   p.qmul = qmul; p.eps = 0.f;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (!fwd_aligned(p)) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = bind_device_of(q);
+  if (bound != cudaSuccess) return (int)bound;
   if (d == 64) return (int)launch_fwd_wgmma<64, false>(p, q, k, v, tma, s);
   if (d == 128) return (int)launch_fwd_wgmma<128, false>(p, q, k, v, tma, s);
   return (int)cudaErrorInvalidValue;

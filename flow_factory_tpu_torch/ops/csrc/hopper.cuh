@@ -196,6 +196,19 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// Makes the primary context of the device that holds `ptr` current on the
+// calling thread, through this library's runtime. A thread can reach a launch
+// with no current context: an autograd worker thread whose first CUDA work in
+// a backward is the launch (the hybrid backend's K3 recompute); the launch
+// then fails with cudaErrorInvalidValue. Each entry point calls it first.
+inline cudaError_t bind_device_of(const void* ptr) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  if (err != cudaSuccess) return err;
+  if (attr.type != cudaMemoryTypeDevice) return cudaErrorInvalidValue;
+  return cudaSetDevice(attr.device);
+}
+
 EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {

@@ -279,6 +279,8 @@ int qknorm_flash_fwd(const void* q, const void* k, const void* v, const float* g
                      void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (d != D) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = bind_device_of(q);
+  if (bound != cudaSuccess) return (int)bound;
   if (dtype == 1) {
     FwdParams f;
     f.gq = gq; f.gk = gk;

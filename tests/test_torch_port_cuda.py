@@ -887,3 +887,61 @@ def test_flash_at_kontext_2560_matches_plain(gen, B, S, layout):
         assert (g.float() - r.float()).abs().max().item() <= _k2_tol(r, torch.bfloat16), name
     again = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_kernels_launch_from_a_thread_with_no_current_context(gen, kernel):
+    """A thread whose first CUDA work is a kernel's launch (an autograd
+    worker running the hybrid backend's K3 recompute) holds no current
+    context: each entry point binds the device of its q first (F20; without
+    it the launch failed with ``invalid argument``)."""
+    import threading
+
+    q, k, v = (_randn(gen, 2, 3, 300, 64, dtype=torch.bfloat16) for _ in range(3))
+    g = torch.ones(300, 64, device="cuda")
+    out, lse = A.flash_attention_plain(q, k, v, 0.125, return_lse=True)
+    dout = _randn(gen, 2, 3, 300, 64, dtype=torch.bfloat16)
+    run = {"K1": lambda: A.qknorm_flash_attention(q, k, v, g, g, 0.125, 1e-6),
+           "K2": lambda: A.flash_backward(q, k, v, out, lse, dout, 0.125),
+           "K3": lambda: A.flash_forward(q, k, v, 0.125)}[kernel]
+    want = run()
+    got, errors = [], []
+
+    def worker():
+        try:
+            got.append(run())
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert not errors, errors
+    flat = lambda x: list(x) if isinstance(x, tuple) else [x]
+    assert all(torch.equal(a, b) for a, b in zip(flat(got[0]), flat(want)))
+
+
+@pytest.mark.parametrize("D,S,strided", [(64, 1357, False), (128, 512, True)])
+def test_hybrid_gradients_are_flash_gradients_bit_for_bit(gen, D, S, strided):
+    """``hybrid`` on the card: the plain forward within K3's bar of K3's
+    plain version, and dq/dk/dv bit-equal to ``flash``'s on the same inputs
+    (the same K3 recompute feeds the same K2), K3 launched once, in the
+    backward."""
+    def heads():
+        t = _randn(gen, 2, S, 4, D, dtype=torch.bfloat16).transpose(1, 2) if strided \
+            else _randn(gen, 2, 4, S, D, dtype=torch.bfloat16)
+        return t.detach().requires_grad_()
+
+    q, k, v = heads(), heads(), heads()
+    dout = _randn(gen, 2, S, 4, D, dtype=torch.bfloat16).transpose(1, 2)
+    before = A.flash_attention.launches
+    out = A.dot_product_attention(q, k, v, backend="hybrid")
+    assert A.flash_attention.launches == before
+    hybrid = torch.autograd.grad(out, (q, k, v), dout)
+    assert A.flash_attention.launches == before + 1
+    flash = torch.autograd.grad(A.dot_product_attention(q, k, v, backend="flash"), (q, k, v), dout)
+    assert all(torch.equal(a, b) for a, b in zip(hybrid, flash))
+    with torch.no_grad():
+        ref = A.flash_attention_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= 4 * _bf16_ulp(ref.float().abs().max().item())

@@ -82,20 +82,22 @@ def test_qknorm_dot_product_attention_backends_on_cpu(backend):
 
 @pytest.mark.parametrize("backend", ["hybrid", "ring"])
 def test_unported_attention_backends_raise(backend):
-    """hybrid is not ported and raises. ring composes the RMS scale with the
-    ring's dispatch (JAX ``qknorm_dot_product_attention`` off the fused
-    path), which without a ring runs K3's plain version on a CPU tensor; it
-    has no lse and raises when one is asked for."""
+    """hybrid and ring compose the RMS scale with their dispatch (JAX
+    ``qknorm_dot_product_attention`` off the fused path): ring's without a
+    ring runs K3's plain version on a CPU tensor, hybrid's is
+    ``hybrid_attention`` (whose forward is the plain product; against JAX in
+    tests/test_torch_port_hybrid.py). Neither has an lse: asking for one
+    raises."""
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, 8)).astype(np.float32)) for _ in range(3))
     g = torch.from_numpy((1 + 0.1 * rng.standard_normal(8)).astype(np.float32))
-    if backend == "hybrid":
-        with pytest.raises(NotImplementedError):
-            tattn.qknorm_dot_product_attention(q, q, q, g, g, backend=backend)
-        return
     out = tattn.qknorm_dot_product_attention(q, k, v, g, g, backend=backend)
     qn, kn = (tattn._rms_scale(t, g.expand(8, 8), 1e-6).to(t.dtype) for t in (q, k))
-    assert torch.equal(out, tattn.flash_attention_plain(qn, kn, v, 8 ** -0.5))
+    if backend == "hybrid":
+        assert torch.equal(out, tattn.hybrid_attention(qn, kn, v, 8 ** -0.5))
+        assert torch.equal(out, tattn.native_attention(qn, kn, v, 8 ** -0.5))
+    else:
+        assert torch.equal(out, tattn.flash_attention_plain(qn, kn, v, 8 ** -0.5))
     with pytest.raises(NotImplementedError, match="lse"):
         tattn.qknorm_dot_product_attention(q, k, v, g, g, backend=backend, return_lse=True)
 

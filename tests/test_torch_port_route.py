@@ -50,18 +50,22 @@ def _jax_route(backend: str, masked: bool, accelerator: bool, monkeypatch, head_
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_attention_route_follows_the_jax_rule(backend, masked, device, monkeypatch):
-    """auto with a mask is native on every device; flash/splash/ring with a
-    mask raise on every device; auto without one takes K3 on CUDA and native
-    on the CPU. hybrid is not ported: it raises where JAX runs. ring without
-    a mask is its own route, whose dispatch without a ring runs what flash
+    """auto with a mask is native on every device; flash/splash/hybrid/ring
+    with a mask raise on every device; auto without one takes K3 on CUDA and
+    native on the CPU. hybrid without a mask is its own route on every
+    device (the plain forward, K3 and K2 in the backward): its forward is
+    bit-equal to the port's ``native_attention``, while JAX's, XLA's fused
+    attention, is read as ``flash`` by this probe; its gate and gradients
+    are held to JAX's in tests/test_torch_port_hybrid.py. ring without a
+    mask is its own route, whose dispatch without a ring runs what flash
     runs on every device (JAX's ``_ring_dispatch`` falls back to native off
     the TPU and to its flash kernel on it)."""
     port = _outcome(lambda: T.attention_route(backend, masked, device, 64))
     want = _jax_route(backend, masked, device == "cuda", monkeypatch)
     if backend == "hybrid" and not masked:
-        assert want in ("native", "flash") and port == "NotImplementedError"
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.attention_route(backend, masked, device, 64)
+        assert want in ("native", "flash") and port == "hybrid"
+        q, k, v, _ = (torch.from_numpy(a) for a in _inputs())
+        assert torch.equal(T.dot_product_attention(q, k, v, backend="hybrid"), T.native_attention(q, k, v))
     elif backend == "ring" and not masked:
         assert want == ("flash" if device == "cuda" else "native") and port == "ring"
         q, k, v, _ = (torch.from_numpy(a) for a in _inputs())
