@@ -22,7 +22,13 @@ printing one line and exiting non-zero on failure:
    ``_bwd_prologue`` and SDPA's whole backward by the same method), for K1
    and K3 the wrapper's host cost a call, the bound with the ex2 term, the
    ratios to SDPA and to the bound, and a batch slice's bits; then the
-   masked dispatch on the card (native, no K3 launch; flash raises);
+   masked dispatch on the card (native, no K3 launch; flash raises); then
+   the fp32 kernels at the JAX presets' head dims (K3, K2a, K2b at 16, 64,
+   128; K1 at 16 and 128: the Wan self and cross shapes, SD3.5-M's self
+   shape at 64, a tiny D=16 shape, ragged Sq != Sk shapes) against their
+   plain versions with their bars,
+   controls, repeated bits, times and bounds at the fp32 CUDA-core rate,
+   and the pairs without a kernel (fp32 at D=32, fp16) raising;
 3. the serving slice at full width: SD3.5-M (random weights from a seed,
    bf16) through ``load_adapter`` → ``inference`` (2 prompts x group 4 = 8
    samples, 512 px, 10 steps, CFG 4.5, Flow-SDE with log-probs, decode) →
@@ -82,9 +88,13 @@ printing one line and exiting non-zero on failure:
    tiny size in fp32 under ``attn_backend: native`` with TF32 off, on the
    JAX tiny adapters' weights and draws (tests/goldens_torch), against the
    JAX goldens (tests/goldens) at ``DEFAULT_TOLERANCES`` with L1 exact: max
-   |Δ| by level, K5 (and K6) launched in fp32, no attention kernel; then
-   SD3.5-M at full width and depth in bf16 under ``auto`` at 256 px, its own
-   ``record`` checked on the card at max |Δ| exactly 0 on every key, the L3
+   |Δ| by level, K5 (and K6) launched in fp32, no attention kernel; the same
+   five again under ``auto``: every attention through the fp32 K1 (SD3.5)
+   or K3 (the rest) at head dim 16, no other kernel variant, the goldens at
+   the same tolerances, L1 exact but for ``attn_backend``, each level's max
+   |Δ| beside the native pass's; then SD3.5-M at full width and depth in
+   bf16 under ``auto`` at 256 px, its own ``record`` checked on the card at
+   max |Δ| exactly 0 on every key, the L3
    replay's log-prob the rollout's bit for bit;
 5d. hybrid (after 5c): ``attn_backend: hybrid`` (the plain forward; K3's
    recompute, then K2a and K2b, in the backward): dq/dk/dv bit-equal to
@@ -206,10 +216,18 @@ printing one line and exiting non-zero on failure:
    no library attention op; the ring's forward and backward ms, a hop's
    K3/K2a/K2b beside their bounds, plain versions and SDPA (the kernel
    table's ``ring-hop`` rows), the merge's ms;
-10b. dist1 (right after 7): ``examples/multinode/wan21_fsdp.yaml`` at world
+7c. wan-fp32 (right after 7): Wan2.1-T2V-1.3B LoRA GRPO in fp32 at full
+   width and depth (tests/fixtures/wan21_fp32_grpo.yaml: mixed precision
+   off, fp32 master and inference weights, ``auto``, remat, 4 steps, one
+   grad step) for one epoch through ``load_trainer``: every attention call
+   K3, K2a or K2b in fp32 at head dim 128, the launches predicted, ratio
+   exactly 1.0, the LoRA moved, finite log-probs, a profiled grad step
+   without a library attention kernel, seconds and peak against their
+   prediction;
+10b. dist1 (right after 7c): ``examples/multinode/wan21_fsdp.yaml`` at world
    size 1 (tests/fixtures/wan21_dist1.yaml: Wan2.1-1.3B at full width and
-   depth, 256 px x 5 frames, micro-batch 1, 2 prompts x group 4, fsdp 1,
-   the brightness reward): one epoch through ``torchrun --standalone
+   depth, 256 px x 5 frames, 4 steps, micro-batch 1, 1 prompt x group 4,
+   fsdp 1, the brightness reward): one epoch through ``torchrun --standalone
    --nproc_per_node 1 -m flow_factory_tpu_torch.cli`` (NCCL, the mesh
    (1, 1, 1)) and one in this process without a launcher, the LoRA bit for
    bit, ratio exactly 1.0, the collective calls; then
@@ -271,8 +289,7 @@ printing one line and exiting non-zero on failure:
    gradient on the component each grad step reaches (the A14B: the expert
    of its host timestep, both over the epoch), the launches predicted a
    grad step, no read of the timestep from the device for routing, a moved
-   LoRA, peak memory against its prediction, seconds; ``[ltx2-nft]``'s grad
-   step profiled.
+   LoRA, peak memory against its prediction, seconds.
 7b. full-grad, full-sd35, full-wan-dpo (run right after 7): full
    finetuning, the fp32 master the only copy of the trained weights on the
    card. The full-finetune gradient of every weight at SD3.5-M width and
@@ -326,7 +343,9 @@ times of 8h's shapes;
 ``[full-grad]`` at each seed;
 ``python3 chip_smoke.py --ring`` and/or ``--dist1`` the build and 8i and/or 10b;
 ``python3 chip_smoke.py --parity`` and/or ``--hybrid`` the build and 5c and/or
-5d (without 5's figures beside 5d's).
+5d (without 5's figures beside 5d's);
+``python3 chip_smoke.py --fp32`` the build, 2's fp32 kernel rows, 5c and 7c
+(``fp32_only``).
 """
 from __future__ import annotations
 
@@ -346,7 +365,9 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
-PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
+#: H100 SXM fp32 rate outside the tensor cores: 132 SMs x 128 lanes x 2 (an
+#: FMA) x 1.98 GHz, 66.9 TFLOP/s (the data sheet rounds it to 67)
+PEAK_FP32_FLOPS = 132 * 128 * 2 * 1.98e9
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 #: H100 SXM special-function rate: 16 ex2 a clock an SM (CUDA C Programming
 #: Guide, arithmetic throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
@@ -471,9 +492,12 @@ def _log_ptxas_figures(cuda_build, names=("flash_fwd", "qknorm_flash_fwd", "flas
                              r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers", text):
             mangled, stack, st, ld, regs = m.groups()
             fwd = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
-            bwd = re.search(r"(flash_bwd_\w*?_kernel)", mangled)
+            f32 = re.search(r"flash_fwd_f32_kernelILi(\d+)ELb([01])E", mangled)
+            bwd = re.search(r"(flash_bwd_\w*?_kernel)(?:ILi(\d+)E)?", mangled)
             smem = None
-            if fwd:
+            if f32:
+                what = f"flash_fwd_f32_kernel<{f32.group(1)}, {'true' if f32.group(2) == '1' else 'false'}> ({name}.cu)"
+            elif fwd:
                 D, norm = int(fwd.group(1)), fwd.group(2)
                 what = f"flash_fwd_wgmma_kernel<{D}, {'true' if norm == '1' else 'false'}> ({name}.cu)"
                 fn = smem_fn(name, "flash_fwd_smem_bytes" if norm == "0" else "qknorm_flash_fwd_smem_bytes")
@@ -481,7 +505,7 @@ def _log_ptxas_figures(cuda_build, names=("flash_fwd", "qknorm_flash_fwd", "flas
             elif "key_norm_kernel" in mangled:
                 what = f"key_norm_kernel ({name}.cu)"
             elif bwd and name == "flash_bwd":
-                what = f"{bwd.group(1)} ({name}.cu)"
+                what = f"{bwd.group(1)}{f'<{bwd.group(2)}>' if bwd.group(2) else ''} ({name}.cu)"
                 fn = smem_fn(name, "flash_bwd_smem_bytes")
                 if fn is not None and "wgmma" in what:
                     smem = fn(128 if "wgmma128" in what else 64)
@@ -784,6 +808,7 @@ def phase_kernels(results: dict) -> None:
 
     phase_kernels_k2(results, randn)
     phase_kernels_k3(results, randn)
+    phase_kernels_f32(results)
 
     phase_kernels_norms(results, gen)
     torch.cuda.empty_cache()
@@ -1749,6 +1774,248 @@ def phase_kernels_k3(results: dict, randn) -> None:
         fail("the masked dispatch does not follow the JAX rule")
 
 
+#: the fp32 attention kernels' shapes (tag, B, H, Sq, Sk, D, timed): the
+#: Wan2.1-1.3B self- and cross-attention of [wan-fp32] (q/k contiguous from
+#: the across-heads qk-norm and RoPE, v a head-split view; cross: k/v views of
+#: the context projections), SD3.5-M's dual self-attention at head dim 64 (q/k
+#: contiguous from the RMS scale, as ``hybrid`` and ``ring`` compose it with
+#: K3 in fp32), the JAX tiny presets' head dim 16 at a [parity] width, and
+#: ragged Sq != Sk shapes at each head dim (keys in a partial last tile, q
+#: rows in a partial last tile)
+F32_SHAPES = (("wan-self-f32", 16, 12, 512, 512, 128, True), ("wan-cross-f32", 16, 12, 512, 512, 128, True),
+              ("sd35-self-f32", 16, 24, 1024, 1024, 64, True),
+              ("tiny-d16-f32", 2, 4, 256, 256, 16, True), ("ragged-d16-f32", 2, 3, 200, 77, 16, False),
+              ("ragged-d64-f32", 2, 3, 300, 77, 64, False), ("ragged-d128-f32", 2, 3, 77, 300, 128, False))
+#: K1 in fp32: (tag, B, H, S, D, timed): head dim 16 at the tiny SD3.5's
+#: [parity] shapes' width and at Wan's width and head dim 128
+K1_F32_SHAPES = (("tiny-d16-f32", 2, 4, 256, 16, True), ("d128-f32", 16, 12, 512, 128, True),
+                 ("ragged-d16-f32", 2, 3, 77, 16, False))
+#: bars of the fp32 kernels against their plain versions, relative to
+#: max(max|ref|, 1): summation order alone separates them, the forwards' online
+#: softmax against the plain version's one max (seen on an H100: K3 and K1
+#: 2.1e-7 to 1.2e-6 on O, at most 9.5e-7 on lse; K2a and K2b 0, since both
+#: they and cuBLAS's SIMT products add the keys in order by FMA)
+F32_REL_BAR = 1e-5
+
+
+def _f32_err(got, ref) -> tuple:
+    """(max|got - ref|, the bar: F32_REL_BAR of max(max|ref|, 1))."""
+    return (got - ref).abs().max().item(), F32_REL_BAR * max(ref.abs().max().item(), 1.0)
+
+
+def _f32_heads(randn, tag: str, B: int, H: int, Sq: int, Sk: int, D: int):
+    """fp32 q, k, v and dO of an F32_SHAPES shape in its layout; dO
+    head-interleaved, as the head merge's backward gives it."""
+    import torch
+
+    view = lambda S: randn(B, S, H, D, dtype=torch.float32).transpose(1, 2)
+    contiguous = lambda S: randn(B, H, S, D, dtype=torch.float32)
+    q = contiguous(Sq)
+    k = view(Sk) if tag.startswith(("wan-cross", "ragged")) else contiguous(Sk)
+    return q, k, view(Sk), view(Sq)
+
+
+def _f32_record(results: dict, name: str, tag: str, source: str, replaces: str, err: float, ms: float,
+                plain_ms: float, lib_ms: float, byts: int, flops: int, what: str) -> None:
+    bound, by = _bytes_or_ops(byts, flops)
+    _record(results, tag, dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
+    log(f"[kernels] {name} {tag}: kernel {ms:.4f} ms (events) | plain {plain_ms:.4f} ms | {what} {lib_ms:.4f} ms "
+        f"({ms / lib_ms:.2f}x) | bound {bound:.4f} ms by {by} ({ms / bound:.2f}x; {flops / 1e9:.3g} GFLOP at "
+        f"{PEAK_FP32_FLOPS / 1e12:.1f} TFLOP/s fp32, {byts / 1e6:.1f} MB at 3.35 TB/s) | "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+
+def _f32_device_job(name: str, tag: str, make_call, ms: float) -> None:
+    import torch
+
+    dev_ms = _device_ms(make_call())
+    log(f"[kernels] {name} {tag} device {dev_ms:.4f} ms (profiler) | kernel {ms:.4f} ms (events)")
+    torch.cuda.empty_cache()
+
+
+def _f32_call(kind: str, tag: str, B: int, H: int, Sq: int, Sk: int, D: int):
+    """A call of an fp32 kernel on fresh inputs of a shape (the device-time
+    jobs): K1 (q/k/v contiguous, Sq = Sk), K3, K2a or K2b."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    randn = lambda *shape, dtype: torch.randn(shape, device="cuda", dtype=dtype)
+    if kind == "K1":
+        q, k, v = (randn(B, H, Sq, D, dtype=torch.float32) for _ in range(3))
+        gq, gk = ((1.0 + 0.1 * randn(Sq, D, dtype=torch.float32)).contiguous() for _ in range(2))
+        return functools.partial(A.qknorm_flash_attention, q, k, v, gq, gk, D ** -0.5, 1e-6)
+    q, k, v, dout = _f32_heads(randn, tag, B, H, Sq, Sk, D)
+    if kind == "K3":
+        return functools.partial(A.flash_attention, q, k, v, D ** -0.5)
+    out, lse = A.flash_attention(q, k, v, D ** -0.5, return_lse=True)
+    d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    fn = A.flash_bwd_dq if kind == "K2a" else A.flash_bwd_dkv
+    return functools.partial(fn, q, k, v, d_, lse2, delta, D ** -0.5)
+
+
+def _f32_shape_checks(results: dict, randn, tag: str, B: int, H: int, Sq: int, Sk: int, D: int,
+                      timed: bool) -> None:
+    """One F32_SHAPES shape: K3 in fp32 (O and lse) and K2a/K2b on its O and
+    lse against their plain versions within F32_REL_BAR of max|ref|; the
+    negative controls (K3 without log2(e) in its logits, K2 without Delta,
+    and without the ragged key tail where Sk is ragged); two launches' bits;
+    for timed shapes the CUDA-event, plain and SDPA times (fp32, TF32 off),
+    the bound, the table entries and the device-time jobs."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    q, k, v, dout = _f32_heads(randn, tag, B, H, Sq, Sk, D)
+    scale = D ** -0.5
+    out, lse = A.flash_attention(q, k, v, scale, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, scale, return_lse=True)
+    torch.cuda.synchronize()
+    layout = f"q{tuple(q.shape)} k{tuple(k.shape)} fp32 " + ("k/v views" if tag.startswith(("wan-cross", "ragged"))
+                                                          else "q/k contiguous, v a view")
+    err_o, tol_o = _f32_err(out, ref)
+    err_lse, tol_lse = _f32_err(lse, ref_lse)
+    _check(f"K3 f32 {tag} O {layout}", err_o, tol_o)
+    _check(f"K3 f32 {tag} lse", err_lse, tol_lse)
+    _negative_control(f"K3 f32 {tag} vs a plain version without log2(e) in its logits", (out, lse),
+                      A.flash_attention_plain(q, k, v, scale / A._LOG2E, return_lse=True), tol_o, tol_lse)
+    n = Sk // 64 * 64
+    if n and n != Sk:
+        _negative_control(f"K3 f32 {tag} vs a plain version without the {Sk - n}-key ragged tail", (out, lse),
+                          A.flash_attention_plain(q, k[:, :, :n], v[:, :, :n], scale, return_lse=True),
+                          tol_o, tol_lse)
+    again = A.flash_attention(q, k, v, scale)
+    got = A.flash_backward(q, k, v, out, lse, dout, scale)
+    want = A.flash_backward_plain(q, k, v, out, lse, dout, scale)
+    errs, tols = zip(*(_f32_err(g, w) for g, w in zip(got, want)))
+    for name, g, e, t in zip(("dq", "dk", "dv"), got, errs, tols):
+        _check(f"K2 f32 {tag} {name} {tuple(g.shape)}", e, t)
+    d_, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
+    zero = torch.zeros_like(delta)
+    _k2_negative_control(f"K2 f32 {tag} vs a plain version without Delta", got,
+                         (A.flash_bwd_dq_plain(q, k, v, d_, lse2, zero, scale),
+                          *A.flash_bwd_dkv_plain(q, k, v, d_, lse2, zero, scale)), tols)
+    if n and n != Sk:
+        _k2_negative_control(f"K2 f32 {tag} vs a plain version without the {Sk - n}-key ragged tail", got,
+                             (A.flash_bwd_dq_plain(q, k[:, :, :n], v[:, :, :n], d_, lse2, delta, scale),
+                              None, None), tols)
+    got2 = A.flash_backward(q, k, v, out, lse, dout, scale)
+    same = torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    log(f"[kernels] K3 and K2 f32 {tag}: two launches of each give the same bits: {same}")
+    if not same:
+        fail(f"the fp32 K3 or K2 is not deterministic at {tag}")
+    if timed:
+        src_fwd = "flow_factory_tpu_torch/ops/csrc/flash_fwd_f32.cuh"
+        src_bwd = "flow_factory_tpu_torch/ops/csrc/flash_bwd.cu"
+        fwd_flops = 4 * B * H * Sq * Sk * D
+        ms = time_ms(lambda: A.flash_attention(q, k, v, scale))
+        plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, scale), iters=3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        _f32_record(results, "flash_fwd_f32", tag, src_fwd, "flow_factory_tpu/ops/attention.py:101", err_o, ms,
+                    plain_ms, lib_ms, nbytes(q, k, v, out, lse), fwd_flops, "sdpa fp32")
+        DEVICE_TIME_JOBS.append(functools.partial(_f32_device_job, "flash_fwd_f32", tag,
+                                                  functools.partial(_f32_call, "K3", tag, B, H, Sq, Sk, D), ms))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True))
+        inputs = nbytes(q, k, v, d_, lse2, delta)
+        flops_dq, flops_dkv = _k2_flops(B, H, Sq, Sk, D)
+        for name, kind, fn, plain, flops, outs, err, replaces in (
+                ("flash_bwd_dq_f32", "K2a", A.flash_bwd_dq, A.flash_bwd_dq_plain, flops_dq, got[:1], errs[0], ":601"),
+                ("flash_bwd_dkv_f32", "K2b", A.flash_bwd_dkv, A.flash_bwd_dkv_plain, flops_dkv, got[1:],
+                 max(errs[1:]), ":653")):
+            ms = time_ms(lambda: fn(q, k, v, d_, lse2, delta, scale))
+            plain_ms = time_ms(lambda: plain(q, k, v, d_, lse2, delta, scale), iters=3)
+            _f32_record(results, name, tag, src_bwd, f"flow_factory_tpu/ops/attention.py{replaces}", err, ms,
+                        plain_ms, lib_bwd, inputs + nbytes(*outs), flops, "sdpa fp32 whole backward")
+            DEVICE_TIME_JOBS.append(functools.partial(_f32_device_job, name, tag,
+                                                      functools.partial(_f32_call, kind, tag, B, H, Sq, Sk, D), ms))
+        del leaves, o_lib
+    del q, k, v, dout, out, ref, again, got, got2, want
+    torch.cuda.empty_cache()
+
+
+def _k1_f32_shape_checks(results: dict, randn, tag: str, B: int, H: int, S: int, D: int, timed: bool) -> None:
+    """K1 in fp32 at one K1_F32_SHAPES shape against its plain version
+    (``qknorm_attention_plain``) within F32_REL_BAR of max|ref|, the control
+    without the gamma maps, two launches' bits; timed: events, plain, SDPA
+    on the normalised q/k, the bound, the table entry and the device-time
+    job."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    f32 = torch.float32
+    q, k, v = (randn(B, H, S, D, dtype=f32) for _ in range(3))
+    gq, gk = ((1.0 + 0.1 * randn(S, D, dtype=f32)).contiguous() for _ in range(2))
+    scale = D ** -0.5
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6, return_lse=True)
+    torch.cuda.synchronize()
+    err_o, tol_o = _f32_err(out, ref)
+    err_lse, tol_lse = _f32_err(lse, ref_lse)
+    _check(f"K1 f32 {tag} O {tuple(q.shape)}", err_o, tol_o)
+    _check(f"K1 f32 {tag} lse", err_lse, tol_lse)
+    ones = torch.ones_like(gq)
+    _negative_control(f"K1 f32 {tag} vs a plain version without the gamma maps", (out, lse),
+                      A.qknorm_attention_plain(q, k, v, ones, ones, scale, 1e-6, return_lse=True), tol_o, tol_lse)
+    same = torch.equal(out, A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6))
+    log(f"[kernels] K1 f32 {tag}: two launches give the same bits: {same}")
+    if not same:
+        fail(f"the fp32 K1 is not deterministic at {tag}")
+    if timed:
+        ms = time_ms(lambda: A.qknorm_flash_attention(q, k, v, gq, gk, scale, 1e-6))
+        plain_ms = time_ms(lambda: A.qknorm_attention_plain(q, k, v, gq, gk, scale, 1e-6), iters=3)
+        qn, kn = A._rms_scale(q, gq, 1e-6), A._rms_scale(k, gk, 1e-6)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, v, scale=scale))
+        _f32_record(results, "qknorm_flash_fwd_f32", tag, "flow_factory_tpu_torch/ops/csrc/flash_fwd_f32.cuh",
+                    "flow_factory_tpu/ops/attention.py:368", err_o, ms, plain_ms, lib_ms,
+                    nbytes(q, k, v, gq, gk, out, lse), 4 * B * H * S * S * D, "sdpa fp32 on the normalised q/k")
+        DEVICE_TIME_JOBS.append(functools.partial(_f32_device_job, "qknorm_flash_fwd_f32", tag,
+                                                  functools.partial(_f32_call, "K1", tag, B, H, S, S, D), ms))
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_f32(results: dict) -> None:
+    """The fp32 kernels at the head dims of the JAX presets: K3, K2a/K2b
+    (F32_SHAPES) and K1 (K1_F32_SHAPES) against their plain versions, then
+    the pairs that have no kernel raising on the card: fp32 at head dim 32
+    and fp16 at 128, for K3, K2a, K2b and K1."""
+    import torch
+
+    from flow_factory_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    randn = lambda *shape, dtype=torch.float32: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32
+                                                            ).to(dtype)
+    for shape in F32_SHAPES:
+        _f32_shape_checks(results, randn, *shape)
+    for shape in K1_F32_SHAPES:
+        _k1_f32_shape_checks(results, randn, *shape)
+    refused = {}
+    for dtype, D in ((torch.float32, 32), (torch.float16, 128)):
+        q = randn(1, 2, 64, D, dtype=dtype)
+        lse2 = torch.zeros(1, 2, 64, device=dev)
+        g = torch.ones(64, D, device=dev)
+        for name, call in (("K3", lambda: A.flash_attention(q, q, q)),
+                           ("K2a", lambda: A.flash_bwd_dq(q, q, q, q, lse2, lse2, 0.125)),
+                           ("K2b", lambda: A.flash_bwd_dkv(q, q, q, q, lse2, lse2, 0.125)),
+                           ("K1", lambda: A.qknorm_flash_attention(q, q, q, g, g, 0.125, 1e-6))):
+            try:
+                call()
+                refused[f"{name} {dtype} D{D}"] = "launched"
+            except (TypeError, ValueError) as e:
+                refused[f"{name} {dtype} D{D}"] = type(e).__name__
+    log(f"[kernels] the pairs without a kernel on the card: {refused}")
+    if any(v == "launched" for v in refused.values()):
+        fail(f"a pair the admission table refuses launched: {refused}")
+
+
 def _config(**overrides):
     from flow_factory_tpu_torch.hparams import Arguments
 
@@ -2263,7 +2530,7 @@ def _profile(what: str, fn, trace: str) -> dict:
     for name in ("backward _LnMulAddBackward", "backward _ResidualGateModulateBackward"):  # K5/K6's backwards
         if name in by_op:
             log(f"[profile]   {name}: {by_op[name]:.3f} ms of device time ({100 * by_op[name] / busy_ms:.1f}%)")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches, "by_kernel": by_kernel}
 
 
 def _trace_device_ms(trace_path: str):
@@ -2646,9 +2913,10 @@ def _one_grad_step(trainer):
     return grad_step
 
 
-def _profile_grad_step(trainer, what: str, trace: str) -> None:
-    """One grad step (:func:`_one_grad_step`), profiled."""
-    _profile(what, _one_grad_step(trainer), trace)
+def _profile_grad_step(trainer, what: str, trace: str) -> dict:
+    """One grad step (:func:`_one_grad_step`), profiled: :func:`_profile`'s
+    figures."""
+    return _profile(what, _one_grad_step(trainer), trace)
 
 
 def _peak_breakdown(tag: str, fn, top: int = 10) -> None:
@@ -2786,13 +3054,37 @@ def _max_by_level(max_diffs: dict) -> dict:
     return dict(sorted(out.items()))
 
 
-def phase_parity() -> None:
+@contextlib.contextmanager
+def _kernel_variants():
+    """Record the (kernel, dtype, head dim) of every attention kernel call
+    inside the block: each wrapper checks its operands with
+    ``attention._check_heads`` on a CUDA tensor right before it launches, so
+    a spy there sees every K1, K2a, K2b and K3 call; yields the Counter."""
+    from flow_factory_tpu_torch.ops import attention as A
+
+    seen = collections.Counter()
+    check = A._check_heads
+
+    def spy(name, kernel, q, *rest):
+        check(name, kernel, q, *rest)
+        seen[(kernel, str(q.dtype).replace("torch.", ""), q.shape[-1])] += 1
+
+    A._check_heads = spy
+    try:
+        yield seen
+    finally:
+        A._check_heads = check
+
+
+def phase_parity() -> dict:
     """[parity]: (a) the five families of the JAX package's golden test at
     their tiny size on the card (fp32, ``attn_backend: native``, TF32 off),
     on the JAX tiny adapters' weights and draws (``tests/goldens_torch``),
     checked against the JAX goldens (``tests/goldens``) at
     ``DEFAULT_TOLERANCES`` with L1 exact: every key, K5 (and SD3's K6) in
-    fp32 on the path, no attention kernel; (b) SD3.5-M at full width and
+    fp32 on the path, no attention kernel; then again under ``auto``
+    through the fp32 K1/K3 at head dim 16 (:func:`_parity_auto`, whose
+    launch counts it returns); (b) SD3.5-M at full width and
     depth, bf16, ``auto`` (K1, K5, K6), at 256 px: ``record``, then
     ``check`` against that record, max |Δ| exactly 0 at every key, and the
     L3 replay's log-prob equal to the rollout's bit for bit."""
@@ -2807,6 +3099,7 @@ def phase_parity() -> None:
     attention = ("qknorm_flash_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("[parity] TF32 is on for fp32 matmuls or convolutions")
+    native_levels = {}
     for name in PARITY_FAMILIES:
         golden, inputs = _parity_paths(name)
         with open(golden + ".json") as f:
@@ -2827,9 +3120,11 @@ def phase_parity() -> None:
             fail(f"[parity] {name} misses the JAX golden:\n{rep.summary()}")
         if not counts.get("ln_mul_add") or any(counts.get(k) for k in attention):
             fail(f"[parity] {name}: K5 must run and no attention kernel under native: {counts}")
+        native_levels[name] = _max_by_level(rep.max_diffs)
         del ad
     gc.collect()
     torch.cuda.empty_cache()
+    auto_counts = _parity_auto(native_levels)
 
     # (b) SD3.5-M's own record and check on the card
     cfg = make_config("sd3-5", "", resolution=PARITY_SD35_RESOLUTION, attn_backend="auto", dtype="bfloat16",
@@ -2869,6 +3164,64 @@ def phase_parity() -> None:
     del ad
     gc.collect()
     torch.cuda.empty_cache()
+    return auto_counts
+
+
+#: the attention kernel each tiny family's transformer runs under ``auto``:
+#: K1 for SD3.5's qk-norm joint attention, K3 for the rest
+PARITY_AUTO_KERNEL = {"sd35": "K1", "wan2_t2v": "K3", "ltx2_t2av": "K3", "flux1_kontext": "K3", "wan2_v2v": "K3"}
+
+
+def _parity_auto(native_levels: dict) -> dict:
+    """[parity] (a) again under ``attn_backend: auto``: the five tiny
+    families in fp32 (TF32 off) against the same JAX goldens at
+    ``DEFAULT_TOLERANCES``, every attention through the fp32 kernels at head
+    dim 16 (K1 for SD3.5, K3 for the rest; no bf16 kernel, no other head
+    dim), each level's max |Δ| beside the native pass's. L1 is exact but for
+    the field the pass changes, the transformers' ``attn_backend`` ('native'
+    in the goldens). Returns the launch counts of the five checks."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch import ops
+    from flow_factory_tpu_torch.models import load_adapter
+    from flow_factory_tpu_torch.parity import DEFAULT_TOLERANCES, ParityHarness, ProbeInputs
+    from flow_factory_tpu_torch.parity.__main__ import make_config
+
+    total: dict = {}
+    for name in PARITY_FAMILIES:
+        golden, inputs = _parity_paths(name)
+        with open(golden + ".json") as f:
+            model_type = json.load(f)["model_type"]
+        t0 = time.perf_counter()
+        ad = load_adapter(make_config(model_type, "tiny", attn_backend="auto"), device="cuda")
+        ops.reset_launch_counts()
+        with _kernel_variants() as variants:
+            rep = ParityHarness(ad, inputs=ProbeInputs.load(inputs)).check(golden)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        total = _add(total, counts)
+        backend = [f for f in rep.failures if f.startswith("L1 config: ") and f.endswith(".attn_backend: 'native' != 'auto'")]
+        other = [f for f in rep.failures if f not in backend]
+        n_keys = len(np.load(golden).files)
+        want = PARITY_AUTO_KERNEL[name]
+        l1 = [f for f in other if f.startswith("L1")]
+        log(f"[parity] {name} ({model_type}, tiny, fp32, auto, cuda) against the JAX golden: max|Δ| by level "
+            f"{_max_by_level(rep.max_diffs)}, native's {native_levels[name]} (tolerances {DEFAULT_TOLERANCES}), L1 "
+            f"config {f'DIFFERS: {l1}' if l1 else f'equal but for {backend}'}, "
+            f"{len(rep.max_diffs)}/{n_keys} keys, missing {rep.missing}, extra {rep.extra} | attention "
+            f"kernel calls by (kernel, dtype, head dim) {dict(variants)} | launches {counts} | "
+            f"{time.perf_counter() - t0:.1f} s")
+        if other or not backend or rep.missing or rep.extra or len(rep.max_diffs) != n_keys:
+            fail(f"[parity] {name} under auto misses the JAX golden:\n{rep.summary()}")
+        if set(variants) != {(want, "float32", 16)}:
+            fail(f"[parity] {name} under auto: attention calls {dict(variants)}, expected {want} in fp32 at D=16 alone")
+        if not counts.get("ln_mul_add") or not counts.get("qknorm_flash_fwd" if want == "K1" else "flash_fwd"):
+            fail(f"[parity] {name} under auto: launches {counts}")
+        del ad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def _hybrid_direct_check(tag: str, B: int, H: int, S: int, D: int, strided: bool, randn) -> None:
@@ -3023,6 +3376,24 @@ def parity_hybrid_only(flags) -> int:
         for job in DEVICE_TIME_JOBS:
             job()
     log("parity/hybrid phases: ok")
+    return 0
+
+
+def fp32_only() -> int:
+    """``python3 chip_smoke.py --fp32``: the build, the fp32 kernels' checks
+    and timings (:func:`phase_kernels_f32`), [parity] (the native pass, the
+    auto pass through the fp32 K1/K3 at head dim 16, SD3.5-M's record and
+    check), [wan-fp32], then the fp32 rows' device times."""
+    from flow_factory_tpu_torch.utils.base import use_full_fp32
+
+    use_full_fp32()
+    phase_environment()
+    phase_kernels_f32({})
+    phase_parity()
+    phase_wan_fp32()
+    for job in DEVICE_TIME_JOBS:
+        job()
+    log("fp32 phases: ok")
     return 0
 
 
@@ -3325,6 +3696,93 @@ def phase_wan_train() -> dict:
     if during["flash_fwd"] != steps * per_forward:
         fail(f"Wan evaluate: K3 launches {during['flash_fwd']}, expected {steps} steps x {per_forward}")
     _profile_grad_step(trainer, "one Wan grad step (forward, backward, AdamW)", "wan_grad_step_trace.json")
+    trainer.cleanup()
+    return counts
+
+
+#: [wan-fp32]'s phase seconds (load, the epoch and the profiled grad step)
+#: and peak memory in GiB, predicted in PERF.md before its first run
+WAN_FP32_PREDICTED = {"seconds": (20.0, 35.0), "peak_GiB": (33.0, 45.0)}
+#: the attention kernels [wan-fp32] may call: (kernel, dtype, head dim)
+WAN_FP32_VARIANTS = {("K3", "float32", 128), ("K2a", "float32", 128), ("K2b", "float32", 128)}
+
+
+def phase_wan_fp32() -> dict:
+    """[wan-fp32]: Wan2.1-T2V-1.3B LoRA GRPO in fp32 at full width and
+    depth through ``load_trainer`` (tests/fixtures/wan21_fp32_grpo.yaml:
+    mixed precision off, fp32 master and inference weights, ``auto``, remat,
+    4 steps, one grad step) for one epoch (:func:`_train_epochs`: ratio
+    exactly 1.0 on the grad step, the LoRA moved, the optimize phase's
+    launches); every attention call K3, K2a or K2b in fp32 at head dim 128,
+    the rollout's launches as predicted, the log-probs finite; a profiled
+    grad step whose attention kernels are the fp32 ones alone (no library
+    attention op); seconds and peak against WAN_FP32_PREDICTED. Returns the
+    epoch's launch counts."""
+    import numpy as np
+    import torch
+
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Arguments.load_from_yaml(os.path.join(here, "tests", "fixtures", "wan21_fp32_grpo.yaml"))
+    cfg.data_args.cache_dir = os.path.join(here, "build", "preprocess_cache_fp32")
+    cfg.log_args.save_dir = os.path.join(here, "chiprun_out", "train")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    trainer = load_trainer(cfg)  # cuda
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_phase
+    ad, ta = trainer.adapter, trainer.training_args
+    tcfg = ad.component_configs["transformer"]
+    lora = ad.trainable["transformer"]
+    dtypes = sorted({str(p.dtype) for m in ad.modules.values() for p in m.parameters()}
+                    | {str(t.dtype) for ab in lora.values() for t in ab.values()})
+    log(f"[wan-fp32] load_trainer ({type(ad).__name__}: {tcfg.num_layers} blocks, width {tcfg.hidden_dim}, "
+        f"{tcfg.num_heads} heads of {tcfg.hidden_dim // tcfg.num_heads}; mixed precision "
+        f"{cfg.mixed_precision!r}; parameter dtypes {dtypes}; attn_backend {tcfg.attn_backend}; remat {tcfg.remat}; "
+        f"LoRA rank {cfg.model_args.lora_rank} on {len(lora)} weights; {ta.num_inference_steps} steps; preprocess "
+        f"included) {load_s:.1f} s; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if dtypes != ["torch.float32"] or not tcfg.remat or tcfg.attn_backend != "auto":
+        fail(f"[wan-fp32] not the fixture's fp32 model: dtypes {dtypes}, remat {tcfg.remat}, {tcfg.attn_backend}")
+    # a forward: K3 for the self- and the cross-attention of each block, K5
+    # three a block and the head; a grad step under remat: the blocks twice
+    # (the head's K5 once), K2a/K2b once an attention, K5's backward for all
+    # but block 0's first norm
+    forward = {"flash_fwd": 2 * tcfg.num_layers, "ln_mul_add": 3 * tcfg.num_layers + 1}
+    grad_step = {"flash_fwd": 4 * tcfg.num_layers, "ln_mul_add": 6 * tcfg.num_layers + 1,
+                 "flash_bwd_dq": 2 * tcfg.num_layers, "flash_bwd_dkv": 2 * tcfg.num_layers,
+                 "ln_mul_add_backward": 3 * tcfg.num_layers}
+    figures: list = []
+    with _kernel_variants() as variants:
+        counts = _train_epochs(trainer, "wan-fp32", lambda steps: _mul(grad_step, steps), figures=figures)
+    samples = trainer.reward_buffer.samples
+    batches = -(-len(samples) // ta.per_device_batch_size)
+    rollout = {k: counts[k] - figures[0]["steps"] * grad_step.get(k, 0) for k in forward}
+    want = _mul(forward, ta.num_inference_steps * batches)
+    finite = all(np.isfinite(s.log_probs).all() for s in samples)
+    log(f"[wan-fp32] the rollout's launches {rollout} (expected {want}: {ta.num_inference_steps} steps x {batches} "
+        f"batch of B {2 * ta.per_device_batch_size} under CFG); attention calls by (kernel, dtype, head dim) "
+        f"{dict(variants)}; log-probs finite on every sample: {finite}")
+    if rollout != want or set(variants) != WAN_FP32_VARIANTS or not finite:
+        fail(f"[wan-fp32] rollout launches {rollout}, attention calls {dict(variants)}, log-probs finite {finite}")
+    prof = _profile_grad_step(trainer, "one fp32 Wan grad step (remat; LoRA merge, forward, recompute, backward, "
+                              "AdamW)", "wan_fp32_grad_step_trace.json")
+    attn = sorted(n for n in prof["by_kernel"] if any(w in n.lower() for w in ("flash", "fmha", "attention", "sdpa")))
+    library = [n for n in attn if "_f32_kernel<128" not in n]
+    log(f"[wan-fp32] the attention kernels of the profiled grad step: {[n[:90] for n in attn]}; others (a library "
+        f"attention op) {library}")
+    if library or len(attn) != 3:
+        fail(f"[wan-fp32] the grad step's attention kernels are not the fp32 K3, K2a and K2b: {attn}")
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    inside = lambda x, r: "inside" if r[0] <= x <= r[1] else "outside"
+    lo, hi = WAN_FP32_PREDICTED["seconds"]
+    plo, phi = WAN_FP32_PREDICTED["peak_GiB"]
+    log(f"[wan-fp32] {card_name()}: phase {secs:.1f} s (predicted {lo:.0f}-{hi:.0f} s: {inside(secs, (lo, hi))}); "
+        f"peak {peak:.2f} GiB (predicted {plo:.0f}-{phi:.0f} GiB: {inside(peak, (plo, phi))}); rollout "
+        f"{figures[0]['sample']:.3f} s, {figures[0]['per_step']:.3f} s a grad step (the optimizer step included); "
+        f"launches {counts}")
     trainer.cleanup()
     return counts
 
@@ -6275,10 +6733,9 @@ DECOUPLED_INVARIANTS = {
 }
 #: the decoupled phases: fixture, family, the trainer's frozen forwards and
 #: forwards with a gradient a grad step, the dataset maker, the predicted
-#: peak (GiB, PERF.md §6), whether the grad step is profiled
+#: peak (GiB, PERF.md §6)
 FAMILY_PHASES = {
-    "ltx2-nft": dict(fixture="ltx2_t2av_nft.yaml", family="ltx2", frozen=1, grads=1, peak=(45.0, 52.0),
-                     profile=True),
+    "ltx2-nft": dict(fixture="ltx2_t2av_nft.yaml", family="ltx2", frozen=1, grads=1, peak=(45.0, 52.0)),
     "ltx2-i2av-dpo": dict(fixture="ltx2_i2av_dpo.yaml", family="ltx2", frozen=2, grads=2, peak=(35.0, 48.0),
                           data=_ltx2_i2av_dataset),
     "wan22-moe-awm": dict(fixture="wan22_a14b_awm.yaml", family="wan", frozen=1, grads=1, peak=(32.0, 42.0)),
@@ -6367,9 +6824,8 @@ def phase_decoupled_family(tag: str) -> dict:
     step's host timestep alone, both over the epoch), the launches predicted
     a grad step (frozen forwards x one forward + forwards with a gradient x
     the grad step), no read of the timestep from the device for routing; a
-    moved LoRA, peak memory against the prediction, seconds, and for
-    ``profile`` a profiled grad step. Returns the launch counts of the
-    rollout, the replay and the optimize phase."""
+    moved LoRA, peak memory against the prediction and seconds. Returns the
+    launch counts of the rollout, the replay and the optimize phase."""
     import numpy as np
     import torch
 
@@ -6491,9 +6947,6 @@ def phase_decoupled_family(tag: str) -> dict:
         f"{'inside' if lo <= peak <= hi else 'outside'}); seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}"
         f", {grad_s:.3f} s a grad step (its frozen forwards and the optimizer step included); LoRA B max|change| "
         f"{moved}; launches {counts}")
-    if spec.get("profile"):
-        _profile_grad_step(trainer, f"one {tag} grad step (its batch's frozen forward before it; LoRA merge, "
-                           "forward, backward, AdamW)", f"{tag}_grad_step_trace.json")
     trainer.cleanup()
     log(f"[{tag}] phase seconds {time.perf_counter() - t_phase:.1f} (load and preprocess included)")
     return counts
@@ -6583,7 +7036,7 @@ FULL_SECONDS_PREDICTED = {"full-nft-sd35": {"grad step": (0.6, 0.95), "update": 
                                              "ema_ref blend": (0.03, 0.1)},
                           "full-crd-wan": {"grad step": (0.25, 0.5), "update": (0.08, 0.12),
                                            "snapshots": (0.04, 0.13)},
-                          "full-sd35 evaluate": {"evaluate": (4.0, 8.0)}}
+                          "full-sd35 evaluate": {"evaluate": (1.5, 3.5)}}
 #: the frozen components offloaded to the host after preprocessing
 _SD35_ENCODERS, _UMT5 = ("text_encoder", "text_encoder_2", "text_encoder_3"), ("text_encoder",)
 FULL_OFFLOADED = {"full-sd35": _SD35_ENCODERS, "full-wan-dpo": _UMT5, "full-nft-sd35": _SD35_ENCODERS,
@@ -7650,7 +8103,7 @@ def _lora_file_tensors(path: str) -> dict:
 def phase_dist1(card: str) -> None:
     """[dist1]: ``examples/multinode/wan21_fsdp.yaml`` at world size 1 on the
     card (``DIST1_FIXTURE``: Wan2.1-T2V-1.3B at full width and depth, 256 px,
-    5 frames, 10 steps, micro-batch 1; 2 prompts x group 4, ``fsdp_size`` 1,
+    5 frames, 4 steps, micro-batch 1; 1 prompt x group 4, ``fsdp_size`` 1,
     the brightness reward): one epoch through ``torchrun --standalone
     --nproc_per_node 1 -m flow_factory_tpu_torch.cli`` (an NCCL process group
     of one, the mesh (1, 1, 1): the gradient all-reduce over the replica
@@ -7783,6 +8236,8 @@ def main() -> int:
         return dist_only(sys.argv[1:])
     if sys.argv[1:] and set(sys.argv[1:]) <= {"--parity", "--hybrid"}:
         return parity_hybrid_only(sys.argv[1:])
+    if sys.argv[1:] == ["--fp32"]:
+        return fp32_only()
     if len(sys.argv) > 2 and sys.argv[1] == "--full-grad":
         return full_grad_only([int(a) for a in sys.argv[2:]])
     # fp32 convolutions (the VAE's last conv) run in full fp32, as the JAX reference does and as
@@ -7832,7 +8287,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # and gone again before the Wan trainer loads
     log(f"[resume] device memory allocated once the SD3.5 trainers are freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    phase_parity()
+    parity_counts = phase_parity()
     _mark("[parity]")
     hybrid_counts = phase_hybrid(results, train_figures)
     _mark("[hybrid]")
@@ -7842,7 +8297,11 @@ def main() -> int:
     wan_train_counts = phase_wan_train()
     _mark("[grad] Wan, [wan-train]")
     gc.collect()
-    torch.cuda.empty_cache()  # the Wan trainer is gone before the launched run and the full finetunes load
+    torch.cuda.empty_cache()  # the Wan trainer is gone before the fp32 one loads
+    wan_fp32_counts = phase_wan_fp32()
+    _mark("[wan-fp32]")
+    gc.collect()
+    torch.cuda.empty_cache()  # and gone before the launched run and the full finetunes load
     phase_dist1(card)
     _mark("[dist1]")
     full_counts = _full_phases()
@@ -7937,6 +8396,15 @@ def main() -> int:
     # the ring's hop shape: its kernels' launches in the one ring call of [ring]
     for name, launches in ring_counts.items():
         results[name]["shapes"][RING_SHAPE[0]]["launches"] = launches
+    # the fp32 kernels: K3 and K2a/K2b at head dim 128 in [wan-fp32]'s epoch, K1 and K3 at head dim 16 in
+    # [parity]'s auto pass (the tiny-d16 rows)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "qknorm_flash_fwd"):
+        counts[f"{name}_f32"] = wan_fp32_counts[name] + parity_counts.get(name, 0)
+    for name in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
+        shapes = results[name]["shapes"]
+        shapes["tiny-d16-f32"]["launches"] = parity_counts.get(name[:-4], 0)  # the auto pass runs no backward
+        shapes["sd35-self-f32"]["launches"] = 0  # no fp32 path at head dim 64 runs here
+    results["qknorm_flash_fwd_f32"]["shapes"]["d128-f32"]["launches"] = 0  # nor a qk-norm one at 128
     # the other nested shapes (SD3.5's self, Wan's cross, the ragged checks) are the entry's path
     for name, entry in results.items():
         for shape in entry["shapes"].values():

@@ -17,11 +17,15 @@ Port of ``flow_factory_tpu/ops/attention.py``. All shapes are (B, H, S, D).
   :func:`flash_backward_plain` (the JAX ``_flash_backward`` step by step) on
   a CPU tensor.
 * :func:`flash_attention` wraps the CUDA C++ kernel in ``csrc/flash_fwd.cu``
-  (K3, the TPU kernels ``_flash_fwd_kernel``/``_flash_fwd_single_kernel``):
-  bf16, head dim 64 or 128, through :class:`_Flash`, whose backward is
+  (K3, the TPU kernels ``_flash_fwd_kernel``/``_flash_fwd_single_kernel``)
+  through :class:`_Flash`, whose backward is
   :func:`flash_backward` as the JAX ``_flash_attention`` custom VJP's is. Its
   plain version :func:`flash_attention_plain` is the JAX ``_flash_forward``
   step by step; a CPU tensor takes it.
+* :data:`KERNEL_ADMISSION` says which (dtype, head dim) pairs each kernel
+  has a variant for (:func:`admitted`): bf16 at 64 (K1) or 64 and 128, fp32
+  at 16, 64 and 128. Every wrapper reads it; any other pair raises on a
+  CUDA tensor.
 * :func:`qknorm_attention_plain` composes :func:`_rms_scale` with
   :func:`native_attention`, the JAX package's plain path
   (``attention.py:206-213`` and ``:70-84``).
@@ -41,9 +45,10 @@ JAX ``attention.py:838-884``) runs :func:`native_attention` forward and
 recomputes (O, lse) with K3 in its backward, which then runs K2a and K2b,
 and runs as ``flash`` where the score tensor passes
 :data:`NATIVE_SCORE_BYTES_LIMIT`; it raises on a mask on every device. The
-qk-norm attention has no mask: its flash-class backends take K1; under
-``ring`` and ``hybrid`` the RMS scale is composed with the backend's
-dispatch, as the JAX package composes it.
+qk-norm attention has no mask: its flash-class backends take K1 up to head
+dim 256 (:func:`qknorm_fused`); above it, and under ``ring`` and ``hybrid``,
+the RMS scale is composed with the backend's dispatch, as the JAX package
+composes it.
 """
 from __future__ import annotations
 
@@ -58,11 +63,26 @@ from .norms import grads_where_needed
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
-_KERNEL_HEAD_DIM = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_K3_HEAD_DIMS = (64, 128)
-#: head dims K2a/K2b take, by dtype (fp32 at 128 has no variant, as for K3)
-_K2_HEAD_DIMS = {torch.float32: (64,), torch.bfloat16: (64, 128)}
+_F32_HEAD_DIMS = (16, 64, 128)
+#: the (dtype, head dim) pairs each attention kernel has a variant for: bf16
+#: on the tensor cores at the head dims of the bf16 models (SD3.5's 64 for
+#: K1; 64 and 128 for K3 and K2), fp32 on the CUDA cores at the head dims of
+#: the JAX presets (16 at every tiny preset, 64, 128). The Pallas kernels take
+#: the input dtype at any head dim up to 256 (JAX ``_flash_forward`` :268,
+#: ``_flash_backward`` :708); any pair not here raises on a CUDA tensor.
+KERNEL_ADMISSION = {
+    "K1": {torch.bfloat16: (64,), torch.float32: _F32_HEAD_DIMS},
+    "K3": {torch.bfloat16: (64, 128), torch.float32: _F32_HEAD_DIMS},
+    "K2a": {torch.bfloat16: (64, 128), torch.float32: _F32_HEAD_DIMS},
+    "K2b": {torch.bfloat16: (64, 128), torch.float32: _F32_HEAD_DIMS},
+}
+
+
+def admitted(kernel: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether ``kernel`` (a key of :data:`KERNEL_ADMISSION`) has a variant
+    for ``dtype`` at ``head_dim``."""
+    return head_dim in KERNEL_ADMISSION[kernel].get(dtype, ())
 
 
 def native_attention(
@@ -104,14 +124,14 @@ def qknorm_attention_plain(q, k, v, gq, gk, scale: float, eps: float, return_lse
     return native_attention(qn, kn, v, scale=scale, return_lse=return_lse)
 
 
-def _check_heads(name: str, q, k, v, *q_like, head_dims=(_KERNEL_HEAD_DIM,),
-                 dtypes=tuple(_KERNEL_DTYPES)) -> None:
+def _check_heads(name: str, kernel: str, q, k, v, *q_like) -> None:
     """Checks shared by K1, K2 and K3: q (B, H, Sq, D), k/v (B, H, Sk, D) and
     any ``q_like`` (O, dO) tensors of q's shape, on one CUDA device in one
-    kernel dtype, a head dim the kernel takes, contiguous; the bf16 variants
-    move 16-byte vectors, so their pointers and (B, H, S) strides must keep
-    16-byte alignment."""
+    dtype and at a head dim that ``kernel`` admits (:data:`KERNEL_ADMISSION`),
+    the head dim contiguous; the bf16 variants move 16-byte vectors, so their
+    pointers and (B, H, S) strides must keep 16-byte alignment."""
     heads = (q, k, v, *q_like)
+    dtypes = list(KERNEL_ADMISSION[kernel])
     if not (q.is_cuda and all(t.device == q.device for t in heads)):
         raise ValueError(f"{name}: every operand must be on one CUDA device")
     if q.dtype not in dtypes or any(t.dtype != q.dtype for t in heads):
@@ -123,8 +143,9 @@ def _check_heads(name: str, q, k, v, *q_like, head_dims=(_KERNEL_HEAD_DIM,),
     B, H, Sq, D = q.shape
     if k.shape[:2] != (B, H) or k.shape[3] != D or any(t.shape != q.shape for t in q_like):
         raise ValueError(f"{name}: shapes disagree: {[tuple(t.shape) for t in heads]}")
-    if D not in head_dims:
-        raise ValueError(f"{name}: head dim {D}; the kernel takes {list(head_dims)}")
+    if not admitted(kernel, q.dtype, D):
+        raise ValueError(f"{name}: head dim {D} in {q.dtype}; the kernel takes "
+                         f"{list(KERNEL_ADMISSION[kernel][q.dtype])}")
     if any(t.stride(-1) != 1 for t in heads):
         raise ValueError(f"{name}: the head dim of every operand must be contiguous")
     if q.dtype == torch.bfloat16 and not all(_vector_aligned(t) for t in heads):
@@ -136,7 +157,7 @@ def _vector_aligned(t: torch.Tensor) -> bool:
 
 
 def _check_kernel_inputs(q, k, v, gq, gk) -> None:
-    _check_heads("qknorm_flash_attention", q, k, v)
+    _check_heads("qknorm_flash_attention", "K1", q, k, v)
     Sq, D = q.shape[2], q.shape[3]
     for name, g, S in (("gq", gq, Sq), ("gk", gk, k.shape[2])):
         if (g.device != q.device or g.dtype != torch.float32 or tuple(g.shape) != (S, D)
@@ -182,7 +203,7 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
 
 _PTR, _INT, _FLOAT, _I64S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 _K1_ARGS = (_PTR,) * 7 + (_INT,) * 5 + (_I64S, _I64S, _PTR, _FLOAT, _FLOAT, _INT, _PTR)
-_K3_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (_I64S, _I64S, _FLOAT, _PTR)
+_K3_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (_I64S, _I64S, _FLOAT, _INT, _PTR)
 
 
 def _launch_kernel(q, k, v, gq, gk, scale: float, eps: float):
@@ -323,8 +344,8 @@ def flash_backward_plain(q, k, v, out, lse, dout, scale: float):
             *flash_bwd_dkv_plain(q, k, v, dout, lse2, delta, scale))
 
 
-def _check_bwd_inputs(name, q, k, v, dout, lse2, delta) -> None:
-    _check_heads(name, q, k, v, dout, head_dims=_K2_HEAD_DIMS.get(q.dtype, (_KERNEL_HEAD_DIM,)))
+def _check_bwd_inputs(name, kernel, q, k, v, dout, lse2, delta) -> None:
+    _check_heads(name, kernel, q, k, v, dout)
     B, H, Sq, _ = q.shape
     for what, t in (("lse2", lse2), ("delta", delta)):
         if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq)
@@ -409,12 +430,13 @@ def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float):
     ``lse2`` is the forward's lse times log2(e) and ``delta`` = rowsum(dO∘O),
     both fp32 (B, H, Sq) contiguous; q is pre-scaled inside the kernel. bf16
     (head dim 64 or 128) takes a wgmma kernel, whose operands arrive by TMA
-    from the maps :func:`tma_geometry` describes. CPU tensors take
+    from the maps :func:`tma_geometry` describes; fp32 (head dim 16, 64 or
+    128) an FMA kernel. CPU tensors take
     :func:`flash_bwd_dq_plain`; CUDA tensors launch the kernel (counted in
     ``flash_bwd_dq.launches``) or raise."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse2, delta, scale)
-    _check_bwd_inputs("flash_bwd_dq", q, k, v, dout, lse2, delta)
+    _check_bwd_inputs("flash_bwd_dq", "K2a", q, k, v, dout, lse2, delta)
     from .cuda_build import load
 
     lib = load("flash_bwd")
@@ -447,7 +469,7 @@ def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float):
     ``flash_bwd_dkv.launches``) or raise."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse2, delta, scale)
-    _check_bwd_inputs("flash_bwd_dkv", q, k, v, dout, lse2, delta)
+    _check_bwd_inputs("flash_bwd_dkv", "K2b", q, k, v, dout, lse2, delta)
     from .cuda_build import load
 
     lib = load("flash_bwd")
@@ -516,9 +538,10 @@ def _launch_flash(q, k, v, scale: float):
     strides = _strides4(q, k, v, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        tma = _fwd_tma_args(q, k, v) if q.dtype == torch.bfloat16 else None  # fp32 reads through its strides
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 B, H, Sq, k.shape[2], D, strides, _fwd_tma_args(q, k, v), _rounded(scale * _LOG2E, q.dtype),
-                 stream)
+                 B, H, Sq, k.shape[2], D, strides, tma, _rounded(scale * _LOG2E, q.dtype),
+                 _KERNEL_DTYPES[q.dtype], stream)
     if err:
         from .cuda_build import load
 
@@ -532,7 +555,7 @@ def flash_forward(q, k, v, scale: float):
     tensor takes :func:`flash_attention_plain`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, return_lse=True)
-    _check_heads("flash_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+    _check_heads("flash_attention", "K3", q, k, v)
     out, lse = _launch_flash(q, k, v, scale)
     flash_attention.launches += 1
     return out, lse
@@ -541,7 +564,7 @@ def flash_forward(q, k, v, scale: float):
 class _Flash(torch.autograd.Function):
     """K3 with the JAX ``_flash_attention`` custom VJP (:788-804): the forward
     launches K3 and keeps q, k, v, O and the natural-log lse; the backward is
-    :func:`flash_backward` (K2a/K2b at K3's head dim, 64 or 128)."""
+    :func:`flash_backward` (K2a/K2b at K3's dtype and head dim)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
@@ -562,9 +585,10 @@ class _Flash(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
-    """K3: non-causal flash attention. bf16 q (B, H, Sq, D), k/v (B, H, Sk, D),
-    D in {64, 128}; returns O in q's dtype (head-interleaved in memory) and,
-    when asked, the natural-log lse (B, H, Sq) fp32. CPU tensors take
+    """K3: non-causal flash attention. q (B, H, Sq, D), k/v (B, H, Sk, D) in
+    bf16 at D 64 or 128, or in fp32 at D 16, 64 or 128
+    (:data:`KERNEL_ADMISSION`); returns O in q's dtype (head-interleaved in
+    memory) and, when asked, the natural-log lse (B, H, Sq) fp32. CPU tensors take
     :func:`flash_attention_plain`; CUDA tensors launch the kernel (counted in
     ``flash_attention.launches``) through :class:`_Flash`, or raise."""
     if scale is None:
@@ -573,7 +597,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = F
         return flash_attention_plain(q, k, v, scale, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_heads("flash_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+    _check_heads("flash_attention", "K3", q, k, v)
     out, lse = _Flash.apply(q, k, v, float(scale))
     return (out, lse) if return_lse else out
 
@@ -625,14 +649,14 @@ def hybrid_attention(q, k, v, scale: Optional[float] = None):
     """The ``hybrid`` backend (JAX ``hybrid_attention``, :867-884): the
     plain forward, K3 and K2 in the backward, through :class:`_Hybrid`;
     above :data:`NATIVE_SCORE_BYTES_LIMIT` of scores, :func:`flash_attention`.
-    On a CUDA tensor it takes what K3 takes (bf16, head dim 64 or 128) and
-    raises on anything else."""
+    On a CUDA tensor it takes what K3 and K2 take (:data:`KERNEL_ADMISSION`)
+    and raises on anything else."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if score_bytes(q, k) > NATIVE_SCORE_BYTES_LIMIT:
         return flash_attention(q, k, v, scale=scale)
     if q.device.type == "cuda":
-        _check_heads("hybrid_attention", q, k, v, head_dims=_K3_HEAD_DIMS, dtypes=(torch.bfloat16,))
+        _check_heads("hybrid_attention", "K3", q, k, v)
     elif q.device.type != "cpu":
         raise ValueError(f"hybrid_attention: unsupported device {q.device}")
     return _Hybrid.apply(q, k, v, float(scale))
@@ -652,25 +676,38 @@ def qknorm_dot_product_attention(
     """RMS qk-norm immediately followed by attention (no RoPE in between).
 
     ``gq``/``gk``: per-position (S, D) fp32 maps (piecewise-constant over the
-    MMDiT joint sequence) or plain (D,) scales."""
+    MMDiT joint sequence) or plain (D,) scales. Where :func:`qknorm_fused`
+    holds it runs K1; elsewhere the RMS scale is composed with the backend's
+    dispatch (JAX :590-594): above head dim 256 ``auto`` is then native
+    attention, as in JAX, and ``flash`` K3."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     gq = gq.float().expand(q.shape[2], q.shape[3]).contiguous()
     gk = gk.float().expand(k.shape[2], k.shape[3]).contiguous()
-    if backend in ("auto", "flash", "splash"):
+    if qknorm_fused(backend, q.shape[-1]):
         return qknorm_flash_attention(q, k, v, gq, gk, float(scale), float(eps), return_lse)
     if backend == "native":
         return qknorm_attention_plain(q, k, v, gq, gk, float(scale), float(eps), return_lse)
-    if backend in ("ring", "hybrid") and not return_lse:
-        # the RMS scale composed with the backend's dispatch (JAX :590-594); K1 stays flash's
-        qn = _rms_scale(q, gq, eps).to(q.dtype)
-        kn = _rms_scale(k, gk, eps).to(k.dtype)
-        if backend == "hybrid":
-            return hybrid_attention(qn, kn, v, float(scale))
-        return _ring_dispatch(qn, kn, v, float(scale))
-    if backend in ("hybrid", "ring"):
+    if backend not in ("auto", "flash", "splash", "ring", "hybrid"):
+        raise ValueError(f"Unknown attention backend {backend!r}")
+    if return_lse and backend in ("ring", "hybrid"):
         raise NotImplementedError(f"attention backend {backend!r} with its lse is not ported yet")
-    raise ValueError(f"Unknown attention backend {backend!r}")
+    qn = _rms_scale(q, gq, eps).to(q.dtype)
+    kn = _rms_scale(k, gk, eps).to(k.dtype)
+    if not return_lse:
+        return dot_product_attention(qn, kn, v, scale=float(scale), backend=backend)
+    if attention_route(backend, False, q.device.type, q.shape[-1]) == "native":
+        return native_attention(qn, kn, v, scale=float(scale), return_lse=True)
+    return flash_attention(qn, kn, v, scale=float(scale), return_lse=True)
+
+
+def qknorm_fused(backend: str, head_dim: int) -> bool:
+    """Whether :func:`qknorm_dot_product_attention` runs K1: a flash-class
+    backend at head dim 256 or less (JAX ``fused_qknorm_eligible``,
+    ``attention.py:556-561``). JAX also asks for the TPU; here the device is
+    K1's wrapper's to read: on a CPU tensor it runs its plain version, which
+    is the composition itself (the RMS scale, then native attention)."""
+    return backend in ("auto", "flash", "splash") and head_dim <= 256
 
 
 def attention_route(backend: str, masked: bool, device_type: str, head_dim: int, scores: int = 0) -> str:
@@ -727,8 +764,9 @@ def _ring_dispatch(q, k, v, scale):
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None, backend: str = "auto"):
     """Attention without a qk-norm (JAX ``dot_product_attention``, :942),
-    routed by :func:`attention_route`. On a CUDA tensor K3 takes bf16 at head
-    dim 64 or 128 and raises on anything else: there is no silent native."""
+    routed by :func:`attention_route`. On a CUDA tensor K3 takes what
+    :data:`KERNEL_ADMISSION` lists and raises on anything else: there is no
+    silent native."""
     route = attention_route(backend, mask is not None, q.device.type, q.shape[-1], score_bytes(q, k))
     if route == "native":
         return native_attention(q, k, v, scale=scale, mask=mask)

@@ -93,8 +93,17 @@
 //     consumer's setmaxnreg.inc waits forever.
 //   Pointers and (b, h, s) strides keep 16-byte alignment (TMA's rule too),
 //   else the launch is refused.
-// * fp32, head dim 64: 64-row tiles, 256 threads, register-tiled 4x4 fp32
-//   FMAs from shared memory (right and simple).
+// * fp32, head dim 16 (the JAX tiny presets), 64 or 128 (the fp32 runs of
+//   the full models), a template over the head dim: 64-row tiles, 256
+//   threads, register-tiled fp32 FMAs on the CUDA cores from shared memory
+//   (right and simple: no tensor core takes fp32 without rounding to TF32).
+//   The 16 x 16 threads hold 4 x 4 tiles of the 64 x 64 scores and 4 x D/16
+//   of the outputs (columns tx + 16 j). The head tiles sit at a pitch of D +
+//   1 floats, the score tiles at 65: K2a 4 head tiles and ds, 83.2 KB at
+//   D=64, 148.7 KB at 128; K2b 4 and p, ds, 99.8 / 165.4 KB (dynamic, opted
+//   in above 48 KB; one block an SM at 128). Bound at the Wan shape (B16 H12
+//   S512 D128): the fp32 CUDA-core rate, 66.9 TFLOP/s, 0.578 ms (K2a, 6 B H
+//   Sq Sk D = 3.9e10 FLOP) and 0.770 ms (K2b, 8 B H Sq Sk D = 5.2e10).
 // No fused dq/dkv pass: it would need atomics or a B*H*Sq*Sk dS buffer.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder itself comes through the runtime
 #include <cuda_bf16.h>
@@ -136,30 +145,44 @@ __device__ __forceinline__ int64_t row_base(const Params& p, int b, int h) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: register-tiled FMA variant
+// fp32: register-tiled FMA variant, a template over the head dim FD
 // ---------------------------------------------------------------------------
 constexpr int FB = 64;      // rows per tile
-constexpr int FNT = 256;    // threads per block (16 x 16 register tiles of 4x4)
-constexpr int FP = D + 1;   // padded row pitch (conflict-free column reads)
-constexpr int FTILE = FB * FP;
+constexpr int FNT = 256;    // threads per block (16 x 16 register tiles of 4 rows)
+constexpr int FSP = FB + 1;  // padded row pitch of the 64 x 64 score tiles (p, ds)
+constexpr int FSTILE = FB * FSP;
 
-// Rows [row0, row0 + 64) of an fp32 (S, 64) head slice times `mul` into dst;
+template <int FD>
+struct F32Tile {
+  static_assert(FD % 16 == 0 && FD <= 128, "the 16 column threads take FD / 16 columns each");
+  static constexpr int FP = FD + 1;     // padded row pitch (conflict-free column reads)
+  static constexpr int TILE = FB * FP;  // floats of a 64-row head tile
+  static constexpr int DJ = FD / 16;    // output columns a thread: tx + 16 j
+  // dynamic shared memory: K2a four head tiles and ds; K2b four and p, ds
+  static constexpr size_t SMEM_DQ = sizeof(float) * (size_t)(4 * TILE + FSTILE);
+  static constexpr size_t SMEM_DKV = sizeof(float) * (size_t)(4 * TILE + 2 * FSTILE);
+};
+
+// Rows [row0, row0 + 64) of an fp32 (S, FD) head slice times `mul` into dst;
 // rows past S are zeros.
+template <int FD>
 __device__ __forceinline__ void tile_f32(float* dst, const float* src, int64_t row_stride, int row0,
                                          int S, float mul) {
-  for (int i = threadIdx.x; i < FB * D; i += FNT) {
-    const int r = i / D, c = i % D, row = row0 + r;
-    dst[r * FP + c] = row < S ? src[(int64_t)row * row_stride + c] * mul : 0.f;
+  for (int i = threadIdx.x; i < FB * FD; i += FNT) {
+    const int r = i / FD, c = i % FD, row = row0 + r;
+    dst[r * F32Tile<FD>::FP + c] = row < S ? src[(int64_t)row * row_stride + c] * mul : 0.f;
   }
 }
 
+template <int FD>
 __global__ void __launch_bounds__(FNT) flash_bwd_dq_f32_kernel(Params p) {
+  constexpr int FP = F32Tile<FD>::FP, FTILE = F32Tile<FD>::TILE, DJ = F32Tile<FD>::DJ;
   extern __shared__ float smem[];
   float* Qs = smem;           // q~ rows of this block
   float* Os = Qs + FTILE;     // dO rows of this block
   float* Ks = Os + FTILE;     // key tile
   float* Vs = Ks + FTILE;     // value tile
-  float* Ss = Vs + FTILE;     // ds tile
+  float* Ss = Vs + FTILE;     // ds tile (q rows x keys)
   __shared__ float lse_s[FB], del_s[FB];
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FB;
@@ -167,26 +190,26 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dq_f32_kernel(Params p) {
   const float* kb = reinterpret_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = reinterpret_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* ob = reinterpret_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  tile_f32(Qs, qb, p.q_ss, q0, p.Sq, p.qmul);
-  tile_f32(Os, ob, p.o_ss, q0, p.Sq, 1.f);
+  tile_f32<FD>(Qs, qb, p.q_ss, q0, p.Sq, p.qmul);
+  tile_f32<FD>(Os, ob, p.o_ss, q0, p.Sq, 1.f);
   if (threadIdx.x < FB) {
     const int row = q0 + threadIdx.x;
     lse_s[threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
     del_s[threadIdx.x] = row < p.Sq ? p.delta[row_base(p, b, h) + row] : 0.f;
   }
 
-  const int tx = threadIdx.x % 16;  // column group: columns tx + 16 j
+  const int tx = threadIdx.x % 16;  // column group: keys tx + 16 j, dq columns tx + 16 j
   const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
-  float acc[4][4];
+  float acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int n0 = 0; n0 < p.Sk; n0 += FB) {
     __syncthreads();  // the previous tile's Ks/Vs/Ss are no longer read
-    tile_f32(Ks, kb, p.k_ss, n0, p.Sk, 1.f);
-    tile_f32(Vs, vb, p.v_ss, n0, p.Sk, 1.f);
+    tile_f32<FD>(Ks, kb, p.k_ss, n0, p.Sk, 1.f);
+    tile_f32<FD>(Vs, vb, p.v_ss, n0, p.Sk, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -195,7 +218,7 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dq_f32_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < FD; ++d) {
       float a[4], o[4], kv[4], vv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -221,21 +244,21 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dq_f32_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx + 16 * j;
         const float pv = n0 + c < p.Sk ? exp2f(fminf(s[i][j] - lse_s[r], 0.f)) : 0.f;
-        Ss[r * FP + c] = pv * (dp[i][j] - del_s[r]);
+        Ss[r * FSP + c] = pv * (dp[i][j] - del_s[r]);
       }
     __syncthreads();
 
 #pragma unroll 4
     for (int n = 0; n < FB; ++n) {
-      float ds[4], kv[4];
+      float ds[4], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ss[(ty * 4 + i) * FP + n];
+      for (int i = 0; i < 4; ++i) ds[i] = Ss[(ty * 4 + i) * FSP + n];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[n * FP + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) kv[j] = Ks[n * FP + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
     }
   }
 
@@ -245,18 +268,20 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dq_f32_kernel(Params p) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dqb[(int64_t)row * p.dq_ss + tx + 16 * j] = acc[i][j] * p.scale;
+    for (int j = 0; j < DJ; ++j) dqb[(int64_t)row * p.dq_ss + tx + 16 * j] = acc[i][j] * p.scale;
   }
 }
 
+template <int FD>
 __global__ void __launch_bounds__(FNT) flash_bwd_dkv_f32_kernel(Params p) {
+  constexpr int FP = F32Tile<FD>::FP, FTILE = F32Tile<FD>::TILE, DJ = F32Tile<FD>::DJ;
   extern __shared__ float smem[];
   float* Ks = smem;           // key rows of this block
   float* Vs = Ks + FTILE;     // value rows of this block
   float* Qs = Vs + FTILE;     // q~ tile
   float* Os = Qs + FTILE;     // dO tile
   float* Ps = Os + FTILE;     // p^T tile (keys x q rows)
-  float* Ss = Ps + FTILE;     // ds^T tile
+  float* Ss = Ps + FSTILE;    // ds^T tile
   __shared__ float lse_s[FB], del_s[FB];
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * FB;
@@ -264,21 +289,21 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dkv_f32_kernel(Params p) {
   const float* kb = reinterpret_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = reinterpret_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* ob = reinterpret_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  tile_f32(Ks, kb, p.k_ss, k0, p.Sk, 1.f);
-  tile_f32(Vs, vb, p.v_ss, k0, p.Sk, 1.f);
+  tile_f32<FD>(Ks, kb, p.k_ss, k0, p.Sk, 1.f);
+  tile_f32<FD>(Vs, vb, p.v_ss, k0, p.Sk, 1.f);
 
-  const int tx = threadIdx.x % 16;  // q-row group: q rows tx + 16 j of the tile
+  const int tx = threadIdx.x % 16;  // q rows tx + 16 j of the tile; dk/dv columns tx + 16 j
   const int ty = threadIdx.x / 16;  // keys ty*4 .. ty*4+3
-  float acck[4][4], accv[4][4];
+  float acck[4][DJ], accv[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acck[i][j] = accv[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) acck[i][j] = accv[i][j] = 0.f;
 
   for (int m0 = 0; m0 < p.Sq; m0 += FB) {
     __syncthreads();  // the previous tile's Qs/Os/Ps/Ss are no longer read
-    tile_f32(Qs, qb, p.q_ss, m0, p.Sq, p.qmul);
-    tile_f32(Os, ob, p.o_ss, m0, p.Sq, 1.f);
+    tile_f32<FD>(Qs, qb, p.q_ss, m0, p.Sq, p.qmul);
+    tile_f32<FD>(Os, ob, p.o_ss, m0, p.Sq, 1.f);
     if (threadIdx.x < FB) {
       const int row = m0 + threadIdx.x;
       lse_s[threadIdx.x] = row < p.Sq ? p.lse2[row_base(p, b, h) + row] : INFINITY;
@@ -292,7 +317,7 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dkv_f32_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < FD; ++d) {
       float kv[4], vv[4], a[4], o[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -318,28 +343,28 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dkv_f32_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx + 16 * j;
         const float pv = exp2f(fminf(s[i][j] - lse_s[c], 0.f));
-        Ps[r * FP + c] = pv;
-        Ss[r * FP + c] = pv * (dp[i][j] - del_s[c]);
+        Ps[r * FSP + c] = pv;
+        Ss[r * FSP + c] = pv * (dp[i][j] - del_s[c]);
       }
     __syncthreads();
 
 #pragma unroll 4
     for (int n = 0; n < FB; ++n) {
-      float pt[4], st[4], o[4], a[4];
+      float pt[4], st[4], o[DJ], a[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pt[i] = Ps[(ty * 4 + i) * FP + n];
-        st[i] = Ss[(ty * 4 + i) * FP + n];
+        pt[i] = Ps[(ty * 4 + i) * FSP + n];
+        st[i] = Ss[(ty * 4 + i) * FSP + n];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < DJ; ++j) {
         o[j] = Os[n * FP + tx + 16 * j];
         a[j] = Qs[n * FP + tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < DJ; ++j) {
           accv[i][j] = fmaf(pt[i], o[j], accv[i][j]);
           acck[i][j] = fmaf(st[i], a[j], acck[i][j]);
         }
@@ -353,22 +378,31 @@ __global__ void __launch_bounds__(FNT) flash_bwd_dkv_f32_kernel(Params p) {
     const int row = k0 + ty * 4 + i;
     if (row >= p.Sk) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < DJ; ++j) {
       dkb[(int64_t)row * p.dk_ss + tx + 16 * j] = acck[i][j] * kLn2;
       dvb[(int64_t)row * p.dv_ss + tx + 16 * j] = accv[i][j];
     }
   }
 }
 
-cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
-  const int tiles = dkv ? 6 : 5;
-  const size_t smem = sizeof(float) * (size_t)tiles * FTILE;
-  auto kernel = dkv ? flash_bwd_dkv_f32_kernel : flash_bwd_dq_f32_kernel;
+template <int FD>
+cudaError_t launch_f32_at(const Params& p, bool dkv, cudaStream_t stream) {
+  const size_t smem = dkv ? F32Tile<FD>::SMEM_DKV : F32Tile<FD>::SMEM_DQ;
+  void (*kernel)(Params) = flash_bwd_dq_f32_kernel<FD>;
+  if (dkv) kernel = flash_bwd_dkv_f32_kernel<FD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(((dkv ? p.Sk : p.Sq) + FB - 1) / FB, p.H, p.B);
   kernel<<<grid, FNT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The fp32 kernels at head dim d: 16 (the JAX tiny presets), 64 or 128.
+cudaError_t launch_f32(const Params& p, bool dkv, int d, cudaStream_t stream) {
+  if (d == 16) return launch_f32_at<16>(p, dkv, stream);
+  if (d == 64) return launch_f32_at<64>(p, dkv, stream);
+  if (d == 128) return launch_f32_at<128>(p, dkv, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1108,7 +1142,7 @@ int launch(const Params& p, bool dkv, int d, int dtype, const long long* tma, vo
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const cudaError_t bound = bind_device_of(p.q);
   if (bound != cudaSuccess) return (int)bound;
-  if (d == D && dtype == 0) return (int)launch_f32(p, dkv, s);
+  if (dtype == 0) return (int)launch_f32(p, dkv, d, s);
   if (dtype != 1 || (d != D && d != WD) || !aligned16(p, dkv)) return (int)cudaErrorInvalidValue;
   return (int)launch_wgmma(p, dkv, d, tma, s);
 }
@@ -1118,8 +1152,8 @@ int launch(const Params& p, bool dkv, int d, int dtype, const long long* tma, vo
 extern "C" {
 
 // Common arguments: q, k, v, dout (B, H, S, d) in one type; lse2 (base-2
-// lse) and delta fp32 contiguous (B, H, Sq); d: head dim, 64 (float32 or
-// bfloat16) or 128 (bfloat16); dtype: 0 = float32, 1 = bfloat16 (16-byte
+// lse) and delta fp32 contiguous (B, H, Sq); d: head dim, 16, 64 or 128 for
+// float32, 64 or 128 for bfloat16; dtype: 0 = float32, 1 = bfloat16 (16-byte
 // aligned pointers and strides); qmul: scale * log2(e) rounded to the input
 // type; tma: for bf16 (head dim 64 or 128), the TMA geometry of q, k, v and
 // dout (4 x 12 values of 64 x 64 boxes, see encode_map), else null. Returns

@@ -25,8 +25,9 @@ def _keys(csrc):
 def test_the_sources_and_their_headers():
     names = lambda n: [p.name for p in cuda_build._sources(cuda_build.CSRC / f"{n}.cu")]
     assert names("flash_bwd") == ["flash_bwd.cu", "hopper.cuh"]
-    assert names("flash_fwd") == ["flash_fwd.cu", "flash_fwd_wgmma.cuh", "hopper.cuh"]
-    assert names("qknorm_flash_fwd") == ["qknorm_flash_fwd.cu", "flash_fwd_wgmma.cuh", "hopper.cuh"]
+    assert names("flash_fwd") == ["flash_fwd.cu", "flash_fwd_f32.cuh", "flash_fwd_wgmma.cuh", "hopper.cuh"]
+    assert names("qknorm_flash_fwd") == ["qknorm_flash_fwd.cu", "flash_fwd_f32.cuh", "flash_fwd_wgmma.cuh",
+                                         "hopper.cuh"]
 
 
 def test_a_copy_keys_as_the_package_does(csrc):
@@ -36,6 +37,7 @@ def test_a_copy_keys_as_the_package_does(csrc):
 @pytest.mark.parametrize("header,changed", [
     ("hopper.cuh", set(SOURCES)),                             # included by all three
     ("flash_fwd_wgmma.cuh", {"flash_fwd", "qknorm_flash_fwd"}),  # by the forwards only
+    ("flash_fwd_f32.cuh", {"flash_fwd", "qknorm_flash_fwd"}),    # the fp32 forwards' template too
 ])
 def test_editing_a_header_changes_the_keys_of_the_sources_that_include_it(csrc, header, changed):
     before = _keys(csrc)

@@ -113,10 +113,13 @@ def test_residual_gate_modulate_x_new_is_bit_exact(gen):
 
 def test_cuda_inputs_the_kernels_do_not_take_raise(gen):
     """No silent fallback: a CUDA tensor the kernel cannot take raises."""
-    q = _randn(gen, 1, 2, 16, 16)  # head dim 16: no kernel variant
-    g = torch.ones(16, 16, device="cuda")
+    q = _randn(gen, 1, 2, 16, 32)  # fp32 at head dim 32: no kernel variant
+    g = torch.ones(16, 32, device="cuda")
     with pytest.raises(ValueError):
-        A.qknorm_flash_attention(q, q, q, g, g, 0.25, 1e-6)
+        A.qknorm_flash_attention(q, q, q, g, g, 32 ** -0.5, 1e-6)
+    with pytest.raises(ValueError):  # bf16 K1 at head dim 16: only fp32 has it
+        q16 = _randn(gen, 1, 2, 16, 16, dtype=torch.bfloat16)
+        A.qknorm_flash_attention(q16, q16, q16, g[:, :16], g[:, :16], 0.25, 1e-6)
     # bf16 at an 8-byte offset: the tensor-core variant's 16-byte loads refuse it
     q = _randn(gen, 1 * 2 * 16 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 2, 16, 64)
     g = torch.ones(16, 64, device="cuda")
@@ -219,11 +222,13 @@ def test_flash_backward_refuses_what_it_does_not_take(gen):
         A.flash_bwd_dkv(odd, k, v, d32, lse2, delta, 0.125)
     with pytest.raises(ValueError):  # head dim 32
         A.flash_bwd_dq(q[..., :32], k[..., :32], v[..., :32], d32[..., :32], lse2, delta, 0.125)
-    q, k, v, out, lse, dout = _k2_inputs(gen, 1, 2, 64, 64, torch.float32, False, D=128)
+    q, k, v, out, lse, dout = _k2_inputs(gen, 1, 2, 64, 64, torch.float32, False, D=32)
     d32, delta, lse2 = A._bwd_prologue(q, out, lse, dout)
     for fn in (A.flash_bwd_dq, A.flash_bwd_dkv):
-        with pytest.raises(ValueError):  # fp32 at head dim 128: no variant
-            fn(q, k, v, d32, lse2, delta, 128 ** -0.5)
+        with pytest.raises(ValueError):  # fp32 at head dim 32: no variant
+            fn(q, k, v, d32, lse2, delta, 32 ** -0.5)
+        with pytest.raises(TypeError):  # fp16: no variant
+            fn(*(t.half() for t in (q, k, v, d32)), lse2, delta, 32 ** -0.5)
 
 
 def _k2_w_inputs(gen, case):
@@ -497,8 +502,10 @@ def test_flash_fwd_is_deterministic_and_reads_views_in_place(gen):
 
 def test_flash_fwd_refuses_what_it_does_not_take(gen):
     q, k, v = _k3_inputs(gen, 1, 2, 64, 64, 128, False)
-    with pytest.raises(TypeError):  # fp32
-        A.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):  # fp16
+        A.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # fp32 at head dim 32
+        A.flash_attention(*(t[..., :32].float() for t in (q, k, v)))
     q96 = _randn(gen, 1, 2, 64, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # head dim 96
         A.flash_attention(q96, q96, q96)
@@ -945,3 +952,48 @@ def test_hybrid_gradients_are_flash_gradients_bit_for_bit(gen, D, S, strided):
     with torch.no_grad():
         ref = A.flash_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= 4 * _bf16_ulp(ref.float().abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# fp32 at the head dims of the JAX presets: K3, K2a/K2b and K1 at D 16, 64, 128
+# ---------------------------------------------------------------------------
+
+def _f32_views(gen, B, H, Sq, Sk, D):
+    """q/k contiguous as RoPE or the qk-norm return them, v and dO head-split
+    views of (B, S, H*D) projections (the Wan layouts)."""
+    q, k = _randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D)
+    v = _randn(gen, B, Sk, H, D).transpose(1, 2)
+    dout = _randn(gen, B, Sq, H, D).transpose(1, 2)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(200, 77), (64, 130), (512, 512)])
+def test_fp32_flash_matches_plain_at_the_preset_head_dims(gen, D, Sq, Sk):
+    """K3 and K2a/K2b in fp32: summation order alone separates them from the
+    plain versions (chip_smoke.py's bars: 1e-5 of max|ref| for O and the
+    gradients, 1e-5 on lse), with Sq != Sk and ragged key tiles."""
+    q, k, v, dout = _f32_views(gen, 2, 3, Sq, Sk, D)
+    before = A.flash_attention.launches
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = A.flash_attention_plain(q, k, v, D ** -0.5, return_lse=True)
+    assert A.flash_attention.launches == before + 1 and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5 * max(ref_lse.abs().max().item(), 1.0)
+    got = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
+    want = A.flash_backward_plain(q, k, v, out, lse, dout, D ** -0.5)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= _k2_tol(w, torch.float32)
+    again = A.flash_backward(q, k, v, out, lse, dout, D ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D", [16, 128])
+def test_fp32_qknorm_flash_matches_plain_at_the_preset_head_dims(gen, D):
+    q, k, v = (_randn(gen, 2, 3, 197, D) for _ in range(3))
+    gq, gk = (1.0 + 0.1 * _randn(gen, 197, D) for _ in range(2))
+    out, lse = A.qknorm_flash_attention(q, k, v, gq, gk, D ** -0.5, 1e-6, return_lse=True)
+    ref, ref_lse = A.qknorm_attention_plain(q, k, v, gq, gk, D ** -0.5, 1e-6, return_lse=True)
+    tol_o, tol_lse = _k1_tols(ref, torch.float32)
+    assert (out - ref).abs().max().item() <= tol_o
+    assert (lse - ref_lse).abs().max().item() <= tol_lse

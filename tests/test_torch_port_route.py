@@ -92,6 +92,38 @@ def test_auto_route_follows_the_jax_rule_at_large_head_dims(head_dim, masked, de
     assert torch.equal(T.dot_product_attention(q, k, v, backend="auto"), T.native_attention(q, k, v))
 
 
+@pytest.mark.parametrize("backend", ["auto", "flash", "splash", "native", "hybrid"])
+@pytest.mark.parametrize("head_dim", [64, 256, 257, 320])
+def test_qknorm_route_follows_the_jax_rule_at_large_head_dims(head_dim, backend, monkeypatch):
+    """The qk-norm attention takes K1 where JAX takes its fused kernel on the
+    accelerator (``fused_qknorm_eligible`` with ``_on_tpu`` patched true: a
+    flash-class backend at head dim 256 or less) and nowhere else; above 256
+    ``auto`` composes the RMS scale with native attention, as JAX does, and
+    never reaches K1's wrapper (on the card K1 would raise there). On the
+    CPU the result is bit-equal to the port's composition and within 4e-6
+    of the JAX package's ``qknorm_dot_product_attention`` (its native path
+    off the TPU: XLA's and PyTorch's CPU matmul, rsqrt and exp differ in the
+    last bits over 257-320 terms; 1.1e-6 seen)."""
+    monkeypatch.setattr(J, "_on_tpu", lambda: True)
+    assert T.qknorm_fused(backend, head_dim) == J.fused_qknorm_eligible(backend, head_dim)
+    if backend not in ("auto", "native") or head_dim <= 256:
+        return
+    monkeypatch.setattr(J, "_on_tpu", lambda: False)
+    q, k, v, _ = _inputs(head_dim)
+    g = np.random.default_rng(1).uniform(0.5, 1.5, (2, 16, head_dim)).astype(np.float32)
+    tq, tk, tv, tgq, tgk = (torch.from_numpy(a) for a in (q, k, v, g[0], g[1]))
+
+    def no_k1(*args, **kwargs):
+        raise AssertionError("K1's wrapper reached above head dim 256")
+
+    monkeypatch.setattr(T, "qknorm_flash_attention", no_k1)
+    out = T.qknorm_dot_product_attention(tq, tk, tv, tgq, tgk, backend=backend)
+    qn, kn = (T._rms_scale(t, gt, 1e-6) for t, gt in ((tq, tgq), (tk, tgk)))
+    assert torch.equal(out, T.native_attention(qn, kn, tv))
+    ref = J.qknorm_dot_product_attention(*(jnp.asarray(a) for a in (q, k, v, g[0], g[1])), backend=backend)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=4e-6, rtol=0)
+
+
 def test_masked_auto_is_native_attention_on_the_cpu():
     """``auto`` with a mask runs ``native_attention`` with the mask: bit-equal
     to the port's own, and to the JAX native path within 1e-6 on seeded

@@ -260,3 +260,85 @@ def test_wan_training_slice_runs_two_epochs_with_evaluation(tmp_path):
     assert gather_eval_reward_metrics(samples) == pytest.approx(theirs, rel=1e-12)
     assert sorted(again) == sorted(theirs) and again["eval/num_samples"] == 2.0
     assert all(np.isfinite(v) for v in again.values()) and trainer.eval_reward_buffer.samples == []
+
+
+def _tiny_fp32_fixture(tmp_path) -> dict:
+    """tests/fixtures/wan21_fp32_grpo.yaml (the card's [wan-fp32]) at the tiny
+    preset: its trainer settings as they stand, the model ``tiny`` at 32 px
+    over the tiny prompts, with the LoRA rank of ``pair`` (4 / 8) so that the
+    pair's LoRA loads."""
+    import yaml
+
+    with open(os.path.join(REPO, "tests/fixtures/wan21_fp32_grpo.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"].pop("variant")
+    cfg["model"].update(model_name_or_path="tiny", lora_rank=4, lora_alpha=8)
+    cfg["data"].update(dataset_dir="tests/fixtures/tiny_prompts", cache_dir=str(tmp_path / "cache"))
+    cfg["train"]["resolution"] = cfg["eval"]["resolution"] = 32
+    cfg["log"]["save_dir"] = str(tmp_path / "saves")
+    return cfg
+
+
+def test_wan21_fp32_grpo_fixture_trains_an_epoch_held_to_jax(pair, tmp_path):
+    """The [wan-fp32] fixture's trainer at the tiny preset on the CPU, fp32
+    under ``attn_backend: auto`` (native off the accelerator, as in JAX; the
+    plain versions, no kernel), 4 steps, one train timestep, remat, on the
+    weights and LoRA of ``pair``, for one epoch through ``load_trainer``:
+    one grad step with ratio exactly 1.0 and clip_frac 0, finite log-probs,
+    the LoRA moved. Its grad step's batch, through the JAX trainer's
+    ``_grad_fn`` at the fixture's clip ranges on the same weights and LoRA,
+    gives the port's loss and aux metrics within 1e-5 and every LoRA
+    gradient within 1e-4 of its leaf's max (the bars of the GRPO parity
+    test above)."""
+    from flow_factory_tpu.hparams.args import Arguments as JArgs
+    from flow_factory_tpu.trainers.grpo import GRPOTrainer as JGRPO
+    from flow_factory_tpu_torch.hparams import Arguments
+    from flow_factory_tpu_torch.trainers import load_trainer
+
+    ja, pa, _, module_map = pair
+    cfg = _tiny_fp32_fixture(tmp_path)
+    args = Arguments.from_dict(cfg)
+    assert (args.mixed_precision, args.model_args.attn_backend, args.model_args.inference_dtype) == \
+        ("no", "auto", "float32")
+    trainer = load_trainer(args, device="cpu")
+    ad = trainer.adapter
+    assert ad.component_configs["transformer"].remat
+    ad.load_state_dicts({"transformer": pa.modules["transformer"].state_dict()})
+    with torch.no_grad():  # in place: the trainer's optimizer holds these leaves
+        for p, ab in pa.trainable["transformer"].items():
+            for k, v in ab.items():
+                ad.trainable["transformer"][p][k].copy_(v)
+    steps = []
+    real = trainer.backward_step
+
+    def spy(batch, ref_trainable=None):
+        loss, aux = real(batch, ref_trainable)
+        steps.append((batch, {k: float(v) for k, v in aux.items()},
+                      [p.grad.clone() for p in ad.trainable_leaves()]))
+        return loss, aux
+
+    trainer.backward_step = spy
+    b0 = {p: ab["lora_B"].detach().clone() for p, ab in ad.trainable["transformer"].items()}
+    try:
+        trainer.epoch = 0
+        samples = trainer.sample(0)
+        trainer.prepare_feedback(samples)
+        info = trainer.optimize(samples, 0)
+    finally:
+        trainer.cleanup()
+    assert len(steps) == 1 and trainer.global_step == 1
+    assert info["train/ratio_min"] == info["train/ratio_max"] == 1.0 and info["train/clip_frac"] == 0.0
+    assert all(np.isfinite(s.log_probs).all() for s in samples)
+    assert max((ad.trainable["transformer"][p]["lora_B"] - b).abs().max().item() for p, b in b0.items()) > 0
+
+    batch, aux, grads = steps[0]
+    jt = object.__new__(JGRPO)
+    jt.training_args, jt.use_guard, jt.adapter = JArgs.from_dict(copy.deepcopy(cfg)).training_args, False, ja
+    jbatch = {k: jnp.asarray(v.numpy() if torch.is_tensor(v) else np.float32(v)) for k, v in batch.items()
+              if k != "timestep_host"}
+    (j_loss, j_aux), j_grads = jt._grad_fn(ja.trainable, ja.frozen_velocity_params(), jbatch, None)
+    assert sorted(aux) == sorted(j_aux)
+    for k in j_aux:
+        np.testing.assert_allclose(aux[k], float(j_aux[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+    _leaf_close(_port_grads_as_flax(ad, grads, module_map), jax.tree.map(np.asarray, j_grads)["transformer"],
+                1e-4, "the fixture's grad step")
